@@ -1,0 +1,60 @@
+"""Synthetic NTU-like skeleton clips, generated from a seed with numpy.
+
+The same generator as ``repro.data.pipeline.skeleton_batches``, so the
+clips are bit-equal: a kinematic-chain oscillation per class plus noise,
+giving realistic post-ReLU feature sparsity for the RFC path.  Each host
+materialises only its slice of the global batch.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.core.agcn.graph import NTU_EDGES, NUM_JOINTS
+
+
+@dataclasses.dataclass
+class DataConfig:
+    global_batch: int
+    seq_len: int
+    seed: int = 0
+    host_index: int = 0
+    host_count: int = 1
+
+
+def skeleton_batches(mcfg: ModelConfig, dcfg: DataConfig,
+                     num_classes: Optional[int] = None
+                     ) -> Iterator[Dict[str, np.ndarray]]:
+    """Endless batches {"x": (N*M, T, V, C) float32, "labels": (N*M,)
+    int32}, persons folded into the batch axis."""
+    if mcfg.gcn_joints != NUM_JOINTS:
+        raise NotImplementedError(
+            f"clips for {mcfg.gcn_joints} joints need the other skeleton "
+            f"topologies, not ported yet (ROADMAP.md Queue 1 item 8)")
+    per = dcfg.global_batch // dcfg.host_count
+    ncls = num_classes or mcfg.gcn_num_classes
+    V, T, M, C = (mcfg.gcn_joints, mcfg.gcn_frames, mcfg.gcn_persons,
+                  mcfg.gcn_in_channels)
+    # static rest pose from the bone chain
+    rest = np.zeros((V, 3))
+    rng = np.random.default_rng(dcfg.seed)
+    offsets = rng.standard_normal((V, 3)) * 0.1
+    for j, p in NTU_EDGES:
+        rest[j - 1] = rest[p - 1] + offsets[j - 1]
+    step = 0
+    while True:
+        brng = np.random.default_rng((dcfg.seed, step, dcfg.host_index, 0x5CE1))
+        labels = brng.integers(0, ncls, size=per)
+        t = np.arange(T)[None, :, None, None] / T
+        freq = (labels[:, None, None, None] % 7 + 1.0)
+        phase = (labels[:, None, None, None] % 5) * 1.3
+        amp = brng.random((per, 1, V, C)) * 0.5
+        x = rest[None, None, :, :C] + amp * np.sin(
+            2 * np.pi * freq * t + phase + np.arange(V)[None, None, :, None])
+        x = x + brng.standard_normal((per, T, V, C)) * 0.02
+        x = np.repeat(x, M, axis=0).astype(np.float32)      # persons folded
+        yield {"x": x, "labels": np.repeat(labels, M).astype(np.int32)}
+        step += 1

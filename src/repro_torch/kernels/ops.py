@@ -1,0 +1,138 @@
+"""Public wrappers around the kernels: layout adaptation (padding, the
+cavity filter-group permutation, kept-tap packing) so callers use natural
+shapes.  Port of ``repro.kernels.ops`` for the clip path.
+
+Each wrapper reaches its kernel through the kernel module's ``*_cuda``
+function, which dispatches on the input's device.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import cavity_tconv as _ct
+from repro_torch.kernels import graph_sconv as _gs
+from repro_torch.kernels import rfc_pack as _rfc
+
+
+def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
+    """Zero-pad ``axis`` up to a multiple of ``mult``."""
+    pad = (-x.shape[axis]) % mult
+    if pad == 0:
+        return x
+    widths = [0, 0] * x.dim()
+    widths[2 * (x.dim() - 1 - axis) + 1] = pad     # F.pad runs last axis first
+    return F.pad(x, widths)
+
+
+# ---------------------------------------------------------------------------
+# RFC
+# ---------------------------------------------------------------------------
+
+def rfc_encode(x: torch.Tensor, bank: int = 16):
+    """Encode activations of any (..., C) shape; returns (values, hot).
+    C is zero-padded to a whole number of banks for the kernel."""
+    shape = x.shape
+    flat = _pad_to(x.reshape(-1, shape[-1]), 1, bank).contiguous()
+    vals, hot = _rfc.rfc_encode_cuda(flat, bank=bank)
+    return (vals[:, : shape[-1]].reshape(shape),
+            hot[:, : shape[-1]].reshape(shape))
+
+
+def rfc_decode(values: torch.Tensor, hot: torch.Tensor,
+               bank: int = 16) -> torch.Tensor:
+    """Inverse of :func:`rfc_encode`, any (..., C) shape; lossless on
+    post-ReLU activations."""
+    shape = values.shape
+    v = _pad_to(values.reshape(-1, shape[-1]), 1, bank).contiguous()
+    h = _pad_to(hot.reshape(-1, shape[-1]), 1, bank).contiguous()
+    out = _rfc.rfc_decode_cuda(v, h, bank=bank)
+    return out[:, : shape[-1]].reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# Cavity temporal conv
+# ---------------------------------------------------------------------------
+
+def pack_cavity_weights(
+    w: np.ndarray,           # (F, C, K) dense weights of the *kept* filters
+    tap_mask: np.ndarray,    # (F, K) bool — cavity pattern tiled to F
+    loop: int = 8,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Group filters by recurring pattern row (f % loop) and pack kept taps.
+
+    Returns (wp (L, n_keep, C, Fg), taps (L, n_keep) int32, inv_perm (Fp,)
+    int32): ``out.reshape(..., L*Fg)[..., inv_perm]`` is the natural
+    filter order.  Filters are zero-padded to a multiple of ``loop``, the
+    padding taking the mask's first row.  Host-side numpy, bit-equal to
+    ``repro.kernels.ops.pack_cavity_weights``."""
+    F_, C, K = w.shape
+    Fp = ((F_ + loop - 1) // loop) * loop
+    if Fp != F_:
+        w = np.concatenate([w, np.zeros((Fp - F_, C, K), w.dtype)], 0)
+        tap_mask = np.concatenate(
+            [tap_mask, np.tile(tap_mask[:1], (Fp - F_, 1))], 0)
+    Fg = Fp // loop
+    n_keep = int(tap_mask[:loop].sum(axis=1).max())
+    wp = np.zeros((loop, n_keep, C, Fg), w.dtype)
+    taps = np.zeros((loop, n_keep), np.int32)
+    for g in range(loop):
+        kept = np.flatnonzero(tap_mask[g])
+        taps[g, : len(kept)] = kept
+        for j, k in enumerate(kept):
+            # filters g, g+loop, g+2*loop, ... share this tap set
+            wp[g, j] = w[g::loop, :, k].T          # (C, Fg)
+    # the kernel output flattens (L, Fg): slot g*Fg+i holds filter g+loop*i
+    inv = np.empty(Fp, np.int32)
+    order = np.arange(Fp).reshape(Fg, loop).T.reshape(-1)
+    inv[order] = np.arange(Fp)
+    return wp, taps, inv
+
+
+def cavity_tconv(
+    x: torch.Tensor,          # (B, T, C)
+    wp: torch.Tensor,
+    taps: torch.Tensor,
+    inv_perm: torch.Tensor,
+    num_filters: int,
+    kernel_size: int = 9,
+    stride: int = 1,
+) -> torch.Tensor:
+    """Cavity-pruned temporal conv, 'same' padding.  Returns (B, T_out, F).
+
+    T_out follows conv semantics, ``(T + 2·pad − K)//stride + 1``: when the
+    stride does not divide (odd T into a stride-2 block) the right pad is
+    extended so the kernel's window count equals it."""
+    pad = kernel_size // 2
+    T = x.shape[1]
+    t_out = (T + 2 * pad - kernel_size) // stride + 1
+    t_pad = kernel_size - 1 + t_out * stride
+    xp = F.pad(x, (0, 0, pad, t_pad - T - pad)).contiguous()
+    out = _ct.cavity_tconv_cuda(xp, wp, taps, kernel_size=kernel_size,
+                                stride=stride)          # (B, T_out, L, Fg)
+    B, T_out, L, Fg = out.shape
+    flat = out.reshape(B, T_out, L * Fg).index_select(-1, inv_perm)
+    return flat[..., :num_filters]
+
+
+# ---------------------------------------------------------------------------
+# Fused graph + spatial conv
+# ---------------------------------------------------------------------------
+
+def graph_sconv(
+    x: torch.Tensor,          # (N, T, V, Cin) — kept channels already gathered
+    g: torch.Tensor,          # (K, V, V)
+    w: torch.Tensor,          # (K, Cin, Cout)
+) -> torch.Tensor:
+    """Fused Σ_k (G_k·x)·W_k.  Returns (N, T, V, Cout).  The rows are the
+    flattened N·T axis; the kernel needs no joint or row padding."""
+    N, T, V, Cin = x.shape
+    if g.shape[-1] != V or w.shape[0] != g.shape[0]:
+        raise ValueError(f"graph_sconv: graph {tuple(g.shape)} and weights "
+                         f"{tuple(w.shape)} do not fit x {tuple(x.shape)}")
+    xr = x.reshape(N * T, V, Cin).contiguous()
+    out = _gs.graph_sconv_cuda(xr, g.contiguous(), w.to(x.dtype).contiguous())
+    return out.reshape(N, T, V, -1)

@@ -1,0 +1,44 @@
+"""Plain PyTorch oracles of the kernels on the clip path: the port's twins
+of ``repro.kernels.ref``, in the same layouts."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rfc_encode_ref(x: torch.Tensor, bank: int = 16):
+    """ReLU + stable in-bank compaction.  x: (rows, C) -> (values, hot)."""
+    x = torch.clamp_min(x, 0.0)
+    rows, cols = x.shape
+    b = x.reshape(rows, cols // bank, bank)
+    hot = b > 0
+    order = torch.argsort((~hot).to(torch.uint8), dim=-1, stable=True)
+    vals = torch.take_along_dim(b, order, dim=-1)
+    return vals.reshape(rows, cols), hot.to(x.dtype).reshape(rows, cols)
+
+
+def rfc_decode_ref(values: torch.Tensor, hot: torch.Tensor, bank: int = 16):
+    """Scatter front-packed bank values back to their hot positions."""
+    rows, cols = values.shape
+    v = values.reshape(rows, cols // bank, bank)
+    h = hot.reshape(rows, cols // bank, bank) > 0
+    pos = torch.cumsum(h.to(torch.int64), dim=-1) - 1
+    out = torch.where(h, torch.take_along_dim(v, pos.clamp_min(0), dim=-1), 0.0)
+    return out.reshape(rows, cols)
+
+
+def cavity_tconv_ref(x: torch.Tensor, w: torch.Tensor,
+                     stride: int = 1) -> torch.Tensor:
+    """Dense masked temporal conv, 'same' padding.
+    x: (B, T, C) unpadded, w: (F, C, K) masked -> (B, T_out, F)."""
+    K = w.shape[-1]
+    out = F.conv1d(x.transpose(1, 2), w, stride=stride, padding=K // 2)
+    return out.transpose(1, 2)
+
+
+def graph_sconv_ref(x: torch.Tensor, g: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """out = Σ_k (G_k·x)·W_k.  x: (R, V, Cin), g: (K, V, V),
+    w: (K, Cin, Co) -> (R, V, Co)."""
+    y = torch.einsum("rvc,kwv->krwc", x, g)
+    return torch.einsum("krwc,kco->rwo", y, w)

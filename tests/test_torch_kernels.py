@@ -1,0 +1,194 @@
+"""Port kernels on the CPU: each plain version and ``ops`` wrapper against
+the JAX oracles in ``repro.kernels.ref`` (atol=rtol=1e-5: both sides sum in
+float32, in different orders), graph_sconv and RFC also against the Pallas
+kernels in interpret mode (1e-4 for graph_sconv, whose interpret-mode
+error against its own oracle reaches 2.3e-5; RFC is data movement and
+must match exactly).  The CUDA kernels against their plain versions run
+only on a card (marked ``cuda``)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core.pruning.cavity import cavity_pattern, tile_pattern
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import cavity_tconv as ct
+from repro_torch.kernels import graph_sconv as gs
+from repro_torch.kernels import ref
+from repro_torch.kernels import rfc_pack as rp
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _rand(seed, *shape, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _sconv_inputs(R, V, Ci, Co, K):
+    """Inputs at the model's scales (a normalized graph plus noise, He-
+    initialized weights), so outputs are O(1) like the model's."""
+    return (_rand(R, R, V, Ci), _rand(V, K, V, V, scale=1.0 / V),
+            _rand(Ci, K, Ci, Co, scale=np.sqrt(2.0 / Ci)))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (the kernels run only there)")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------- graph_sconv
+
+SCONV_SHAPES = [(32, 25, 16, 32, 3), (64, 25, 3, 8, 3), (7, 25, 38, 64, 3),
+                (16, 5, 9, 20, 2)]
+
+
+@pytest.mark.parametrize("R,V,Ci,Co,K", SCONV_SHAPES)
+def test_graph_sconv_matches_jax(R, V, Ci, Co, K):
+    x, g, w = _sconv_inputs(R, V, Ci, Co, K)
+    want = np.asarray(jref.graph_sconv_ref(x, g, w))
+    tx, tg, tw = map(torch.from_numpy, (x, g, w))
+    for got in (gs.graph_sconv_plain(tx, tg, tw), gs.graph_sconv_cuda(tx, tg, tw),
+                ref.graph_sconv_ref(tx, tg, tw)):
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    got = ops.graph_sconv(tx.reshape(1, R, V, Ci), tg, tw).reshape(R, V, Co)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    pallas = np.asarray(jops.graph_sconv(jnp.asarray(x)[None], g, w))[0]
+    np.testing.assert_allclose(got.numpy(), pallas, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------- cavity_tconv
+
+# (B, T, C, F, stride, pattern): odd T into stride 2, F not a multiple of 8
+TCONV_CASES = [(4, 32, 16, 16, 1, "cav-70-1"), (3, 15, 8, 38, 2, "cav-70-1"),
+               (2, 75, 4, 77, 2, "cav-70-1"), (5, 20, 8, 13, 1, "none"),
+               (2, 9, 6, 24, 2, "cav-50-1")]
+
+
+@pytest.mark.parametrize("B,T,C,F,stride,pattern", TCONV_CASES)
+def test_cavity_tconv_matches_jax(B, T, C, F, stride, pattern):
+    mask = tile_pattern(cavity_pattern(pattern), F)
+    w = _rand(F, F, C, 9) * mask[:, None, :]
+    x = _rand(B * T, B, T, C)
+    want = np.asarray(jref.cavity_tconv_ref(x, w, stride=stride))
+    assert want.shape[1] == (T - 1) // stride + 1
+    np.testing.assert_allclose(
+        ref.cavity_tconv_ref(torch.from_numpy(x), torch.from_numpy(w),
+                             stride).numpy(), want, **TOL)
+    wp, taps, inv = ops.pack_cavity_weights(w, mask)
+    got = ops.cavity_tconv(torch.from_numpy(x), torch.from_numpy(wp),
+                           torch.from_numpy(taps),
+                           torch.from_numpy(inv).long(), F, stride=stride)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_cavity_tconv_plain_is_the_kernel_contract():
+    """The plain version computes the packed kernel's (B, T_out, L, Fg)
+    function: every group's kept taps, strided, on a pre-padded input."""
+    F_, C = 24, 8
+    mask = tile_pattern(cavity_pattern("cav-70-1"), F_)
+    w = _rand(1, F_, C, 9) * mask[:, None, :]
+    wp, taps, _ = ops.pack_cavity_weights(w, mask)
+    xp = torch.from_numpy(_rand(2, 3, 26, C))      # T_pad = K - 1 + 9 * 2
+    out = ct.cavity_tconv_cuda(xp, torch.from_numpy(wp), torch.from_numpy(taps),
+                               kernel_size=9, stride=2)
+    assert out.shape == (3, 9, 8, 3)
+    for g in range(8):
+        for i in range(3):
+            f = g + 8 * i
+            want = torch.nn.functional.conv1d(
+                xp.transpose(1, 2), torch.from_numpy(w[f:f + 1]), stride=2)
+            torch.testing.assert_close(out[:, :, g, i], want[:, 0], **TOL)
+
+
+# ------------------------------------------------------------------------ RFC
+
+# (rows, C): C not a multiple of 16 in the ops cases
+RFC_SHAPES = [(8, 16), (32, 64), (100, 48), (7, 160), (9, 38), (5, 3)]
+
+
+@pytest.mark.parametrize("rows,cols", RFC_SHAPES)
+def test_rfc_encode_decode_match_jax(rows, cols):
+    x = _rand(rows + cols, rows, cols)
+    x[x > 1.0] = 0.0                              # some all-cold banks too
+    tx = torch.from_numpy(x)
+    v_ops, h_ops = ops.rfc_encode(tx)
+    v_pal, h_pal = jops.rfc_encode(jnp.asarray(x))
+    np.testing.assert_array_equal(v_ops.numpy(), np.asarray(v_pal))
+    np.testing.assert_array_equal(h_ops.numpy(), np.asarray(h_pal))
+    dec = ops.rfc_decode(v_ops, h_ops)
+    np.testing.assert_array_equal(
+        dec.numpy(), np.asarray(jops.rfc_decode(v_pal, h_pal)))
+    if cols % 16 == 0:
+        v_ref, h_ref = jref.rfc_encode_ref(x)
+        for enc in (rp.rfc_encode_plain(tx), rp.rfc_encode_cuda(tx),
+                    ref.rfc_encode_ref(tx)):
+            np.testing.assert_allclose(enc[0].numpy(), np.asarray(v_ref), **TOL)
+            np.testing.assert_array_equal(enc[1].numpy(), np.asarray(h_ref))
+        want = np.asarray(jref.rfc_decode_ref(v_ref, h_ref))
+        for dec in (rp.rfc_decode_plain(v_ops, h_ops),
+                    rp.rfc_decode_cuda(v_ops, h_ops),
+                    ref.rfc_decode_ref(v_ops, h_ops)):
+            np.testing.assert_allclose(dec.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("shape", [(100, 48), (2, 5, 64), (3, 7, 25, 38)])
+def test_rfc_roundtrip_equals_relu_bit_for_bit(shape):
+    x = torch.from_numpy(_rand(len(shape), *shape))
+    out = ops.rfc_decode(*ops.rfc_encode(x))
+    assert out.shape == x.shape
+    assert torch.equal(out, torch.relu(x))
+
+
+def test_rfc_wrapper_rejects_partial_banks():
+    with pytest.raises(ValueError, match="not divisible"):
+        rp.rfc_encode_cuda(torch.zeros(4, 20))
+
+
+def test_cpu_dispatch_counts_no_launches():
+    _build.reset_launch_counts()
+    x = torch.from_numpy(_rand(0, 4, 25, 3))
+    gs.graph_sconv_cuda(x, torch.ones(3, 25, 25), torch.ones(3, 3, 8))
+    ops.rfc_decode(*ops.rfc_encode(x))
+    assert _build.LAUNCHES == dict.fromkeys(_build.KERNELS, 0)
+
+
+# ------------------------------------------------ CUDA kernels (card only)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,V,Ci,Co,K", SCONV_SHAPES + [(2400, 25, 3, 64, 3),
+                                                        (608, 25, 77, 256, 3)])
+def test_graph_sconv_kernel_matches_plain(cuda, R, V, Ci, Co, K):
+    x, g, w = (torch.from_numpy(a).to(cuda)
+               for a in _sconv_inputs(R, V, Ci, Co, K))
+    torch.testing.assert_close(gs.graph_sconv_cuda(x, g, w),
+                               gs.graph_sconv_plain(x, g, w),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C,F,stride,pattern", TCONV_CASES)
+def test_cavity_tconv_kernel_matches_plain(cuda, B, T, C, F, stride, pattern):
+    mask = tile_pattern(cavity_pattern(pattern), F)
+    wp, taps, _ = ops.pack_cavity_weights(_rand(F, F, C, 9) * mask[:, None, :],
+                                          mask)
+    xp = torch.nn.functional.pad(
+        torch.from_numpy(_rand(T, B, T, C)), (0, 0, 4, 5)).to(cuda)
+    wp, taps = torch.from_numpy(wp).to(cuda), torch.from_numpy(taps).to(cuda)
+    torch.testing.assert_close(
+        ct.cavity_tconv_cuda(xp, wp, taps, 9, stride),
+        ct.cavity_tconv_plain(xp, wp, taps, 9, stride), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [r for r in RFC_SHAPES if r[1] % 16 == 0])
+def test_rfc_kernels_match_plain_exactly(cuda, rows, cols):
+    x = torch.from_numpy(_rand(rows, rows, cols)).to(cuda)
+    v, h = rp.rfc_encode_cuda(x)
+    v2, h2 = rp.rfc_encode_plain(x)
+    assert torch.equal(v, v2) and torch.equal(h, h2)
+    assert torch.equal(rp.rfc_decode_cuda(v, h), rp.rfc_decode_plain(v, h))

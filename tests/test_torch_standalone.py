@@ -1,0 +1,70 @@
+"""The port stands alone: ``repro_torch`` imports neither ``jax`` nor the
+JAX package ``repro``, and its entry points default to the GPU without
+falling back to the CPU quietly."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+# conftest.py imports jax in this process, so the import check runs in a
+# fresh interpreter where jax and repro cannot be imported at all
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m in ("jax", "repro") or m.startswith(("jax.", "repro."))))
+print(len(names), bad)
+"""
+
+
+def test_imports_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL, str(ROOT)],
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) >= 15 and bad.strip() == "[]"
+
+
+_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
+                        r"from\s+(jax|repro)(\.|\s)(?!_))", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT) for p in PKG.rglob("*.py")]
+    + [Path("chip_smoke.py")]), ids=str)
+def test_source_names_no_jax_or_repro_import(path):
+    assert not _FORBIDDEN.findall((ROOT / path).read_text())
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.core.agcn.model import init_params
+    from repro_torch.launch.serve import serve_gcn
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    cfg = get_config("agcn-2s", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_gcn("agcn-2s", reduced=True, clips=1, batch=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_numpy({"w": [1.0]})
+    assert init_params(cfg, device="cpu")["fc_w"].device.type == "cpu"
