@@ -12,23 +12,42 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
   2. build   — the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, one
                process per source, in parallel), with ptxas's register and
                spill report.
-  3. kernels — one ensemble step of the main path (full agcn-2s, batch 8)
-               is run with recording wrappers, so each kernel is held
-               against its plain version on exactly the inputs the path
-               gives it (graph_sconv and cavity_tconv within
-               atol=rtol=1e-4, RFC bit-equal), plus an RFC case with
-               C % 16 != 0.  Each kernel is timed with CUDA events beside
-               its plain version, a one-call PyTorch yardstick where one
-               exists, and its bound on this card.
+  3. kernels — one clip ensemble step (full agcn-2s, batch 8) and one
+               stream tick at S = 1, 3 and 8 slots (after 280 raw frames,
+               so every block's rings hold data; a cavity_tconv_step input
+               whose kept-tap frames are all zero fails) are run with
+               recording wrappers, so each kernel is held against its plain
+               version on exactly the inputs its path gives it (graph_sconv,
+               cavity_tconv and cavity_tconv_step within atol=rtol=1e-4,
+               RFC bit-equal), plus an RFC case with C % 16 != 0.  Each
+               kernel is timed with CUDA events behind a spin kernel (device
+               time, without the host's launch cost) beside its plain
+               version, a one-call PyTorch yardstick where one exists, and
+               its bound on this card.
   4. main    — ``serve_gcn`` at the full agcn-2s config (batch 8, a few
                batches) on the ``cuda`` and ``reference`` backends: clips/s,
                logit agreement within atol=rtol=1e-3, and the launch
                counts (20 graph_sconv, 20 cavity_tconv, 18 rfc_encode and
                18 rfc_decode per ensemble step).
-  5. profile — two ``cuda`` ensemble steps under ``torch.profiler``: the
-               device's busy share of the wall time and device time by
-               kernel name (reported, not checked; the profiler's own cost
-               inflates the wall time).
+  5. stream  — ``serve_gcn_stream`` at full agcn-2s (batch 4 clips = 8
+               sequences, T = 300, then the 149-frame drain) on both
+               backends: frames/s and per-step latency, post-drain stream
+               logits against the clip engine's and ``cuda`` against
+               ``reference`` (atol=rtol=1e-3, top-1 100%), and the launch
+               counts of calibration, stream steps and the clip check.
+  6. slab    — ``make_gcn_fused_tick`` on ``cuda`` at full width with 8
+               slots and a fixed script: 12 staggered sessions of 64
+               frames, a held session, a preemption into the snapshot ring
+               with a foreign session in the slot, a same-tick snapshot
+               and restore, drains.  Each session's logits at eviction
+               against the same session streamed alone (atol=rtol=1e-3),
+               the launch counts per tick, the tick time, and one tick
+               with its inputs on the card under
+               ``torch.cuda.set_sync_debug_mode("error")``.
+  7. profile — two clip ensemble steps, two stream steps and two fused
+               slab ticks under ``torch.profiler``: the device's busy share of the wall time
+               and device time by kernel name (reported, not checked; the
+               profiler's own cost inflates the wall time).
 
 Prints the kernels JSON line, the nvidia-smi line and, last, the result
 line.  Any failed phase exits non-zero.  Per-case kernel numbers go to
@@ -36,6 +55,7 @@ line.  Any failed phase exits non-zero.  Per-case kernel numbers go to
 """
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -56,12 +76,19 @@ KERNEL_INFO = {   # name -> (CUDA source, TPU kernel it replaces)
                     "src/repro/kernels/graph_sconv.py:52"),
     "cavity_tconv": ("src/repro_torch/csrc/cavity_tconv.cu",
                      "src/repro/kernels/cavity_tconv.py:99"),
+    "cavity_tconv_step": ("src/repro_torch/csrc/cavity_tconv_step.cu",
+                          "src/repro/kernels/cavity_tconv.py:67"),
     "rfc_encode": ("src/repro_torch/csrc/rfc_pack.cu",
                    "src/repro/kernels/rfc_pack.py:67"),
     "rfc_decode": ("src/repro_torch/csrc/rfc_pack.cu",
                    "src/repro/kernels/rfc_pack.py:87"),
 }
 ARCH, BATCH, CLIPS, SEED = "agcn-2s", 8, 32, 0
+STREAM_CLIPS = 4                   # 8 sequences of 2 persons
+STREAM_SLOTS = (1, 3, 8)           # the stream shapes the kernels are held at
+STREAM_WARM = 280                  # raw frames before a held stream tick
+SLAB_SLOTS, SESSIONS, SESSION_FRAMES, EVENTS, RING_ROWS = 8, 12, 64, 4, 4
+SPIN_CYCLES = 2_000_000            # about 1 ms at the H100's boost clock
 
 
 def fail(msg: str):
@@ -77,7 +104,11 @@ def smi_line() -> str:
 
 def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
     """Median over ``reps`` of the mean time of ``inner`` back-to-back
-    calls, by CUDA events, after one warm-up call."""
+    calls, by CUDA events, after one warm-up call.  Each repetition first
+    queues a 1 ms spin kernel, so that the host has queued the calls
+    before the device reaches them and the events time the device's work,
+    not the host's launch cost; calls whose host work outlasts the spin
+    are timed with the host's gaps included."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -85,6 +116,7 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(inner):
             fn()
@@ -100,14 +132,14 @@ def bound_ms(nbytes: float, flops: float):
     return max(t_bytes, t_ops), t_bytes, t_ops
 
 
-def capture_step(modules, cfg, plans, x):
-    """Run one ensemble step with each kernel wrapper wrapped by a recorder;
+def capture(modules, run):
+    """Call ``run()`` with each kernel wrapper wrapped by a recorder;
     returns {kernel: [(args, kwargs), ...]} with cloned tensor inputs."""
     import torch
-    from repro_torch.train.steps import make_gcn_infer_step
     gs, ct, rp = modules
     targets = [(gs, "graph_sconv_cuda", "graph_sconv"),
                (ct, "cavity_tconv_cuda", "cavity_tconv"),
+               (ct, "cavity_tconv_step_cuda", "cavity_tconv_step"),
                (rp, "rfc_encode_cuda", "rfc_encode"),
                (rp, "rfc_decode_cuda", "rfc_decode")]
     captured = {name: [] for _, _, name in targets}
@@ -124,12 +156,24 @@ def capture_step(modules, cfg, plans, x):
     try:
         for (mod, attr, orig), (_, _, name) in zip(originals, targets):
             setattr(mod, attr, recorder(orig, name))
-        make_gcn_infer_step(cfg)(plans, x)
+        run()
         torch.cuda.synchronize()
     finally:
         for mod, attr, orig in originals:
             setattr(mod, attr, orig)
     return captured
+
+
+def _dense_cavity(wp, taps, ks):
+    """The masked dense weights (F, C, K) of packed cavity weights, filter
+    f = g + L*i in natural order."""
+    import torch
+    L, n_keep, C, Fg = wp.shape
+    w_dense = torch.zeros(L * Fg, C, ks, device=wp.device)
+    for g, row in enumerate(taps.tolist()):
+        for j, off in enumerate(row):
+            w_dense[g::L, :, off] += wp[g, j].T
+    return w_dense
 
 
 def measure_case(name, args, kwargs, modules):
@@ -138,7 +182,7 @@ def measure_case(name, args, kwargs, modules):
     import torch
     import torch.nn.functional as F
     gs, ct, rp = modules
-    library = None
+    library, natural = None, None
     if name == "graph_sconv":
         x, g, w = args
         kern = lambda: gs.graph_sconv_cuda(x, g, w)
@@ -154,14 +198,10 @@ def measure_case(name, args, kwargs, modules):
         kern = lambda: ct.cavity_tconv_cuda(xp, wp, taps, ks, stride)
         plain = lambda: ct.cavity_tconv_plain(xp, wp, taps, ks, stride)
         L, n_keep, C, Fg = wp.shape
-        # masked dense weights of the same filters, filter f = g + L*i
-        w_dense = torch.zeros(L * Fg, C, ks, device=xp.device)
-        for g, row in enumerate(taps.tolist()):
-            for j, off in enumerate(row):
-                w_dense[g::L, :, off] += wp[g, j].T
         x4 = xp.permute(0, 2, 1).unsqueeze(-1).contiguous()
-        w4 = w_dense.unsqueeze(-1)
+        w4 = _dense_cavity(wp, taps, ks).unsqueeze(-1)
         library = lambda: F.conv2d(x4, w4, stride=(stride, 1))
+        natural = lambda out: library()[..., 0].permute(0, 2, 1)
         B, T_pad, _ = xp.shape
         T_out = (T_pad - ks + 1) // stride
         # the (filter, tap) pairs this data needs: packed slots with weights
@@ -169,6 +209,21 @@ def measure_case(name, args, kwargs, modules):
         nbytes = 4 * (xp.numel() + wp.numel() + taps.numel()
                       + B * T_out * L * Fg)
         flops = 2 * B * T_out * C * pairs
+    elif name == "cavity_tconv_step":
+        x, wp, taps = args
+        kern = lambda: ct.cavity_tconv_step_cuda(x, wp, taps)
+        plain = lambda: ct.cavity_tconv_step_plain(x, wp, taps)
+        B, K, C = x.shape
+        L, n_keep, _, Fg = wp.shape
+        w_dense = _dense_cavity(wp, taps, K)
+        library = lambda: torch.einsum("bkc,fck->bf", x, w_dense)
+        natural = lambda out: library()
+        pairs = int((wp != 0).any(dim=2).sum())
+        # the frames some group reads (the union of the kept taps)
+        frames = len(set(taps.flatten().tolist()))
+        nbytes = 4 * (B * frames * C + wp.numel() + taps.numel()
+                      + B * L * Fg)
+        flops = 2 * B * C * pairs
     elif name == "rfc_encode":
         (x,) = args
         kern = lambda: rp.rfc_encode_cuda(x)
@@ -191,11 +246,12 @@ def measure_case(name, args, kwargs, modules):
     else:
         ok = all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
                  for a, b in zip(got, want))
-    if name == "cavity_tconv":
+    if natural is not None:
         # the yardstick computes the same sums in natural filter order
-        ref = library()[..., 0].permute(0, 2, 1)
-        flat = got[0].reshape(ref.shape[0], ref.shape[1], -1)
-        n = ref.shape[2]
+        ref = natural(got[0])
+        L = wp.shape[0]
+        n = ref.shape[-1]
+        flat = got[0].reshape(*ref.shape[:-1], -1)
         perm = torch.arange(n, device=ref.device).reshape(-1, L).T.reshape(-1)
         ok = ok and torch.allclose(flat, ref[..., perm], atol=1e-4, rtol=1e-4)
     elif library is not None:
@@ -210,18 +266,33 @@ def measure_case(name, args, kwargs, modules):
     }
 
 
-def profile_steps(step, plans, x, steps: int = 2) -> None:
+def summarize(cs):
+    """Per-step sums over the cases of one kernel on one path."""
+    t_bytes = sum(c["bytes_ms"] for c in cs)
+    t_ops = sum(c["ops_ms"] for c in cs)
+    return {
+        "max_abs_err": max(c["max_abs_err"] for c in cs),
+        "ms": sum(c["ms"] for c in cs),
+        "plain_ms": sum(c["plain_ms"] for c in cs),
+        "bound_ms": sum(c["bound_ms"] for c in cs),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": (sum(c["library_ms"] for c in cs)
+                       if cs[0]["library_ms"] is not None else None),
+    }
+
+
+def profile_steps(label, run, steps: int = 2) -> None:
     """Print the device's busy share and its time by kernel name over
-    ``steps`` ensemble steps, from ``torch.profiler``."""
+    ``steps`` calls of ``run``, from ``torch.profiler``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    step(plans, x)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            step(plans, x)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     rows = []   # device-side events only: operator rows repeat their kernels
@@ -232,15 +303,103 @@ def profile_steps(step, plans, x, steps: int = 2) -> None:
         if dev_us > 0:
             rows.append((dev_us / 1e3 / steps, e.count / steps, e.key))
     if not rows:
-        print("profile: the profiler recorded no device time (not measured)")
+        print(f"profile {label}: the profiler recorded no device time "
+              f"(not measured)")
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile: {wall_ms:.3f} ms wall per ensemble step under the "
+    print(f"profile {label}: {wall_ms:.3f} ms wall per step under the "
           f"profiler, device busy {busy:.3f} ms ({busy / wall_ms * 100:.1f}%), "
           f"{sum(r[1] for r in rows):.0f} kernels and copies per step")
     for ms, count, key in rows[:15]:
-        print(f"profile: {ms:8.3f} ms {count:5.0f}x {key[:90]}")
+        print(f"profile {label}: {ms:8.3f} ms {count:5.0f}x {key[:90]}")
+
+
+def run_slab_script(tick, plans, slabs, rings, clips, flush, dev):
+    """Drive the fused tick through a fixed session script: staggered
+    arrivals, a hold, a preemption into the snapshot ring with a foreign
+    session admitted into the slot, a swap (snapshot and restore of one
+    slot in one tick), restores into freed slots, drains.  Returns
+    ({session: logits at eviction}, per-tick wall ms, {event: count},
+    slabs, rings)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.agcn.engine import SNAP_SENTINEL
+    S, T = SLAB_SLOTS, SESSION_FRAMES
+    V, C = clips.shape[2], clips.shape[3]
+    arrival = {sid: 6 * sid for sid in range(len(clips))}
+    HOLD_SID, HOLD_AT, HOLD_TICKS = 2, 30, 4
+    PREEMPT_SID, PREEMPT_AT, SWAP_SID, SWAP_AT = 1, 50, 4, 60
+    queue = collections.deque(sorted(arrival, key=arrival.get))
+    waiting = collections.deque()      # (sid, ring row, eligible from tick)
+    slots = [None] * S
+    pos, got, lat = {}, {}, []
+    held, preempted = 0, False
+    counts = collections.Counter()
+    for t in range(5000):
+        if not queue and not waiting and all(s is None for s in slots):
+            break
+        snap, rest = [], []
+        reset = np.zeros(S, bool)
+        hold = np.zeros(S, bool)
+        for s, sid in enumerate(slots):
+            if sid == PREEMPT_SID and pos[sid] == PREEMPT_AT and not preempted:
+                preempted = True
+                snap.append((s, 0))
+                waiting.append((sid, 0, t + 1))
+                slots[s] = None
+            elif (sid == SWAP_SID and pos[sid] == SWAP_AT
+                  and waiting and waiting[0][0] == PREEMPT_SID):
+                _, row, _ = waiting.popleft()
+                snap.append((s, 1))
+                rest.append((s, row))
+                waiting.append((sid, 1, t + 1))
+                slots[s] = PREEMPT_SID
+            elif sid == HOLD_SID and pos[sid] == HOLD_AT and held < HOLD_TICKS:
+                hold[s] = True
+                held += 1
+        for s in range(S):
+            if slots[s] is not None:
+                continue
+            if waiting and waiting[0][2] <= t:
+                sid, row, _ = waiting.popleft()
+                rest.append((s, row))
+                slots[s] = sid
+            elif queue and arrival[queue[0]] <= t:
+                sid = queue.popleft()
+                reset[s], slots[s], pos[sid] = True, sid, 0
+        frames = np.zeros((S, V, C), np.float32)
+        valid = np.zeros(S, bool)
+        for s, sid in enumerate(slots):
+            if sid is not None and pos[sid] < T:
+                frames[s], valid[s] = clips[sid, pos[sid]], True
+
+        def order(events):
+            o = np.full((EVENTS, 2), SNAP_SENTINEL, np.int32)
+            if events:
+                o[:len(events)] = events
+            return torch.from_numpy(o).to(dev)
+
+        counts.update(snapshot=len(snap), restore=len(rest),
+                      admit=int(reset.sum()), hold=int(hold.sum()))
+        inputs = (torch.from_numpy(frames).to(dev),
+                  torch.from_numpy(valid).to(dev),
+                  torch.from_numpy(reset).to(dev),
+                  torch.from_numpy(hold).to(dev), order(snap), order(rest))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slabs, logits, rings = tick(plans, slabs, *inputs, rings)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        for s, sid in enumerate(slots):
+            if sid is None or hold[s]:
+                continue
+            pos[sid] += 1
+            if pos[sid] == T + flush:
+                got[sid] = logits[s].cpu().numpy()
+                slots[s] = None
+    counts["ticks"] = len(lat)
+    return got, lat, counts, slabs, rings
 
 
 def main() -> int:
@@ -256,14 +415,17 @@ def main() -> int:
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.agcn import engine
-    from repro_torch.core.agcn.model import init_params
+    from repro_torch.core.agcn.model import bone_stream, init_params
     from repro_torch.core.pruning.plan import plan_from_config
     from repro_torch.data.pipeline import DataConfig, skeleton_batches
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import cavity_tconv as ct
     from repro_torch.kernels import graph_sconv as gs
     from repro_torch.kernels import rfc_pack as rp
-    from repro_torch.launch.serve import serve_gcn
+    from repro_torch.launch.serve import serve_gcn, serve_gcn_stream
+    from repro_torch.train.steps import (make_gcn_fused_tick,
+                                         make_gcn_infer_step,
+                                         make_gcn_stream_step)
     modules = (gs, ct, rp)
 
     # ---- 1. device ---------------------------------------------------------
@@ -288,6 +450,7 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions ---------------------------
     cfg = get_config(ARCH)
+    nblocks = len(cfg.gcn_channels)
     gen = torch.Generator().manual_seed(SEED)
     params = [init_params(cfg, gen, device=dev) for _ in ("joint", "bone")]
     prune_plan = plan_from_config(cfg)
@@ -295,40 +458,64 @@ def main() -> int:
         p, cfg, prune_plan, quant=True, backend="cuda") for p in params)
     dcfg = DataConfig(global_batch=BATCH, seq_len=cfg.gcn_frames, seed=SEED)
     x0 = torch.from_numpy(next(skeleton_batches(cfg, dcfg))["x"]).to(dev)
-    captured = capture_step(modules, cfg, plans, x0)
-    nblocks = len(cfg.gcn_channels)
-    per_step = {"graph_sconv": 2 * nblocks, "cavity_tconv": 2 * nblocks,
-                "rfc_encode": 2 * (nblocks - 1),
+    infer = make_gcn_infer_step(cfg)
+    stream_step = make_gcn_stream_step(cfg)
+    # launches per ensemble step of each path (10 blocks, 9 transfers, 2
+    # streams); calibration runs one clip pass per stream
+    per_clip = {"graph_sconv": 2 * nblocks, "cavity_tconv": 2 * nblocks,
+                "cavity_tconv_step": 0, "rfc_encode": 2 * (nblocks - 1),
                 "rfc_decode": 2 * (nblocks - 1)}
+    per_tick = dict(per_clip, cavity_tconv=0, cavity_tconv_step=2 * nblocks)
     failures, cases, summary = [], {}, {}
-    for name in _build.KERNELS:
-        if len(captured[name]) != per_step[name]:
-            failures.append(f"{name}: one step made {len(captured[name])} "
-                            f"calls, expected {per_step[name]}")
-        cases[name] = [measure_case(name, a, k, modules)
-                       for a, k in captured[name]]
-        bad = [i for i, c in enumerate(cases[name]) if not c["ok"]]
-        if bad:
-            failures.append(f"{name}: kernel disagrees with its plain version "
-                            f"on cases {bad}")
-        cs = cases[name]
-        t_bytes = sum(c["bytes_ms"] for c in cs)
-        t_ops = sum(c["ops_ms"] for c in cs)
-        summary[name] = {
-            "max_abs_err": max(c["max_abs_err"] for c in cs),
-            "ms": sum(c["ms"] for c in cs),
-            "plain_ms": sum(c["plain_ms"] for c in cs),
-            "bound_ms": sum(c["bound_ms"] for c in cs),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": (sum(c["library_ms"] for c in cs)
-                           if cs[0]["library_ms"] is not None else None),
-        }
-        s = summary[name]
-        print(f"kernel {name}: {'ok' if not bad else 'FAIL'} on "
-              f"{len(cs)} main-path inputs, max_abs_err {s['max_abs_err']:.3g}; "
-              f"per ensemble step {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
-              f"library {s['library_ms']}, bound {s['bound_ms']:.4f} ms by "
-              f"{s['bound_by']})")
+
+    def hold_cases(path, captured, expect):
+        for name, n in expect.items():
+            if len(captured[name]) != n:
+                failures.append(f"{path} {name}: one step made "
+                                f"{len(captured[name])} calls, expected {n}")
+            if not n:
+                continue
+            if name == "cavity_tconv_step":
+                # a window whose kept-tap frames are all zero cannot tell a
+                # right kernel from a wrongly indexed one
+                empty = [i for i, (a, _) in enumerate(captured[name])
+                         if any(not a[0][:, k].any()
+                                for k in set(a[2].flatten().tolist()))]
+                if empty:
+                    failures.append(f"{path} {name}: calls {empty} read a "
+                                    f"kept-tap frame that is all zero")
+            cs = [measure_case(name, a, k, modules) for a, k in captured[name]]
+            cases[f"{path}/{name}"] = cs
+            bad = [i for i, c in enumerate(cs) if not c["ok"]]
+            if bad:
+                failures.append(f"{path} {name}: kernel disagrees with its "
+                                f"plain version on cases {bad}")
+            s = summary[(path, name)] = summarize(cs)
+            print(f"kernel {name} [{path}]: {'ok' if not bad else 'FAIL'} on "
+                  f"{len(cs)} inputs, max_abs_err {s['max_abs_err']:.3g}; per "
+                  f"ensemble step {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
+                  f"library {s['library_ms']}, bound {s['bound_ms']:.4f} ms by "
+                  f"{s['bound_by']})")
+
+    hold_cases("clip", capture(modules, lambda: infer(plans, x0)), per_clip)
+    # stream ticks at S slots, STREAM_WARM raw frames into the clip (past
+    # the first-logit delay, so every block's rings hold data), on the
+    # frozen statistics of this batch
+    delay = engine.stream_first_logit_delay(plans[0])
+    if STREAM_WARM < delay:
+        fail(f"{STREAM_WARM} warm-up frames do not reach the last block "
+             f"(first-logit delay {delay})")
+    bn = [engine.collect_bn_stats(p, xx)
+          for p, xx in zip(plans, (x0, bone_stream(x0)))]
+    warm = {}
+    for S in STREAM_SLOTS:
+        states = tuple(engine.init_stream_state(p, S, bn_stats=b)
+                       for p, b in zip(plans, bn))
+        for r in range(STREAM_WARM):
+            states, _ = stream_step(plans, states, x0[:S, r])
+        warm[S] = states
+        hold_cases(f"stream S={S}", capture(modules, lambda: stream_step(
+            plans, states, x0[:S, STREAM_WARM])), per_tick)
     # RFC off the main path: a width that is not a whole number of banks
     xr = torch.randn(2400 * 25, 38, generator=gen).to(dev)
     vals, hot = ops.rfc_encode(xr)
@@ -344,18 +531,18 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_cases.json").write_text(json.dumps(
         {"device": smi, "cases": cases}, indent=1))
-    del captured
 
-    # ---- 4. the main path --------------------------------------------------
+    launches = {}
+    # ---- 4. the main path: clip serving ------------------------------------
     _build.reset_launch_counts()
     res = serve_gcn(ARCH, reduced=False, batch=BATCH, clips=CLIPS, seed=SEED,
                     backends=("cuda", "reference"), device=dev)
-    counts = dict(_build.LAUNCHES)
+    launches["clip"] = dict(_build.LAUNCHES)
     steps = res["cuda"]["steps"]
-    for name, n in per_step.items():
-        if counts[name] != n * steps:
-            failures.append(f"{name}: {counts[name]} launches in {steps} "
-                            f"ensemble steps, expected {n * steps}")
+    for name, n in per_clip.items():
+        if launches["clip"][name] != n * steps:
+            failures.append(f"clip {name}: {launches['clip'][name]} launches "
+                            f"in {steps} ensemble steps, expected {n * steps}")
     lc, lr = res["cuda"]["logits"], res["reference"]["logits"]
     rows = CLIPS * cfg.gcn_persons             # persons fold into the batch
     if lc.shape != (rows, cfg.gcn_num_classes) or not np.isfinite(lc).all():
@@ -370,21 +557,157 @@ def main() -> int:
               f"{cfg.gcn_persons} persons, batch {BATCH}, full {ARCH}, "
               f"2-stream)")
     print(f"main: max |logit difference| {diff:.3g}, top-1 agreement "
-          f"{agree * 100:.1f}%, launches {counts} in {steps} steps")
+          f"{agree * 100:.1f}%, launches {launches['clip']} in {steps} steps")
 
-    # ---- 5. profile ----------------------------------------------------------
-    from repro_torch.train.steps import make_gcn_infer_step
-    profile_steps(make_gcn_infer_step(cfg), plans, x0)
+    # ---- 5. streaming --------------------------------------------------------
+    _build.reset_launch_counts()
+    sres = serve_gcn_stream(ARCH, reduced=False, batch=STREAM_CLIPS,
+                            seed=SEED, backends=("cuda", "reference"),
+                            device=dev)
+    launches["stream"] = dict(_build.LAUNCHES)
+    sc, sr = sres["cuda"], sres["reference"]
+    nseq = STREAM_CLIPS * cfg.gcn_persons
+    if sc["flush"] != 149 or sc["steps"] != cfg.gcn_frames + 149 + 2:
+        failures.append(f"stream: {sc['steps']} steps with {sc['flush']} "
+                        f"flush frames, expected 451 with 149")
+    parts = sc["launches"]
+    for name in per_clip:
+        want = {"calibration": per_clip[name], "clip": per_clip[name],
+                "stream": per_tick[name] * sc["steps"]}
+        for phase, n in want.items():
+            if parts[phase][name] != n:
+                failures.append(f"stream {phase} {name}: "
+                                f"{parts[phase][name]} launches, expected {n}")
+        if launches["stream"][name] != sum(want.values()):
+            failures.append(f"stream {name}: {launches['stream'][name]} "
+                            f"launches in the phase, expected "
+                            f"{sum(want.values())}")
+    for name, r in sres.items():
+        if (r["logits"].shape != (nseq, cfg.gcn_num_classes)
+                or not np.isfinite(r["logits"]).all()):
+            failures.append(f"stream {name}: logits {r['logits'].shape} or "
+                            f"not finite")
+        d = float(np.abs(r["logits"] - r["clip_logits"]).max())
+        if (not np.allclose(r["logits"], r["clip_logits"], atol=1e-3,
+                            rtol=1e-3) or r["clip_agreement"] != 1.0):
+            failures.append(f"stream {name}: post-drain logits differ from "
+                            f"clip logits by {d:.3g}, top-1 agreement "
+                            f"{r['clip_agreement']}")
+        print(f"stream: backend={name} {r['frames_per_s']:.2f} frames/s "
+              f"({nseq} sequences x {sc['steps'] - 2} steps), latency per "
+              f"step p50 {r['latency_ms_p50']:.3f} ms mean "
+              f"{r['latency_ms_mean']:.3f} ms; post-drain vs clip logits "
+              f"{d:.3g}, top-1 agreement {r['clip_agreement'] * 100:.1f}%")
+    d = float(np.abs(sc["logits"] - sr["logits"]).max())
+    if not np.allclose(sc["logits"], sr["logits"], atol=1e-3, rtol=1e-3):
+        failures.append(f"stream: cuda vs reference last-step logits differ "
+                        f"by {d:.3g}")
+    print(f"stream: cuda vs reference last step {d:.3g}; drain "
+          f"{sc['flush']} frames, first-logit delay "
+          f"{engine.stream_first_logit_delay(plans[0])} raw frames; "
+          f"launches {parts}")
+
+    # ---- 6. the session slab: the fused serving tick -------------------------
+    tick = make_gcn_fused_tick(cfg)
+    rng = np.random.default_rng(SEED)
+    clips = (x0[0, :SESSION_FRAMES].cpu().numpy()[None] + rng.standard_normal(
+        (SESSIONS, SESSION_FRAMES, 25, 3)).astype(np.float32) * 0.05)
+    slabs = tuple(engine.init_session_slab(p, SLAB_SLOTS, bn_stats=b)
+                  for p, b in zip(plans, bn))
+    rings = tuple(engine.init_snapshot_ring(s, RING_ROWS) for s in slabs)
+    flush = engine.stream_flush_frames(plans[0], SESSION_FRAMES)
+    _build.reset_launch_counts()
+    got, lat, events, slabs, rings = run_slab_script(
+        tick, plans, slabs, rings, clips, flush, dev)
+    launches["slab"] = dict(_build.LAUNCHES)
+    ticks = events["ticks"]
+    if (events["snapshot"], events["restore"], events["hold"],
+            events["admit"]) != (2, 2, 4, SESSIONS):
+        failures.append(f"slab: the script ran events {dict(events)}, "
+                        f"expected 2 snapshots, 2 restores, 4 holds and "
+                        f"{SESSIONS} admissions")
+    for name, n in per_tick.items():
+        if launches["slab"][name] != n * ticks:
+            failures.append(f"slab {name}: {launches['slab'][name]} launches "
+                            f"in {ticks} ticks, expected {n * ticks}")
+    # every session alone: one lockstep batch from tick 0 (slots are
+    # independent), the same frames and drain
+    alone = tuple(engine.init_stream_state(p, SESSIONS, bn_stats=b)
+                  for p, b in zip(plans, bn))
+    xc = torch.from_numpy(clips).to(dev)
+    zeros = torch.zeros_like(xc[:, 0])
+    for r in range(SESSION_FRAMES + flush):
+        alone, want = stream_step(plans, alone, xc[:, r] if r < SESSION_FRAMES
+                                  else zeros, r < SESSION_FRAMES)
+    want = want.cpu().numpy()
+    if sorted(got) != list(range(SESSIONS)):
+        failures.append(f"slab: sessions {sorted(got)} finished, expected "
+                        f"all {SESSIONS}")
+    slab_diff = max((float(np.abs(got[i] - want[i]).max()) for i in got),
+                    default=float("inf"))
+    bad = [i for i in got if not np.allclose(got[i], want[i], atol=1e-3,
+                                             rtol=1e-3)]
+    if bad:
+        failures.append(f"slab: sessions {bad} differ from their runs alone "
+                        f"(max {slab_diff:.3g})")
+    print(f"slab: {len(got)} sessions in {ticks} ticks at {SLAB_SLOTS} slots "
+          f"(full {ARCH}, 2-stream, cuda): tick p50 "
+          f"{statistics.median(lat):.3f} ms mean {statistics.mean(lat):.3f} "
+          f"ms; events {dict(events)}; eviction logits vs each session "
+          f"alone {slab_diff:.3g}; launches {launches['slab']}")
+    # one tick with its inputs already on the card may not sync with the host
+    S = SLAB_SLOTS
+    sentinel = torch.full((EVENTS, 2), int(engine.SNAP_SENTINEL),
+                          dtype=torch.int32, device=dev)
+    snap_o = sentinel.clone()
+    snap_o[0] = torch.tensor([0, 2], dtype=torch.int32)
+    rest_o = sentinel.clone()
+    rest_o[0] = torch.tensor([1, 2], dtype=torch.int32)
+    inputs = (xc[:S, 0].contiguous(), torch.ones(S, dtype=torch.bool,
+                                                 device=dev),
+              torch.zeros(S, dtype=torch.bool, device=dev),
+              torch.zeros(S, dtype=torch.bool, device=dev), snap_o, rest_o)
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        tick(plans, slabs, *inputs, rings)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print("slab: one fused tick under set_sync_debug_mode('error'): no "
+              "host sync")
+    except RuntimeError as e:
+        torch.cuda.set_sync_debug_mode("default")
+        failures.append(f"slab: the fused tick syncs with the host: {e}")
+
+    # ---- 7. profile ----------------------------------------------------------
+    profile_steps("clip", lambda: infer(plans, x0))
+    S = STREAM_SLOTS[-1]
+    profile_steps(f"stream S={S}", lambda: stream_step(
+        plans, warm[S], x0[:S, STREAM_WARM]))
+    profile_steps(f"slab tick S={SLAB_SLOTS}",
+                  lambda: tick(plans, slabs, *inputs, rings))
 
     if failures:
         for f in failures:
             print(f"chip_smoke: FAIL: {f}", file=sys.stderr)
         return 1
-    kernels = [{
-        "name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
-        "replaces": KERNEL_INFO[name][1], "launches": counts[name],
-        "launches_per_step": per_step[name], **summary[name],
-    } for name in _build.KERNELS]
+    kernels = []
+    for name in _build.KERNELS:
+        path = "stream S=8" if name == "cavity_tconv_step" else "clip"
+        entry = {
+            "name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
+            "replaces": KERNEL_INFO[name][1],
+            "launches": sum(launches[p][name] for p in launches),
+            "launches_by_path": {p: launches[p][name] for p in launches},
+            "launches_per_step": {
+                "clip": launches["clip"][name] / steps,
+                "stream": parts["stream"][name] / sc["steps"],
+                "slab": launches["slab"][name] / ticks},
+            "path": path, **summary[(path, name)],
+        }
+        if name != "cavity_tconv" and path == "clip":
+            entry["stream S=8"] = summary[("stream S=8", name)]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

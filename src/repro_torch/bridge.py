@@ -1,27 +1,67 @@
-"""Parameters across frameworks: the JAX ``init_params`` tree, handed over
-as numpy arrays, becomes the port's parameter tree.  ``jax.random`` cannot
-be reproduced with torch, so the parity tests move weights this way."""
+"""Trees across frameworks, as numpy arrays: the JAX ``init_params`` tree
+becomes the port's parameter tree, and a JAX ``StreamState`` or snapshot
+ring becomes the port's (and back).  ``jax.random`` cannot be reproduced
+with torch, so the parity tests move weights and mid-stream slabs this
+way."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.core.agcn.engine import StreamState
+
+_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(StreamState))
+
+
+def _to_torch(node: Any, dev: torch.device) -> Any:
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _to_torch(v, dev) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_to_torch(v, dev) for v in node]
+    return torch.as_tensor(np.array(node, copy=True), device=dev)
+
+
+def _to_numpy(node: Any) -> Any:
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _to_numpy(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_to_numpy(v) for v in node]
+    return node.detach().cpu().numpy()
 
 
 def params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     """Nested dicts/lists/tuples of array-likes -> the same nesting (tuples
     become lists) of tensors on ``device`` (default CUDA), values and
     dtypes unchanged."""
+    return _to_torch(tree, resolve_device(device))
+
+
+def stream_state_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
+    """A stream state with numpy leaves -> the port's, on ``device``
+    (default CUDA).  ``tree`` is an object with the ``StreamState`` fields
+    as attributes (a JAX ``StreamState`` mapped to numpy) or a dict of
+    them, which becomes a ``StreamState``; a snapshot capture or snapshot
+    ring (a dict without ``bn_stats``) stays a dict."""
     dev = resolve_device(device)
+    if not isinstance(tree, dict):
+        tree = {f: getattr(tree, f) for f in _STATE_FIELDS}
+    elif "bn_stats" not in tree:
+        return _to_torch(tree, dev)
+    return StreamState(**_to_torch(tree, dev))
 
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [conv(v) for v in node]
-        return torch.as_tensor(np.array(node, copy=True), device=dev)
 
-    return conv(tree)
+def stream_state_to_numpy(state: Any) -> dict:
+    """The port's ``StreamState``, snapshot capture or snapshot ring -> a
+    dict of numpy leaves with the same field names (``StreamState(**d)``
+    rebuilds the JAX one), dtypes unchanged."""
+    if isinstance(state, StreamState):
+        state = {f: getattr(state, f) for f in _STATE_FIELDS}
+    return _to_numpy(state)

@@ -44,6 +44,10 @@ class ModelConfig:
     cavity_pattern: str = ""               # e.g. "cav-70-1" (C2)
     input_skip: int = 1                    # keep 1 of every `input_skip` frames
     rfc_bank: int = 16                     # RFC bank width (C3)
+    gcn_stream_pool: int = 0               # streaming logit pool: 0 = running
+                                           # mean over every emitted frame
+                                           # (clip parity); W > 0 = sliding
+                                           # window of the last W frames
     gcn_backend: str = "cuda"              # engine backend: cuda | reference
 
     def serve_batch(self, mode: str = "", requested: int = 0) -> int:

@@ -11,7 +11,7 @@ CONFIG = ModelConfig(
     gcn_strides=(1, 1, 1, 1, 2, 1, 1, 2, 1, 1),
     gcn_kv=3, gcn_tkernel=9,
     # the paper's final accelerating target: Drop-1 + cav-70-1 + input skip 2
-    cavity_pattern="cav-70-1", input_skip=2,
+    cavity_pattern="cav-70-1", input_skip=2, gcn_stream_pool=0,
     prune_channel_fracs=(1.0, 0.6, 0.6, 0.55, 0.5, 0.5, 0.45, 0.4, 0.35, 0.3),
 )
 
@@ -22,4 +22,5 @@ REDUCED = ModelConfig(
     gcn_channels=(8, 8, 16, 16), gcn_strides=(1, 1, 2, 1),
     gcn_kv=3, gcn_tkernel=9,
     cavity_pattern="cav-70-1", input_skip=2,
+    gcn_stream_pool=0,          # streaming-clip parity
 )

@@ -1,5 +1,6 @@
-"""Backend-dispatched AGCN execution engine, clip mode
-(plan-compile-then-execute).  Port of ``repro.core.agcn.engine``.
+"""Backend-dispatched AGCN execution engine (plan-compile-then-execute):
+clip mode, per-frame streaming and the multi-session slab tick.  Port of
+``repro.core.agcn.engine``.
 
 An ``ExecutionPlan`` is compiled once from ``(params, PrunePlan,
 ModelConfig)``: kept-channel gathers, the graphs ``A + B_k``, the temporal
@@ -11,13 +12,19 @@ per-block ops:
               counterpart).
   cuda      — the hand-written kernels in ``repro_torch.kernels.ops``:
               ``graph_sconv`` (graph product + 1×1 conv fused),
-              packed ``cavity_tconv`` (kept taps only) and the RFC
-              encode/decode round trip between blocks.  On CPU tensors the
-              kernels' plain versions run instead (the tests' path).
+              packed ``cavity_tconv`` (kept taps only) and its streaming
+              form ``cavity_tconv_step``, and the RFC encode/decode round
+              trip between blocks.  On CPU tensors the kernels' plain
+              versions run instead (the tests' path).
 
-Not ported yet (ROADMAP.md): streaming and the session slab, the CSR
-spatial conv (``sconv="csr"``), the windowed C_k graph (``use_ck``), and
-skeletons other than ``ntu25``.
+Every plan runs clip mode (``execute``) and streaming (``step_frame``
+against a ``StreamState`` of per-slot temporal rings; ``step_frames`` and
+``fused_tick`` are the session slab's scheduler tick).  See the streaming
+section below.
+
+Not ported yet (ROADMAP.md): the CSR spatial conv (``sconv="csr"``), the
+windowed C_k graph (``use_ck``), skeletons other than ``ntu25``, and the
+JAX mesh's slot-axis sharding hint (``constrain``).
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ class BlockStatic:
     """Per-block shapes and flags."""
 
     stride: int
+    cin: int                 # full block-input width (before kept_in)
     cout: int
     n_kept_filters: int
     tkernel: int
@@ -55,12 +63,18 @@ class BlockStatic:
 @dataclasses.dataclass(frozen=True)
 class PlanStatic:
     """Whole-plan metadata: backend, C5 input skip, the RFC inter-layer
-    format flags and the per-block ``BlockStatic`` tuple."""
+    format flags, the streaming shape constants and the per-block
+    ``BlockStatic`` tuple."""
 
     backend: str
     input_skip: int
     use_rfc: bool            # RFC round trip between blocks
     rfc_bank: int
+    tkernel: int
+    joints: int
+    in_channels: int
+    stream_pool: int         # streaming logit pool: 0 = cumulative (clip
+                             # parity), W > 0 = sliding window of W frames
     blocks: Tuple[BlockStatic, ...]
 
 
@@ -116,6 +130,19 @@ class _BNRecorder:
         return _bn_norm(x, p, mean, inv)
 
 
+class _BNFrozen:
+    """BN tap applying recorded statistics (the streaming hot path).  Flat
+    (C,) stats broadcast over any leading layout, so the same stats serve
+    clip (N,T,V,C) and frame (N,V,C) shapes."""
+
+    def __init__(self, stats: Dict[str, Dict[str, torch.Tensor]]):
+        self.stats = stats
+
+    def __call__(self, site, x, p):
+        s = self.stats[site]
+        return _bn_norm(x, p, s["mean"], s["inv"])
+
+
 def _proj(x, w, bnp, stride, bn=_bn_live, site=""):
     if stride != 1:
         x = x[:, ::stride]
@@ -126,8 +153,7 @@ def _scatter_filters(out: torch.Tensor, fidx: torch.Tensor, cout: int):
     """Scatter compacted filter outputs back to full width; pruned filters
     stay zero."""
     full = out.new_zeros((*out.shape[:-1], cout))
-    full[..., fidx] = out
-    return full
+    return full.index_copy_(out.dim() - 1, fidx, out)
 
 
 def _gather_in(x: torch.Tensor, ba: Dict[str, Any]) -> torch.Tensor:
@@ -156,6 +182,11 @@ class Backend(Protocol):
         """Clip-mode temporal conv over T: (N,T,V,C) -> (N,T_out,V,Cout)."""
         ...
 
+    def temporal_step(self, win: torch.Tensor, ba: Dict[str, Any],
+                      bs: BlockStatic) -> torch.Tensor:
+        """One output frame from a K-frame window: (N,K,V,C) -> (N,V,Cout)."""
+        ...
+
     def transfer(self, h: torch.Tensor, ps: PlanStatic) -> torch.Tensor:
         """Inter-block activation transfer (identity / RFC round trip)."""
         ...
@@ -178,6 +209,15 @@ class ReferenceBackend:
         out = F.conv2d(x.permute(0, 3, 1, 2), w.unsqueeze(-1),
                        stride=(bs.stride, 1), padding=(w.shape[-1] // 2, 0))
         out = out.permute(0, 2, 3, 1) + ba["tb"]       # (N, T_out, V, F)
+        if bs.pruned_filters:
+            out = _scatter_filters(out, ba["kept_filters"], bs.cout)
+        return out
+
+    def temporal_step(self, win, ba, bs):
+        """One output frame from a chronological window (N, K, V, C): the
+        streaming form of ``temporal`` (the engine gates emission by the
+        stride; the window always yields one output)."""
+        out = torch.einsum("nkvc,fck->nvf", win, ba["tw"]) + ba["tb"]
         if bs.pruned_filters:
             out = _scatter_filters(out, ba["kept_filters"], bs.cout)
         return out
@@ -208,6 +248,19 @@ class CudaBackend:
             stride=bs.stride)                          # (N*V, T_out, F_kept)
         out = out.reshape(N, V, out.shape[1], -1).permute(0, 2, 1, 3)
         out = out + ba["tb"]
+        if bs.pruned_filters:
+            out = _scatter_filters(out, ba["kept_filters"], bs.cout)
+        return out
+
+    def temporal_step(self, win, ba, bs):
+        """Single-step packed cavity tconv kernel on a chronological window
+        (N, K, V, C), over its (N·V, K, C) rows: the same packed weights
+        and taps as the clip form."""
+        N, K, V, C = win.shape
+        xb = win.permute(0, 2, 1, 3).reshape(N * V, K, C)
+        out = ops.cavity_tconv_step(xb, ba["wp"], ba["taps"], ba["inv_perm"],
+                                    num_filters=bs.n_kept_filters)
+        out = out.reshape(N, V, -1) + ba["tb"]
         if bs.pruned_filters:
             out = _scatter_filters(out, ba["kept_filters"], bs.cout)
         return out
@@ -330,7 +383,8 @@ def build_execution_plan(
 
         blocks_a.append(ba)
         blocks_s.append(BlockStatic(
-            stride=int(strides[b]), cout=cout, n_kept_filters=n_kept,
+            stride=int(strides[b]), cin=int(blk["Wk"].shape[1]), cout=cout,
+            n_kept_filters=n_kept,
             tkernel=int(cfg.gcn_tkernel),
             pruned_filters=kept_filters is not None))
 
@@ -340,7 +394,9 @@ def build_execution_plan(
         use_rfc = backend == "cuda"
     static = PlanStatic(
         backend=backend, input_skip=int(input_skip), use_rfc=bool(use_rfc),
-        rfc_bank=int(cfg.rfc_bank), blocks=tuple(blocks_s))
+        rfc_bank=int(cfg.rfc_bank), tkernel=int(cfg.gcn_tkernel), joints=V,
+        in_channels=int(cfg.gcn_in_channels),
+        stream_pool=int(cfg.gcn_stream_pool), blocks=tuple(blocks_s))
     arrays = {
         "data_bn": params["data_bn"],
         "blocks": blocks_a,
@@ -420,3 +476,494 @@ def collect_bn_stats(plan: ExecutionPlan, x: torch.Tensor
     rec = _BNRecorder()
     _forward(plan, x, rec)
     return rec.stats
+
+
+# ---------------------------------------------------------------------------
+# execution (streaming mode): per-frame continual inference
+# ---------------------------------------------------------------------------
+#
+# The same compiled plan runs frame by frame against per-block temporal
+# rings: each block holds the last K (= tkernel) spatial outputs (its tconv
+# input) and the last K block inputs (the residual source), and emits one
+# output whenever the frame that just arrived completes a clip-mode window:
+# every ``stride``-th input, ``pad = K//2`` frames behind real time.
+# Invalid frames (input-skip gaps, the post-clip flush) write zeros into
+# the tconv ring, which is the clip conv's zero padding, so after the drain
+# streaming logits equal clip logits.  The RFC round trip is applied to
+# every inter-block frame (``cuda``) and the encoded activations of the
+# last emitted frame are kept in the state.
+#
+# Every clock is per slot (the leading axis of every state leaf), so a
+# StreamState is both a lockstep batch and a session slab of independent
+# sessions admitted at different times.  All per-slot control is masking
+# with static shapes (``torch.where`` over one-hot ring positions, gathers
+# with computed indices): a tick syncs nothing with the host, and free or
+# held slots cost the same work as busy ones.
+
+@dataclasses.dataclass
+class StreamState:
+    """State of S concurrent stream slots (the session slab).
+
+    ``blocks[b]``: ring_s (S, K, V, cout) tconv-input ring, ring_h
+    (S, K, V, cin) residual-source ring, valid (S, K) clip-validity bits,
+    t (S,) int32 inputs seen at this block's time scale.  ``t_raw`` (S,)
+    counts raw frames per slot; ``pool_*`` hold the running logit pool;
+    ``bn_stats`` the frozen calibration (shared by all slots); ``rfc`` the
+    per-slot RFC-encoded inter-block activations of the last emitted frame
+    (``cuda`` plans)."""
+
+    t_raw: torch.Tensor
+    blocks: List[Dict[str, torch.Tensor]]
+    pool_ring: Optional[torch.Tensor]
+    pool_sum: torch.Tensor
+    pool_t: torch.Tensor
+    bn_stats: Dict[str, Dict[str, torch.Tensor]]
+    rfc: Optional[List[Dict[str, torch.Tensor]]]
+
+
+def _tree_map(fn, tree, *rest):
+    """Map ``fn`` over the tensor leaves of nested dicts and lists (None
+    leaves stay None); ``rest`` are trees of the same structure."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def _slot_tree(state: StreamState) -> Dict[str, Any]:
+    """Every per-slot leaf of ``state`` (all but the shared bn_stats), in
+    the layout of a :func:`snapshot_slots` capture."""
+    return {"t_raw": state.t_raw, "blocks": state.blocks,
+            "pool_ring": state.pool_ring, "pool_sum": state.pool_sum,
+            "pool_t": state.pool_t, "rfc": state.rfc}
+
+
+def _with_slot_tree(state: StreamState, tree: Dict[str, Any]) -> StreamState:
+    return StreamState(bn_stats=state.bn_stats, **tree)
+
+
+def _slot_mask(m, S: int, device: torch.device) -> torch.Tensor:
+    """A scalar or (S,) mask as an (S,) bool tensor on ``device``.  A
+    Python bool becomes a fill on the device (no host copy)."""
+    if isinstance(m, (bool, np.bool_)):
+        return torch.full((S,), bool(m), dtype=torch.bool, device=device)
+    m = torch.as_tensor(m, device=device).to(torch.bool)
+    return m.expand(S)
+
+
+def _bcast(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    return mask.reshape(mask.shape + (1,) * (leaf.dim() - mask.dim()))
+
+
+def _pad_data_bn_stats(bn_stats: Dict[str, Dict[str, torch.Tensor]],
+                       ps: PlanStatic) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Pad the stem BN statistics of a topology-V calibration to the slab
+    width (mean 0, inv 1: identity on padded joints).  The other sites are
+    per-channel.  The identity while ``ntu25`` is the only skeleton."""
+    want = ps.joints * ps.in_channels
+    db = bn_stats.get("data_bn")
+    if db is None or db["mean"].shape[0] == want:
+        return bn_stats
+    pad = want - db["mean"].shape[0]
+    out = dict(bn_stats)
+    out["data_bn"] = {
+        "mean": torch.cat([db["mean"], db["mean"].new_zeros(pad)]),
+        "inv": torch.cat([db["inv"], db["inv"].new_ones(pad)]),
+    }
+    return out
+
+
+def init_stream_state(
+    plan: ExecutionPlan,
+    batch: int,
+    *,
+    x_calib: Optional[torch.Tensor] = None,
+    bn_stats: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    dtype: torch.dtype = torch.float32,
+) -> StreamState:
+    """Fresh zeroed StreamState for ``batch`` stream slots, on the plan's
+    device.
+
+    Streaming needs frozen batch-norm statistics: pass ``x_calib`` (a
+    representative clip batch; one clip-mode pass of the plan's own
+    backend records them) or ``bn_stats`` from :func:`collect_bn_stats`.
+    They are shared by every slot."""
+    ps = plan.static
+    if bn_stats is None:
+        if x_calib is None:
+            raise ValueError(
+                "streaming needs frozen BN statistics: pass x_calib (a "
+                "representative clip batch) or bn_stats from "
+                "collect_bn_stats()")
+        bn_stats = collect_bn_stats(plan, x_calib)
+    bn_stats = _pad_data_bn_stats(bn_stats, ps)
+    dev = plan.arrays["fc_w"].device
+    K, V = ps.tkernel, ps.joints
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    blocks = [{"ring_s": zeros(batch, K, V, bs.cout),
+               "ring_h": zeros(batch, K, V, bs.cin),
+               "valid": zeros(batch, K, dt=torch.bool),
+               "t": zeros(batch, dt=torch.int32)} for bs in ps.blocks]
+    rfc = None
+    if ps.use_rfc:
+        rfc = [{"vals": zeros(batch, V, bs.cout),
+                "hot": zeros(batch, V, bs.cout)} for bs in ps.blocks[:-1]]
+    c_last = ps.blocks[-1].cout
+    return StreamState(
+        t_raw=zeros(batch, dt=torch.int32), blocks=blocks,
+        pool_ring=(zeros(batch, ps.stream_pool, c_last)
+                   if ps.stream_pool > 0 else None),
+        pool_sum=zeros(batch, c_last), pool_t=zeros(batch, dt=torch.int32),
+        bn_stats=bn_stats, rfc=rfc)
+
+
+def init_session_slab(plan: ExecutionPlan, slots: int, *,
+                      x_calib: Optional[torch.Tensor] = None,
+                      bn_stats: Optional[Dict[str, Dict[str, torch.Tensor]]]
+                      = None,
+                      dtype: torch.dtype = torch.float32) -> StreamState:
+    """A session slab of ``slots`` independent stream slots: the same as
+    :func:`init_stream_state`, named for what serving code means by it."""
+    return init_stream_state(plan, slots, x_calib=x_calib,
+                             bn_stats=bn_stats, dtype=dtype)
+
+
+def _select_slots(keep_old, old: StreamState, new: StreamState
+                  ) -> StreamState:
+    """Per-slot select: slots where ``keep_old`` is True keep ``old``'s
+    leaves, the others take ``new``'s (``step_frames``'s hold)."""
+    keep = _slot_mask(keep_old, new.t_raw.shape[0], new.t_raw.device)
+    return _with_slot_tree(new, _tree_map(
+        lambda n, o: torch.where(_bcast(keep, n), o, n),
+        _slot_tree(new), _slot_tree(old)))
+
+
+def reset_slots(state: StreamState, free) -> StreamState:
+    """Zero every per-slot leaf of the slots where the (S,) mask ``free``
+    is True (an admission).  The shared BN statistics stay."""
+    free = _slot_mask(free, state.t_raw.shape[0], state.t_raw.device)
+    return _with_slot_tree(state, _tree_map(
+        lambda v: torch.where(_bcast(free, v), torch.zeros_like(v), v),
+        _slot_tree(state)))
+
+
+def _index(idx, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(idx, device=device).to(torch.int64)
+
+
+def snapshot_slots(state: StreamState, idx) -> Dict[str, Any]:
+    """Gather slot ``idx`` (a scalar, or a (k,) vector of slots) out of the
+    slab: every per-slot leaf, without the shared ``bn_stats``, which
+    travel with the plan.  The preemption capture."""
+    idx = _index(idx, state.t_raw.device)
+
+    def g(leaf):
+        rows = leaf.index_select(0, idx.reshape(-1))
+        return rows.reshape(idx.shape + leaf.shape[1:])
+
+    return _tree_map(g, _slot_tree(state))
+
+
+def restore_slots(state: StreamState, idx, snap: Dict[str, Any]
+                  ) -> StreamState:
+    """Write a :func:`snapshot_slots` capture back into slot(s) ``idx``;
+    the other slots and the shared BN statistics are untouched, so the
+    slot resumes where the snapshot left it."""
+    idx = _index(idx, state.t_raw.device).reshape(-1)
+
+    def s(leaf, sv):
+        sv = torch.as_tensor(sv, dtype=leaf.dtype, device=leaf.device)
+        return leaf.index_copy(0, idx, sv.reshape(idx.shape + leaf.shape[1:]))
+
+    return _with_slot_tree(state, _tree_map(s, _slot_tree(state), snap))
+
+
+# Slot or ring index of a padded no-op event in the fixed-shape event
+# buffers of fused_tick: far out of range of any slab or ring, so its
+# gather is clamped (the value is discarded) and its write is dropped
+SNAP_SENTINEL = np.int32(2 ** 30)
+
+
+def _put_rows(buf: torch.Tensor, idx: torch.Tensor,
+              rows: torch.Tensor) -> torch.Tensor:
+    """``buf`` with ``rows[i]`` written to row ``idx[i]``; an index outside
+    [0, len(buf)) writes nothing (JAX's ``mode="drop"``).  Such writes go
+    to a spare row that is cut off, so shapes stay static."""
+    n = buf.shape[0]
+    idx = torch.where((idx >= 0) & (idx < n), idx, n)
+    spare = torch.cat([buf, buf[:1]])
+    return spare.index_copy_(0, idx, rows.to(buf.dtype))[:n]
+
+
+def init_snapshot_ring(slab: StreamState, capacity: int) -> Dict[str, Any]:
+    """A zeroed snapshot ring of ``capacity`` rows, each shaped like one
+    slot's :func:`snapshot_slots` capture (independent of the slab's S)."""
+    idx = torch.zeros(int(capacity), dtype=torch.int64,
+                      device=slab.t_raw.device)
+    return _tree_map(torch.zeros_like, snapshot_slots(slab, idx))
+
+
+def snapshot_to_ring(slab: StreamState, ring: Dict[str, Any],
+                     order) -> Dict[str, Any]:
+    """For each (slot, row) pair of the (E, 2) ``order``, copy the slab's
+    slot into ring row ``row``.  Rows padded with :data:`SNAP_SENTINEL`
+    are no-ops (their gather is clamped, their write dropped).  Returns
+    the new ring; the slab is only read."""
+    order = _index(order, slab.t_raw.device)
+    S = slab.t_raw.shape[0]
+    rows = snapshot_slots(slab, order[:, 0].clamp(0, S - 1))
+    dst = order[:, 1]
+    return _tree_map(lambda r, x: _put_rows(r, dst, x), ring, rows)
+
+
+def restore_from_ring(slab: StreamState, ring: Dict[str, Any],
+                      order) -> StreamState:
+    """For each (slot, row) pair of the (E, 2) ``order``, copy ring row
+    ``row`` into slab slot ``slot``; sentinel rows touch no slot.  The
+    inverse of :func:`snapshot_to_ring`.  Returns the new slab."""
+    order = _index(order, slab.t_raw.device)
+    R = ring["t_raw"].shape[0]
+    slot, src = order[:, 0], order[:, 1].clamp(0, R - 1)
+    return _with_slot_tree(slab, _tree_map(
+        lambda leaf, rl: _put_rows(leaf, slot, rl.index_select(0, src)),
+        _slot_tree(slab), ring))
+
+
+def stream_flush_frames(plan: ExecutionPlan, frames: int) -> int:
+    """Raw flush steps (zero frames, valid=False) after a ``frames``-long
+    clip that drain its last valid output through every block's
+    ``pad``-frame latency; after them streaming logits equal clip
+    logits."""
+    ps = plan.static
+    pad = ps.tkernel // 2
+    t = -(-frames // ps.input_skip)            # frames surviving input skip
+    for bs in ps.blocks:
+        t = (t - 1) // bs.stride + 1           # clip-mode output length
+    o = t - 1                                  # last valid final-block output
+    for bs in reversed(ps.blocks):
+        o = o * bs.stride + pad                # input index that triggers it
+    return max(0, o * ps.input_skip + 1 - frames)
+
+
+def stream_first_logit_delay(plan: ExecutionPlan) -> int:
+    """Raw frames from a slot's admission until its first valid logit
+    contribution reaches the pool: the recurrence of
+    :func:`stream_flush_frames` for output 0."""
+    ps = plan.static
+    pad = ps.tkernel // 2
+    o = 0
+    for bs in reversed(ps.blocks):
+        o = o * bs.stride + pad
+    return o * ps.input_skip + 1
+
+
+def _pooled_logits(arrays, ps: PlanStatic, pool_sum: torch.Tensor,
+                   pool_t: torch.Tensor) -> torch.Tensor:
+    """Running prediction: the pool's mean over the pooled frame count
+    (clamped to the window when ``stream_pool`` > 0, and to at least 1),
+    through the fc head."""
+    n_eff = pool_t.clamp_max(ps.stream_pool) if ps.stream_pool > 0 else pool_t
+    pooled = pool_sum / n_eff.clamp_min(1)[:, None].to(pool_sum.dtype)
+    return pooled @ arrays["fc_w"] + arrays["fc_b"]
+
+
+def _stem_frame(arrays, frame: torch.Tensor, bn) -> torch.Tensor:
+    """Per-frame stem: data_bn on one (N, V, C) frame."""
+    x = frame.to(arrays["data_bn"]["scale"].dtype)
+    N, V, C = x.shape
+    return bn("data_bn", x.reshape(N, V * C), arrays["data_bn"]
+              ).reshape(N, V, C)
+
+
+def _ring_write(ring: torch.Tensor, write: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+    """``ring`` (S, K, ...) with ``rows`` (S, ...) written at the (S, K)
+    one-hot positions of ``write``; slots with no position keep theirs."""
+    return torch.where(_bcast(write, ring), rows.unsqueeze(1), ring)
+
+
+def _gather_k(ring: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``ring`` (S, K, ...) gathered at the (S, J) positions ``idx``."""
+    shape = idx.shape + ring.shape[2:]
+    return torch.gather(ring, 1, idx.reshape(idx.shape + (1,) * (
+        ring.dim() - 2)).expand(shape))
+
+
+def step_frame(
+    plan: ExecutionPlan,
+    state: StreamState,
+    frame: torch.Tensor,             # (S, V, C) one raw frame per slot
+    valid=True,                      # False -> flush step (post-clip drain)
+    bn_stats: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+) -> Tuple[StreamState, torch.Tensor]:
+    """Advance every slot by one raw frame; returns (new state, logits).
+
+    ``valid`` is a scalar (a lockstep batch) or an (S,) mask (a session
+    slab, each slot in its own clip or flush phase).  ``bn_stats``
+    overrides the state's frozen calibration for this step.  The input
+    state is not modified.  Input-skip gaps, stride-decimated emission,
+    the validity of flushed windows and the ring phases are all per-slot
+    masking, so the step issues the same kernels whatever the slots do."""
+    ps = plan.static
+    backend = get_backend(ps.backend)
+    bn = _BNFrozen(state.bn_stats if bn_stats is None
+                   else _pad_data_bn_stats(bn_stats, ps))
+    K = ps.tkernel
+    pad = K // 2
+    nblocks = len(ps.blocks)
+    S = frame.shape[0]
+    ks = torch.arange(K, device=frame.device)
+
+    valid = _slot_mask(valid, S, frame.device)
+    has_input = (state.t_raw % ps.input_skip) == 0     # C5 input skip (S,)
+    in_valid = valid & has_input
+    h_in = _stem_frame(plan.arrays, frame, bn)
+
+    new_blocks: List[Dict[str, torch.Tensor]] = []
+    new_rfc: List[Dict[str, torch.Tensor]] = []
+    for b, (ba, bs) in enumerate(zip(plan.arrays["blocks"], ps.blocks)):
+        sb = state.blocks[b]
+        tag = f"b{b}/"
+        t = sb["t"]                                    # (S,) block clock
+
+        # --- frame-local gcn unit (spatial graph conv + down residual) ----
+        s = backend.spatial(h_in[:, None], ba, bs)[:, 0]
+        s = bn(tag + "bn_s", s, ba["bn_s"])
+        down = (bn(tag + "bn_down",
+                   torch.einsum("nvc,co->nvo", h_in, ba["down_w"]),
+                   ba["bn_down"])
+                if ba["down_w"] is not None else h_in)
+        s = torch.relu(s + down)
+        # invalid inputs become the clip conv's zero padding at this level
+        s = torch.where(in_valid[:, None, None], s, 0.0)
+
+        # --- masked per-slot ring write: only slots with an input ----------
+        write = (ks[None, :] == (t % K)[:, None]) & has_input[:, None]
+        ring_s = _ring_write(sb["ring_s"], write, s)
+        ring_h = _ring_write(sb["ring_h"], write, h_in)
+        vring = torch.where(write, in_valid[:, None], sb["valid"])
+        new_blocks.append({"ring_s": ring_s, "ring_h": ring_h,
+                           "valid": vring,
+                           "t": t + has_input.to(t.dtype)})
+
+        # --- stride-decimated emission (per slot) --------------------------
+        # clip output o completes when input t = o*stride + pad arrives; its
+        # centre tap (and residual source) is input t - pad
+        emit = has_input & (t >= pad) & ((t - pad) % bs.stride == 0)
+        chrono = ((t[:, None] + 1 + ks[None, :]) % K).long()   # oldest first
+        out = backend.temporal_step(_gather_k(ring_s, chrono), ba, bs)
+        out = bn(tag + "bn_t", out, ba["bn_t"])
+        center = ((t - pad) % K).long()[:, None]       # (S, 1)
+        h_c = _gather_k(ring_h, center)[:, 0]
+        if ba["short_w"] is not None:
+            res = bn(tag + "bn_short",
+                     torch.einsum("nvc,co->nvo", h_c, ba["short_w"]),
+                     ba["bn_short"])
+        else:
+            res = h_c
+        out = torch.relu(out + res)
+        out_valid = torch.gather(vring, 1, center)[:, 0]
+
+        # --- inter-block transfer: the RFC format, frame by frame ----------
+        if b < nblocks - 1:
+            if ps.use_rfc:
+                vals, hot = ops.rfc_encode(out, bank=ps.rfc_bank)
+                old = state.rfc[b]
+                keep = emit[:, None, None]
+                new_rfc.append({"vals": torch.where(keep, vals, old["vals"]),
+                                "hot": torch.where(keep, hot, old["hot"])})
+                out = ops.rfc_decode(vals, hot, bank=ps.rfc_bank)
+            h_in = out
+        has_input = emit
+        in_valid = out_valid
+
+    # --- running temporal logit pool (per slot) ----------------------------
+    take = has_input & in_valid                        # (S,)
+    contrib = out.mean(dim=1)                          # (S, C_last)
+    if ps.stream_pool > 0:
+        W = ps.stream_pool
+        pwrite = (torch.arange(W, device=frame.device)[None, :]
+                  == (state.pool_t % W)[:, None]) & take[:, None]
+        pool_ring = _ring_write(state.pool_ring, pwrite, contrib)
+        # summed anew from the ring (W is small): a running add/subtract
+        # would drift over an unbounded live stream
+        pool_sum = pool_ring.sum(dim=1)
+    else:
+        pool_ring = None
+        pool_sum = state.pool_sum + torch.where(take[:, None], contrib, 0.0)
+    pool_t = state.pool_t + take.to(state.pool_t.dtype)
+    logits = _pooled_logits(plan.arrays, ps, pool_sum, pool_t)
+
+    new_state = StreamState(
+        t_raw=state.t_raw + 1, blocks=new_blocks, pool_ring=pool_ring,
+        pool_sum=pool_sum, pool_t=pool_t, bn_stats=state.bn_stats,
+        rfc=new_rfc if ps.use_rfc else None)
+    return new_state, logits
+
+
+def step_frames(
+    plan: ExecutionPlan,
+    slab: StreamState,
+    frames: torch.Tensor,            # (S, V, C) one raw frame per slot
+    valid,                           # (S,) bool: clip (True) or flush/free
+    reset=None,                      # optional (S,) bool: admission reset
+    hold=None,                       # optional (S,) bool: freeze the slot
+    bn_stats: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+) -> Tuple[StreamState, torch.Tensor]:
+    """One scheduler tick of the session slab; returns (slab, logits[S]).
+
+    ``reset`` zeroes the marked slots before the frame is consumed, so an
+    admission's first frame lands in clean rings; every slot then advances
+    one raw frame with its own ``valid`` bit.  ``hold`` freezes the marked
+    slots: their state is untouched (no clock advance, no ring write, not
+    the flush path) and their logits row is their previous running
+    prediction.  All of it is masking: the tick launches the same kernels
+    whatever the occupancy and syncs nothing with the host."""
+    if reset is not None:
+        slab = reset_slots(slab, reset)
+    new, logits = step_frame(plan, slab, frames, valid, bn_stats=bn_stats)
+    if hold is not None:
+        new = _select_slots(hold, slab, new)
+        logits = _pooled_logits(plan.arrays, plan.static, new.pool_sum,
+                                new.pool_t)
+    return new, logits
+
+
+def fused_tick(
+    plan: ExecutionPlan,
+    slab: StreamState,
+    frames: torch.Tensor,            # (S, V, C) one raw frame per slot
+    valid,                           # (S,) bool: per-slot clip/flush phase
+    reset,                           # (S,) bool: admission reset
+    hold,                            # (S,) bool: freeze starved open slots
+    snap_order,                      # (E, 2) int32 (slot, ring row), padded
+    rest_order,                      # (E, 2) int32 (slot, ring row), padded
+    snap_ring: Dict[str, Any],       # init_snapshot_ring state
+    bn_stats: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+) -> Tuple[StreamState, torch.Tensor, Dict[str, Any]]:
+    """One serving tick: snapshot gathers, restore scatters, admission
+    resets, hold masking and the slab step; returns ``(slab, logits,
+    snap_ring)``.
+
+    ``snap_order`` and ``rest_order`` are fixed-shape (E, 2) event buffers
+    padded with :data:`SNAP_SENTINEL` no-ops, so any number of events per
+    tick takes the same path.  Snapshots gather from the pre-tick slab;
+    restores read ring rows written this tick or earlier (a snapshot and a
+    restore of one row in one tick move the session); then ``reset``
+    zeroes fresh admissions.  Functional: the input slab and ring are not
+    modified and new ones are returned.  With its inputs on the card the
+    tick syncs nothing with the host (the precondition of capturing it in
+    a CUDA graph)."""
+    new_ring = snapshot_to_ring(slab, snap_ring, snap_order)
+    slab = restore_from_ring(slab, new_ring, rest_order)
+    new_slab, logits = step_frames(plan, slab, frames, valid, reset, hold,
+                                   bn_stats=bn_stats)
+    return new_slab, logits, new_ring

@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-KERNELS = ("graph_sconv", "cavity_tconv", "rfc_encode", "rfc_decode")
+KERNELS = ("graph_sconv", "cavity_tconv", "cavity_tconv_step", "rfc_encode",
+           "rfc_decode")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -38,6 +39,8 @@ _SIGNATURES = {
     # x, wp, taps, out, B, T_pad, C, L, n_keep, Fg, T_out, stride, ksize, stream
     "cavity_tconv_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P),
+    # x, wp, taps, out, B, K, C, L, n_keep, Fg, stream
+    "cavity_tconv_step_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, values, hot, n, stream
     "rfc_encode_f32": (_P, _P, _P, _L, _P),
     # values, hot, out, n, stream

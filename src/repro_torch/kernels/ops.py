@@ -1,6 +1,6 @@
 """Public wrappers around the kernels: layout adaptation (padding, the
 cavity filter-group permutation, kept-tap packing) so callers use natural
-shapes.  Port of ``repro.kernels.ops`` for the clip path.
+shapes.  Port of ``repro.kernels.ops`` for the clip and streaming paths.
 
 Each wrapper reaches its kernel through the kernel module's ``*_cuda``
 function, which dispatches on the input's device.
@@ -116,6 +116,31 @@ def cavity_tconv(
     B, T_out, L, Fg = out.shape
     flat = out.reshape(B, T_out, L * Fg).index_select(-1, inv_perm)
     return flat[..., :num_filters]
+
+
+def cavity_tconv_step(
+    x: torch.Tensor,          # (B, K, C) chronological window, oldest first
+    wp: torch.Tensor,
+    taps: torch.Tensor,
+    inv_perm: torch.Tensor,
+    num_filters: int,
+) -> torch.Tensor:
+    """Single-step cavity tconv over a full window.  Returns (B, F).
+
+    The streaming engine's per-frame path: no padding (the window holds K
+    frames; the ring's zeros stand in for the clip's 'same' padding) and
+    no stride (emission gating lives in the engine).  Same packed weights,
+    tap sets and filter permutation as :func:`cavity_tconv`.  The kernel
+    takes C in whole float4s: a C that is not a multiple of 4 is zero-padded
+    on x and wp (no configuration has one), and a misaligned x is copied."""
+    x = _pad_to(x, 2, 4).contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    wp = _pad_to(wp, 2, 4).contiguous()
+    out = _ct.cavity_tconv_step_cuda(x, wp, taps)  # (B, L, Fg)
+    B, L, Fg = out.shape
+    flat = out.reshape(B, L * Fg).index_select(-1, inv_perm)
+    return flat[:, :num_filters]
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
-"""Plain PyTorch oracles of the kernels on the clip path: the port's twins
-of ``repro.kernels.ref``, in the same layouts."""
+"""Plain PyTorch oracles of the kernels on the clip and streaming paths:
+the port's twins of ``repro.kernels.ref``, in the same layouts, plus the
+streaming temporal conv's einsum (JAX ``engine.ReferenceBackend
+.temporal_step``, which has no ``ref.py`` oracle)."""
 from __future__ import annotations
 
 import torch
@@ -34,6 +36,12 @@ def cavity_tconv_ref(x: torch.Tensor, w: torch.Tensor,
     K = w.shape[-1]
     out = F.conv1d(x.transpose(1, 2), w, stride=stride, padding=K // 2)
     return out.transpose(1, 2)
+
+
+def cavity_tconv_step_ref(win: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """One output step per window, dense masked weights.
+    win: (N, K, V, C) oldest first, tw: (F, C, K) -> (N, V, F)."""
+    return torch.einsum("nkvc,fck->nvf", win, tw)
 
 
 def graph_sconv_ref(x: torch.Tensor, g: torch.Tensor,

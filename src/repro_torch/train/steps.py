@@ -1,5 +1,7 @@
-"""Batched GCN inference step over prebuilt ExecutionPlans.  Port of the
-gcn inference part of ``repro.train.steps``."""
+"""GCN inference steps over prebuilt ExecutionPlans: the clip step, the
+per-frame stream step, the session-slab step and the fused serving tick,
+each the two-stream (joint + bone) ensemble.  Port of the gcn inference
+part of ``repro.train.steps``."""
 from __future__ import annotations
 
 from typing import Callable
@@ -35,3 +37,73 @@ def make_gcn_infer_step(cfg: ModelConfig) -> Callable:
         return logits
 
     return infer_step
+
+
+def _ensemble(plans, frames, call) -> tuple:
+    """The two-stream ensemble of one streaming call.  ``call(i, x)`` runs
+    stream ``i`` (0 joint, 1 bone) on raw frames ``x`` and returns
+    ``(state, logits, *more)``; the result is ``(states, logits, *more)``
+    with each of ``states`` and ``more`` a per-stream tuple and the two
+    streams' logits averaged."""
+    outs = [call(0, frames)]
+    if len(plans) > 1:
+        outs.append(call(1, _gcn_bone_fn(plans)(frames)))
+    logits = outs[0][1] if len(outs) == 1 else 0.5 * (outs[0][1] + outs[1][1])
+    per_stream = [tuple(o[k] for o in outs) for k in range(len(outs[0]))]
+    return (per_stream[0], logits, *per_stream[2:])
+
+
+def make_gcn_stream_step(cfg: ModelConfig) -> Callable:
+    """Per-frame step ``step(plans, states, frame, valid=True) -> (states,
+    logits)`` over matched tuples of one (joint) or two (joint, bone)
+    ExecutionPlans and StreamStates; ``frame`` is one raw (N, V, C)
+    skeleton frame.  The bone transform is frame-local, so the ensemble
+    streams too; ``valid=False`` drains the per-block latency after the
+    clip (``engine.stream_flush_frames``)."""
+    from repro_torch.core.agcn import engine
+
+    @torch.inference_mode()
+    def stream_step(plans, states, frame, valid=True):
+        return _ensemble(plans, frame, lambda i, x: engine.step_frame(
+            plans[i], states[i], x, valid=valid))
+
+    return stream_step
+
+
+def make_gcn_slab_step(cfg: ModelConfig) -> Callable:
+    """Session-slab step ``step(plans, slabs, frames, valid, reset,
+    hold=None, stats=None) -> (slabs, logits)``: the scheduler-tick form of
+    :func:`make_gcn_stream_step` (``engine.step_frames``), with one raw
+    (S, V, C) frame per slot and (S,) ``valid``/``reset``/``hold`` masks
+    shared by both ensemble streams.  ``stats`` is an optional per-stream
+    tuple of BN statistics overriding each slab's own for this tick."""
+    from repro_torch.core.agcn import engine
+
+    @torch.inference_mode()
+    def slab_step(plans, slabs, frames, valid, reset, hold=None, stats=None):
+        st = stats or (None,) * len(plans)
+        return _ensemble(plans, frames, lambda i, x: engine.step_frames(
+            plans[i], slabs[i], x, valid, reset, hold, bn_stats=st[i]))
+
+    return slab_step
+
+
+def make_gcn_fused_tick(cfg: ModelConfig) -> Callable:
+    """Serving tick ``tick(plans, slabs, frames, valid, reset, hold,
+    snap_order, rest_order, rings, stats=None) -> (slabs, logits, rings)``:
+    :func:`make_gcn_slab_step` with the tick's snapshot and restore events
+    (``engine.fused_tick``), one snapshot ring per ensemble stream
+    (``engine.init_snapshot_ring``) and the (E, 2) sentinel-padded event
+    buffers shared by both streams.  Functional: callers use the returned
+    slabs and rings."""
+    from repro_torch.core.agcn import engine
+
+    @torch.inference_mode()
+    def fused_tick(plans, slabs, frames, valid, reset, hold,
+                   snap_order, rest_order, rings, stats=None):
+        st = stats or (None,) * len(plans)
+        return _ensemble(plans, frames, lambda i, x: engine.fused_tick(
+            plans[i], slabs[i], x, valid, reset, hold, snap_order,
+            rest_order, rings[i], bn_stats=st[i]))
+
+    return fused_tick

@@ -1,6 +1,7 @@
 """Port kernels on the CPU: each plain version and ``ops`` wrapper against
-the JAX oracles in ``repro.kernels.ref`` (atol=rtol=1e-5: both sides sum in
-float32, in different orders), graph_sconv and RFC also against the Pallas
+the JAX oracles in ``repro.kernels.ref``, and the streaming cavity tconv
+against the JAX reference engine's einsum (atol=rtol=1e-5: both sides sum
+in float32, in different orders), graph_sconv and RFC also against the Pallas
 kernels in interpret mode (1e-4 for graph_sconv, whose interpret-mode
 error against its own oracle reaches 2.3e-5; RFC is data movement and
 must match exactly).  The CUDA kernels against their plain versions run
@@ -105,6 +106,59 @@ def test_cavity_tconv_plain_is_the_kernel_contract():
             torch.testing.assert_close(out[:, :, g, i], want[:, 0], **TOL)
 
 
+# ------------------------------------------------------ cavity_tconv, step
+
+# (B, C, F, pattern): F not a multiple of 8, dense and pruned tap sets
+STEP_CASES = [(25, 16, 16, "cav-70-1"), (75, 8, 38, "cav-70-1"),
+              (50, 4, 77, "none"), (3, 6, 24, "cav-50-1"),
+              (200, 12, 13, "cav-70-1")]
+
+
+@pytest.mark.parametrize("B,C,F,pattern", STEP_CASES)
+def test_cavity_tconv_step_matches_reference_einsum(B, C, F, pattern):
+    """The plain version through the packing, and ``ops.cavity_tconv_step``
+    with its filter permutation, equal the JAX reference backend's einsum
+    over the dense masked weights (``engine.temporal_step``)."""
+    mask = tile_pattern(cavity_pattern(pattern), F)
+    w = _rand(F, F, C, 9) * mask[:, None, :]
+    x = _rand(B + C, B, 9, C)
+    win = x.transpose(1, 0, 2)[None]          # (N=1, K, V=B, C)
+    want = np.asarray(jnp.einsum("nkvc,fck->nvf", win, w))[0]
+    np.testing.assert_allclose(
+        ref.cavity_tconv_step_ref(torch.from_numpy(win),
+                                  torch.from_numpy(w))[0].numpy(), want, **TOL)
+    wp, taps, inv = ops.pack_cavity_weights(w, mask)
+    twp, ttaps = torch.from_numpy(wp), torch.from_numpy(taps)
+    tx = torch.from_numpy(x)
+    got = ops.cavity_tconv_step(tx, twp, ttaps, torch.from_numpy(inv).long(),
+                                F)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    plain = ct.cavity_tconv_step_plain(tx, twp, ttaps)
+    assert plain.shape == (B, 8, wp.shape[-1])
+    assert torch.equal(ct.cavity_tconv_step_cuda(tx, twp, ttaps), plain)
+    for g in range(8):       # group g, slot i holds filter g + 8 i
+        for i in range(wp.shape[-1]):
+            if g + 8 * i < F:
+                np.testing.assert_allclose(plain[:, g, i].numpy(),
+                                           want[:, g + 8 * i], **TOL)
+
+
+def test_cavity_tconv_step_reads_only_kept_taps():
+    """The pruned taps' frames do not reach the output: poisoning them
+    changes nothing."""
+    F_, C = 16, 8
+    mask = tile_pattern(cavity_pattern("cav-70-1"), F_)
+    wp, taps, _ = ops.pack_cavity_weights(_rand(2, F_, C, 9), mask)
+    x = torch.from_numpy(_rand(3, 10, 9, C))
+    kept = set(np.asarray(taps).ravel().tolist())
+    poisoned = x.clone()
+    for k in set(range(9)) - kept:
+        poisoned[:, k] = float("nan")
+    args = (torch.from_numpy(wp), torch.from_numpy(taps))
+    assert torch.equal(ct.cavity_tconv_step_plain(poisoned, *args),
+                       ct.cavity_tconv_step_plain(x, *args))
+
+
 # ------------------------------------------------------------------------ RFC
 
 # (rows, C): C not a multiple of 16 in the ops cases
@@ -154,6 +208,11 @@ def test_cpu_dispatch_counts_no_launches():
     x = torch.from_numpy(_rand(0, 4, 25, 3))
     gs.graph_sconv_cuda(x, torch.ones(3, 25, 25), torch.ones(3, 3, 8))
     ops.rfc_decode(*ops.rfc_encode(x))
+    wp = torch.ones(8, 3, 3, 1)
+    taps = torch.zeros(8, 3, dtype=torch.int32)
+    ct.cavity_tconv_cuda(torch.ones(2, 12, 3), wp, taps, 9, 1)
+    ct.cavity_tconv_step_cuda(torch.ones(2, 9, 3), wp, taps)
+    assert "cavity_tconv_step" in _build.KERNELS
     assert _build.LAUNCHES == dict.fromkeys(_build.KERNELS, 0)
 
 
@@ -182,6 +241,25 @@ def test_cavity_tconv_kernel_matches_plain(cuda, B, T, C, F, stride, pattern):
     torch.testing.assert_close(
         ct.cavity_tconv_cuda(xp, wp, taps, 9, stride),
         ct.cavity_tconv_plain(xp, wp, taps, 9, stride), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,F,pattern", STEP_CASES + [
+    (200, 256, 256, "cav-70-1"), (25, 64, 64, "cav-70-1"),
+    (75, 128, 52, "none")])
+def test_cavity_tconv_step_kernel_matches_plain(cuda, B, C, F, pattern):
+    mask = tile_pattern(cavity_pattern(pattern), F)
+    wp, taps, _ = ops.pack_cavity_weights(
+        _rand(F, F, C, 9) * mask[:, None, :] / np.sqrt(C), mask)
+    x = torch.from_numpy(_rand(B, B, 9, C)).to(cuda)
+    wp, taps = torch.from_numpy(wp).to(cuda), torch.from_numpy(taps).to(cuda)
+    if C % 4:       # the kernel takes whole float4s; ops pads C with zeros
+        with pytest.raises(ValueError, match="multiple of 4"):
+            ct.cavity_tconv_step_cuda(x, wp, taps)
+        x, wp = ops._pad_to(x, 2, 4), ops._pad_to(wp, 2, 4).contiguous()
+    torch.testing.assert_close(ct.cavity_tconv_step_cuda(x, wp, taps),
+                               ct.cavity_tconv_step_plain(x, wp, taps),
+                               atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """Port serving path on the CPU: the two-stream inference step against the
 JAX one (atol=rtol=1e-3, the engine parity bound), the params bridge, and
-the ``serve clip`` CLI end to end at the reduced config."""
+the ``serve clip`` and ``serve stream`` CLIs end to end at the reduced
+config."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -87,3 +88,31 @@ def test_serve_gcn_backends_agree():
     a, b = res["cuda"]["logits"], res["reference"]["logits"]
     assert a.shape == (8, CFG.gcn_num_classes) and np.isfinite(a).all()
     np.testing.assert_allclose(a, b, atol=1e-3, rtol=1e-3)
+
+
+def test_serve_stream_cli_runs_on_cpu(capsys):
+    serve.main(["stream", "--arch", "agcn-2s", "--reduced", "--device",
+                "cpu", "--batch", "2", "--backend", "both"])
+    out = capsys.readouterr().out
+    assert out.count("frames/s") == 2
+    assert out.count("clip-engine top-1 agreement 100.0%") == 2
+    assert "backend top-1 agreement: 100.0%" in out
+
+
+def test_serve_gcn_stream_drains_to_clip_logits():
+    """Post-drain stream logits equal the clip engine's on the same plans,
+    both backends agree, and CPU tensors launch no kernel."""
+    res = serve.serve_gcn_stream("agcn-2s", reduced=True, batch=2,
+                                 backends=("cuda", "reference"), device="cpu")
+    for r in res.values():
+        assert r["flush"] == 37 and r["steps"] == CFG.gcn_frames + 37 + 2
+        assert r["logits"].shape == (2, CFG.gcn_num_classes)
+        np.testing.assert_allclose(r["logits"], r["clip_logits"],
+                                   atol=1e-3, rtol=1e-3)
+        assert r["clip_agreement"] == 1.0
+        assert r["frames_per_s"] > 0 and r["latency_ms_p50"] > 0
+        for phase in ("calibration", "stream", "clip"):
+            assert not any(r["launches"][phase].values())
+    np.testing.assert_allclose(res["cuda"]["logits"],
+                               res["reference"]["logits"], atol=1e-3,
+                               rtol=1e-3)

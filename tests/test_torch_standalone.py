@@ -56,13 +56,15 @@ def test_entry_points_default_to_cuda():
     from repro_torch.bridge import params_from_numpy
     from repro_torch.configs import get_config
     from repro_torch.core.agcn.model import init_params
-    from repro_torch.launch.serve import serve_gcn
+    from repro_torch.launch.serve import serve_gcn, serve_gcn_stream
 
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without CUDA")
     cfg = get_config("agcn-2s", reduced=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_gcn("agcn-2s", reduced=True, clips=1, batch=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_gcn_stream("agcn-2s", reduced=True, batch=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
