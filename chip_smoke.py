@@ -19,7 +19,15 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                recording wrappers, so each kernel is held against its plain
                version on exactly the inputs its path gives it (graph_sconv,
                cavity_tconv and cavity_tconv_step within atol=rtol=1e-4,
-               RFC bit-equal), plus an RFC case with C % 16 != 0.  Each
+               RFC bit-equal), plus an RFC case with C % 16 != 0.  Likewise
+               for the 50-joint two-person skeleton (ntu50, persons not
+               folded): a clip step and an S = 8 tick of a CSR plan
+               (graph_sconv_csr, D = the skeleton's degree), the same tick
+               on a CSR plan with csr_eps = 0 (D = V) and on a dense plan
+               (graph_sconv at V = 50); and stream ticks at S = 1, 3 and 8
+               of a C_k plan (windowed_similarity, every column live) and
+               at S = 8 of a C_k plan padded to 50 joints (25 live); a
+               windowed_similarity input with an all-zero slot fails.  Each
                kernel is timed with CUDA events behind a spin kernel (device
                time, without the host's launch cost) beside its plain
                version, a one-call PyTorch yardstick where one exists, and
@@ -44,10 +52,32 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                the launch counts per tick, the tick time, and one tick
                with its inputs on the card under
                ``torch.cuda.set_sync_debug_mode("error")``.
-  7. profile — two clip ensemble steps, two stream steps and two fused
-               slab ticks under ``torch.profiler``: the device's busy share of the wall time
-               and device time by kernel name (reported, not checked; the
-               profiler's own cost inflates the wall time).
+  7. topology — ntu50 at full width: clip steps (batch 8) of CSR plans
+               (csr_eps = 1e-5) on ``cuda`` against dense plans on
+               ``reference`` and on ``cuda`` (atol=rtol=1e-3, top-1 100%),
+               sequences/s of the three, 20 graph_sconv_csr and no
+               graph_sconv launch per ensemble step; a stream of the batch
+               (300 frames + the drain) on the CSR plans, post-drain logits
+               against the clip engine's.
+  8. mixed   — an 8-slot slab at Vmax = 50 of ntu25 sessions (plans padded
+               to 50) and ntu50 sessions on CSR plans, slots reused across
+               skeletons, stepped as the JAX service steps its skeleton
+               groups: one ``make_gcn_slab_step`` per group with its own BN
+               statistics, the other slots held.  Each session's eviction
+               logits against the same session run alone on a narrow plan
+               (atol=rtol=1e-4).
+  9. ck      — agcn-2s with the windowed C_k (``use_ck``) on ntu25: a stream
+               of 8 sequences (300 frames + the drain) on ``cuda`` and
+               ``reference``, post-drain logits against clip-mode C_k
+               logits and ``cuda`` against ``reference`` (atol=rtol=1e-3,
+               top-1 100%), 20 windowed_similarity launches per ensemble
+               step; the same stream on plans padded to 50 joints against
+               the narrow one at every step (atol=rtol=1e-4).
+ 10. profile — two steps each of the clip, stream, slab, ntu50 CSR clip
+               and C_k stream paths under ``torch.profiler``: the device's
+               busy share of the wall time and device time by kernel name
+               (reported, not checked; the profiler's own cost inflates the
+               wall time).
 
 Prints the kernels JSON line, the nvidia-smi line and, last, the result
 line.  Any failed phase exits non-zero.  Per-case kernel numbers go to
@@ -56,6 +86,7 @@ line.  Any failed phase exits non-zero.  Per-case kernel numbers go to
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -72,6 +103,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 KERNEL_INFO = {   # name -> (CUDA source, TPU kernel it replaces)
+    "graph_sconv_csr": ("src/repro_torch/csrc/graph_sconv_csr.cu",
+                        "src/repro/kernels/graph_sconv.py:110"),
+    "windowed_similarity": ("src/repro_torch/csrc/window_sim.cu",
+                            "src/repro/kernels/window_sim.py:48"),
     "graph_sconv": ("src/repro_torch/csrc/graph_sconv.cu",
                     "src/repro/kernels/graph_sconv.py:52"),
     "cavity_tconv": ("src/repro_torch/csrc/cavity_tconv.cu",
@@ -84,10 +119,15 @@ KERNEL_INFO = {   # name -> (CUDA source, TPU kernel it replaces)
                    "src/repro/kernels/rfc_pack.py:87"),
 }
 ARCH, BATCH, CLIPS, SEED = "agcn-2s", 8, 32, 0
+DEVICE = "cuda"
 STREAM_CLIPS = 4                   # 8 sequences of 2 persons
 STREAM_SLOTS = (1, 3, 8)           # the stream shapes the kernels are held at
 STREAM_WARM = 280                  # raw frames before a held stream tick
 SLAB_SLOTS, SESSIONS, SESSION_FRAMES, EVENTS, RING_ROWS = 8, 12, 64, 4, 4
+TOPO_CLIPS = 32                    # ntu50 sequences in the topology phase
+MIXED_SESSIONS, MIXED_FRAMES, MIXED_EVERY = 10, 48, 4
+VMAX = 50                          # slab width of the mixed and padded runs
+CSR_EPS = 1e-5                     # above B_k's 1e-6 init: D = degree
 SPIN_CYCLES = 2_000_000            # about 1 ms at the H100's boost clock
 
 
@@ -136,12 +176,14 @@ def capture(modules, run):
     """Call ``run()`` with each kernel wrapper wrapped by a recorder;
     returns {kernel: [(args, kwargs), ...]} with cloned tensor inputs."""
     import torch
-    gs, ct, rp = modules
+    gs, ct, rp, ws = modules
     targets = [(gs, "graph_sconv_cuda", "graph_sconv"),
                (ct, "cavity_tconv_cuda", "cavity_tconv"),
                (ct, "cavity_tconv_step_cuda", "cavity_tconv_step"),
                (rp, "rfc_encode_cuda", "rfc_encode"),
-               (rp, "rfc_decode_cuda", "rfc_decode")]
+               (rp, "rfc_decode_cuda", "rfc_decode"),
+               (gs, "graph_sconv_csr_cuda", "graph_sconv_csr"),
+               (ws, "windowed_similarity_cuda", "windowed_similarity")]
     captured = {name: [] for _, _, name in targets}
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
 
@@ -181,7 +223,7 @@ def measure_case(name, args, kwargs, modules):
     the bound on this card."""
     import torch
     import torch.nn.functional as F
-    gs, ct, rp = modules
+    gs, ct, rp, ws = modules
     library, natural = None, None
     if name == "graph_sconv":
         x, g, w = args
@@ -224,6 +266,28 @@ def measure_case(name, args, kwargs, modules):
         nbytes = 4 * (B * frames * C + wp.numel() + taps.numel()
                       + B * L * Fg)
         flops = 2 * B * C * pairs
+    elif name == "graph_sconv_csr":
+        x, idx, val, w = args
+        kern = lambda: gs.graph_sconv_csr_cuda(x, idx, val, w)
+        plain = lambda: gs.graph_sconv_csr_plain(x, idx, val, w)
+        R, V, Cin = x.shape
+        K, _, Cout = w.shape
+        # the yardstick: the dense 3-operand einsum on the densified graph
+        g = torch.zeros(K, V, V, device=x.device).scatter_add_(
+            2, idx.long(), val)
+        library = lambda: torch.einsum("rvc,kwv,kco->rwo", x, g, w)
+        nnz = int((val != 0).sum())            # the entries this graph has
+        nbytes = 4 * (x.numel() + idx.numel() + val.numel() + w.numel()
+                      + R * V * Cout)
+        flops = 2 * R * (nnz * Cin + K * V * Cin * Cout)
+    elif name == "windowed_similarity":
+        th, ph, valid = args
+        kern = lambda: ws.windowed_similarity_cuda(th, ph, valid)
+        plain = lambda: ws.windowed_similarity_plain(th, ph, valid)
+        S, K, V, Ce = th.shape
+        nbytes = 4 * (th.numel() + ph.numel() + S * V * V)
+        # window sums, the dot products, then scale, max, exp, sum, divide
+        flops = 2 * S * K * V * Ce + 2 * S * V * V * Ce + 5 * S * V * V
     elif name == "rfc_encode":
         (x,) = args
         kern = lambda: rp.rfc_encode_cuda(x)
@@ -402,6 +466,123 @@ def run_slab_script(tick, plans, slabs, rings, clips, flush, dev):
     return got, lat, counts, slabs, rings
 
 
+def counted(run):
+    """``run()`` between a reset and a read of the launch counters:
+    returns (its result, {kernel: launches})."""
+    from repro_torch.kernels import _build
+    _build.reset_launch_counts()
+    out = run()
+    return out, dict(_build.LAUNCHES)
+
+
+def first_slots(state, S: int):
+    """The stream state of the first ``S`` slots of ``state`` (slots are
+    independent, so it equals a state warmed with S slots)."""
+    import torch
+    from repro_torch.core.agcn import engine
+    idx = torch.arange(S, device=state.t_raw.device)
+    return dataclasses.replace(state, **engine.snapshot_slots(state, idx))
+
+
+def clip_run(infer, plans, batches, dev):
+    """One warm-up ensemble step, then every batch, timed on the host
+    clock up to a synchronise.  Returns (logits numpy, sequences/s,
+    ensemble steps run)."""
+    import torch
+    infer(plans, batches[0])
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    outs = [infer(plans, xb) for xb in batches]
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    n = sum(xb.shape[0] for xb in batches)
+    return torch.cat(outs).cpu().numpy(), n / dt, len(batches) + 1
+
+
+def stream_run(step, plans, states, clip, flush, dev):
+    """``serve_gcn_stream``'s loop: two discarded warm-up steps (a clip
+    frame, a flush frame), then the clip frame by frame and the drain,
+    each step timed on the host clock up to a synchronise.  Returns
+    (states, per-step logits, per-step ms)."""
+    import torch
+    T = clip.shape[1]
+    zeros = torch.zeros_like(clip[:, 0])
+    step(plans, states, clip[:, 0], True)
+    step(plans, states, zeros, False)
+    torch.cuda.synchronize(dev)
+    logits, lat = [], []
+    for r in range(T + flush):
+        t0 = time.perf_counter()
+        states, out = step(plans, states, clip[:, r] if r < T else zeros,
+                           r < T)
+        torch.cuda.synchronize(dev)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        logits.append(out)
+    return states, logits, lat
+
+
+def run_mixed_script(slab_step, groups, slabs, sessions, flush, dev):
+    """Drive a Vmax-wide slab shared by skeleton groups: sessions
+    (skeleton, arrival tick, clip) take the first free slot at or after
+    their arrival, and each tick steps every group that has a live slot
+    with one ``slab_step`` over the whole slab (that group's plans and BN
+    statistics, the slab's other slots held), as the JAX service's
+    ``_step_groups`` does.  Returns ({session: eviction logits}, per-tick
+    wall ms, dispatches, {skeleton: admissions into a slot another
+    skeleton used before})."""
+    import numpy as np
+    import torch
+    S = SLAB_SLOTS
+    queue = collections.deque(range(len(sessions)))
+    slots, pos, got, lat = [None] * S, {}, {}, []
+    last_topo = [None] * S
+    reused = collections.Counter()
+    dispatches = 0
+    for t in range(10000):
+        if not queue and all(s is None for s in slots):
+            break
+        reset = np.zeros(S, bool)
+        for s in range(S):
+            if slots[s] is None and queue and sessions[queue[0]][1] <= t:
+                sid = queue.popleft()
+                topo = sessions[sid][0]
+                if last_topo[s] not in (None, topo):
+                    reused[topo] += 1
+                slots[s], pos[sid], reset[s], last_topo[s] = sid, 0, True, topo
+        frames = np.zeros((S, VMAX, 3), np.float32)
+        valid = np.zeros(S, bool)
+        for s, sid in enumerate(slots):
+            if sid is not None and pos[sid] < sessions[sid][2].shape[0]:
+                clip = sessions[sid][2][pos[sid]]
+                frames[s, : clip.shape[0]] = clip
+                valid[s] = True
+        inputs = [torch.from_numpy(a).to(dev) for a in (frames, valid, reset)]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        rows = {}
+        for topo, (plans, stats) in groups.items():
+            m = np.array([sid is not None and sessions[sid][0] == topo
+                          for sid in slots])
+            if not m.any():
+                continue
+            mask = torch.from_numpy(m).to(dev)
+            slabs, logits = slab_step(plans, slabs, inputs[0],
+                                      inputs[1] & mask, inputs[2] & mask,
+                                      ~mask, stats=stats)
+            dispatches += 1
+            rows.update({s: logits[s] for s in np.flatnonzero(m)})
+        torch.cuda.synchronize(dev)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        for s, sid in enumerate(slots):
+            if sid is None:
+                continue
+            pos[sid] += 1
+            if pos[sid] == sessions[sid][2].shape[0] + flush:
+                got[sid] = rows[s].cpu().numpy()
+                slots[s] = None
+    return got, lat, dispatches, reused
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -413,24 +594,28 @@ def main() -> int:
     if Path(repro_torch.__file__).resolve().parents[1] != SRC:
         fail(f"repro_torch imported from {repro_torch.__file__}, not {SRC}")
     import numpy as np
+    import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.core.agcn import engine
-    from repro_torch.core.agcn.model import bone_stream, init_params
+    from repro_torch.core.agcn.model import (bone_stream, bone_stream_parents,
+                                             init_params)
     from repro_torch.core.pruning.plan import plan_from_config
     from repro_torch.data.pipeline import DataConfig, skeleton_batches
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import cavity_tconv as ct
     from repro_torch.kernels import graph_sconv as gs
     from repro_torch.kernels import rfc_pack as rp
+    from repro_torch.kernels import window_sim as ws
     from repro_torch.launch.serve import serve_gcn, serve_gcn_stream
     from repro_torch.train.steps import (make_gcn_fused_tick,
                                          make_gcn_infer_step,
+                                         make_gcn_slab_step,
                                          make_gcn_stream_step)
-    modules = (gs, ct, rp)
+    modules = (gs, ct, rp, ws)
 
     # ---- 1. device ---------------------------------------------------------
     smi = smi_line()
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     print(f"device: {smi}")
     print(f"device: torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
@@ -454,8 +639,13 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     params = [init_params(cfg, gen, device=dev) for _ in ("joint", "bone")]
     prune_plan = plan_from_config(cfg)
-    plans = tuple(engine.build_execution_plan(
-        p, cfg, prune_plan, quant=True, backend="cuda") for p in params)
+
+    def plans_for(params_, cfg_, backend="cuda", **kw):
+        return tuple(engine.build_execution_plan(
+            p, cfg_, prune_plan, quant=True, backend=backend, **kw)
+            for p in params_)
+
+    plans = plans_for(params, cfg)
     dcfg = DataConfig(global_batch=BATCH, seq_len=cfg.gcn_frames, seed=SEED)
     x0 = torch.from_numpy(next(skeleton_batches(cfg, dcfg))["x"]).to(dev)
     infer = make_gcn_infer_step(cfg)
@@ -464,16 +654,28 @@ def main() -> int:
     # streams); calibration runs one clip pass per stream
     per_clip = {"graph_sconv": 2 * nblocks, "cavity_tconv": 2 * nblocks,
                 "cavity_tconv_step": 0, "rfc_encode": 2 * (nblocks - 1),
-                "rfc_decode": 2 * (nblocks - 1)}
+                "rfc_decode": 2 * (nblocks - 1), "graph_sconv_csr": 0,
+                "windowed_similarity": 0}
     per_tick = dict(per_clip, cavity_tconv=0, cavity_tconv_step=2 * nblocks)
+    # CSR plans run graph_sconv_csr where dense ones run graph_sconv; C_k
+    # plans run the spatial product as an einsum (no graph_sconv) and, on a
+    # stream tick, windowed_similarity
+    per_csr_clip = dict(per_clip, graph_sconv=0, graph_sconv_csr=2 * nblocks)
+    per_csr_tick = dict(per_tick, graph_sconv=0, graph_sconv_csr=2 * nblocks)
+    per_ck_clip = dict(per_clip, graph_sconv=0)
+    per_ck_tick = dict(per_tick, graph_sconv=0,
+                       windowed_similarity=2 * nblocks)
     failures, cases, summary = [], {}, {}
 
-    def hold_cases(path, captured, expect):
+    def hold_cases(path, captured, expect, measure=None):
+        """Check the calls per kernel of one step against ``expect`` and
+        hold the kernels named in ``measure`` (default: all it calls)
+        against their plain versions on the captured inputs."""
         for name, n in expect.items():
             if len(captured[name]) != n:
                 failures.append(f"{path} {name}: one step made "
                                 f"{len(captured[name])} calls, expected {n}")
-            if not n:
+            if not n or (measure is not None and name not in measure):
                 continue
             if name == "cavity_tconv_step":
                 # a window whose kept-tap frames are all zero cannot tell a
@@ -484,6 +686,14 @@ def main() -> int:
                 if empty:
                     failures.append(f"{path} {name}: calls {empty} read a "
                                     f"kept-tap frame that is all zero")
+            if name == "windowed_similarity":
+                # all-zero rings give uniform rows whatever the kernel does
+                empty = [i for i, (a, _) in enumerate(captured[name])
+                         if not all(r[s].any() for r in a[:2]
+                                    for s in range(r.shape[0]))]
+                if empty:
+                    failures.append(f"{path} {name}: calls {empty} hold a "
+                                    f"slot whose rings are all zero")
             cs = [measure_case(name, a, k, modules) for a, k in captured[name]]
             cases[f"{path}/{name}"] = cs
             bad = [i for i, c in enumerate(cs) if not c["ok"]]
@@ -496,6 +706,18 @@ def main() -> int:
                   f"ensemble step {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
                   f"library {s['library_ms']}, bound {s['bound_ms']:.4f} ms by "
                   f"{s['bound_by']})")
+        return captured
+
+    def warm_states(plans_, stats, frames):
+        """Stream states of ``len(frames)`` slots after STREAM_WARM raw
+        frames (past the first-logit delay: every block's rings hold
+        data)."""
+        states = tuple(engine.init_stream_state(p, frames.shape[0],
+                                                bn_stats=b)
+                       for p, b in zip(plans_, stats))
+        for r in range(STREAM_WARM):
+            states, _ = stream_step(plans_, states, frames[:, r])
+        return states
 
     hold_cases("clip", capture(modules, lambda: infer(plans, x0)), per_clip)
     # stream ticks at S slots, STREAM_WARM raw frames into the clip (past
@@ -509,13 +731,77 @@ def main() -> int:
           for p, xx in zip(plans, (x0, bone_stream(x0)))]
     warm = {}
     for S in STREAM_SLOTS:
-        states = tuple(engine.init_stream_state(p, S, bn_stats=b)
-                       for p, b in zip(plans, bn))
-        for r in range(STREAM_WARM):
-            states, _ = stream_step(plans, states, x0[:S, r])
+        states = warm_states(plans, bn, x0[:S])
         warm[S] = states
         hold_cases(f"stream S={S}", capture(modules, lambda: stream_step(
             plans, states, x0[:S, STREAM_WARM])), per_tick)
+
+    # ntu50: the two-person NTU scene as one 50-joint skeleton (persons
+    # not folded into the batch), same weights as ntu25 but B_k's width
+    cfg50 = dataclasses.replace(cfg, gcn_joints=VMAX, gcn_persons=1)
+    gen50 = torch.Generator().manual_seed(SEED)
+    params50 = [init_params(cfg50, gen50, device=dev) for _ in range(2)]
+    csr50 = plans_for(params50, cfg50, topology="ntu50", sconv="csr",
+                      csr_eps=CSR_EPS)
+    csr50_dv = plans_for(params50, cfg50, topology="ntu50", sconv="csr",
+                         csr_eps=0.0)
+    dense50 = plans_for(params50, cfg50, topology="ntu50", sconv="dense")
+    clips50 = skeleton_batches(cfg50, DataConfig(
+        global_batch=BATCH, seq_len=cfg.gcn_frames, seed=SEED))
+    x50 = torch.from_numpy(next(clips50)["x"]).to(dev)
+
+    def bone50(x):
+        return bone_stream_parents(x, csr50[1].arrays["parents"])
+
+    hold_cases("ntu50 csr clip", capture(modules, lambda: infer(csr50, x50)),
+               per_csr_clip, {"graph_sconv_csr"})
+    hold_cases("ntu50 dense clip", capture(
+        modules, lambda: infer(dense50, x50)), per_clip, {"graph_sconv"})
+    bn50 = [engine.collect_bn_stats(p, xx)
+            for p, xx in zip(csr50, (x50, bone50(x50)))]
+    warm50 = warm_states(csr50, bn50, x50)
+    f50 = x50[:, STREAM_WARM]
+    degree = {}
+    for path, plans_ in (("ntu50 csr stream S=8", csr50),
+                         ("ntu50 csr eps=0 stream S=8", csr50_dv)):
+        got = hold_cases(path, capture(modules, lambda: stream_step(
+            plans_, warm50, f50)), per_csr_tick, {"graph_sconv_csr"})
+        degree[path] = sorted({a[1].shape[-1]
+                               for a, _ in got["graph_sconv_csr"]})
+    if degree["ntu50 csr eps=0 stream S=8"] != [VMAX] or max(
+            degree["ntu50 csr stream S=8"]) >= VMAX:
+        failures.append(f"graph_sconv_csr: ELL widths D {degree}, expected "
+                        f"D = {VMAX} at csr_eps = 0 and D < {VMAX} above")
+    hold_cases("ntu50 dense stream S=8", capture(
+        modules, lambda: stream_step(dense50, warm50, f50)), per_tick,
+        {"graph_sconv"})
+    print(f"kernel graph_sconv_csr: ELL widths D per block {degree}")
+
+    # the windowed C_k: stream ticks of a use_ck plan, every column live,
+    # and of the same plan padded to VMAX joints (25 live)
+    cfg_ck = dataclasses.replace(cfg, use_ck=True)
+    gen_ck = torch.Generator().manual_seed(SEED)
+    params_ck = [init_params(cfg_ck, gen_ck, device=dev) for _ in range(2)]
+    ck_plans = plans_for(params_ck, cfg_ck)
+    ck_pad = plans_for(params_ck, cfg_ck, pad_joints=VMAX)
+    bn_ck = [engine.collect_bn_stats(p, xx)
+             for p, xx in zip(ck_plans, (x0, bone_stream(x0)))]
+    S8 = STREAM_SLOTS[-1]
+    warm_ck = warm_states(ck_plans, bn_ck, x0[:S8])
+    for S in STREAM_SLOTS:
+        st = tuple(first_slots(s_, S) for s_ in warm_ck)
+        hold_cases(f"ck stream S={S}", capture(modules, lambda: stream_step(
+            ck_plans, st, x0[:S, STREAM_WARM])), per_ck_tick,
+            {"windowed_similarity"})
+    x0p = F.pad(x0[:S8], (0, 0, 0, VMAX - x0.shape[2]))
+    warm_pad = warm_states(ck_pad, bn_ck, x0p)
+    got = hold_cases(f"ck padded stream S={S8}", capture(
+        modules, lambda: stream_step(ck_pad, warm_pad, x0p[:, STREAM_WARM])),
+        per_ck_tick, {"windowed_similarity"})
+    if {a[2] for a, _ in got["windowed_similarity"]} != {x0.shape[2]}:
+        failures.append("windowed_similarity: the padded plan's calls do "
+                        "not mask the columns past its 25 joints")
+
     # RFC off the main path: a width that is not a whole number of banks
     xr = torch.randn(2400 * 25, 38, generator=gen).to(dev)
     vals, hot = ops.rfc_encode(xr)
@@ -532,17 +818,22 @@ def main() -> int:
     (out_dir / "chip_smoke_cases.json").write_text(json.dumps(
         {"device": smi, "cases": cases}, indent=1))
 
-    launches = {}
+    launches, per_step = {}, {}
+
+    def check_launches(path, counts, expect, steps):
+        launches[path] = counts
+        per_step[path] = {k: v / steps for k, v in counts.items()}
+        for name, n in expect.items():
+            if counts[name] != n * steps:
+                failures.append(f"{path} {name}: {counts[name]} launches in "
+                                f"{steps} steps, expected {n * steps}")
+
     # ---- 4. the main path: clip serving ------------------------------------
-    _build.reset_launch_counts()
-    res = serve_gcn(ARCH, reduced=False, batch=BATCH, clips=CLIPS, seed=SEED,
-                    backends=("cuda", "reference"), device=dev)
-    launches["clip"] = dict(_build.LAUNCHES)
+    res, counts = counted(lambda: serve_gcn(
+        ARCH, reduced=False, batch=BATCH, clips=CLIPS, seed=SEED,
+        backends=("cuda", "reference"), device=dev))
     steps = res["cuda"]["steps"]
-    for name, n in per_clip.items():
-        if launches["clip"][name] != n * steps:
-            failures.append(f"clip {name}: {launches['clip'][name]} launches "
-                            f"in {steps} ensemble steps, expected {n * steps}")
+    check_launches("clip", counts, per_clip, steps)
     lc, lr = res["cuda"]["logits"], res["reference"]["logits"]
     rows = CLIPS * cfg.gcn_persons             # persons fold into the batch
     if lc.shape != (rows, cfg.gcn_num_classes) or not np.isfinite(lc).all():
@@ -560,12 +851,11 @@ def main() -> int:
           f"{agree * 100:.1f}%, launches {launches['clip']} in {steps} steps")
 
     # ---- 5. streaming --------------------------------------------------------
-    _build.reset_launch_counts()
-    sres = serve_gcn_stream(ARCH, reduced=False, batch=STREAM_CLIPS,
-                            seed=SEED, backends=("cuda", "reference"),
-                            device=dev)
-    launches["stream"] = dict(_build.LAUNCHES)
+    sres, counts = counted(lambda: serve_gcn_stream(
+        ARCH, reduced=False, batch=STREAM_CLIPS, seed=SEED,
+        backends=("cuda", "reference"), device=dev))
     sc, sr = sres["cuda"], sres["reference"]
+    launches["stream phase"] = counts
     nseq = STREAM_CLIPS * cfg.gcn_persons
     if sc["flush"] != 149 or sc["steps"] != cfg.gcn_frames + 149 + 2:
         failures.append(f"stream: {sc['steps']} steps with {sc['flush']} "
@@ -578,10 +868,11 @@ def main() -> int:
             if parts[phase][name] != n:
                 failures.append(f"stream {phase} {name}: "
                                 f"{parts[phase][name]} launches, expected {n}")
-        if launches["stream"][name] != sum(want.values()):
-            failures.append(f"stream {name}: {launches['stream'][name]} "
-                            f"launches in the phase, expected "
-                            f"{sum(want.values())}")
+        if counts[name] != sum(want.values()):
+            failures.append(f"stream {name}: {counts[name]} launches in the "
+                            f"phase, expected {sum(want.values())}")
+    per_step["stream"] = {k: v / sc["steps"] for k, v in
+                          parts["stream"].items()}
     for name, r in sres.items():
         if (r["logits"].shape != (nseq, cfg.gcn_num_classes)
                 or not np.isfinite(r["logits"]).all()):
@@ -616,20 +907,15 @@ def main() -> int:
                   for p, b in zip(plans, bn))
     rings = tuple(engine.init_snapshot_ring(s, RING_ROWS) for s in slabs)
     flush = engine.stream_flush_frames(plans[0], SESSION_FRAMES)
-    _build.reset_launch_counts()
-    got, lat, events, slabs, rings = run_slab_script(
-        tick, plans, slabs, rings, clips, flush, dev)
-    launches["slab"] = dict(_build.LAUNCHES)
+    (got, lat, events, slabs, rings), counts = counted(
+        lambda: run_slab_script(tick, plans, slabs, rings, clips, flush, dev))
     ticks = events["ticks"]
+    check_launches("slab", counts, per_tick, ticks)
     if (events["snapshot"], events["restore"], events["hold"],
             events["admit"]) != (2, 2, 4, SESSIONS):
         failures.append(f"slab: the script ran events {dict(events)}, "
                         f"expected 2 snapshots, 2 restores, 4 holds and "
                         f"{SESSIONS} admissions")
-    for name, n in per_tick.items():
-        if launches["slab"][name] != n * ticks:
-            failures.append(f"slab {name}: {launches['slab'][name]} launches "
-                            f"in {ticks} ticks, expected {n * ticks}")
     # every session alone: one lockstep batch from tick 0 (slots are
     # independent), the same frames and drain
     alone = tuple(engine.init_stream_state(p, SESSIONS, bn_stats=b)
@@ -679,34 +965,203 @@ def main() -> int:
         torch.cuda.set_sync_debug_mode("default")
         failures.append(f"slab: the fused tick syncs with the host: {e}")
 
-    # ---- 7. profile ----------------------------------------------------------
+    # ---- 7. topology: ntu50 clips and a stream on CSR plans --------------------
+    ref50 = plans_for(params50, cfg50, backend="reference", topology="ntu50",
+                      sconv="dense")
+    batches50 = [x50] + [torch.from_numpy(next(clips50)["x"]).to(dev)
+                         for _ in range(TOPO_CLIPS // BATCH - 1)]
+    (l_csr, rate_csr, steps50), counts = counted(
+        lambda: clip_run(infer, csr50, batches50, dev))
+    check_launches("topology", counts, per_csr_clip, steps50)
+    (l_dense, rate_dense, _), counts = counted(
+        lambda: clip_run(infer, dense50, batches50, dev))
+    check_launches("topology dense", counts, per_clip, steps50)
+    l_ref, rate_ref, _ = clip_run(infer, ref50, batches50, dev)
+    if l_csr.shape != (TOPO_CLIPS, cfg.gcn_num_classes) or not np.isfinite(
+            l_csr).all():
+        failures.append(f"topology: logits {l_csr.shape} or not finite")
+    for label, other in (("reference dense", l_ref), ("cuda dense", l_dense)):
+        d = float(np.abs(l_csr - other).max())
+        top1 = float(np.mean(l_csr.argmax(-1) == other.argmax(-1)))
+        if not np.allclose(l_csr, other, atol=1e-3, rtol=1e-3) or top1 != 1.0:
+            failures.append(f"topology: cuda csr vs {label} logits differ by "
+                            f"{d:.3g}, top-1 agreement {top1}")
+        print(f"topology: ntu50 cuda csr vs {label}: max |logit difference| "
+              f"{d:.3g}, top-1 agreement {top1 * 100:.1f}%")
+    print(f"topology: ntu50 clips (batch {BATCH}, {TOPO_CLIPS} sequences, "
+          f"full {ARCH}, 2-stream): cuda csr {rate_csr:.2f}, cuda dense "
+          f"{rate_dense:.2f}, reference dense {rate_ref:.2f} sequences/s")
+    states = tuple(engine.init_stream_state(p, x50.shape[0], bn_stats=b)
+                   for p, b in zip(csr50, bn50))
+    flush50 = engine.stream_flush_frames(csr50[0], cfg.gcn_frames)
+    (_, s_logits, s_lat), counts = counted(lambda: stream_run(
+        stream_step, csr50, states, x50, flush50, dev))
+    check_launches("topology stream", counts, per_csr_tick,
+                   cfg.gcn_frames + flush50 + 2)
+    clip_l = infer(csr50, x50).cpu().numpy()
+    last = s_logits[-1].cpu().numpy()
+    d = float(np.abs(last - clip_l).max())
+    top1 = float(np.mean(last.argmax(-1) == clip_l.argmax(-1)))
+    if not np.allclose(last, clip_l, atol=1e-3, rtol=1e-3) or top1 != 1.0:
+        failures.append(f"topology stream: post-drain logits differ from clip "
+                        f"logits by {d:.3g}, top-1 agreement {top1}")
+    print(f"topology: ntu50 csr stream ({x50.shape[0]} sequences, "
+          f"{cfg.gcn_frames} + {flush50} steps): step p50 "
+          f"{statistics.median(s_lat):.3f} ms mean "
+          f"{statistics.mean(s_lat):.3f} ms; post-drain vs clip {d:.3g}, "
+          f"top-1 agreement {top1 * 100:.1f}%; launches "
+          f"{launches['topology']} in {steps50} clip steps")
+
+    # ---- 8. one slab, two skeletons ---------------------------------------------
+    csr25 = plans_for(params, cfg, sconv="csr", csr_eps=CSR_EPS)
+    csr25p = plans_for(params, cfg, sconv="csr", csr_eps=CSR_EPS,
+                       pad_joints=VMAX)
+    bn25 = [engine.collect_bn_stats(p, xx)
+            for p, xx in zip(csr25, (x0, bone_stream(x0)))]
+    rng = np.random.default_rng(SEED + 1)
+    sessions = []
+    for i in range(MIXED_SESSIONS):
+        # the sessions past the first SLAB_SLOTS take the slots that free
+        # first, which the other skeleton held
+        first = (i % 2 == 0) != (i >= SLAB_SLOTS)
+        topo, src = ("ntu25", x0) if first else ("ntu50", x50)
+        clip = src[i % src.shape[0], :MIXED_FRAMES].cpu().numpy()
+        sessions.append((topo, i * MIXED_EVERY, clip + rng.standard_normal(
+            clip.shape).astype(np.float32) * 0.05))
+    # stem statistics of the 25-joint group are padded to VMAX by the step
+    groups = {"ntu25": (csr25p, tuple(bn25)), "ntu50": (csr50, tuple(bn50))}
+    mslabs = tuple(engine.init_session_slab(p, SLAB_SLOTS, bn_stats=b)
+                   for p, b in zip(csr25p, bn25))
+    mflush = engine.stream_flush_frames(csr25[0], MIXED_FRAMES)
+    (got, lat, dispatches, reused), counts = counted(lambda: run_mixed_script(
+        make_gcn_slab_step(cfg), groups, mslabs, sessions, mflush, dev))
+    check_launches("mixed", counts, per_csr_tick, dispatches)
+    if sorted(got) != list(range(MIXED_SESSIONS)) or len(reused) < 2:
+        failures.append(f"mixed: sessions {sorted(got)} finished, slot reuse "
+                        f"across skeletons {dict(reused)}; expected all "
+                        f"{MIXED_SESSIONS} and reuse by both skeletons")
+    mixed_diff = 0.0
+    for topo, narrow, stats in (("ntu25", csr25, bn25),
+                                ("ntu50", csr50, bn50)):
+        ids = [i for i, s_ in enumerate(sessions) if s_[0] == topo]
+        xs = torch.from_numpy(np.stack([sessions[i][2] for i in ids])).to(dev)
+        alone = tuple(engine.init_stream_state(p, len(ids), bn_stats=b)
+                      for p, b in zip(narrow, stats))
+        zeros = torch.zeros_like(xs[:, 0])
+        for r in range(MIXED_FRAMES + mflush):
+            alone, want = stream_step(narrow, alone, xs[:, r]
+                                      if r < MIXED_FRAMES else zeros,
+                                      r < MIXED_FRAMES)
+        want = want.cpu().numpy()
+        for j, i in enumerate(ids):
+            if i not in got:
+                continue
+            mixed_diff = max(mixed_diff, float(np.abs(got[i] - want[j]).max()))
+            if not np.allclose(got[i], want[j], atol=1e-4, rtol=1e-4):
+                failures.append(f"mixed: session {i} ({topo}) differs from "
+                                f"its run alone on a narrow plan")
+    print(f"mixed: {len(got)} sessions (ntu25 padded to {VMAX}, ntu50) in "
+          f"{len(lat)} ticks at {SLAB_SLOTS} slots, {dispatches} group "
+          f"dispatches, slots reused across skeletons {dict(reused)}: tick "
+          f"p50 {statistics.median(lat):.3f} ms mean "
+          f"{statistics.mean(lat):.3f} ms; eviction logits vs each session "
+          f"alone on a narrow plan {mixed_diff:.3g}; launches "
+          f"{launches['mixed']}")
+
+    # ---- 9. adaptive streaming: the windowed C_k ----------------------------------
+    xs = x0[:S8]
+    ck_ref = plans_for(params_ck, cfg_ck, backend="reference")
+    flush_ck = engine.stream_flush_frames(ck_plans[0], cfg.gcn_frames)
+    ck_steps = cfg.gcn_frames + flush_ck + 2
+    ck = {}
+    for backend, plans_ in (("cuda", ck_plans), ("reference", ck_ref)):
+        states, counts = counted(lambda: tuple(
+            engine.init_stream_state(p, S8, x_calib=xx)
+            for p, xx in zip(plans_, (xs, bone_stream(xs)))))
+        if backend == "cuda":
+            check_launches("ck calibration", counts, per_ck_clip, 1)
+        (_, logits, lat), counts = counted(lambda: stream_run(
+            stream_step, plans_, states, xs, flush_ck, dev))
+        if backend == "cuda":
+            check_launches("ck stream", counts, per_ck_tick, ck_steps)
+        clip_l = infer(plans_, xs).cpu().numpy()
+        last = logits[-1].cpu().numpy()
+        d = float(np.abs(last - clip_l).max())
+        top1 = float(np.mean(last.argmax(-1) == clip_l.argmax(-1)))
+        if (last.shape != (S8, cfg.gcn_num_classes) or not np.isfinite(
+                last).all() or not np.allclose(last, clip_l, atol=1e-3,
+                                               rtol=1e-3) or top1 != 1.0):
+            failures.append(f"ck {backend}: post-drain logits differ from "
+                            f"clip-mode C_k logits by {d:.3g}, top-1 "
+                            f"agreement {top1}")
+        ck[backend] = (states, logits, last)
+        print(f"ck: backend={backend} {S8 * len(lat) / sum(lat) * 1e3:.2f} "
+              f"frames/s ({S8} sequences x {len(lat)} steps, full {ARCH} "
+              f"with C_k, 2-stream), step p50 {statistics.median(lat):.3f} ms "
+              f"mean {statistics.mean(lat):.3f} ms; post-drain vs clip "
+              f"{d:.3g}, top-1 agreement {top1 * 100:.1f}%")
+    d = float(np.abs(ck["cuda"][2] - ck["reference"][2]).max())
+    top1 = float(np.mean(ck["cuda"][2].argmax(-1)
+                         == ck["reference"][2].argmax(-1)))
+    if not np.allclose(ck["cuda"][2], ck["reference"][2], atol=1e-3,
+                       rtol=1e-3) or top1 != 1.0:
+        failures.append(f"ck: cuda vs reference last-step logits differ by "
+                        f"{d:.3g}, top-1 agreement {top1}")
+    pad_states = tuple(engine.init_stream_state(p, S8, bn_stats=s_.bn_stats)
+                       for p, s_ in zip(ck_pad, ck["cuda"][0]))
+    _, pad_logits, _ = stream_run(stream_step, ck_pad, pad_states,
+                                  F.pad(xs, (0, 0, 0, VMAX - xs.shape[2])),
+                                  flush_ck, dev)
+    pad_diff = max(float((a - b).abs().max())
+                   for a, b in zip(pad_logits, ck["cuda"][1]))
+    if not all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+               for a, b in zip(pad_logits, ck["cuda"][1])):
+        failures.append(f"ck: the plan padded to {VMAX} joints differs from "
+                        f"the narrow one by {pad_diff:.3g}")
+    print(f"ck: cuda vs reference last step {d:.3g}, top-1 agreement "
+          f"{top1 * 100:.1f}%; padded to {VMAX} joints vs narrow, every step "
+          f"{pad_diff:.3g}; launches per stream step "
+          f"{per_step['ck stream']}")
+
+    # ---- 10. profile ----------------------------------------------------------
     profile_steps("clip", lambda: infer(plans, x0))
-    S = STREAM_SLOTS[-1]
-    profile_steps(f"stream S={S}", lambda: stream_step(
-        plans, warm[S], x0[:S, STREAM_WARM]))
+    profile_steps(f"stream S={S8}", lambda: stream_step(
+        plans, warm[S8], x0[:S8, STREAM_WARM]))
     profile_steps(f"slab tick S={SLAB_SLOTS}",
                   lambda: tick(plans, slabs, *inputs, rings))
+    profile_steps("clip ntu50 csr", lambda: infer(csr50, x50))
+    profile_steps(f"ck stream S={S8}", lambda: stream_step(
+        ck_plans, warm_ck, x0[:S8, STREAM_WARM]))
 
     if failures:
         for f in failures:
             print(f"chip_smoke: FAIL: {f}", file=sys.stderr)
         return 1
+    main_case = {"cavity_tconv_step": f"stream S={S8}",
+                 "graph_sconv_csr": "ntu50 csr clip",
+                 "windowed_similarity": f"ck stream S={S8}"}
+    more_cases = {
+        "graph_sconv": [f"stream S={S8}", "ntu50 dense clip",
+                        f"ntu50 dense stream S={S8}"],
+        "rfc_encode": [f"stream S={S8}"], "rfc_decode": [f"stream S={S8}"],
+        "graph_sconv_csr": [f"ntu50 csr stream S={S8}",
+                            f"ntu50 csr eps=0 stream S={S8}"],
+        "windowed_similarity": ["ck stream S=1", "ck stream S=3",
+                                f"ck padded stream S={S8}"]}
     kernels = []
     for name in _build.KERNELS:
-        path = "stream S=8" if name == "cavity_tconv_step" else "clip"
+        path = main_case.get(name, "clip")
         entry = {
             "name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
             "replaces": KERNEL_INFO[name][1],
-            "launches": sum(launches[p][name] for p in launches),
-            "launches_by_path": {p: launches[p][name] for p in launches},
-            "launches_per_step": {
-                "clip": launches["clip"][name] / steps,
-                "stream": parts["stream"][name] / sc["steps"],
-                "slab": launches["slab"][name] / ticks},
+            "launches": sum(c[name] for c in launches.values()),
+            "launches_by_path": {p: c[name] for p, c in launches.items()},
+            "launches_per_step": {p: c[name] for p, c in per_step.items()
+                                  if c[name]},
             "path": path, **summary[(path, name)],
         }
-        if name != "cavity_tconv" and path == "clip":
-            entry["stream S=8"] = summary[("stream S=8", name)]
+        for p in more_cases.get(name, ()):
+            entry[p] = summary[(p, name)]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

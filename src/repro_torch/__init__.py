@@ -2,10 +2,11 @@
 
 Mirrors the module layout of the JAX package ``repro`` (the reference) so
 each counterpart is easy to find, but imports neither ``jax`` nor anything
-of ``repro``.  The slice ported so far is 2s-AGCN two-stream clip serving:
-configs, skeleton graph, pruning plan, Q8.8 quantization, synthetic clips,
-the execution engine's clip mode, and hand-written CUDA kernels for the
-fused graph + spatial conv, the cavity temporal conv and RFC
-encode/decode (``repro_torch.kernels``).  Entry points run on the GPU
+of ``repro``.  Ported so far: 2s-AGCN two-stream clip serving, per-frame
+streaming and the session-slab tick, for every registry skeleton (plans
+padded to a shared slab width, dense or CSR spatial conv) and with the
+windowed C_k graph: configs, skeleton graphs, pruning plan, Q8.8
+quantization, synthetic clips, the execution engine, and hand-written
+CUDA kernels (``repro_torch.kernels``).  Entry points run on the GPU
 unless the caller passes ``device="cpu"``.
 """

@@ -1,1 +1,2 @@
-"""2s-AGCN: skeleton graph, execution engine (clip mode) and model API."""
+"""2s-AGCN: skeleton graphs, the windowed C_k (``adaptive``), the
+execution engine (clip mode, streaming, the session slab) and model API."""

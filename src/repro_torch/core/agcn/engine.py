@@ -11,20 +11,25 @@ per-block ops:
   reference — plain torch einsum and conv (the JAX reference backend's
               counterpart).
   cuda      — the hand-written kernels in ``repro_torch.kernels.ops``:
-              ``graph_sconv`` (graph product + 1×1 conv fused),
-              packed ``cavity_tconv`` (kept taps only) and its streaming
-              form ``cavity_tconv_step``, and the RFC encode/decode round
-              trip between blocks.  On CPU tensors the kernels' plain
-              versions run instead (the tests' path).
+              ``graph_sconv`` (graph product + 1×1 conv fused) and its
+              sparse form ``graph_sconv_csr`` (ELL graph), packed
+              ``cavity_tconv`` (kept taps only) and its streaming form
+              ``cavity_tconv_step``, the RFC encode/decode round trip
+              between blocks, and ``windowed_similarity`` (the streaming
+              C_k graph).  On CPU tensors the kernels' plain versions run
+              instead (the tests' path).
+
+A plan is compiled for a skeleton topology (``ntu25`` by default, any
+registry name or a ``GraphTopology``), optionally padded to a wider slab
+width so skeletons share one session slab; each block picks the dense or
+the CSR spatial conv (``sconv``), and ``cfg.use_ck`` adds the windowed
+data-dependent graph C_k (``repro_torch.core.agcn.adaptive``).
 
 Every plan runs clip mode (``execute``) and streaming (``step_frame``
 against a ``StreamState`` of per-slot temporal rings; ``step_frames`` and
 ``fused_tick`` are the session slab's scheduler tick).  See the streaming
-section below.
-
-Not ported yet (ROADMAP.md): the CSR spatial conv (``sconv="csr"``), the
-windowed C_k graph (``use_ck``), skeletons other than ``ntu25``, and the
-JAX mesh's slot-axis sharding hint (``constrain``).
+section below.  Not ported (ROADMAP.md): the JAX mesh's slot-axis
+sharding hint (``constrain``).
 """
 from __future__ import annotations
 
@@ -36,10 +41,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.core.agcn.graph import get_topology
+from repro_torch.core.agcn import adaptive
+from repro_torch.core.agcn.graph import (GraphTopology, dense_to_csr,
+                                         get_topology)
 from repro_torch.core.pruning.plan import PrunePlan
 from repro_torch.core.quant import quantize_q88
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 BACKENDS = ("reference", "cuda")
 
@@ -58,13 +65,16 @@ class BlockStatic:
     n_kept_filters: int
     tkernel: int
     pruned_filters: bool     # kept_filters scatter present
+    use_ck: bool = False     # windowed C_k graph (theta/phi present)
+    sconv: str = "dense"     # spatial-conv path: "dense" | "csr"
 
 
 @dataclasses.dataclass(frozen=True)
 class PlanStatic:
     """Whole-plan metadata: backend, C5 input skip, the RFC inter-layer
-    format flags, the streaming shape constants and the per-block
-    ``BlockStatic`` tuple."""
+    format flags, the streaming shape constants, the per-block
+    ``BlockStatic`` tuple and the skeleton (``joints`` is the slab width,
+    ``valid_joints`` the skeleton's own joint count)."""
 
     backend: str
     input_skip: int
@@ -76,6 +86,9 @@ class PlanStatic:
     stream_pool: int         # streaming logit pool: 0 = cumulative (clip
                              # parity), W > 0 = sliding window of W frames
     blocks: Tuple[BlockStatic, ...]
+    topology: str = "ntu25"  # skeleton this plan was compiled for
+    valid_joints: int = 0    # the skeleton's own V (< joints when padded to
+                             # a slab; 0 reads as == joints)
 
 
 @dataclasses.dataclass
@@ -172,9 +185,11 @@ class Backend(Protocol):
 
     name: str
 
-    def spatial(self, x: torch.Tensor, ba: Dict[str, Any],
-                bs: BlockStatic) -> torch.Tensor:
-        """Graph spatial conv Σ_k (G_k·x)·W_k: (N,T,V,Cin) -> (N,T,V,Cout)."""
+    def spatial(self, x: torch.Tensor, ba: Dict[str, Any], bs: BlockStatic,
+                ck: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Graph spatial conv Σ_k (G_k·x)·W_k: (N,T,V,Cin) -> (N,T,V,Cout).
+        ``ck`` optionally adds a precomputed per-frame (N,T,V,V) graph to
+        every subset's G_k (the windowed C_k)."""
         ...
 
     def temporal(self, x: torch.Tensor, ba: Dict[str, Any],
@@ -192,15 +207,50 @@ class Backend(Protocol):
         ...
 
 
+def _spatial_einsum(x: torch.Tensor, ba: Dict[str, Any],
+                    ck: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Σ_k (G_k·x)·W_k as einsums, with the optional per-frame (N,T,V,V)
+    windowed C_k added to every subset's ``A_k + B_k``.  A graph wider
+    than x (a slab-padded plan run on a clip at the skeleton's own V) is
+    sliced: it is zero outside its valid joints."""
+    G = ba["G"].to(x.dtype)
+    V = x.shape[2]
+    if G.shape[-1] != V:
+        G = G[:, :V, :V]
+    Wk = ba["Wk"].to(x.dtype)
+    if ck is not None:
+        Gn = G[None, None] + ck.to(x.dtype)[:, :, None]   # (N,T,K,V,V)
+        y = torch.einsum("ntvc,ntkwv->ntkwc", x, Gn)
+        return torch.einsum("ntkwc,kco->ntwo", y, Wk)
+    return torch.einsum("ntvc,kwv,kco->ntwo", x, G, Wk)
+
+
+def _spatial_csr_ref(x: torch.Tensor, ba: Dict[str, Any]) -> torch.Tensor:
+    """CSR gather-accumulate over the plan's indptr/indices.  The CSR is
+    built at the skeleton's own V; wider (slab-padded) frames get zero
+    output rows past it, since the graph references no padded joint."""
+    N, T, V, C = x.shape
+    out = ref.graph_sconv_csr_ref(
+        x.reshape(N * T, V, C), ba["csr_indptr"], ba["csr_indices"],
+        ba["csr_values"].to(x.dtype), ba["Wk"].to(x.dtype))
+    if out.shape[1] < V:
+        out = F.pad(out, (0, 0, 0, V - out.shape[1]))
+    return out.reshape(N, T, V, -1)
+
+
 class ReferenceBackend:
     """Plain torch einsum and conv, executed from the plan."""
 
     name = "reference"
 
-    def spatial(self, x, ba, bs):
-        """Kept-channel gather + the Σ_k (G_k·x)·W_k einsum."""
-        return torch.einsum("ntvc,kwv,kco->ntwo", _gather_in(x, ba), ba["G"],
-                            ba["Wk"])
+    def spatial(self, x, ba, bs, ck=None):
+        """Kept-channel gather + the Σ_k (G_k·x)·W_k einsum (with the
+        windowed C_k when given), or the CSR gather-accumulate when the
+        plan chose ``sconv="csr"``."""
+        xg = _gather_in(x, ba)
+        if bs.sconv == "csr":            # never set on a C_k block
+            return _spatial_csr_ref(xg, ba)
+        return _spatial_einsum(xg, ba, ck)
 
     def temporal(self, x, ba, bs):
         """Dense masked temporal conv, 'same' padding, stride on T; pruned
@@ -233,9 +283,18 @@ class CudaBackend:
 
     name = "cuda"
 
-    def spatial(self, x, ba, bs):
-        """Fused graph + 1×1 kernel on the kept channels."""
-        return ops.graph_sconv(_gather_in(x, ba), ba["G"], ba["Wk"])
+    def spatial(self, x, ba, bs, ck=None):
+        """Fused graph + 1×1 kernel on the kept channels, or its ELL form
+        when the plan chose ``sconv="csr"``.  C_k blocks add the
+        precomputed ``ck`` through the einsum, as the JAX Pallas backend
+        does (its product runs outside any TPU kernel there too)."""
+        xg = _gather_in(x, ba)
+        if bs.use_ck:
+            return _spatial_einsum(xg, ba, ck)
+        if bs.sconv == "csr":
+            return ops.graph_sconv_csr(xg, ba["ell_idx"], ba["ell_val"],
+                                       ba["Wk"])
+        return ops.graph_sconv(xg, ba["G"], ba["Wk"])
 
     def temporal(self, x, ba, bs):
         """Packed cavity tconv kernel over the (N·V, T, C) rows — only the
@@ -286,6 +345,11 @@ def get_backend(name: str) -> Backend:
 # plan compilation
 # ---------------------------------------------------------------------------
 
+def _graph_density(g: torch.Tensor, eps: float) -> float:
+    """Fraction of entries with ``|g| > eps``."""
+    return float((g.abs() > eps).to(torch.float32).mean())
+
+
 def build_execution_plan(
     params: Dict[str, Any],
     cfg: ModelConfig,
@@ -294,30 +358,41 @@ def build_execution_plan(
     quant: bool = False,
     backend: str = "reference",
     use_rfc: Optional[bool] = None,
+    topology: Optional[Any] = None,
+    pad_joints: Optional[int] = None,
     sconv: str = "auto",
+    csr_eps: float = 0.0,
+    csr_density: float = 0.5,
 ) -> ExecutionPlan:
     """Compile ``(params, PrunePlan, ModelConfig)`` into an ExecutionPlan
-    for the ``ntu25`` skeleton, on the params' device.
+    on the params' device.
 
     ``use_rfc`` defaults to on for the ``cuda`` backend, as the JAX Pallas
-    backend's does.  ``sconv="auto"`` picks the dense spatial conv whenever
-    the JAX engine would (with its default thresholds): it would pick CSR
-    for a graph with at most half of ``A + B_k`` non-zero, and the CSR path
-    is not ported yet, so such a plan raises, as ``sconv="csr"`` does."""
+    backend's does.  ``topology`` is a registry name or a
+    :class:`~repro_torch.core.agcn.graph.GraphTopology` (default
+    ``ntu25``); ``pad_joints`` pads every joint-indexed array to a wider
+    slab width Vmax (zero graph rows and columns, stem BN scale 1 and bias
+    0, padded joints parent themselves), so plans of different skeletons
+    share one slab.  ``sconv`` picks each block's spatial conv: ``dense``,
+    ``csr`` (a gather-accumulate over the entries of ``A + B_k`` with
+    ``|G| > csr_eps``), or ``auto``: CSR when at most ``csr_density`` of
+    the entries are above ``csr_eps``.  With ``csr_eps = 0`` the learned
+    B_k (1e-6 at init) keeps every graph at density 1, so ``auto`` stays
+    dense.  Blocks with the windowed C_k (``cfg.use_ck``) stay dense."""
     if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}")
+        raise ValueError(f"unknown backend {backend!r} (expected one of "
+                         f"{BACKENDS})")
     if sconv not in ("auto", "dense", "csr"):
         raise ValueError(f"unknown sconv mode {sconv!r}")
-    if sconv == "csr":
-        raise NotImplementedError(
-            "sconv='csr' is not ported yet (ROADMAP.md Queue 1 item 8, "
-            "Queue 2 kernel 6)")
-    if cfg.use_ck:
-        raise NotImplementedError(
-            "use_ck (windowed C_k) is not ported yet (ROADMAP.md Queue 1 "
-            "item 9, Queue 2 kernel 7)")
-    topo = get_topology("ntu25", cfg.gcn_kv)
-    V = topo.num_joints
+    if isinstance(topology, GraphTopology):
+        topo = topology
+    else:
+        topo = get_topology(topology or "ntu25", cfg.gcn_kv)
+    vj = topo.num_joints                          # the skeleton's own V
+    V = int(pad_joints) if pad_joints is not None else vj
+    if V < vj:
+        raise ValueError(f"pad_joints={V} is narrower than topology "
+                         f"{topo.name!r} (V={vj})")
     strides = cfg.gcn_strides
     device = params["fc_w"].device
     A = torch.as_tensor(topo.adjacency, dtype=torch.float32, device=device)
@@ -327,26 +402,29 @@ def build_execution_plan(
     for b, blk in enumerate(params["blocks"]):
         pb = prune_plan.blocks[b] if prune_plan is not None else None
         cout = int(blk["tconv_w"].shape[0])
-        if tuple(blk["Bk"].shape[-2:]) != (V, V):
+        use_ck = bool(cfg.use_ck and "theta" in blk)
+        if tuple(blk["Bk"].shape[-2:]) != (vj, vj):
             raise ValueError(
                 f"block {b}: learned graph B_k is {tuple(blk['Bk'].shape)} "
-                f"but topology {topo.name!r} has V={V} joints")
-        G = A + blk["Bk"].to(torch.float32)
-        if sconv == "auto":
-            density = float((G != 0).float().mean())
-            if density <= 0.5:
-                raise NotImplementedError(
-                    f"block {b}: graph density {density:.3f} <= 0.5 selects "
-                    f"the CSR spatial conv, which is not ported yet "
-                    f"(ROADMAP.md Queue 2 kernel 6); pass sconv='dense'")
+                f"but topology {topo.name!r} has V={vj} joints: the params "
+                f"were built for a different topology")
+        Gv = A + blk["Bk"].to(torch.float32)
+        G = Gv
+        if V != vj:     # pad to the slab width; padded joints stay isolated
+            G = Gv.new_zeros((Gv.shape[0], V, V))
+            G[:, :vj, :vj] = Gv
 
         # --- spatial: kept-channel gather + quant --------------------------
         Wk = quantize_q88(blk["Wk"]) if quant else blk["Wk"]
+        theta, phi = blk.get("theta"), blk.get("phi")
         kept_in = None
         if pb is not None:
             kept_in = torch.as_tensor(pb.kept_in, dtype=torch.int64,
                                       device=device)
             Wk = Wk.index_select(1, kept_in)
+            if use_ck:
+                theta = theta.index_select(0, kept_in)
+                phi = phi.index_select(0, kept_in)
 
         # --- temporal: filter gather + cavity mask + quant -----------------
         tw = quantize_q88(blk["tconv_w"]) if quant else blk["tconv_w"]
@@ -363,14 +441,40 @@ def build_execution_plan(
                                       device=device)[:, None, :]
         n_kept = int(tw.shape[0])
 
+        # --- spatial path: dense or CSR ------------------------------------
+        block_sconv = "dense"
+        if not use_ck and (sconv == "csr" or (
+                sconv == "auto" and _graph_density(Gv, csr_eps)
+                <= csr_density)):
+            block_sconv = "csr"
+
         ba: Dict[str, Any] = {
             "G": G.contiguous(), "Wk": Wk.contiguous(), "kept_in": kept_in,
+            "theta": theta if use_ck else None,
+            "phi": phi if use_ck else None,
             "bn_s": blk["bn_s"], "bn_t": blk["bn_t"],
             "tw": tw, "tb": tb, "kept_filters": kept_filters,
             "down_w": blk.get("down_w"), "bn_down": blk.get("bn_down"),
             "short_w": blk.get("short_w"), "bn_short": blk.get("bn_short"),
             "wp": None, "taps": None, "inv_perm": None,
+            "csr_indptr": None, "csr_indices": None, "csr_values": None,
+            "ell_idx": None, "ell_val": None,
         }
+        if block_sconv == "csr":
+            # entries with |G| <= csr_eps (B_k's noise floor when eps > 0)
+            # are dropped: that is the CSR path's budget against the dense
+            indptr, indices, values = dense_to_csr(
+                Gv.detach().cpu().numpy(), csr_eps)
+            if backend == "cuda":
+                # the kernel takes unpadded joints: rows at the plan's width
+                ei, ev = ops.pack_csr_ell(indptr, indices, values, V)
+                ba["ell_idx"] = torch.as_tensor(ei, device=device)
+                ba["ell_val"] = torch.as_tensor(ev, device=device)
+            else:
+                ba["csr_indptr"] = torch.as_tensor(indptr, device=device)
+                ba["csr_indices"] = torch.as_tensor(indices, device=device)
+                ba["csr_values"] = torch.as_tensor(values, device=device)
+            ba["G"] = None          # the CSR paths never read the dense form
         if backend == "cuda":
             # host-side cavity packing — dense blocks pack all K taps
             wp, taps, inv = ops.pack_cavity_weights(
@@ -386,7 +490,8 @@ def build_execution_plan(
             stride=int(strides[b]), cin=int(blk["Wk"].shape[1]), cout=cout,
             n_kept_filters=n_kept,
             tkernel=int(cfg.gcn_tkernel),
-            pruned_filters=kept_filters is not None))
+            pruned_filters=kept_filters is not None,
+            use_ck=use_ck, sconv=block_sconv))
 
     input_skip = (prune_plan.input_skip if prune_plan is not None
                   else cfg.input_skip)
@@ -396,13 +501,25 @@ def build_execution_plan(
         backend=backend, input_skip=int(input_skip), use_rfc=bool(use_rfc),
         rfc_bank=int(cfg.rfc_bank), tkernel=int(cfg.gcn_tkernel), joints=V,
         in_channels=int(cfg.gcn_in_channels),
-        stream_pool=int(cfg.gcn_stream_pool), blocks=tuple(blocks_s))
+        stream_pool=int(cfg.gcn_stream_pool), blocks=tuple(blocks_s),
+        topology=topo.name, valid_joints=vj)
+    data_bn = params["data_bn"]
+    if V != vj:
+        # the joint-major (V·C) stem BN: scale 1, bias 0 on padded joints
+        pad = (V - vj) * int(cfg.gcn_in_channels)
+        data_bn = {
+            "scale": torch.cat([data_bn["scale"],
+                                data_bn["scale"].new_ones(pad)]),
+            "bias": torch.cat([data_bn["bias"],
+                               data_bn["bias"].new_zeros(pad)]),
+        }
+    parents = np.arange(V, dtype=np.int32)      # padded joints self-parent
+    parents[:vj] = topo.parents
     arrays = {
-        "data_bn": params["data_bn"],
+        "data_bn": data_bn,
         "blocks": blocks_a,
         "fc_w": params["fc_w"], "fc_b": params["fc_b"],
-        "parents": torch.as_tensor(topo.parents, dtype=torch.int64,
-                                   device=device),
+        "parents": torch.as_tensor(parents, dtype=torch.int64, device=device),
     }
     return ExecutionPlan(arrays=arrays, static=static)
 
@@ -411,6 +528,15 @@ def build_execution_plan(
 # execution (clip mode)
 # ---------------------------------------------------------------------------
 
+def _slice_data_bn(p: Dict[str, torch.Tensor], width: int):
+    """The joint-major (V·C) stem BN params cut to a narrower clip: a
+    slab-padded plan calibrates at the skeleton's own V, and the padding
+    tail (scale 1, bias 0) carries nothing."""
+    if p["scale"].shape[0] == width:
+        return p
+    return {k: v[:width] for k, v in p.items()}
+
+
 def _stem(arrays, x, input_skip: int, bn=_bn_live) -> torch.Tensor:
     """C5 input skip, then the stem BN over the joint-major (V·C)
     flattened channels."""
@@ -418,12 +544,20 @@ def _stem(arrays, x, input_skip: int, bn=_bn_live) -> torch.Tensor:
     if input_skip > 1:
         x = x[:, ::input_skip]
     N, T, V, C = x.shape
-    return bn("data_bn", x.reshape(N, T, V * C), arrays["data_bn"]
-              ).reshape(N, T, V, C)
+    p = _slice_data_bn(arrays["data_bn"], V * C)
+    return bn("data_bn", x.reshape(N, T, V * C), p).reshape(N, T, V, C)
 
 
-def _run_block(h, ba, bs, backend: Backend, bn=_bn_live, tag: str = ""):
-    s = backend.spatial(h, ba, bs)
+def _run_block(h, ba, bs, backend: Backend, bn=_bn_live, tag: str = "",
+               vj: int = 0):
+    ck = None
+    if bs.use_ck:
+        # the windowed C_k at every frame index: the trailing-K recurrence
+        # the streaming embedding rings evaluate
+        ck = adaptive.clip_windowed_ck(
+            _gather_in(h, ba), ba["theta"], ba["phi"], bs.tkernel,
+            valid_joints=vj if 0 < vj < h.shape[2] else 0)
+    s = backend.spatial(h, ba, bs, ck=ck)
     s = bn(tag + "bn_s", s, ba["bn_s"])
     down = (_proj(h, ba["down_w"], ba["bn_down"], 1, bn, tag + "bn_down")
             if ba["down_w"] is not None else h)
@@ -446,7 +580,8 @@ def _blocks(plan: ExecutionPlan, x: torch.Tensor, bn):
     nblocks = len(plan.static.blocks)
     for b, (ba, bs) in enumerate(zip(plan.arrays["blocks"],
                                      plan.static.blocks)):
-        h = _run_block(h, ba, bs, backend, bn, tag=f"b{b}/")
+        h = _run_block(h, ba, bs, backend, bn, tag=f"b{b}/",
+                       vj=plan.static.valid_joints)
         yield h
         if b < nblocks - 1:
             h = backend.transfer(h, plan.static)
@@ -506,7 +641,10 @@ class StreamState:
 
     ``blocks[b]``: ring_s (S, K, V, cout) tconv-input ring, ring_h
     (S, K, V, cin) residual-source ring, valid (S, K) clip-validity bits,
-    t (S,) int32 inputs seen at this block's time scale.  ``t_raw`` (S,)
+    t (S,) int32 inputs seen at this block's time scale; ``use_ck`` blocks
+    also carry ck_th / ck_ph (S, K, V, Ce), the windowed C_k embedding
+    rings (per-slot leaves like the others, so resets, snapshots and the
+    snapshot ring carry them).  ``t_raw`` (S,)
     counts raw frames per slot; ``pool_*`` hold the running logit pool;
     ``bn_stats`` the frozen calibration (shared by all slots); ``rfc`` the
     per-slot RFC-encoded inter-block activations of the last emitted frame
@@ -563,8 +701,8 @@ def _bcast(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
 def _pad_data_bn_stats(bn_stats: Dict[str, Dict[str, torch.Tensor]],
                        ps: PlanStatic) -> Dict[str, Dict[str, torch.Tensor]]:
     """Pad the stem BN statistics of a topology-V calibration to the slab
-    width (mean 0, inv 1: identity on padded joints).  The other sites are
-    per-channel.  The identity while ``ntu25`` is the only skeleton."""
+    width (mean 0, inv 1: identity on the masked padded joints).  The
+    other sites are per-channel and do not depend on the joint count."""
     want = ps.joints * ps.in_channels
     db = bn_stats.get("data_bn")
     if db is None or db["mean"].shape[0] == want:
@@ -608,10 +746,19 @@ def init_stream_state(
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=dev)
 
-    blocks = [{"ring_s": zeros(batch, K, V, bs.cout),
-               "ring_h": zeros(batch, K, V, bs.cin),
-               "valid": zeros(batch, K, dt=torch.bool),
-               "t": zeros(batch, dt=torch.int32)} for bs in ps.blocks]
+    blocks = []
+    for ba, bs in zip(plan.arrays["blocks"], ps.blocks):
+        d = {"ring_s": zeros(batch, K, V, bs.cout),
+             "ring_h": zeros(batch, K, V, bs.cin),
+             "valid": zeros(batch, K, dt=torch.bool),
+             "t": zeros(batch, dt=torch.int32)}
+        if bs.use_ck:
+            # zero rows stand in for the frames before the stream starts,
+            # so a fresh slot's first windows match clip mode's leading edge
+            ce = int(ba["theta"].shape[-1])
+            d["ck_th"] = zeros(batch, K, V, ce)
+            d["ck_ph"] = zeros(batch, K, V, ce)
+        blocks.append(d)
     rfc = None
     if ps.use_rfc:
         rfc = [{"vals": zeros(batch, V, bs.cout),
@@ -808,10 +955,21 @@ def step_frame(
 
     ``valid`` is a scalar (a lockstep batch) or an (S,) mask (a session
     slab, each slot in its own clip or flush phase).  ``bn_stats``
-    overrides the state's frozen calibration for this step.  The input
-    state is not modified.  Input-skip gaps, stride-decimated emission,
-    the validity of flushed windows and the ring phases are all per-slot
-    masking, so the step issues the same kernels whatever the slots do."""
+    overrides the state's frozen calibration for this step (one dispatch
+    per skeleton group over a shared slab, each with its own statistics).
+    The input state is not modified.  Input-skip gaps, stride-decimated
+    emission, the validity of flushed windows and the ring phases are all
+    per-slot masking, so the step issues the same kernels whatever the
+    slots do.
+
+    A plan narrower than its slab (``valid_joints`` < ``joints``) zeroes
+    the padded joints after the stem and after each block's ReLUs (BN
+    bias would leak into them) and pools logits over the valid joints
+    only, so a session's logits equal its run on a narrow plan.  ``use_ck``
+    blocks write the frame's θ/φ embeddings into their rings (zeros for an
+    invalid frame) and build C_k from the window before the spatial conv:
+    the ``windowed_similarity`` kernel on ``cuda``,
+    ``adaptive.windowed_ck`` on ``reference``."""
     ps = plan.static
     backend = get_backend(ps.backend)
     bn = _BNFrozen(state.bn_stats if bn_stats is None
@@ -821,11 +979,19 @@ def step_frame(
     nblocks = len(ps.blocks)
     S = frame.shape[0]
     ks = torch.arange(K, device=frame.device)
+    vj = ps.valid_joints or ps.joints
+    live = None                        # a slab-padded plan's joint mask
+    if vj < ps.joints:
+        live = (torch.arange(ps.joints, device=frame.device) < vj)[None, :,
+                                                                   None]
+
+    def mask_joints(a: torch.Tensor) -> torch.Tensor:
+        return a if live is None else torch.where(live, a, 0.0)
 
     valid = _slot_mask(valid, S, frame.device)
     has_input = (state.t_raw % ps.input_skip) == 0     # C5 input skip (S,)
     in_valid = valid & has_input
-    h_in = _stem_frame(plan.arrays, frame, bn)
+    h_in = mask_joints(_stem_frame(plan.arrays, frame, bn))
 
     new_blocks: List[Dict[str, torch.Tensor]] = []
     new_rfc: List[Dict[str, torch.Tensor]] = []
@@ -833,26 +999,50 @@ def step_frame(
         sb = state.blocks[b]
         tag = f"b{b}/"
         t = sb["t"]                                    # (S,) block clock
+        # masked per-slot ring position: only slots with an input write
+        write = (ks[None, :] == (t % K)[:, None]) & has_input[:, None]
+        nb: Dict[str, torch.Tensor] = {}
+
+        # --- windowed C_k: embedding-ring update, then the graph -----------
+        ck = None
+        if bs.use_ck:
+            xg = _gather_in(h_in, ba)
+            # invalid (flush) frames write zero embeddings: they trail every
+            # valid frame, so valid windows match clip mode
+            e_th = torch.where(in_valid[:, None, None], torch.einsum(
+                "nvc,ce->nve", xg, ba["theta"].to(h_in.dtype)), 0.0)
+            e_ph = torch.where(in_valid[:, None, None], torch.einsum(
+                "nvc,ce->nve", xg, ba["phi"].to(h_in.dtype)), 0.0)
+            nb["ck_th"] = _ring_write(sb["ck_th"], write, e_th)
+            nb["ck_ph"] = _ring_write(sb["ck_ph"], write, e_ph)
+            vjs = 0 if live is None else vj
+            if ps.backend == "cuda":
+                ck = ops.windowed_similarity(nb["ck_th"], nb["ck_ph"],
+                                             valid_joints=vjs)
+            else:
+                ck = adaptive.windowed_ck(nb["ck_th"].sum(1),
+                                          nb["ck_ph"].sum(1),
+                                          valid_joints=vjs)
 
         # --- frame-local gcn unit (spatial graph conv + down residual) ----
-        s = backend.spatial(h_in[:, None], ba, bs)[:, 0]
+        s = backend.spatial(h_in[:, None], ba, bs,
+                            ck=None if ck is None else ck[:, None])[:, 0]
         s = bn(tag + "bn_s", s, ba["bn_s"])
         down = (bn(tag + "bn_down",
                    torch.einsum("nvc,co->nvo", h_in, ba["down_w"]),
                    ba["bn_down"])
                 if ba["down_w"] is not None else h_in)
-        s = torch.relu(s + down)
+        s = mask_joints(torch.relu(s + down))  # BN bias leaks into padding
         # invalid inputs become the clip conv's zero padding at this level
         s = torch.where(in_valid[:, None, None], s, 0.0)
 
-        # --- masked per-slot ring write: only slots with an input ----------
-        write = (ks[None, :] == (t % K)[:, None]) & has_input[:, None]
+        # --- ring writes -----------------------------------------------------
         ring_s = _ring_write(sb["ring_s"], write, s)
         ring_h = _ring_write(sb["ring_h"], write, h_in)
         vring = torch.where(write, in_valid[:, None], sb["valid"])
         new_blocks.append({"ring_s": ring_s, "ring_h": ring_h,
                            "valid": vring,
-                           "t": t + has_input.to(t.dtype)})
+                           "t": t + has_input.to(t.dtype), **nb})
 
         # --- stride-decimated emission (per slot) --------------------------
         # clip output o completes when input t = o*stride + pad arrives; its
@@ -869,7 +1059,7 @@ def step_frame(
                      ba["bn_short"])
         else:
             res = h_c
-        out = torch.relu(out + res)
+        out = mask_joints(torch.relu(out + res))
         out_valid = torch.gather(vring, 1, center)[:, 0]
 
         # --- inter-block transfer: the RFC format, frame by frame ----------
@@ -887,7 +1077,8 @@ def step_frame(
 
     # --- running temporal logit pool (per slot) ----------------------------
     take = has_input & in_valid                        # (S,)
-    contrib = out.mean(dim=1)                          # (S, C_last)
+    contrib = out[:, :vj].mean(dim=1)                  # (S, C_last), valid
+                                                       # joints pooled
     if ps.stream_pool > 0:
         W = ps.stream_pool
         pwrite = (torch.arange(W, device=frame.device)[None, :]

@@ -8,7 +8,8 @@ TCN-GCN blocks + global pool + FC:
     gcnunit(x) = relu( bn(sum_k (G_k·x)·W_k) + down(x) )
 
 BatchNorm is stateless (batch statistics); the learned scale/bias are the
-parameters.  The per-op math lives in ``repro_torch.core.agcn.engine``.
+parameters.  With ``cfg.use_ck`` each block also has the θ/φ embeddings
+(Cin, max(4, Cin//4)) of the windowed C_k graph.  The per-op math lives in ``repro_torch.core.agcn.engine``.
 """
 from __future__ import annotations
 
@@ -51,6 +52,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             "tconv_b": torch.zeros(cout),
             "bn_t": _bn_init(cout),
         }
+        if cfg.use_ck:          # the windowed C_k embeddings θ and φ
+            ce = max(4, cin // 4)
+            blk["theta"] = _conv_init(gen, (cin, ce), cin)
+            blk["phi"] = _conv_init(gen, (cin, ce), cin)
         if cin != cout:
             blk["down_w"] = _conv_init(gen, (cin, cout), cin)
             blk["bn_down"] = _bn_init(cout)

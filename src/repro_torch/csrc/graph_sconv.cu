@@ -19,29 +19,21 @@
 // load feeds several FMAs, the limit of a CUDA-core kernel:
 //   y:   each work item computes a 5-joint x 4-channel tile of one row's
 //        G_k . x_r, 9 loads per 20 FMAs;
-//   out: each thread owns 8 (row, joint) pairs x 4 output channels, and per
-//        input channel loads one float4 of W_k and 8 values of y, 9 loads
-//        per 32 FMAs.
+//   out: the register-tiled y . W_k of sconv_tile.cuh, 9 loads per 32 FMAs.
 // y is stored channel-major with an odd row stride, so neither its writes
 // nor its reads conflict on shared-memory banks.  V = 25 is not padded;
 // loops are bounded by V.  No tensor cores yet: the sums are plain float32
 // FMAs, so results match the float32 einsums to rounding.
 #include <cuda_runtime.h>
 
+#include "sconv_tile.cuh"
+
+using namespace sconv;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCoTile = 64;                    // output channels per block
-constexpr int kTN = 4;                         // output channels per thread
-constexpr int kLanesN = kCoTile / kTN;         // 16 threads across channels
-constexpr int kLanesM = kThreads / kLanesN;    // 16 threads across (row, joint)
-constexpr int kTM = 8;                         // (row, joint) pairs per thread
-constexpr int kMaxM = kLanesM * kTM;           // 128 (row, joint) pairs / block
 constexpr int kTW = 5;                         // y tile: joints
 constexpr int kTC = 4;                         // y tile: channels
-constexpr int kSmemBudget = 200 * 1024;        // dynamic shared memory cap
-
-__host__ __device__ inline int y_stride(int m) { return m | 1; }
 
 __global__ void __launch_bounds__(kThreads)
 graph_sconv_kernel(const float* __restrict__ x, const float* __restrict__ g,
@@ -115,45 +107,11 @@ graph_sconv_kernel(const float* __restrict__ x, const float* __restrict__ g,
     }
     __syncthreads();
     // out += y . W_k over the thread's 8 x 4 tile
-    if (o0 < Cout) {
-      const float* wk = w + (size_t)k * Cin * Cout + o0;
-      for (int c = 0; c < Cin; ++c) {
-        float wv[kTN];
-        if (vec) {
-          const float4 q = __ldg(reinterpret_cast<const float4*>(wk + (size_t)c * Cout));
-          wv[0] = q.x; wv[1] = q.y; wv[2] = q.z; wv[3] = q.w;
-        } else {
-#pragma unroll
-          for (int j = 0; j < kTN; ++j)
-            wv[j] = (o0 + j < Cout) ? __ldg(wk + (size_t)c * Cout + j) : 0.f;
-        }
-        const float* yc = ys + c * ldy + tm;
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          if (tm + i * kLanesM < M) {
-            const float yv = yc[i * kLanesM];
-#pragma unroll
-            for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(yv, wv[j], acc[i][j]);
-          }
-        }
-      }
-    }
+    if (o0 < Cout)
+      accumulate_yw(acc, ys, ldy, w + (size_t)k * Cin * Cout + o0, Cin, Cout,
+                    o0, tm, M, vec);
   }
-  if (o0 >= Cout) return;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int rw = tm + i * kLanesM;
-    if (rw >= M) continue;
-    float* og = out + ((size_t)r0 * V + rw) * Cout + o0;
-    if (vec) {
-      *reinterpret_cast<float4*>(og) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kTN; ++j)
-        if (o0 + j < Cout) og[j] = acc[i][j];
-    }
-  }
+  if (o0 < Cout) store_tile(acc, out, (size_t)r0 * V, Cout, o0, tm, M, vec);
 }
 
 size_t smem_bytes(int rows, int V, int Cin, int K) {

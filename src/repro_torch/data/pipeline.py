@@ -13,7 +13,8 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.core.agcn.graph import NTU_EDGES, NUM_JOINTS
+from repro_torch.core.agcn.graph import (NTU_EDGES, get_topology,
+                                         topology_names)
 
 
 @dataclasses.dataclass
@@ -25,15 +26,25 @@ class DataConfig:
     host_count: int = 1
 
 
+def _skeleton_edges(num_joints: int):
+    """The kinematic chain of a clip at ``num_joints``: the NTU bone list
+    at 25 joints, the registry topology's edges at any other registered
+    width, else a plain chain."""
+    if num_joints == 25:
+        return NTU_EDGES
+    for name in topology_names():
+        tp = get_topology(name)
+        if tp.num_joints == num_joints:
+            return tp.edges
+    return [(j + 1, j) for j in range(1, num_joints)]
+
+
 def skeleton_batches(mcfg: ModelConfig, dcfg: DataConfig,
                      num_classes: Optional[int] = None
                      ) -> Iterator[Dict[str, np.ndarray]]:
     """Endless batches {"x": (N*M, T, V, C) float32, "labels": (N*M,)
-    int32}, persons folded into the batch axis."""
-    if mcfg.gcn_joints != NUM_JOINTS:
-        raise NotImplementedError(
-            f"clips for {mcfg.gcn_joints} joints need the other skeleton "
-            f"topologies, not ported yet (ROADMAP.md Queue 1 item 8)")
+    int32}, persons folded into the batch axis.  The rest pose follows
+    the skeleton of ``mcfg.gcn_joints`` joints (:func:`_skeleton_edges`)."""
     per = dcfg.global_batch // dcfg.host_count
     ncls = num_classes or mcfg.gcn_num_classes
     V, T, M, C = (mcfg.gcn_joints, mcfg.gcn_frames, mcfg.gcn_persons,
@@ -42,7 +53,7 @@ def skeleton_batches(mcfg: ModelConfig, dcfg: DataConfig,
     rest = np.zeros((V, 3))
     rng = np.random.default_rng(dcfg.seed)
     offsets = rng.standard_normal((V, 3)) * 0.1
-    for j, p in NTU_EDGES:
+    for j, p in _skeleton_edges(V):
         rest[j - 1] = rest[p - 1] + offsets[j - 1]
     step = 0
     while True:

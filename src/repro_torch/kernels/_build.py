@@ -1,9 +1,10 @@
-"""Build ``csrc/*.cu`` with nvcc on first use and load it with ctypes.
+"""Build ``csrc/*.cu`` (with the shared ``csrc/*.cuh`` headers) with nvcc
+on first use and load it with ctypes.
 
 Each source compiles to an object in parallel (one nvcc per file, all
 started together) and the objects link into one shared library with a
-plain C interface, named by a hash of the sources and flags and kept in
-``build/repro_torch/`` at the repository root (git-ignored).  Nothing is
+plain C interface, named by a hash of the sources, headers and flags and
+kept in ``build/repro_torch/`` at the repository root (git-ignored).  Nothing is
 built when the package is imported: the first kernel launch builds.
 
 Also holds the launch counters: each kernel wrapper adds one to its entry
@@ -28,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 KERNELS = ("graph_sconv", "cavity_tconv", "cavity_tconv_step", "rfc_encode",
-           "rfc_decode")
+           "rfc_decode", "graph_sconv_csr", "windowed_similarity")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -36,6 +37,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # x, g, w, out, R, V, Cin, Cout, K, stream
     "graph_sconv_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, idx (int32), val, w, out, R, V, Cin, Cout, K, D, stream
+    "graph_sconv_csr_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, wp, taps, out, B, T_pad, C, L, n_keep, Fg, T_out, stride, ksize, stream
     "cavity_tconv_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P),
@@ -45,6 +48,8 @@ _SIGNATURES = {
     "rfc_encode_f32": (_P, _P, _P, _L, _P),
     # values, hot, out, n, stream
     "rfc_decode_f32": (_P, _P, _P, _L, _P),
+    # ring_th, ring_ph, out, S, K, V, Ce, valid, stream
+    "window_sim_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -73,7 +78,7 @@ def build() -> Tuple[Path, str]:
     not built yet.  Returns (library path, compiler output)."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):      # the sources and headers
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     lib = BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
     log_path = lib.with_suffix(".log")

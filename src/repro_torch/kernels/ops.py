@@ -1,6 +1,6 @@
 """Public wrappers around the kernels: layout adaptation (padding, the
-cavity filter-group permutation, kept-tap packing) so callers use natural
-shapes.  Port of ``repro.kernels.ops`` for the clip and streaming paths.
+cavity filter-group permutation, kept-tap and ELL packing) so callers use
+natural shapes.  Port of ``repro.kernels.ops`` (all but flash decoding).
 
 Each wrapper reaches its kernel through the kernel module's ``*_cuda``
 function, which dispatches on the input's device.
@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import cavity_tconv as _ct
 from repro_torch.kernels import graph_sconv as _gs
 from repro_torch.kernels import rfc_pack as _rfc
+from repro_torch.kernels import window_sim as _ws
 
 
 def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
@@ -144,20 +145,108 @@ def cavity_tconv_step(
 
 
 # ---------------------------------------------------------------------------
+# Windowed similarity (streaming C_k)
+# ---------------------------------------------------------------------------
+
+def windowed_similarity(
+    ring_th: torch.Tensor,    # (S, K, V, Ce) per-slot θ-embedding ring
+    ring_ph: torch.Tensor,    # (S, K, V, Ce) per-slot φ-embedding ring
+    valid_joints: int = 0,
+) -> torch.Tensor:
+    """Streaming windowed C_k from the embedding rings: (S, V, V).  Input-
+    joint columns >= ``valid_joints`` are masked; 0 or >= V means every
+    column is live.  The kernel needs no joint padding."""
+    V = ring_th.shape[2]
+    valid = valid_joints if 0 < valid_joints < V else V
+    return _ws.windowed_similarity_cuda(ring_th.contiguous(),
+                                        ring_ph.contiguous(), int(valid))
+
+
+# ---------------------------------------------------------------------------
 # Fused graph + spatial conv
 # ---------------------------------------------------------------------------
 
+def _topology_note(topology: str) -> str:
+    return f" for topology {topology!r}" if topology else ""
+
+
 def graph_sconv(
     x: torch.Tensor,          # (N, T, V, Cin) — kept channels already gathered
-    g: torch.Tensor,          # (K, V, V)
+    g: torch.Tensor,          # (K, V', V'), V' >= V
     w: torch.Tensor,          # (K, Cin, Cout)
+    topology: str = "",
 ) -> torch.Tensor:
     """Fused Σ_k (G_k·x)·W_k.  Returns (N, T, V, Cout).  The rows are the
-    flattened N·T axis; the kernel needs no joint or row padding."""
+    flattened N·T axis; the kernel needs no joint or row padding.  A graph
+    wider than x's joints (a plan padded to a slab Vmax, run on a clip at
+    the skeleton's own V) is sliced: it is zero outside its valid joints.
+    ``topology`` names the skeleton in the shape errors."""
     N, T, V, Cin = x.shape
-    if g.shape[-1] != V or w.shape[0] != g.shape[0]:
-        raise ValueError(f"graph_sconv: graph {tuple(g.shape)} and weights "
-                         f"{tuple(w.shape)} do not fit x {tuple(x.shape)}")
+    note = _topology_note(topology)
+    if g.shape[0] != w.shape[0]:
+        raise ValueError(
+            f"graph has K={g.shape[0]} subsets but w has K={w.shape[0]}"
+            f"{note}; the plan packed weights against a different topology")
+    if g.shape[-1] < V:
+        raise ValueError(f"graph{note} is {g.shape[-1]} joints wide, "
+                         f"expected >= {V} (x runs {V} joints)")
+    if g.shape[-1] > V:
+        g = g[:, :V, :V]
     xr = x.reshape(N * T, V, Cin).contiguous()
     out = _gs.graph_sconv_cuda(xr, g.contiguous(), w.to(x.dtype).contiguous())
+    return out.reshape(N, T, V, -1)
+
+
+def pack_csr_ell(
+    indptr: np.ndarray,      # (K, V+1) int32
+    indices: np.ndarray,     # (K, E) int32
+    values: np.ndarray,      # (K, E) f32, zero-padded
+    vp: int,                 # joint rows of the pack, >= V
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side CSR -> ELL repack for the sparse spatial conv.
+
+    Each output row's neighbour list is padded to the largest row degree
+    D (index 0, value 0: a gather of joint 0 scaled by zero) and rows are
+    padded to ``vp``.  Returns (idx (K, vp, D) int32, val (K, vp, D) f32),
+    bit-equal to ``repro.kernels.ops.pack_csr_ell``."""
+    indptr = np.asarray(indptr)
+    indices = np.asarray(indices)
+    values = np.asarray(values)
+    K, V1 = indptr.shape
+    V = V1 - 1
+    deg = int(max(1, (indptr[:, 1:] - indptr[:, :-1]).max()))
+    idx = np.zeros((K, vp, deg), np.int32)
+    val = np.zeros((K, vp, deg), np.float32)
+    for k in range(K):
+        for r in range(V):
+            lo, hi = int(indptr[k, r]), int(indptr[k, r + 1])
+            idx[k, r, : hi - lo] = indices[k, lo:hi]
+            val[k, r, : hi - lo] = values[k, lo:hi]
+    return idx, val
+
+
+def graph_sconv_csr(
+    x: torch.Tensor,          # (N, T, V, Cin) — kept channels already gathered
+    idx: torch.Tensor,        # (K, V', D) int32 ELL indices, V' >= V
+    val: torch.Tensor,        # (K, V', D) ELL values
+    w: torch.Tensor,          # (K, Cin, Cout)
+    topology: str = "",
+) -> torch.Tensor:
+    """Sparse Σ_k (G_k·x)·W_k over an ELL-packed graph.  Returns
+    (N, T, V, Cout).  An ELL pack wider than x's joints (a plan padded to
+    a slab Vmax) is sliced: its padded rows are empty and its indices only
+    reference the skeleton's own joints."""
+    N, T, V, Cin = x.shape
+    note = _topology_note(topology)
+    if idx.shape[0] != w.shape[0]:
+        raise ValueError(
+            f"ELL graph has K={idx.shape[0]} subsets but w has "
+            f"K={w.shape[0]}{note}")
+    if idx.shape[1] < V:
+        raise ValueError(f"ELL graph{note} packed to {idx.shape[1]} joints, "
+                         f"expected >= {V} (x runs {V} joints)")
+    xr = x.reshape(N * T, V, Cin).contiguous()
+    out = _gs.graph_sconv_csr_cuda(
+        xr, idx[:, :V].contiguous(), val[:, :V].to(x.dtype).contiguous(),
+        w.to(x.dtype).contiguous())
     return out.reshape(N, T, V, -1)

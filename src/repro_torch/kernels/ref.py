@@ -50,3 +50,30 @@ def graph_sconv_ref(x: torch.Tensor, g: torch.Tensor,
     w: (K, Cin, Co) -> (R, V, Co)."""
     y = torch.einsum("rvc,kwv->krwc", x, g)
     return torch.einsum("krwc,kco->rwo", y, w)
+
+
+def graph_sconv_csr_ref(x: torch.Tensor, indptr: torch.Tensor,
+                        indices: torch.Tensor, values: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """CSR spatial conv: gather-accumulate over indptr/indices per subset.
+
+    x: (R, Vx, Cin) with Vx >= V (rows past V are padding the graph never
+    references), indptr: (K, V+1), indices/values: (K, E) zero-padded,
+    w: (K, Cin, Co) -> (R, V, Co).  Entry e lies on output row w iff
+    ``indptr[k, w] <= e < indptr[k, w+1]``; padded entries map past the
+    last row and are dropped (JAX's ``mode="drop"``) by a spare row that
+    is cut off."""
+    K, E = indices.shape
+    V = indptr.shape[1] - 1
+    R, _, C = x.shape
+    out = torch.zeros((R, V, w.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    entries = torch.arange(E, dtype=indptr.dtype, device=x.device)
+    for k in range(K):
+        rows = torch.searchsorted(indptr[k].contiguous(), entries,
+                                  right=True) - 1
+        gathered = (x.index_select(1, indices[k].long())
+                    * values[k].to(x.dtype)[None, :, None])
+        agg = x.new_zeros((R, V + 1, C)).index_add_(1, rows.long(), gathered)
+        out = out + torch.einsum("rvc,co->rvo", agg[:, :V], w[k])
+    return out.to(x.dtype)

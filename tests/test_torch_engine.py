@@ -133,12 +133,20 @@ def test_block_outputs_and_forward(jparams, tparams, x):
 
 
 def test_unported_plan_options_raise(tparams):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.build_execution_plan(tparams, CFG, sconv="csr")
+    """The CSR path is ported: ``sconv="csr"`` builds, and ``auto`` picks
+    CSR on a sparse graph.  What still raises: an unknown backend or sconv
+    mode, and a slab narrower than the skeleton."""
+    csr = engine.build_execution_plan(tparams, CFG, sconv="csr")
+    assert all(b.sconv == "csr" for b in csr.static.blocks)
     sparse = {**tparams, "blocks": [dict(b, Bk=torch.zeros_like(b["Bk"]))
                                     for b in tparams["blocks"]]}
-    with pytest.raises(NotImplementedError, match="CSR"):
-        engine.build_execution_plan(sparse, CFG)
-    engine.build_execution_plan(sparse, CFG, sconv="dense")
+    auto = engine.build_execution_plan(sparse, CFG)
+    assert all(b.sconv == "csr" for b in auto.static.blocks)
+    dense = engine.build_execution_plan(sparse, CFG, sconv="dense")
+    assert all(b.sconv == "dense" for b in dense.static.blocks)
     with pytest.raises(ValueError, match="unknown backend"):
         engine.build_execution_plan(tparams, CFG, backend="pallas")
+    with pytest.raises(ValueError, match="unknown sconv"):
+        engine.build_execution_plan(tparams, CFG, sconv="ell")
+    with pytest.raises(ValueError, match="narrower"):
+        engine.build_execution_plan(tparams, CFG, pad_joints=24)

@@ -37,8 +37,11 @@ def test_config_fields_match_jax(reduced):
 def test_unported_config_and_topology_raise():
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("smollm-360m")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgraph.get_topology("ntu50")
+    # every registry skeleton is ported; an unknown name raises as in JAX
+    with pytest.raises(KeyError, match="unknown topology"):
+        tgraph.get_topology("ntu26")
+    with pytest.raises(KeyError, match="unknown topology"):
+        jgraph.get_topology("ntu26")
 
 
 def test_ntu25_adjacency_and_parents_equal():

@@ -1,5 +1,7 @@
 """Port kernels on the CPU: each plain version and ``ops`` wrapper against
-the JAX oracles in ``repro.kernels.ref``, and the streaming cavity tconv
+the JAX oracles in ``repro.kernels.ref`` (the CSR spatial conv and the
+windowed similarity are held to JAX in test_torch_topology.py and
+test_torch_adaptive.py), and the streaming cavity tconv
 against the JAX reference engine's einsum (atol=rtol=1e-5: both sides sum
 in float32, in different orders), graph_sconv and RFC also against the Pallas
 kernels in interpret mode (1e-4 for graph_sconv, whose interpret-mode
@@ -19,6 +21,7 @@ from repro_torch.kernels import cavity_tconv as ct
 from repro_torch.kernels import graph_sconv as gs
 from repro_torch.kernels import ref
 from repro_torch.kernels import rfc_pack as rp
+from repro_torch.kernels import window_sim as ws
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -212,7 +215,12 @@ def test_cpu_dispatch_counts_no_launches():
     taps = torch.zeros(8, 3, dtype=torch.int32)
     ct.cavity_tconv_cuda(torch.ones(2, 12, 3), wp, taps, 9, 1)
     ct.cavity_tconv_step_cuda(torch.ones(2, 9, 3), wp, taps)
-    assert "cavity_tconv_step" in _build.KERNELS
+    gs.graph_sconv_csr_cuda(x, torch.zeros(3, 25, 2, dtype=torch.int32),
+                            torch.ones(3, 25, 2), torch.ones(3, 3, 8))
+    ws.windowed_similarity_cuda(torch.ones(2, 9, 25, 4),
+                                torch.ones(2, 9, 25, 4), 20)
+    assert {"cavity_tconv_step", "graph_sconv_csr",
+            "windowed_similarity"} <= set(_build.KERNELS)
     assert _build.LAUNCHES == dict.fromkeys(_build.KERNELS, 0)
 
 
@@ -270,3 +278,46 @@ def test_rfc_kernels_match_plain_exactly(cuda, rows, cols):
     v2, h2 = rp.rfc_encode_plain(x)
     assert torch.equal(v, v2) and torch.equal(h, h2)
     assert torch.equal(rp.rfc_decode_cuda(v, h), rp.rfc_decode_plain(v, h))
+
+
+# (R, V, Cin, Cout, topology, csr_eps): the clip and stream-tick shapes of
+# an ntu50 plan, D = the skeleton's degree (eps 1e-5) and D = V (eps 0)
+CSR_CASES = [(32, 50, 16, 32, "ntu50", 1e-5), (8, 50, 256, 256, "ntu50", 1e-5),
+             (7, 50, 38, 64, "ntu50", 0.0), (2400, 50, 3, 64, "ntu50", 1e-5),
+             (5, 21, 9, 20, "hand21", 0.0), (64, 46, 77, 128, "body_hand46",
+                                              1e-5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,V,Ci,Co,name,eps", CSR_CASES)
+def test_graph_sconv_csr_kernel_matches_plain(cuda, R, V, Ci, Co, name, eps):
+    from repro_torch.core.agcn.graph import dense_to_csr, get_topology
+    g = get_topology(name).adjacency + np.float32(1e-6)
+    idx, val = (torch.from_numpy(a).to(cuda) for a in ops.pack_csr_ell(
+        *dense_to_csr(g, eps), V))
+    x, _, w = (torch.from_numpy(a).to(cuda)
+               for a in _sconv_inputs(R, V, Ci, Co, 3))
+    _build.reset_launch_counts()
+    got = gs.graph_sconv_csr_cuda(x, idx, val, w)
+    assert _build.LAUNCHES["graph_sconv_csr"] == 1
+    torch.testing.assert_close(got, gs.graph_sconv_csr_plain(x, idx, val, w),
+                               atol=1e-4, rtol=1e-4)
+    with pytest.raises(TypeError, match="int32"):
+        gs.graph_sconv_csr_cuda(x, idx.long(), val, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero", [False, True])
+@pytest.mark.parametrize("S,K,V,Ce,valid", [
+    (1, 9, 25, 4, 25), (3, 9, 25, 16, 25), (8, 9, 50, 64, 25),
+    (8, 9, 25, 32, 20), (2, 3, 7, 4, 5)])
+def test_windowed_similarity_kernel_matches_plain(cuda, S, K, V, Ce, valid,
+                                                  zero):
+    scale = 0.0 if zero else 0.3
+    th, ph = (torch.from_numpy(_rand(s, S, K, V, Ce) * scale).to(cuda)
+              for s in (1, 2))
+    _build.reset_launch_counts()
+    got = ws.windowed_similarity_cuda(th, ph, valid)
+    assert _build.LAUNCHES["windowed_similarity"] == 1
+    torch.testing.assert_close(got, ws.windowed_similarity_plain(th, ph, valid),
+                               atol=1e-4, rtol=1e-4)

@@ -41,6 +41,51 @@ def test_imports_without_jax_or_repro():
     assert int(n) >= 15 and bad.strip() == "[]"
 
 
+# the modules of the topology, CSR and C_k paths run end to end on the CPU
+# in an interpreter where jax and repro cannot be imported
+_RUN_NEW_PATHS = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import dataclasses
+import torch
+from repro_torch.configs import get_config
+from repro_torch.core.agcn import adaptive, engine, graph, model
+from repro_torch.kernels import graph_sconv, ops, window_sim
+tp = graph.get_topology("ntu50")
+idx, val = map(torch.from_numpy, ops.pack_csr_ell(tp.indptr, tp.indices,
+                                                  tp.values, 50))
+x = torch.randn(1, 2, 50, 3)
+w = torch.randn(3, 3, 4)
+assert ops.graph_sconv_csr(x, idx, val, w).shape == (1, 2, 50, 4)
+ring = torch.randn(2, 9, 50, 4)
+ck = ops.windowed_similarity(ring, ring, valid_joints=25)
+torch.testing.assert_close(ck, adaptive.windowed_ck(ring.sum(1),
+                                                    ring.sum(1), 25))
+assert window_sim.windowed_similarity_plain(ring, ring, 50).shape == (2, 50, 50)
+cfg = dataclasses.replace(get_config("agcn-2s", reduced=True), use_ck=True,
+                          gcn_joints=21)
+p = model.init_params(cfg, seed=0, device="cpu")
+plan = engine.build_execution_plan(p, cfg, topology="hand21", pad_joints=25,
+                                   backend="cuda")
+st = engine.init_stream_state(plan, 1, x_calib=torch.randn(1, 32, 21, 3))
+st, logits = engine.step_frame(plan, st, torch.randn(1, 25, 3))
+assert logits.shape == (1, cfg.gcn_num_classes)
+assert "ck_th" in st.blocks[0] and graph_sconv.graph_sconv_csr_plain
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m in ("jax", "repro") or m.startswith(("jax.", "repro."))))
+print(bad)
+"""
+
+
+def test_topology_csr_and_ck_paths_run_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _RUN_NEW_PATHS], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
                         r"from\s+(jax|repro)(\.|\s)(?!_))", re.M)
 

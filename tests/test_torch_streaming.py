@@ -6,8 +6,8 @@ clip logits, for {dense, pruned, pruned+quant}, within atol=rtol=1e-3 (the
 JAX package's own streaming-parity bound, tests/test_streaming.py).  Also
 the two-stream step, the odd-stride-length drain, the emission count, the
 sliding-window pool, the RFC carry, the calibration precondition and the
-drain arithmetic.  Mirrors tests/test_streaming.py without its C_k cells
-(C_k is not ported yet)."""
+drain arithmetic.  Mirrors tests/test_streaming.py; its C_k cells are in
+test_torch_adaptive.py."""
 import dataclasses
 
 import jax
