@@ -13,25 +13,22 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                process per source, in parallel), with ptxas's register and
                spill report.
   3. kernels — one clip ensemble step (full agcn-2s, batch 8) and one
-               stream tick at S = 1, 3 and 8 slots (after 280 raw frames,
-               so every block's rings hold data; a cavity_tconv_step input
-               whose kept-tap frames are all zero fails) are run with
-               recording wrappers, so each kernel is held against its plain
-               version on exactly the inputs its path gives it (graph_sconv,
-               cavity_tconv and cavity_tconv_step within atol=rtol=1e-4,
-               RFC bit-equal), plus an RFC case with C % 16 != 0.  Likewise
-               for the 50-joint two-person skeleton (ntu50, persons not
-               folded): a clip step and an S = 8 tick of a CSR plan
-               (graph_sconv_csr, D = the skeleton's degree), the same tick
-               on a CSR plan with csr_eps = 0 (D = V) and on a dense plan
-               (graph_sconv at V = 50); and stream ticks at S = 1, 3 and 8
-               of a C_k plan (windowed_similarity, every column live) and
-               at S = 8 of a C_k plan padded to 50 joints (25 live); a
-               windowed_similarity input with an all-zero slot fails.  Each
-               kernel is timed with CUDA events behind a spin kernel (device
-               time, without the host's launch cost) beside its plain
-               version, a one-call PyTorch yardstick where one exists, and
-               its bound on this card.
+               stream tick at S = 1, 3 and 8 slots (after 200 raw frames,
+               past the last block's first full window, so every kept tap
+               reads data; a cavity_tconv_step input whose kept-tap frames
+               are all zero fails) are run with recording wrappers, so each
+               kernel is held against its plain version on exactly the
+               inputs its path gives it (graph_sconv, cavity_tconv and
+               cavity_tconv_step within atol=rtol=1e-4, RFC bit-equal), plus
+               an RFC case with C % 16 != 0; likewise a clip step of the
+               50-joint two-person skeleton (ntu50, persons not folded) on
+               a CSR plan (graph_sconv_csr) and a dense one (graph_sconv at
+               V = 50).  Each kernel is timed with CUDA events behind a
+               spin kernel (device time, without the host's launch cost)
+               beside its plain version, a one-call PyTorch yardstick where
+               one exists, and its bound on this card.  The ticks of the
+               later streams are held the same way in their phases, on the
+               state their own run reached 200 frames in.
   4. main    — ``serve_gcn`` at the full agcn-2s config (batch 8, a few
                batches) on the ``cuda`` and ``reference`` backends: clips/s,
                logit agreement within atol=rtol=1e-3, and the launch
@@ -58,7 +55,10 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                sequences/s of the three, 20 graph_sconv_csr and no
                graph_sconv launch per ensemble step; a stream of the batch
                (300 frames + the drain) on the CSR plans, post-drain logits
-               against the clip engine's.
+               against the clip engine's.  Its S = 8 tick 200 frames in is
+               held on the CSR plan (graph_sconv_csr, D = the skeleton's
+               degree), a CSR plan with csr_eps = 0 (D = V) and a dense
+               plan (graph_sconv at V = 50).
   8. mixed   — an 8-slot slab at Vmax = 50 of ntu25 sessions (plans padded
                to 50) and ntu50 sessions on CSR plans, slots reused across
                skeletons, stepped as the JAX service steps its skeleton
@@ -72,12 +72,36 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                logits and ``cuda`` against ``reference`` (atol=rtol=1e-3,
                top-1 100%), 20 windowed_similarity launches per ensemble
                step; the same stream on plans padded to 50 joints against
-               the narrow one at every step (atol=rtol=1e-4).
+               the narrow one at every step (atol=rtol=1e-4).  Ticks 200
+               frames in are held at S = 1, 3 and 8 of the ``cuda`` stream
+               (windowed_similarity, every column live) and at S = 8 of the
+               padded one (25 live); a windowed_similarity input with an
+               all-zero slot fails.
  10. profile — two steps each of the clip, stream, slab, ntu50 CSR clip
                and C_k stream paths under ``torch.profiler``: the device's
                busy share of the wall time and device time by kernel name
                (reported, not checked; the profiler's own cost inflates the
                wall time).
+ 11. lm      — dense LM decode serving at the full width of smollm-360m
+               (32 layers, d_model 960, 15/5 heads, vocab 49 152; random
+               weights from seed 0): ``generate`` (batch 4, a 496-token
+               prompt fed token by token, then 16 greedy tokens: 511 serve
+               steps, a 512-slot float32 cache) on ``cuda`` and
+               ``reference``, tokens/s and per-step latency; the
+               ``reference`` backend teacher-forced on the ``cuda`` run's
+               tokens (per-step logits within atol=rtol=1e-3; a greedy
+               token that differs fails unless the reference's top-2
+               margin is <= 1e-3); the prompt's logits from the cache-free
+               forward against the cached decode (1e-3); 32 flash_decode
+               launches per ``cuda`` step and none on ``reference``; one
+               decode step under ``set_sync_debug_mode("error")``; one step
+               profiled.  flash_decode is held against its plain version
+               (atol=rtol=1e-4) on the 32 layers' inputs of the first step
+               after the prompt and of the last step, a long-context case
+               (B 8, S 32 768, valid 30 000), h2o-danube's ring shape
+               (B 4, L 4 096, 8 kv heads, G 4, D 80) and a small odd case
+               (S 48, D 20, valid 1), beside one
+               ``F.scaled_dot_product_attention`` call (the yardstick).
 
 Prints the kernels JSON line, the nvidia-smi line and, last, the result
 line.  Any failed phase exits non-zero.  Per-case kernel numbers go to
@@ -117,18 +141,33 @@ KERNEL_INFO = {   # name -> (CUDA source, TPU kernel it replaces)
                    "src/repro/kernels/rfc_pack.py:67"),
     "rfc_decode": ("src/repro_torch/csrc/rfc_pack.cu",
                    "src/repro/kernels/rfc_pack.py:87"),
+    "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode.py:72"),
 }
 ARCH, BATCH, CLIPS, SEED = "agcn-2s", 8, 32, 0
 DEVICE = "cuda"
 STREAM_CLIPS = 4                   # 8 sequences of 2 persons
 STREAM_SLOTS = (1, 3, 8)           # the stream shapes the kernels are held at
-STREAM_WARM = 280                  # raw frames before a held stream tick
+STREAM_WARM = 200                  # raw frames before a held stream tick
 SLAB_SLOTS, SESSIONS, SESSION_FRAMES, EVENTS, RING_ROWS = 8, 12, 64, 4, 4
 TOPO_CLIPS = 32                    # ntu50 sequences in the topology phase
 MIXED_SESSIONS, MIXED_FRAMES, MIXED_EVERY = 10, 48, 4
 VMAX = 50                          # slab width of the mixed and padded runs
 CSR_EPS = 1e-5                     # above B_k's 1e-6 init: D = degree
 SPIN_CYCLES = 2_000_000            # about 1 ms at the H100's boost clock
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "smollm-360m", 4, 496, 16
+# flash_decode cases off the served run: (label, B, S, Hkv, G, D, valid)
+FD_CASES = [("long context", 8, 32768, 5, 3, 64, 30000),
+            ("danube ring", 4, 4096, 8, 4, 80, 4096),
+            ("small odd", 2, 48, 1, 3, 20, 1)]
+
+
+T_START = time.perf_counter()
+
+
+def phase_done(name: str) -> None:
+    print(f"time: {name} phase done {time.perf_counter() - T_START:.1f} s "
+          f"after start")
 
 
 def fail(msg: str):
@@ -224,6 +263,7 @@ def measure_case(name, args, kwargs, modules):
     import torch
     import torch.nn.functional as F
     gs, ct, rp, ws = modules
+    from repro_torch.kernels import flash_decode as fd
     library, natural = None, None
     if name == "graph_sconv":
         x, g, w = args
@@ -288,6 +328,22 @@ def measure_case(name, args, kwargs, modules):
         nbytes = 4 * (th.numel() + ph.numel() + S * V * V)
         # window sums, the dot products, then scale, max, exp, sum, divide
         flops = 2 * S * K * V * Ce + 2 * S * V * V * Ce + 5 * S * V * V
+    elif name == "flash_decode":
+        q, k, v, valid = args
+        kern = lambda: fd.flash_decode(q, k, v, valid)
+        plain = lambda: fd.flash_decode_plain(q, k, v, valid)
+        B, Hkv, G, D = q.shape
+        S = k.shape[1]
+        live = (torch.arange(S, device=k.device) < valid).view(1, 1, 1, S)
+        qh = q.reshape(B, Hkv * G, 1, D)
+        kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        library = lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=live, enable_gqa=True).reshape(q.shape)
+        # the rows the softmax needs (the kernel reads no row past valid)
+        n = int(valid.item())
+        n = min(n, S) if n >= 1 else S
+        nbytes = 4 * (2 * q.numel() + 2 * B * n * Hkv * D + 1)
+        flops = B * Hkv * G * n * (4 * D + 5)
     elif name == "rfc_encode":
         (x,) = args
         kern = lambda: rp.rfc_encode_cuda(x)
@@ -503,7 +559,9 @@ def stream_run(step, plans, states, clip, flush, dev):
     """``serve_gcn_stream``'s loop: two discarded warm-up steps (a clip
     frame, a flush frame), then the clip frame by frame and the drain,
     each step timed on the host clock up to a synchronise.  Returns
-    (states, per-step logits, per-step ms)."""
+    (states, per-step logits, per-step ms, the states STREAM_WARM raw
+    frames in: steps return new states, so the run's own serve to hold
+    the kernels on a tick past the first-logit delay)."""
     import torch
     T = clip.shape[1]
     zeros = torch.zeros_like(clip[:, 0])
@@ -512,13 +570,15 @@ def stream_run(step, plans, states, clip, flush, dev):
     torch.cuda.synchronize(dev)
     logits, lat = [], []
     for r in range(T + flush):
+        if r == STREAM_WARM:
+            warm = states
         t0 = time.perf_counter()
         states, out = step(plans, states, clip[:, r] if r < T else zeros,
                            r < T)
         torch.cuda.synchronize(dev)
         lat.append((time.perf_counter() - t0) * 1e3)
         logits.append(out)
-    return states, logits, lat
+    return states, logits, lat, warm
 
 
 def run_mixed_script(slab_step, groups, slabs, sessions, flush, dev):
@@ -583,6 +643,186 @@ def run_mixed_script(slab_step, groups, slabs, sessions, flush, dev):
     return got, lat, dispatches, reused
 
 
+def record_decode(steps, num_layers):
+    """Wrap the decode attention's ``flash_decode`` (as the attention
+    layer calls it) with a recorder of the calls of serve ``steps`` (call
+    i belongs to step i // num_layers): returns (restore(), {step: [(args,
+    {}), ...]}) with cloned inputs."""
+    import torch
+    from repro_torch.models.layers import attention
+    orig, seen = attention.flash_decode, [0]
+    got = {s: [] for s in steps}
+
+    def rec(*args):
+        step = seen[0] // num_layers
+        seen[0] += 1
+        if step in got:
+            got[step].append((tuple(a.clone() if torch.is_tensor(a) else a
+                                    for a in args), {}))
+        return orig(*args)
+
+    attention.flash_decode = rec
+
+    def restore():
+        attention.flash_decode = orig
+    return restore, got
+
+
+def lm_phase(dev, failures, cases, summary, check_launches, modules):
+    """Phase 11: ``generate`` at full smollm-360m width on both backends,
+    the teacher-forced and prefill agreement checks, flash_decode's launch
+    count, cases and times, a sync-free step and a profiled step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decoder, registry
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    cfg = get_config(LM_ARCH)
+    steps = LM_PROMPT + LM_GEN - 1
+    first, last = LM_PROMPT, steps - 1       # first step fed a generated token
+    params = registry.init_params(cfg, seed=SEED, device=dev)
+
+    def hold(path, calls):
+        cs = [measure_case("flash_decode", a, k, modules) for a, k in calls]
+        cases[f"{path}/flash_decode"] = cs
+        bad = [i for i, c in enumerate(cs) if not c["ok"]]
+        if bad:
+            failures.append(f"{path} flash_decode: kernel disagrees with its "
+                            f"plain version on cases {bad}")
+        sm = summary[(path, "flash_decode")] = summarize(cs)
+        print(f"kernel flash_decode [{path}]: {'ok' if not bad else 'FAIL'} "
+              f"on {len(cs)} inputs {cs[0]['shape']}, max_abs_err "
+              f"{sm['max_abs_err']:.3g}; {sm['ms']:.4f} ms (plain "
+              f"{sm['plain_ms']:.4f}, sdpa {sm['library_ms']:.4f}, bound "
+              f"{sm['bound_ms']:.4f} ms by {sm['bound_by']})")
+
+    restore, got = record_decode((first, last), cfg.num_layers)
+    try:
+        res, counts = counted(lambda: generate(
+            LM_ARCH, reduced=False, batch=LM_BATCH, prompt_len=LM_PROMPT,
+            gen=LM_GEN, seed=SEED, backend="cuda", device=dev, params=params,
+            keep_logits=True))
+    finally:
+        restore()
+    check_launches("lm", counts, {"flash_decode": cfg.num_layers}, steps)
+    launched = counts["flash_decode"]
+    ref, counts = counted(lambda: generate(
+        LM_ARCH, reduced=False, batch=LM_BATCH, prompt_len=LM_PROMPT,
+        gen=LM_GEN, seed=SEED, backend="reference", device=dev,
+        params=params, keep_logits=True))
+    check_launches("lm reference", counts, {}, steps)
+    for name, r in (("cuda", res), ("reference", ref)):
+        print(f"lm: backend={name} {r['tokens_per_s']:.2f} tokens/s, serve "
+              f"step p50 {r['latency_ms_p50']:.3f} ms mean "
+              f"{r['latency_ms_mean']:.3f} ms ({LM_BATCH} sequences x "
+              f"{r['steps']} steps, prompt {LM_PROMPT} fed token by token + "
+              f"{LM_GEN} generated, full {LM_ARCH}, float32 cache)")
+    toks = res["tokens"]
+    if toks.shape != (LM_BATCH, LM_PROMPT + LM_GEN) or not np.isfinite(
+            res["logits"].cpu().numpy()).all():
+        failures.append(f"lm: tokens {toks.shape} or logits not finite")
+    agree = float(np.mean(toks[:, LM_PROMPT:] == ref["tokens"][:, LM_PROMPT:]))
+
+    # the reference backend teacher-forced on the cuda run's tokens: while
+    # the free-running reference picks the same tokens it was fed exactly
+    # those, so its own logits serve; after a divergence it is run again
+    # on the cuda tokens
+    tt = torch.from_numpy(toks).to(dev)
+    if (ref["tokens"] == toks).all():
+        forced = ref["logits"]
+    else:
+        step = make_serve_step(cfg, "reference")
+        cache = registry.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN,
+                                    device=dev)
+        forced = torch.stack([step(params, cache, {
+            "tokens": tt[:, t:t + 1],
+            "pos": torch.full((), t, dtype=torch.int32, device=dev)})[2]
+            for t in range(steps)])
+    del ref["logits"]
+    worst = float((res["logits"] - forced).abs().max())
+    close = torch.isclose(res["logits"], forced, atol=1e-3, rtol=1e-3)
+    if not bool(close.all()):
+        bad = torch.nonzero(~close.flatten(1).all(1)).flatten().tolist()
+        failures.append(f"lm: logits of steps {bad[:10]} differ from the "
+                        f"teacher-forced reference (max {worst:.3g})")
+    # greedy tokens: a cuda choice the reference would not make is only
+    # allowed where the reference's top-2 margin is <= 1e-3
+    top2 = forced[LM_PROMPT - 1:].topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    differ = (forced[LM_PROMPT - 1:].argmax(-1)
+              != tt[:, LM_PROMPT:].T).cpu().numpy()
+    flips = [(LM_PROMPT - 1 + t, b, float(margin[t, b]))
+             for t, b in zip(*np.nonzero(differ))]
+    hard = [f for f in flips if f[2] > 1e-3]
+    if hard:
+        failures.append(f"lm: greedy tokens differ from the reference's "
+                        f"where its top-2 margin exceeds 1e-3: {hard}")
+    # the prompt's logits from the cache-free forward (the prefill path)
+    with torch.inference_mode():
+        full, _ = decoder.forward(params, tt[:, :LM_PROMPT], cfg)
+        metrics = make_prefill_step(cfg)(params, {
+            "tokens": tt[:, :LM_PROMPT], "labels": tt[:, :LM_PROMPT]})
+    cached = res["logits"][:LM_PROMPT].transpose(0, 1)
+    pre = float((full - cached).abs().max())
+    if not torch.allclose(full, cached, atol=1e-3, rtol=1e-3) or not bool(
+            torch.isfinite(metrics["loss"])):
+        failures.append(f"lm: cache-free prompt logits differ from the "
+                        f"cached decode by {pre:.3g} (prefill loss "
+                        f"{float(metrics['loss'])})")
+    print(f"lm: teacher-forced reference vs cuda logits over {steps} steps "
+          f"{worst:.3g}; greedy flips {flips} (allowed at top-2 margin <= "
+          f"1e-3); generated-token agreement of the free-running backends "
+          f"{agree * 100:.1f}%; cache-free prefill vs cached decode over the "
+          f"{LM_PROMPT}-token prompt {pre:.3g}, prefill loss "
+          f"{float(metrics['loss']):.4f}; flash_decode launches {launched} "
+          f"in {steps} cuda steps ({cfg.num_layers} per step expected), "
+          f"{sum(counts.values())} kernel launches on reference")
+
+    # kernel cases: the served run's inputs, then shapes off the run
+    hold("lm first decode step", got[first])
+    hold("lm last step", got[last])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for label, B, S, Hkv, G, D, valid in FD_CASES:
+        q = torch.randn(B, Hkv, G, D, generator=gen, device=dev)
+        k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+                for _ in range(2))
+        hold(label, [((q, k, v, torch.full((1,), valid, dtype=torch.int32,
+                                           device=dev)), {})])
+        del q, k, v
+
+    # one decode step past the prompt may not sync with the host
+    fstep = make_serve_step(cfg, "cuda")
+    cache = registry.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
+    nxt, cache, _ = fstep(params, cache, {
+        "tokens": tt[:, :1], "pos": torch.zeros((), dtype=torch.int32,
+                                                device=dev)})
+    batch = {"tokens": nxt[:, None],
+             "pos": torch.ones((), dtype=torch.int32, device=dev)}
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        fstep(params, cache, batch)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print("lm: one decode step under set_sync_debug_mode('error'): no "
+              "host sync")
+    except RuntimeError as e:
+        torch.cuda.set_sync_debug_mode("default")
+        failures.append(f"lm: the decode step syncs with the host: {e}")
+    # a decode step near the end of the cache (position 500 of 512 slots),
+    # profiled; the cache's positions are set back before each call (one
+    # fill kernel)
+    p0 = steps - 11
+    at = torch.full((), p0, dtype=torch.int32, device=dev)
+
+    def decode_step():
+        cache["pos"].fill_(p0)
+        fstep(params, cache, {"tokens": batch["tokens"], "pos": at})
+    profile_steps("lm decode step", decode_step)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -632,6 +872,8 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"build: {line.strip()}")
+
+    phase_done("build")
 
     # ---- 3. kernels against their plain versions ---------------------------
     cfg = get_config(ARCH)
@@ -708,31 +950,26 @@ def main() -> int:
                   f"{s['bound_by']})")
         return captured
 
-    def warm_states(plans_, stats, frames):
-        """Stream states of ``len(frames)`` slots after STREAM_WARM raw
-        frames (past the first-logit delay: every block's rings hold
-        data)."""
-        states = tuple(engine.init_stream_state(p, frames.shape[0],
-                                                bn_stats=b)
-                       for p, b in zip(plans_, stats))
-        for r in range(STREAM_WARM):
-            states, _ = stream_step(plans_, states, frames[:, r])
-        return states
-
     hold_cases("clip", capture(modules, lambda: infer(plans, x0)), per_clip)
     # stream ticks at S slots, STREAM_WARM raw frames into the clip (past
-    # the first-logit delay, so every block's rings hold data), on the
-    # frozen statistics of this batch
+    # the first-logit delay and the last block's first full window, so
+    # every kept tap reads data), on the frozen statistics of this batch;
+    # the later streams' ticks are held on their own runs' states
     delay = engine.stream_first_logit_delay(plans[0])
     if STREAM_WARM < delay:
         fail(f"{STREAM_WARM} warm-up frames do not reach the last block "
              f"(first-logit delay {delay})")
     bn = [engine.collect_bn_stats(p, xx)
           for p, xx in zip(plans, (x0, bone_stream(x0)))]
-    warm = {}
+    # one state warmed at the largest S; the smaller ticks take its first
+    # S slots (slots are independent)
+    S8 = STREAM_SLOTS[-1]
+    warm8 = tuple(engine.init_stream_state(p, S8, bn_stats=b)
+                  for p, b in zip(plans, bn))
+    for r in range(STREAM_WARM):
+        warm8, _ = stream_step(plans, warm8, x0[:S8, r])
     for S in STREAM_SLOTS:
-        states = warm_states(plans, bn, x0[:S])
-        warm[S] = states
+        states = tuple(first_slots(s_, S) for s_ in warm8)
         hold_cases(f"stream S={S}", capture(modules, lambda: stream_step(
             plans, states, x0[:S, STREAM_WARM])), per_tick)
 
@@ -759,48 +996,6 @@ def main() -> int:
         modules, lambda: infer(dense50, x50)), per_clip, {"graph_sconv"})
     bn50 = [engine.collect_bn_stats(p, xx)
             for p, xx in zip(csr50, (x50, bone50(x50)))]
-    warm50 = warm_states(csr50, bn50, x50)
-    f50 = x50[:, STREAM_WARM]
-    degree = {}
-    for path, plans_ in (("ntu50 csr stream S=8", csr50),
-                         ("ntu50 csr eps=0 stream S=8", csr50_dv)):
-        got = hold_cases(path, capture(modules, lambda: stream_step(
-            plans_, warm50, f50)), per_csr_tick, {"graph_sconv_csr"})
-        degree[path] = sorted({a[1].shape[-1]
-                               for a, _ in got["graph_sconv_csr"]})
-    if degree["ntu50 csr eps=0 stream S=8"] != [VMAX] or max(
-            degree["ntu50 csr stream S=8"]) >= VMAX:
-        failures.append(f"graph_sconv_csr: ELL widths D {degree}, expected "
-                        f"D = {VMAX} at csr_eps = 0 and D < {VMAX} above")
-    hold_cases("ntu50 dense stream S=8", capture(
-        modules, lambda: stream_step(dense50, warm50, f50)), per_tick,
-        {"graph_sconv"})
-    print(f"kernel graph_sconv_csr: ELL widths D per block {degree}")
-
-    # the windowed C_k: stream ticks of a use_ck plan, every column live,
-    # and of the same plan padded to VMAX joints (25 live)
-    cfg_ck = dataclasses.replace(cfg, use_ck=True)
-    gen_ck = torch.Generator().manual_seed(SEED)
-    params_ck = [init_params(cfg_ck, gen_ck, device=dev) for _ in range(2)]
-    ck_plans = plans_for(params_ck, cfg_ck)
-    ck_pad = plans_for(params_ck, cfg_ck, pad_joints=VMAX)
-    bn_ck = [engine.collect_bn_stats(p, xx)
-             for p, xx in zip(ck_plans, (x0, bone_stream(x0)))]
-    S8 = STREAM_SLOTS[-1]
-    warm_ck = warm_states(ck_plans, bn_ck, x0[:S8])
-    for S in STREAM_SLOTS:
-        st = tuple(first_slots(s_, S) for s_ in warm_ck)
-        hold_cases(f"ck stream S={S}", capture(modules, lambda: stream_step(
-            ck_plans, st, x0[:S, STREAM_WARM])), per_ck_tick,
-            {"windowed_similarity"})
-    x0p = F.pad(x0[:S8], (0, 0, 0, VMAX - x0.shape[2]))
-    warm_pad = warm_states(ck_pad, bn_ck, x0p)
-    got = hold_cases(f"ck padded stream S={S8}", capture(
-        modules, lambda: stream_step(ck_pad, warm_pad, x0p[:, STREAM_WARM])),
-        per_ck_tick, {"windowed_similarity"})
-    if {a[2] for a, _ in got["windowed_similarity"]} != {x0.shape[2]}:
-        failures.append("windowed_similarity: the padded plan's calls do "
-                        "not mask the columns past its 25 joints")
 
     # RFC off the main path: a width that is not a whole number of banks
     xr = torch.randn(2400 * 25, 38, generator=gen).to(dev)
@@ -813,17 +1008,15 @@ def main() -> int:
     print(f"kernel rfc C=38 (padded to 48): {'ok' if rfc_pad_ok else 'FAIL'}")
     if not rfc_pad_ok:
         failures.append("rfc: C % 16 != 0 case is not bit-equal")
-    out_dir = ROOT / "build"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke_cases.json").write_text(json.dumps(
-        {"device": smi, "cases": cases}, indent=1))
 
+    phase_done("kernels")
     launches, per_step = {}, {}
 
     def check_launches(path, counts, expect, steps):
         launches[path] = counts
         per_step[path] = {k: v / steps for k, v in counts.items()}
-        for name, n in expect.items():
+        for name in counts:          # kernels missing from expect: none
+            n = expect.get(name, 0)
             if counts[name] != n * steps:
                 failures.append(f"{path} {name}: {counts[name]} launches in "
                                 f"{steps} steps, expected {n * steps}")
@@ -849,6 +1042,8 @@ def main() -> int:
               f"2-stream)")
     print(f"main: max |logit difference| {diff:.3g}, top-1 agreement "
           f"{agree * 100:.1f}%, launches {launches['clip']} in {steps} steps")
+
+    phase_done("main")
 
     # ---- 5. streaming --------------------------------------------------------
     sres, counts = counted(lambda: serve_gcn_stream(
@@ -897,6 +1092,8 @@ def main() -> int:
           f"{sc['flush']} frames, first-logit delay "
           f"{engine.stream_first_logit_delay(plans[0])} raw frames; "
           f"launches {parts}")
+
+    phase_done("stream")
 
     # ---- 6. the session slab: the fused serving tick -------------------------
     tick = make_gcn_fused_tick(cfg)
@@ -965,6 +1162,8 @@ def main() -> int:
         torch.cuda.set_sync_debug_mode("default")
         failures.append(f"slab: the fused tick syncs with the host: {e}")
 
+    phase_done("slab")
+
     # ---- 7. topology: ntu50 clips and a stream on CSR plans --------------------
     ref50 = plans_for(params50, cfg50, backend="reference", topology="ntu50",
                       sconv="dense")
@@ -994,10 +1193,28 @@ def main() -> int:
     states = tuple(engine.init_stream_state(p, x50.shape[0], bn_stats=b)
                    for p, b in zip(csr50, bn50))
     flush50 = engine.stream_flush_frames(csr50[0], cfg.gcn_frames)
-    (_, s_logits, s_lat), counts = counted(lambda: stream_run(
+    (_, s_logits, s_lat, warm50), counts = counted(lambda: stream_run(
         stream_step, csr50, states, x50, flush50, dev))
     check_launches("topology stream", counts, per_csr_tick,
                    cfg.gcn_frames + flush50 + 2)
+    # the kernels on one tick STREAM_WARM frames into that stream, on CSR
+    # plans (and at csr_eps = 0, every ELL row full) and a dense plan
+    f50 = x50[:, STREAM_WARM]
+    degree = {}
+    for path, plans_ in (("ntu50 csr stream S=8", csr50),
+                         ("ntu50 csr eps=0 stream S=8", csr50_dv)):
+        got = hold_cases(path, capture(modules, lambda: stream_step(
+            plans_, warm50, f50)), per_csr_tick, {"graph_sconv_csr"})
+        degree[path] = sorted({a[1].shape[-1]
+                               for a, _ in got["graph_sconv_csr"]})
+    if degree["ntu50 csr eps=0 stream S=8"] != [VMAX] or max(
+            degree["ntu50 csr stream S=8"]) >= VMAX:
+        failures.append(f"graph_sconv_csr: ELL widths D {degree}, expected "
+                        f"D = {VMAX} at csr_eps = 0 and D < {VMAX} above")
+    hold_cases("ntu50 dense stream S=8", capture(
+        modules, lambda: stream_step(dense50, warm50, f50)), per_tick,
+        {"graph_sconv"})
+    print(f"kernel graph_sconv_csr: ELL widths D per block {degree}")
     clip_l = infer(csr50, x50).cpu().numpy()
     last = s_logits[-1].cpu().numpy()
     d = float(np.abs(last - clip_l).max())
@@ -1011,6 +1228,8 @@ def main() -> int:
           f"{statistics.mean(s_lat):.3f} ms; post-drain vs clip {d:.3g}, "
           f"top-1 agreement {top1 * 100:.1f}%; launches "
           f"{launches['topology']} in {steps50} clip steps")
+
+    phase_done("topology")
 
     # ---- 8. one slab, two skeletons ---------------------------------------------
     csr25 = plans_for(params, cfg, sconv="csr", csr_eps=CSR_EPS)
@@ -1068,7 +1287,16 @@ def main() -> int:
           f"alone on a narrow plan {mixed_diff:.3g}; launches "
           f"{launches['mixed']}")
 
+    phase_done("mixed")
+
     # ---- 9. adaptive streaming: the windowed C_k ----------------------------------
+    # a use_ck plan, every column live, and the same plan padded to VMAX
+    # joints (25 live)
+    cfg_ck = dataclasses.replace(cfg, use_ck=True)
+    gen_ck = torch.Generator().manual_seed(SEED)
+    params_ck = [init_params(cfg_ck, gen_ck, device=dev) for _ in range(2)]
+    ck_plans = plans_for(params_ck, cfg_ck)
+    ck_pad = plans_for(params_ck, cfg_ck, pad_joints=VMAX)
     xs = x0[:S8]
     ck_ref = plans_for(params_ck, cfg_ck, backend="reference")
     flush_ck = engine.stream_flush_frames(ck_plans[0], cfg.gcn_frames)
@@ -1080,10 +1308,19 @@ def main() -> int:
             for p, xx in zip(plans_, (xs, bone_stream(xs)))))
         if backend == "cuda":
             check_launches("ck calibration", counts, per_ck_clip, 1)
-        (_, logits, lat), counts = counted(lambda: stream_run(
+        (_, logits, lat, warm), counts = counted(lambda: stream_run(
             stream_step, plans_, states, xs, flush_ck, dev))
         if backend == "cuda":
             check_launches("ck stream", counts, per_ck_tick, ck_steps)
+            # the kernel on ticks STREAM_WARM frames into this stream, at
+            # its first S slots
+            warm_ck = warm
+            for S in STREAM_SLOTS:
+                st = tuple(first_slots(s_, S) for s_ in warm_ck)
+                hold_cases(f"ck stream S={S}", capture(
+                    modules, lambda: stream_step(
+                        ck_plans, st, xs[:S, STREAM_WARM])), per_ck_tick,
+                    {"windowed_similarity"})
         clip_l = infer(plans_, xs).cpu().numpy()
         last = logits[-1].cpu().numpy()
         d = float(np.abs(last - clip_l).max())
@@ -1109,9 +1346,15 @@ def main() -> int:
                         f"{d:.3g}, top-1 agreement {top1}")
     pad_states = tuple(engine.init_stream_state(p, S8, bn_stats=s_.bn_stats)
                        for p, s_ in zip(ck_pad, ck["cuda"][0]))
-    _, pad_logits, _ = stream_run(stream_step, ck_pad, pad_states,
-                                  F.pad(xs, (0, 0, 0, VMAX - xs.shape[2])),
-                                  flush_ck, dev)
+    xsp = F.pad(xs, (0, 0, 0, VMAX - xs.shape[2]))
+    _, pad_logits, _, warm_pad = stream_run(stream_step, ck_pad, pad_states,
+                                            xsp, flush_ck, dev)
+    got = hold_cases(f"ck padded stream S={S8}", capture(
+        modules, lambda: stream_step(ck_pad, warm_pad, xsp[:, STREAM_WARM])),
+        per_ck_tick, {"windowed_similarity"})
+    if {a[2] for a, _ in got["windowed_similarity"]} != {x0.shape[2]}:
+        failures.append("windowed_similarity: the padded plan's calls do "
+                        "not mask the columns past its 25 joints")
     pad_diff = max(float((a - b).abs().max())
                    for a, b in zip(pad_logits, ck["cuda"][1]))
     if not all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
@@ -1123,15 +1366,28 @@ def main() -> int:
           f"{pad_diff:.3g}; launches per stream step "
           f"{per_step['ck stream']}")
 
+    phase_done("ck")
+
     # ---- 10. profile ----------------------------------------------------------
     profile_steps("clip", lambda: infer(plans, x0))
     profile_steps(f"stream S={S8}", lambda: stream_step(
-        plans, warm[S8], x0[:S8, STREAM_WARM]))
+        plans, warm8, x0[:S8, STREAM_WARM]))
     profile_steps(f"slab tick S={SLAB_SLOTS}",
                   lambda: tick(plans, slabs, *inputs, rings))
     profile_steps("clip ntu50 csr", lambda: infer(csr50, x50))
     profile_steps(f"ck stream S={S8}", lambda: stream_step(
-        ck_plans, warm_ck, x0[:S8, STREAM_WARM]))
+        ck_plans, warm_ck, xs[:, STREAM_WARM]))
+
+    phase_done("profile")
+
+    # ---- 11. LM decode serving: smollm-360m at full width ---------------------
+    lm_phase(dev, failures, cases, summary, check_launches, modules)
+    phase_done("lm")
+
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_cases.json").write_text(json.dumps(
+        {"device": smi, "cases": cases}, indent=1))
 
     if failures:
         for f in failures:
@@ -1139,7 +1395,8 @@ def main() -> int:
         return 1
     main_case = {"cavity_tconv_step": f"stream S={S8}",
                  "graph_sconv_csr": "ntu50 csr clip",
-                 "windowed_similarity": f"ck stream S={S8}"}
+                 "windowed_similarity": f"ck stream S={S8}",
+                 "flash_decode": "lm last step"}
     more_cases = {
         "graph_sconv": [f"stream S={S8}", "ntu50 dense clip",
                         f"ntu50 dense stream S={S8}"],
@@ -1147,7 +1404,9 @@ def main() -> int:
         "graph_sconv_csr": [f"ntu50 csr stream S={S8}",
                             f"ntu50 csr eps=0 stream S={S8}"],
         "windowed_similarity": ["ck stream S=1", "ck stream S=3",
-                                f"ck padded stream S={S8}"]}
+                                f"ck padded stream S={S8}"],
+        "flash_decode": ["lm first decode step",
+                         *(c[0] for c in FD_CASES)]}
     kernels = []
     for name in _build.KERNELS:
         path = main_case.get(name, "clip")

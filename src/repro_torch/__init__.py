@@ -6,7 +6,9 @@ of ``repro``.  Ported so far: 2s-AGCN two-stream clip serving, per-frame
 streaming and the session-slab tick, for every registry skeleton (plans
 padded to a shared slab width, dense or CSR spatial conv) and with the
 windowed C_k graph: configs, skeleton graphs, pruning plan, Q8.8
-quantization, synthetic clips, the execution engine, and hand-written
-CUDA kernels (``repro_torch.kernels``).  Entry points run on the GPU
-unless the caller passes ``device="cpu"``.
+quantization, synthetic clips, the execution engine; and KV-cache decode
+serving of the dense decoder LM family (``models``: smollm-360m,
+h2o-danube-1.8b), with hand-written CUDA kernels (``repro_torch.kernels``)
+on both paths.  Entry points run on the GPU unless the caller passes
+``device="cpu"``.
 """

@@ -1,8 +1,9 @@
 """Trees across frameworks, as numpy arrays: the JAX ``init_params`` tree
-becomes the port's parameter tree, and a JAX ``StreamState`` or snapshot
-ring becomes the port's (and back).  ``jax.random`` cannot be reproduced
-with torch, so the parity tests move weights and mid-stream slabs this
-way."""
+becomes the port's parameter tree (the LM's (num_groups, group, ...)
+stacked leaves keep their nesting), a JAX ``StreamState`` or snapshot ring
+becomes the port's (and back), and so does an LM KV cache.  ``jax.random``
+cannot be reproduced with torch, so the parity tests move weights,
+mid-stream slabs and mid-sequence caches this way."""
 from __future__ import annotations
 
 import dataclasses
@@ -65,3 +66,22 @@ def stream_state_to_numpy(state: Any) -> dict:
     if isinstance(state, StreamState):
         state = {f: getattr(state, f) for f in _STATE_FIELDS}
     return _to_numpy(state)
+
+
+_CACHE_KEYS = {"k", "v", "pos"}
+
+
+def kv_cache_from_numpy(tree: Any, device: DeviceLike = None) -> dict:
+    """A dense LM's KV cache {"k", "v": (ng, g, B, L, Hkv, D), "pos":
+    (ng, g) int32} with numpy leaves -> the port's, on ``device`` (default
+    CUDA), dtypes unchanged."""
+    if set(tree) != _CACHE_KEYS:
+        raise ValueError(f"a KV cache has keys {sorted(_CACHE_KEYS)}, got "
+                         f"{sorted(tree)}")
+    return _to_torch(dict(tree), resolve_device(device))
+
+
+def kv_cache_to_numpy(cache: dict) -> dict:
+    """The port's KV cache -> a dict of numpy leaves (what the reference's
+    ``serve_fn`` takes after ``jnp.asarray``)."""
+    return _to_numpy(cache)

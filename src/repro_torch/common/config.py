@@ -1,31 +1,54 @@
-"""Model configuration for the port (the gcn fields of
+"""Model configuration for the port (the gcn and dense-decoder fields of
 ``repro.common.config.ModelConfig``).
 
-Frozen dataclass, so a config can key caches and be shared freely.  Only
-the skeleton-GCN family is ported so far; the LM families' fields join
-with their slice (ROADMAP.md, Queue 1 item 13).
+Frozen dataclass, so a config can key caches and be shared freely.  The
+skeleton-GCN family and the dense decoder LM family are ported; the other
+LM families' fields (MoE, SSM, hybrid, audio, VLM) join with their slice
+(ROADMAP.md, Queue 1 item 13).  The LM fields default to 0 or off, so a
+gcn config leaves them alone.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
 
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
 # The serve CLI's --batch 0 defaults, resolved in one place
 # (ModelConfig.serve_batch).  Keyed "<family>:<mode>", with a fallback.
 SERVE_BATCH_DEFAULTS = {
     "gcn:clip": 8,       # batched two-stream clip inference
     "gcn:stream": 4,     # lockstep per-frame streaming
-    "default": 4,
+    "default": 4,        # LM families (decode batch)
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """2s-AGCN architecture plus the paper's hybrid-pruning knobs."""
+    """2s-AGCN architecture plus the paper's hybrid-pruning knobs, or a
+    dense decoder-only transformer (``family="dense"``: GQA, optional
+    sliding-window attention)."""
 
     name: str
     family: str
     num_layers: int
+
+    # --- dense decoder LM ---
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0                      # 0 -> d_model // num_heads
+    window_size: int = 0                   # >0 -> sliding-window attention
+    local_global_ratio: int = 0            # n local per 1 global (gemma3;
+                                           # the port refuses n > 0)
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    act: str = "silu"                      # silu | gelu | relu2
+    scan_group: int = 1                    # layers per stacked group
 
     # --- gcn (2s-AGCN) ---
     gcn_joints: int = 25
@@ -50,6 +73,10 @@ class ModelConfig:
                                            # window of the last W frames
     gcn_backend: str = "cuda"              # engine backend: cuda | reference
 
+    def __post_init__(self):
+        if self.head_dim == 0 and self.num_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
     def serve_batch(self, mode: str = "", requested: int = 0) -> int:
         """The serve CLI's batch size: an explicit ``requested`` wins,
         else the ``SERVE_BATCH_DEFAULTS`` entry for ``family:mode``."""
@@ -57,3 +84,17 @@ class ModelConfig:
             return requested
         return SERVE_BATCH_DEFAULTS.get(
             f"{self.family}:{mode}", SERVE_BATCH_DEFAULTS["default"])
+
+    @property
+    def padded_vocab(self) -> int:
+        """The vocabulary rounded up to a multiple of 256 (embedding rows
+        and logits)."""
+        return _round_up(self.vocab_size, 256)
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim

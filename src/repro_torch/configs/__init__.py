@@ -1,17 +1,19 @@
 """Architecture registry: ``get_config(name, reduced=...)``.
 
-Only the paper's own model, ``agcn-2s``, is ported so far; the LM zoo's
-configs follow with their slice (ROADMAP.md, Queue 1 item 13).
+The paper's own model, ``agcn-2s``, and the dense decoder LMs
+``smollm-360m`` and ``h2o-danube-1.8b`` are ported; the rest of the LM
+zoo's configs follow with their slices (ROADMAP.md, Queue 1 item 13).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.configs import agcn_2s
+from repro_torch.configs import agcn_2s, h2o_danube_1_8b, smollm_360m
 
-CONFIGS: Dict[str, ModelConfig] = {agcn_2s.CONFIG.name: agcn_2s.CONFIG}
-REDUCED: Dict[str, ModelConfig] = {agcn_2s.CONFIG.name: agcn_2s.REDUCED}
+_MODULES = (agcn_2s, smollm_360m, h2o_danube_1_8b)
+CONFIGS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
+REDUCED: Dict[str, ModelConfig] = {m.CONFIG.name: m.REDUCED for m in _MODULES}
 
 
 def _norm(name: str) -> str:

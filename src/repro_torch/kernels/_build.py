@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 KERNELS = ("graph_sconv", "cavity_tconv", "cavity_tconv_step", "rfc_encode",
-           "rfc_decode", "graph_sconv_csr", "windowed_similarity")
+           "rfc_decode", "graph_sconv_csr", "windowed_similarity",
+           "flash_decode")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -50,6 +51,8 @@ _SIGNATURES = {
     "rfc_decode_f32": (_P, _P, _P, _L, _P),
     # ring_th, ring_ph, out, S, K, V, Ce, valid, stream
     "window_sim_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # q, k, v, valid (int32), out, B, S, Hkv, G, D, stream
+    "flash_decode_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,8 +1,11 @@
-"""Plain PyTorch oracles of the kernels on the clip and streaming paths:
-the port's twins of ``repro.kernels.ref``, in the same layouts, plus the
-streaming temporal conv's einsum (JAX ``engine.ReferenceBackend
-.temporal_step``, which has no ``ref.py`` oracle)."""
+"""Plain PyTorch oracles of the port's kernels: the twins of
+``repro.kernels.ref``, in the same layouts, plus the streaming temporal
+conv's einsum (JAX ``engine.ReferenceBackend.temporal_step``, which has no
+``ref.py`` oracle)."""
 from __future__ import annotations
+
+import math
+from typing import Union
 
 import torch
 import torch.nn.functional as F
@@ -77,3 +80,17 @@ def graph_sconv_csr_ref(x: torch.Tensor, indptr: torch.Tensor,
         agg = x.new_zeros((R, V + 1, C)).index_add_(1, rows.long(), gathered)
         out = out + torch.einsum("rvc,co->rvo", agg[:, :V], w[k])
     return out.to(x.dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: Union[int, torch.Tensor]) -> torch.Tensor:
+    """GQA decode attention oracle: cache slots >= ``valid`` masked.
+    q: (B, Hkv, G, D), k/v: (B, S, Hkv, D) -> (B, Hkv, G, D); ``valid`` an
+    int or a one-element integer tensor on k's device."""
+    D, S = q.shape[-1], k.shape[1]
+    s = torch.einsum("bhgd,bshd->bhgs", q, k) / math.sqrt(D)
+    if torch.is_tensor(valid):
+        valid = valid.reshape(())
+    live = torch.arange(S, device=k.device) < valid
+    s = torch.where(live, s, -1e30)
+    return torch.einsum("bhgs,bshd->bhgd", torch.softmax(s, -1), v)

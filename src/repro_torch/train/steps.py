@@ -1,7 +1,8 @@
-"""GCN inference steps over prebuilt ExecutionPlans: the clip step, the
-per-frame stream step, the session-slab step and the fused serving tick,
-each the two-stream (joint + bone) ensemble.  Port of the gcn inference
-part of ``repro.train.steps``."""
+"""Inference steps.  GCN steps over prebuilt ExecutionPlans: the clip
+step, the per-frame stream step, the session-slab step and the fused
+serving tick, each the two-stream (joint + bone) ensemble.  LM steps: the
+greedy KV-cache decode step and the prefill forward.  Port of the
+inference part of ``repro.train.steps``."""
 from __future__ import annotations
 
 from typing import Callable
@@ -107,3 +108,32 @@ def make_gcn_fused_tick(cfg: ModelConfig) -> Callable:
             rest_order, rings[i], bn_stats=st[i]))
 
     return fused_tick
+
+
+def make_serve_step(cfg: ModelConfig, backend: str = "cuda") -> Callable:
+    """LM decode step ``step(params, cache, batch) -> (next_tok (B,) int32,
+    cache, logits (B, padded_vocab))``: ``registry.serve_fn`` (the cache
+    updated in place) and the greedy next token.  The reference's step
+    returns the token and cache only; the last position's logits are
+    returned too so callers can check them."""
+    from repro_torch.models import registry
+
+    @torch.inference_mode()
+    def serve_step(params, cache, batch):
+        logits, cache = registry.serve_fn(params, batch, cache, cfg, backend)
+        last = logits[:, -1, : cfg.padded_vocab]
+        return last.argmax(-1).to(torch.int32), cache, last
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    """LM prefill ``step(params, {tokens, labels}) -> metrics``: the
+    cache-free forward and its next-token loss."""
+    from repro_torch.models import registry
+
+    @torch.inference_mode()
+    def prefill_step(params, batch):
+        return registry.loss_fn(params, batch, cfg)[1]
+
+    return prefill_step

@@ -36,7 +36,7 @@ def test_config_fields_match_jax(reduced):
 
 def test_unported_config_and_topology_raise():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("smollm-360m")
+        get_config("gemma3-12b")
     # every registry skeleton is ported; an unknown name raises as in JAX
     with pytest.raises(KeyError, match="unknown topology"):
         tgraph.get_topology("ntu26")

@@ -6,7 +6,9 @@ against the JAX reference engine's einsum (atol=rtol=1e-5: both sides sum
 in float32, in different orders), graph_sconv and RFC also against the Pallas
 kernels in interpret mode (1e-4 for graph_sconv, whose interpret-mode
 error against its own oracle reaches 2.3e-5; RFC is data movement and
-must match exactly).  The CUDA kernels against their plain versions run
+must match exactly), and flash_decode against the Pallas kernel in
+interpret mode and its oracle (3e-5, the JAX package's own bound).  The
+CUDA kernels against their plain versions run
 only on a card (marked ``cuda``)."""
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ from repro.kernels import ref as jref
 from repro_torch.core.pruning.cavity import cavity_pattern, tile_pattern
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import cavity_tconv as ct
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import graph_sconv as gs
 from repro_torch.kernels import ref
 from repro_torch.kernels import rfc_pack as rp
@@ -206,6 +209,46 @@ def test_rfc_wrapper_rejects_partial_banks():
         rp.rfc_encode_cuda(torch.zeros(4, 20))
 
 
+# ---------------------------------------------------------------- flash_decode
+
+# (B, S, Hkv, G, D, valid): the JAX package's three shapes, a small odd one
+# (D = 20 as in reduced smollm, one live slot) and reduced danube's ring
+FD_SHAPES = [(1, 512, 2, 4, 32, 512), (2, 1024, 4, 3, 64, 700),
+             (3, 512, 1, 1, 128, 17), (2, 48, 1, 3, 20, 1),
+             (2, 16, 2, 2, 16, 16)]
+
+
+def _fd_inputs(B, S, Hkv, G, D):
+    return (_rand(B * S, B, Hkv, G, D), _rand(B * S + 1, B, S, Hkv, D),
+            _rand(B * S + 2, B, S, Hkv, D))
+
+
+@pytest.mark.parametrize("B,S,Hkv,G,D,valid", FD_SHAPES)
+def test_flash_decode_matches_jax(B, S, Hkv, G, D, valid):
+    from repro.kernels.flash_decode import flash_decode_pallas
+    q, k, v = _fd_inputs(B, S, Hkv, G, D)
+    pallas = np.asarray(flash_decode_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(valid, jnp.int32)))
+    oracle = np.asarray(jref.flash_decode_ref(q, k, v, valid))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    for vt in (valid, torch.tensor([valid], dtype=torch.int32)):
+        for got in (fd.flash_decode_plain(tq, tk, tv, vt),
+                    fd.flash_decode(tq, tk, tv, vt),
+                    ref.flash_decode_ref(tq, tk, tv, vt)):
+            for want in (pallas, oracle):
+                np.testing.assert_allclose(got.numpy(), want, atol=3e-5,
+                                           rtol=3e-5)
+
+
+def test_flash_decode_wrapper_rejects_mismatched_shapes():
+    q, k, v = map(torch.from_numpy, _fd_inputs(2, 16, 2, 3, 8))
+    with pytest.raises(ValueError, match="does not match"):
+        fd.flash_decode(q[:, :1], k, v, 4)
+    with pytest.raises(ValueError):
+        fd.flash_decode(q, k, v[:, :8], 4)
+
+
 def test_cpu_dispatch_counts_no_launches():
     _build.reset_launch_counts()
     x = torch.from_numpy(_rand(0, 4, 25, 3))
@@ -219,8 +262,10 @@ def test_cpu_dispatch_counts_no_launches():
                             torch.ones(3, 25, 2), torch.ones(3, 3, 8))
     ws.windowed_similarity_cuda(torch.ones(2, 9, 25, 4),
                                 torch.ones(2, 9, 25, 4), 20)
-    assert {"cavity_tconv_step", "graph_sconv_csr",
-            "windowed_similarity"} <= set(_build.KERNELS)
+    fd.flash_decode(torch.ones(2, 1, 3, 20), torch.ones(2, 8, 1, 20),
+                    torch.ones(2, 8, 1, 20), 3)
+    assert {"cavity_tconv_step", "graph_sconv_csr", "windowed_similarity",
+            "flash_decode"} <= set(_build.KERNELS)
     assert _build.LAUNCHES == dict.fromkeys(_build.KERNELS, 0)
 
 
@@ -321,3 +366,19 @@ def test_windowed_similarity_kernel_matches_plain(cuda, S, K, V, Ce, valid,
     assert _build.LAUNCHES["windowed_similarity"] == 1
     torch.testing.assert_close(got, ws.windowed_similarity_plain(th, ph, valid),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hkv,G,D,valid", FD_SHAPES + [
+    (4, 512, 5, 3, 64, 497), (4, 4096, 8, 4, 80, 4096), (2, 100, 2, 5, 16, 0),
+    (2, 100, 2, 5, 16, 300), (1, 300, 1, 9, 128, 129)])
+def test_flash_decode_kernel_matches_plain(cuda, B, S, Hkv, G, D, valid):
+    q, k, v = (torch.from_numpy(a).to(cuda) for a in _fd_inputs(B, S, Hkv, G, D))
+    want = fd.flash_decode_plain(q, k, v, valid)
+    _build.reset_launch_counts()
+    for vt in (valid, torch.tensor([valid], dtype=torch.int32, device=cuda)):
+        torch.testing.assert_close(fd.flash_decode(q, k, v, vt), want,
+                                   atol=1e-4, rtol=1e-4)
+    assert _build.LAUNCHES["flash_decode"] == 2
+    with pytest.raises(TypeError, match="int32"):
+        fd.flash_decode(q, k, v, torch.tensor([valid], device=cuda))

@@ -38,7 +38,7 @@ def test_imports_without_jax_or_repro():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 15 and bad.strip() == "[]"
+    assert int(n) >= 21 and bad.strip() == "[]"
 
 
 # the modules of the topology, CSR and C_k paths run end to end on the CPU
@@ -81,6 +81,31 @@ print(bad)
 def test_topology_csr_and_ck_paths_run_without_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _RUN_NEW_PATHS], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+# the dense LM decode path (both backends, a wrapping SWA ring) runs on the
+# CPU in an interpreter where jax and repro cannot be imported
+_RUN_LM_PATH = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+from repro_torch.launch.serve import generate
+for arch in ("smollm-360m", "h2o-danube-1.8b"):
+    toks = [generate(arch, batch=2, prompt_len=4, gen=16, backend=b,
+                     device="cpu")["tokens"] for b in ("cuda", "reference")]
+    assert toks[0].shape == (2, 20) and (toks[0] == toks[1]).all()
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m in ("jax", "repro") or m.startswith(("jax.", "repro."))))
+print(bad)
+"""
+
+
+def test_lm_decode_path_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _RUN_LM_PATH], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
