@@ -26,7 +26,9 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                V = 50).  Each kernel is timed with CUDA events behind a
                spin kernel (device time, without the host's launch cost)
                beside its plain version, a one-call PyTorch yardstick where
-               one exists, and its bound on this card.  The ticks of the
+               one exists, and its bound on this card (graph_sconv and
+               cavity_tconv run on the tensor cores: TF32 rate, with the
+               float32 bound and the 3-pass split's floor beside it).  The ticks of the
                later streams are held the same way in their phases, on the
                state their own run reached 200 frames in.
   4. main    — ``serve_gcn`` at the full agcn-2s config (batch 8, a few
@@ -121,10 +123,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the
-# tensor cores (the kernels use plain float32 FMAs)
+# NVIDIA H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor
+# cores, and dense TF32 tensor-core rate.  graph_sconv and cavity_tconv
+# run on the tensor cores (TF32, 3-pass split), so their bound takes the
+# TF32 rate, with the float32 bound beside it and 3 x operations / TF32
+# rate as the split's own floor; the other kernels use float32 FMAs.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+TENSOR_CORE_KERNELS = ("graph_sconv", "cavity_tconv")
 
 KERNEL_INFO = {   # name -> (CUDA source, TPU kernel it replaces)
     "graph_sconv_csr": ("src/repro_torch/csrc/graph_sconv_csr.cu",
@@ -205,9 +212,9 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return max(t_bytes, t_ops), t_bytes, t_ops
 
 
@@ -264,7 +271,7 @@ def measure_case(name, args, kwargs, modules):
     import torch.nn.functional as F
     gs, ct, rp, ws = modules
     from repro_torch.kernels import flash_decode as fd
-    library, natural = None, None
+    library, natural, as_kernel = None, None, None
     if name == "graph_sconv":
         x, g, w = args
         kern = lambda: gs.graph_sconv_cuda(x, g, w)
@@ -275,22 +282,29 @@ def measure_case(name, args, kwargs, modules):
         nbytes = 4 * (x.numel() + g.numel() + w.numel() + R * V * Cout)
         flops = 2 * R * K * (V * V * Cin + V * Cin * Cout)
     elif name == "cavity_tconv":
-        xp, wp, taps = args
+        x, wp, taps, inv, nf = args
         ks, stride = kwargs["kernel_size"], kwargs["stride"]
-        kern = lambda: ct.cavity_tconv_cuda(xp, wp, taps, ks, stride)
-        plain = lambda: ct.cavity_tconv_plain(xp, wp, taps, ks, stride)
-        L, n_keep, C, Fg = wp.shape
-        x4 = xp.permute(0, 2, 1).unsqueeze(-1).contiguous()
-        w4 = _dense_cavity(wp, taps, ks).unsqueeze(-1)
-        library = lambda: F.conv2d(x4, w4, stride=(stride, 1))
-        natural = lambda out: library()[..., 0].permute(0, 2, 1)
-        B, T_pad, _ = xp.shape
-        T_out = (T_pad - ks + 1) // stride
-        # the (filter, tap) pairs this data needs: packed slots with weights
-        pairs = int((wp != 0).any(dim=2).sum())
-        nbytes = 4 * (xp.numel() + wp.numel() + taps.numel()
-                      + B * T_out * L * Fg)
-        flops = 2 * B * T_out * C * pairs
+        kern = lambda: ct.cavity_tconv_cuda(x, wp, taps, inv, nf,
+                                            kernel_size=ks, stride=stride)
+        plain = lambda: ct.cavity_tconv_plain(x, wp, taps, inv, nf,
+                                              kernel_size=ks, stride=stride)
+        N, T, V, C = x.shape
+        # the yardstick: one cuDNN conv of the dense masked weights, in
+        # natural filter order, over (N, C, T, V)
+        x4 = x.permute(0, 3, 1, 2).contiguous()
+        w4 = _dense_cavity(wp, taps, ks)[:nf].unsqueeze(-1)
+        library = lambda: F.conv2d(x4, w4, stride=(stride, 1),
+                                   padding=(ks // 2, 0))
+        as_kernel = lambda: library().permute(0, 2, 3, 1)
+        T_out = ct.t_out(T, ks, stride)
+        # the (filter, tap) pairs this data needs: kept filters' packed
+        # slots with weights
+        live = inv[:nf]
+        slots = (wp != 0).any(dim=2).permute(0, 2, 1).reshape(-1, wp.shape[1])
+        pairs = int(slots[live].sum())
+        nbytes = 4 * (x.numel() + wp.numel() + taps.numel()
+                      + N * T_out * V * nf) + 8 * inv.numel()
+        flops = 2 * N * V * T_out * C * pairs
     elif name == "cavity_tconv_step":
         x, wp, taps = args
         kern = lambda: ct.cavity_tconv_step_cuda(x, wp, taps)
@@ -375,14 +389,22 @@ def measure_case(name, args, kwargs, modules):
         perm = torch.arange(n, device=ref.device).reshape(-1, L).T.reshape(-1)
         ok = ok and torch.allclose(flat, ref[..., perm], atol=1e-4, rtol=1e-4)
     elif library is not None:
-        ok = ok and torch.allclose(got[0], library(), atol=1e-4, rtol=1e-4)
-    b_ms, t_bytes, t_ops = bound_ms(nbytes, flops)
+        ref = as_kernel() if as_kernel is not None else library()
+        ok = ok and torch.allclose(got[0], ref, atol=1e-4, rtol=1e-4)
+    tc = name in TENSOR_CORE_KERNELS
+    b_ms, t_bytes, t_ops = bound_ms(nbytes, flops,
+                                    TF32_FLOP_PER_S if tc else F32_FLOP_PER_S)
     return {
         "shape": [list(a.shape) for a in args if hasattr(a, "shape")],
         "stride": kwargs.get("stride"), "ok": bool(ok), "max_abs_err": err,
         "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=3, inner=3),
         "library_ms": cuda_ms(library) if library is not None else None,
         "bound_ms": b_ms, "bytes_ms": t_bytes, "ops_ms": t_ops,
+        # the float32 CUDA-core bound and, on the tensor cores, the 3-pass
+        # split's own floor (three TF32 products per product)
+        "bound_f32_ms": bound_ms(nbytes, flops)[0],
+        "split_floor_ms": (bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)[0]
+                           if tc else None),
     }
 
 
@@ -390,7 +412,7 @@ def summarize(cs):
     """Per-step sums over the cases of one kernel on one path."""
     t_bytes = sum(c["bytes_ms"] for c in cs)
     t_ops = sum(c["ops_ms"] for c in cs)
-    return {
+    out = {
         "max_abs_err": max(c["max_abs_err"] for c in cs),
         "ms": sum(c["ms"] for c in cs),
         "plain_ms": sum(c["plain_ms"] for c in cs),
@@ -398,7 +420,11 @@ def summarize(cs):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": (sum(c["library_ms"] for c in cs)
                        if cs[0]["library_ms"] is not None else None),
+        "bound_f32_ms": sum(c["bound_f32_ms"] for c in cs),
     }
+    if cs[0]["split_floor_ms"] is not None:
+        out["split_floor_ms"] = sum(c["split_floor_ms"] for c in cs)
+    return out
 
 
 def profile_steps(label, run, steps: int = 2) -> None:
@@ -943,11 +969,13 @@ def main() -> int:
                 failures.append(f"{path} {name}: kernel disagrees with its "
                                 f"plain version on cases {bad}")
             s = summary[(path, name)] = summarize(cs)
+            tc = (f", float32 bound {s['bound_f32_ms']:.4f}, 3-pass floor "
+                  f"{s['split_floor_ms']:.4f}" if "split_floor_ms" in s else "")
             print(f"kernel {name} [{path}]: {'ok' if not bad else 'FAIL'} on "
                   f"{len(cs)} inputs, max_abs_err {s['max_abs_err']:.3g}; per "
                   f"ensemble step {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
                   f"library {s['library_ms']}, bound {s['bound_ms']:.4f} ms by "
-                  f"{s['bound_by']})")
+                  f"{s['bound_by']}{tc})")
         return captured
 
     hold_cases("clip", capture(modules, lambda: infer(plans, x0)), per_clip)

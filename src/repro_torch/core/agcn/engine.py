@@ -297,15 +297,13 @@ class CudaBackend:
         return ops.graph_sconv(xg, ba["G"], ba["Wk"])
 
     def temporal(self, x, ba, bs):
-        """Packed cavity tconv kernel over the (N·V, T, C) rows — only the
-        kept taps are computed (the paper's C2 FLOP skip)."""
-        N, T, V, C = x.shape
-        xb = x.permute(0, 2, 1, 3).reshape(N * V, T, C)
+        """Packed cavity tconv kernel on (N, T, V, C) as it lies — only the
+        kept taps are computed (the paper's C2 FLOP skip); the kernel
+        writes (N, T_out, V, F_kept) in natural filter order."""
         out = ops.cavity_tconv(
-            xb, ba["wp"], ba["taps"], ba["inv_perm"],
+            x, ba["wp"], ba["taps"], ba["inv_perm"],
             num_filters=bs.n_kept_filters, kernel_size=bs.tkernel,
-            stride=bs.stride)                          # (N*V, T_out, F_kept)
-        out = out.reshape(N, V, out.shape[1], -1).permute(0, 2, 1, 3)
+            stride=bs.stride)
         out = out + ba["tb"]
         if bs.pruned_filters:
             out = _scatter_filters(out, ba["kept_filters"], bs.cout)

@@ -36,13 +36,13 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: (argtypes); every one returns a cudaError_t as int
 _SIGNATURES = {
-    # x, g, w, out, R, V, Cin, Cout, K, stream
-    "graph_sconv_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, g, w, out, R, V, Cin, Cout, K, tile, rows, wt, xres, stream
+    "graph_sconv_f32": (_P, _P, _P, _P, *(_I,) * 9, _P),
     # x, idx (int32), val, w, out, R, V, Cin, Cout, K, D, stream
     "graph_sconv_csr_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, wp, taps, out, B, T_pad, C, L, n_keep, Fg, T_out, stride, ksize, stream
-    "cavity_tconv_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P),
+    # x, wp, taps, inv_perm (int64), out, scratch, N, T, V, C, L, n_keep,
+    # Fg, F, T_out, stride, ksize, pad, tt, nb, stream
+    "cavity_tconv_f32": (_P, _P, _P, _P, _P, _P, *(_I,) * 14, _P),
     # x, wp, taps, out, B, K, C, L, n_keep, Fg, stream
     "cavity_tconv_step_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, values, hot, n, stream

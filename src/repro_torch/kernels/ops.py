@@ -94,7 +94,7 @@ def pack_cavity_weights(
 
 
 def cavity_tconv(
-    x: torch.Tensor,          # (B, T, C)
+    x: torch.Tensor,          # (N, T, V, C), or (B, T, C): its V = 1 view
     wp: torch.Tensor,
     taps: torch.Tensor,
     inv_perm: torch.Tensor,
@@ -102,21 +102,19 @@ def cavity_tconv(
     kernel_size: int = 9,
     stride: int = 1,
 ) -> torch.Tensor:
-    """Cavity-pruned temporal conv, 'same' padding.  Returns (B, T_out, F).
+    """Cavity-pruned temporal conv, 'same' padding.  Returns
+    (N, T_out, V, F), or (B, T_out, F) for a 3-D input, in natural filter
+    order.
 
-    T_out follows conv semantics, ``(T + 2·pad − K)//stride + 1``: when the
-    stride does not divide (odd T into a stride-2 block) the right pad is
-    extended so the kernel's window count equals it."""
-    pad = kernel_size // 2
-    T = x.shape[1]
-    t_out = (T + 2 * pad - kernel_size) // stride + 1
-    t_pad = kernel_size - 1 + t_out * stride
-    xp = F.pad(x, (0, 0, pad, t_pad - T - pad)).contiguous()
-    out = _ct.cavity_tconv_cuda(xp, wp, taps, kernel_size=kernel_size,
-                                stride=stride)          # (B, T_out, L, Fg)
-    B, T_out, L, Fg = out.shape
-    flat = out.reshape(B, T_out, L * Fg).index_select(-1, inv_perm)
-    return flat[..., :num_filters]
+    T_out follows conv semantics, ``(T + 2·pad − K)//stride + 1``.  The
+    kernel reads x where it lies (no transposed or padded copy: the
+    padding is its bound check) and writes natural filter order through
+    ``inv_perm``."""
+    x4 = x.unsqueeze(2) if x.dim() == 3 else x
+    out = _ct.cavity_tconv_cuda(x4.contiguous(), wp, taps, inv_perm,
+                                num_filters, kernel_size=kernel_size,
+                                stride=stride)
+    return out.squeeze(2) if x.dim() == 3 else out
 
 
 def cavity_tconv_step(

@@ -94,22 +94,24 @@ def test_cavity_tconv_matches_jax(B, T, C, F, stride, pattern):
 
 
 def test_cavity_tconv_plain_is_the_kernel_contract():
-    """The plain version computes the packed kernel's (B, T_out, L, Fg)
-    function: every group's kept taps, strided, on a pre-padded input."""
-    F_, C = 24, 8
+    """The plain version computes the kernel's function: on (N, T, V, C)
+    as it lies, every group's kept taps, 'same' zero padding, strided, each
+    filter in its natural place of the (N, T_out, V, F) output."""
+    F_, C, V = 24, 8, 3
     mask = tile_pattern(cavity_pattern("cav-70-1"), F_)
     w = _rand(1, F_, C, 9) * mask[:, None, :]
-    wp, taps, _ = ops.pack_cavity_weights(w, mask)
-    xp = torch.from_numpy(_rand(2, 3, 26, C))      # T_pad = K - 1 + 9 * 2
-    out = ct.cavity_tconv_cuda(xp, torch.from_numpy(wp), torch.from_numpy(taps),
+    wp, taps, inv = ops.pack_cavity_weights(w, mask)
+    x = torch.from_numpy(_rand(2, 2, 17, V, C))
+    out = ct.cavity_tconv_cuda(x, torch.from_numpy(wp), torch.from_numpy(taps),
+                               torch.from_numpy(inv).long(), F_ - 2,
                                kernel_size=9, stride=2)
-    assert out.shape == (3, 9, 8, 3)
-    for g in range(8):
-        for i in range(3):
-            f = g + 8 * i
+    assert out.shape == (2, 9, V, F_ - 2)
+    for f in range(F_ - 2):
+        for v in range(V):
             want = torch.nn.functional.conv1d(
-                xp.transpose(1, 2), torch.from_numpy(w[f:f + 1]), stride=2)
-            torch.testing.assert_close(out[:, :, g, i], want[:, 0], **TOL)
+                x[:, :, v].transpose(1, 2), torch.from_numpy(w[f:f + 1]),
+                stride=2, padding=4)
+            torch.testing.assert_close(out[:, :, v, f], want[:, 0], **TOL)
 
 
 # ------------------------------------------------------ cavity_tconv, step
@@ -256,7 +258,8 @@ def test_cpu_dispatch_counts_no_launches():
     ops.rfc_decode(*ops.rfc_encode(x))
     wp = torch.ones(8, 3, 3, 1)
     taps = torch.zeros(8, 3, dtype=torch.int32)
-    ct.cavity_tconv_cuda(torch.ones(2, 12, 3), wp, taps, 9, 1)
+    ct.cavity_tconv_cuda(torch.ones(2, 12, 1, 3), wp, taps,
+                         torch.arange(8, dtype=torch.int64), 8, 9, 1)
     ct.cavity_tconv_step_cuda(torch.ones(2, 9, 3), wp, taps)
     gs.graph_sconv_csr_cuda(x, torch.zeros(3, 25, 2, dtype=torch.int32),
                             torch.ones(3, 25, 2), torch.ones(3, 3, 8))
@@ -272,8 +275,9 @@ def test_cpu_dispatch_counts_no_launches():
 # ------------------------------------------------ CUDA kernels (card only)
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,V,Ci,Co,K", SCONV_SHAPES + [(2400, 25, 3, 64, 3),
-                                                        (608, 25, 77, 256, 3)])
+@pytest.mark.parametrize("R,V,Ci,Co,K", SCONV_SHAPES + [
+    (2400, 25, 3, 64, 3), (608, 25, 77, 256, 3), (1200, 50, 90, 256, 3),
+    (8, 50, 90, 256, 3), (8, 25, 77, 256, 3), (300, 50, 256, 256, 3)])
 def test_graph_sconv_kernel_matches_plain(cuda, R, V, Ci, Co, K):
     x, g, w = (torch.from_numpy(a).to(cuda)
                for a in _sconv_inputs(R, V, Ci, Co, K))
@@ -283,17 +287,22 @@ def test_graph_sconv_kernel_matches_plain(cuda, R, V, Ci, Co, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,C,F,stride,pattern", TCONV_CASES)
-def test_cavity_tconv_kernel_matches_plain(cuda, B, T, C, F, stride, pattern):
+@pytest.mark.parametrize("B,T,C,F,stride,pattern,V", [
+    c + (1,) for c in TCONV_CASES] + [(2, 75, 256, 77, 2, "cav-70-1", 1),
+                                      (2, 75, 64, 38, 1, "cav-70-1", 25)])
+def test_cavity_tconv_kernel_matches_plain(cuda, B, T, C, F, stride, pattern,
+                                           V):
+    """(N, T, V, C) in place; V = 1 is the 3-D interface's view."""
     mask = tile_pattern(cavity_pattern(pattern), F)
-    wp, taps, _ = ops.pack_cavity_weights(_rand(F, F, C, 9) * mask[:, None, :],
-                                          mask)
-    xp = torch.nn.functional.pad(
-        torch.from_numpy(_rand(T, B, T, C)), (0, 0, 4, 5)).to(cuda)
+    wp, taps, inv = ops.pack_cavity_weights(
+        _rand(F, F, C, 9) * mask[:, None, :], mask)
+    x = torch.from_numpy(_rand(T, B, T, V, C)).to(cuda)
     wp, taps = torch.from_numpy(wp).to(cuda), torch.from_numpy(taps).to(cuda)
+    inv = torch.from_numpy(inv).long().to(cuda)
     torch.testing.assert_close(
-        ct.cavity_tconv_cuda(xp, wp, taps, 9, stride),
-        ct.cavity_tconv_plain(xp, wp, taps, 9, stride), atol=1e-4, rtol=1e-4)
+        ct.cavity_tconv_cuda(x, wp, taps, inv, F, 9, stride),
+        ct.cavity_tconv_plain(x, wp, taps, inv, F, 9, stride),
+        atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
