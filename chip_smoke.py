@@ -160,8 +160,13 @@ SLAB_SLOTS, SESSIONS, SESSION_FRAMES, EVENTS, RING_ROWS = 8, 12, 64, 4, 4
 TOPO_CLIPS = 32                    # ntu50 sequences in the topology phase
 MIXED_SESSIONS, MIXED_FRAMES, MIXED_EVERY = 10, 48, 4
 VMAX = 50                          # slab width of the mixed and padded runs
+DENSE_SKELETONS = (("hand21", 21), ("body_hand46", 46))
 CSR_EPS = 1e-5                     # above B_k's 1e-6 init: D = degree
+CARD_TESTS = "tests/test_torch_cuda_kernels.py"
 SPIN_CYCLES = 2_000_000            # about 1 ms at the H100's boost clock
+_CLOCK = {}                        # the spin kernel's cycles per ms
+HOST_GAPS = set()                  # timings whose host waits could not be
+                                   # hidden behind a spin
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "smollm-360m", 4, 496, 16
 # flash_decode cases off the served run: (label, B, S, Hkv, G, D, valid)
 FD_CASES = [("long context", 8, 32768, 5, 3, 64, 30000),
@@ -188,26 +193,70 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
-    """Median over ``reps`` of the mean time of ``inner`` back-to-back
-    calls, by CUDA events, after one warm-up call.  Each repetition first
-    queues a 1 ms spin kernel, so that the host has queued the calls
-    before the device reaches them and the events time the device's work,
-    not the host's launch cost; calls whose host work outlasts the spin
-    are timed with the host's gaps included."""
+def spin_cycles_per_ms() -> float:
+    """The spin kernel's clock cycles per ms on this card (timed once, the
+    second of two spins, after the first has woken the clocks)."""
+    import torch
+    if "cycles_per_ms" not in _CLOCK:
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            torch.cuda._sleep(SPIN_CYCLES)
+            end.record()
+            end.synchronize()
+            _CLOCK["cycles_per_ms"] = SPIN_CYCLES / start.elapsed_time(end)
+    return _CLOCK["cycles_per_ms"]
+
+
+def cuda_ms(fn, reps: int = 7, inner: int = 10, label: str = "") -> float:
+    """Median over ``reps`` of the mean device time of ``inner``
+    back-to-back calls, by CUDA events, after one warm-up call.
+
+    The host's queueing must not enter the device time, so each
+    repetition first queues a spin kernel that outlasts the host's time to
+    queue the ``inner`` calls: that time is measured once before the
+    repetitions and again in each; a repetition whose queueing outlasted
+    its spin is run again with a spin twice as long as the queueing took
+    (up to three tries).  The device then reaches the first call only once
+    the last is queued, and the events time its work alone.  A call that
+    waits for the device itself (the plain versions that read their taps
+    on the host) cannot be hidden so: once a try's queueing outlasts its
+    spin by half the earlier queueing time, the call is taken to wait for
+    the device, the rest run without a spin and are timed with the waits
+    included, and ``label`` goes into ``HOST_GAPS``."""
     import torch
     fn()
     torch.cuda.synchronize()
-    times = []
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    times, waits = [], False
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
+        for _ in range(3):
+            spin_ms = 0.0 if waits else max(1.0, 2.0 * host_ms + 0.5)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if spin_ms:
+                torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
+            h0 = time.perf_counter()
+            start.record()
+            for _ in range(inner):
+                fn()
+            end.record()
+            queued_ms = (time.perf_counter() - h0) * 1e3
+            end.synchronize()
+            if waits or queued_ms < spin_ms:
+                break
+            waits = queued_ms >= spin_ms + 0.5 * host_ms
+            host_ms = queued_ms
+            if waits:
+                if label:
+                    HOST_GAPS.add(label)
+                break
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
@@ -397,8 +446,10 @@ def measure_case(name, args, kwargs, modules):
     return {
         "shape": [list(a.shape) for a in args if hasattr(a, "shape")],
         "stride": kwargs.get("stride"), "ok": bool(ok), "max_abs_err": err,
-        "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=3, inner=3),
-        "library_ms": cuda_ms(library) if library is not None else None,
+        "ms": cuda_ms(kern, label=f"{name} kernel"),
+        "plain_ms": cuda_ms(plain, reps=3, inner=3, label=f"{name} plain"),
+        "library_ms": (cuda_ms(library, label=f"{name} library")
+                       if library is not None else None),
         "bound_ms": b_ms, "bytes_ms": t_bytes, "ops_ms": t_ops,
         # the float32 CUDA-core bound and, on the tensor cores, the 3-pass
         # split's own floor (three TF32 products per product)
@@ -849,6 +900,28 @@ def lm_phase(dev, failures, cases, summary, check_launches, modules):
     profile_steps("lm decode step", decode_step)
 
 
+def card_tests(failures) -> None:
+    """The card_tests phase: the JAX-free kernel tests, every case marked
+    ``cuda``, in a pytest process of their own; fails unless every selected
+    case passes and none skips."""
+    import os
+    import re
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "pytest", "-q", "--noconftest", "-p",
+           "no:cacheprovider", "-m", "cuda", CARD_TESTS]
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=900)
+    tail = out.stdout.strip().splitlines()[-1:] or [""]
+    counts = {k: int(n) for n, k in re.findall(
+        r"(\d+) (passed|failed|skipped|errors?|deselected)", tail[0])}
+    print(f"card_tests: {counts.get('passed', 0)} passed")
+    print(f"card_tests: {tail[0]} ({' '.join(cmd[1:])}, exit {out.returncode})")
+    if out.returncode != 0 or counts.get("skipped") or not counts.get(
+            "passed"):
+        print(out.stdout[-6000:], out.stderr[-3000:], sep="\n")
+        failures.append(f"card_tests: exit {out.returncode}, {tail[0]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -901,6 +974,10 @@ def main() -> int:
 
     phase_done("build")
 
+    failures, cases, summary = [], {}, {}
+    card_tests(failures)
+    phase_done("card_tests")
+
     # ---- 3. kernels against their plain versions ---------------------------
     cfg = get_config(ARCH)
     nblocks = len(cfg.gcn_channels)
@@ -933,7 +1010,6 @@ def main() -> int:
     per_ck_clip = dict(per_clip, graph_sconv=0)
     per_ck_tick = dict(per_tick, graph_sconv=0,
                        windowed_similarity=2 * nblocks)
-    failures, cases, summary = [], {}, {}
 
     def hold_cases(path, captured, expect, measure=None):
         """Check the calls per kernel of one step against ``expect`` and
@@ -1025,6 +1101,31 @@ def main() -> int:
     bn50 = [engine.collect_bn_stats(p, xx)
             for p, xx in zip(csr50, (x50, bone50(x50)))]
 
+    # hand21 and body_hand46 on dense plans (sconv="auto" keeps their
+    # graphs dense at csr_eps = 0): graph_sconv's 6 rows x 21 and 2 rows x
+    # 46 joints a 128-pair tile, on one clip step and one S = 8 tick
+    # STREAM_WARM frames in
+    for topo, vt in DENSE_SKELETONS:
+        cfg_t = dataclasses.replace(cfg, gcn_joints=vt, gcn_persons=1)
+        gen_t = torch.Generator().manual_seed(SEED)
+        params_t = [init_params(cfg_t, gen_t, device=dev) for _ in range(2)]
+        plans_t = plans_for(params_t, cfg_t, topology=topo, sconv="dense")
+        xt = torch.from_numpy(next(skeleton_batches(cfg_t, DataConfig(
+            global_batch=BATCH, seq_len=cfg.gcn_frames, seed=SEED)))["x"]
+            ).to(dev)
+        hold_cases(f"{topo} dense clip", capture(
+            modules, lambda: infer(plans_t, xt)), per_clip, {"graph_sconv"})
+        bone_t = bone_stream_parents(xt, plans_t[1].arrays["parents"])
+        st = tuple(engine.init_stream_state(p, S8, bn_stats=engine.
+                                            collect_bn_stats(p, xx))
+                   for p, xx in zip(plans_t, (xt, bone_t)))
+        for r in range(STREAM_WARM):
+            st, _ = stream_step(plans_t, st, xt[:S8, r])
+        hold_cases(f"{topo} dense stream S={S8}", capture(
+            modules, lambda: stream_step(plans_t, st, xt[:S8, STREAM_WARM])),
+            per_tick, {"graph_sconv"})
+        del params_t, plans_t, st
+
     # RFC off the main path: a width that is not a whole number of banks
     xr = torch.randn(2400 * 25, 38, generator=gen).to(dev)
     vals, hot = ops.rfc_encode(xr)
@@ -1037,6 +1138,9 @@ def main() -> int:
     if not rfc_pad_ok:
         failures.append("rfc: C % 16 != 0 case is not bit-equal")
 
+    print(f"clock: spin {spin_cycles_per_ms():.0f} cycles/ms; timings that "
+          f"wait for the device (host waits included): "
+          f"{sorted(HOST_GAPS) or 'none'}")
     phase_done("kernels")
     launches, per_step = {}, {}
 
@@ -1427,7 +1531,9 @@ def main() -> int:
                  "flash_decode": "lm last step"}
     more_cases = {
         "graph_sconv": [f"stream S={S8}", "ntu50 dense clip",
-                        f"ntu50 dense stream S={S8}"],
+                        f"ntu50 dense stream S={S8}",
+                        *(f"{t} dense {p}" for t, _ in DENSE_SKELETONS
+                          for p in ("clip", f"stream S={S8}"))],
         "rfc_encode": [f"stream S={S8}"], "rfc_decode": [f"stream S={S8}"],
         "graph_sconv_csr": [f"ntu50 csr stream S={S8}",
                             f"ntu50 csr eps=0 stream S={S8}"],

@@ -8,8 +8,9 @@ kernels in interpret mode (1e-4 for graph_sconv, whose interpret-mode
 error against its own oracle reaches 2.3e-5; RFC is data movement and
 must match exactly), and flash_decode against the Pallas kernel in
 interpret mode and its oracle (3e-5, the JAX package's own bound).  The
-CUDA kernels against their plain versions run
-only on a card (marked ``cuda``)."""
+CUDA kernels against their plain versions run only on a card, from the
+JAX-free ``tests/test_torch_cuda_kernels.py``, which also holds the case
+lists and input helpers shared here."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,34 +26,14 @@ from repro_torch.kernels import graph_sconv as gs
 from repro_torch.kernels import ref
 from repro_torch.kernels import rfc_pack as rp
 from repro_torch.kernels import window_sim as ws
+from test_torch_cuda_kernels import (FD_SHAPES, RFC_SHAPES, SCONV_SHAPES,
+                                     STEP_CASES, TCONV_CASES, _fd_inputs,
+                                     _rand, _sconv_inputs)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
-def _rand(seed, *shape, scale=1.0):
-    rng = np.random.default_rng(seed)
-    return (rng.standard_normal(shape) * scale).astype(np.float32)
-
-
-def _sconv_inputs(R, V, Ci, Co, K):
-    """Inputs at the model's scales (a normalized graph plus noise, He-
-    initialized weights), so outputs are O(1) like the model's."""
-    return (_rand(R, R, V, Ci), _rand(V, K, V, V, scale=1.0 / V),
-            _rand(Ci, K, Ci, Co, scale=np.sqrt(2.0 / Ci)))
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with CUDA (the kernels run only there)")
-    return torch.device("cuda")
-
-
 # ---------------------------------------------------------------- graph_sconv
-
-SCONV_SHAPES = [(32, 25, 16, 32, 3), (64, 25, 3, 8, 3), (7, 25, 38, 64, 3),
-                (16, 5, 9, 20, 2)]
-
 
 @pytest.mark.parametrize("R,V,Ci,Co,K", SCONV_SHAPES)
 def test_graph_sconv_matches_jax(R, V, Ci, Co, K):
@@ -69,12 +50,6 @@ def test_graph_sconv_matches_jax(R, V, Ci, Co, K):
 
 
 # ---------------------------------------------------------------- cavity_tconv
-
-# (B, T, C, F, stride, pattern): odd T into stride 2, F not a multiple of 8
-TCONV_CASES = [(4, 32, 16, 16, 1, "cav-70-1"), (3, 15, 8, 38, 2, "cav-70-1"),
-               (2, 75, 4, 77, 2, "cav-70-1"), (5, 20, 8, 13, 1, "none"),
-               (2, 9, 6, 24, 2, "cav-50-1")]
-
 
 @pytest.mark.parametrize("B,T,C,F,stride,pattern", TCONV_CASES)
 def test_cavity_tconv_matches_jax(B, T, C, F, stride, pattern):
@@ -115,12 +90,6 @@ def test_cavity_tconv_plain_is_the_kernel_contract():
 
 
 # ------------------------------------------------------ cavity_tconv, step
-
-# (B, C, F, pattern): F not a multiple of 8, dense and pruned tap sets
-STEP_CASES = [(25, 16, 16, "cav-70-1"), (75, 8, 38, "cav-70-1"),
-              (50, 4, 77, "none"), (3, 6, 24, "cav-50-1"),
-              (200, 12, 13, "cav-70-1")]
-
 
 @pytest.mark.parametrize("B,C,F,pattern", STEP_CASES)
 def test_cavity_tconv_step_matches_reference_einsum(B, C, F, pattern):
@@ -169,10 +138,6 @@ def test_cavity_tconv_step_reads_only_kept_taps():
 
 # ------------------------------------------------------------------------ RFC
 
-# (rows, C): C not a multiple of 16 in the ops cases
-RFC_SHAPES = [(8, 16), (32, 64), (100, 48), (7, 160), (9, 38), (5, 3)]
-
-
 @pytest.mark.parametrize("rows,cols", RFC_SHAPES)
 def test_rfc_encode_decode_match_jax(rows, cols):
     x = _rand(rows + cols, rows, cols)
@@ -212,18 +177,6 @@ def test_rfc_wrapper_rejects_partial_banks():
 
 
 # ---------------------------------------------------------------- flash_decode
-
-# (B, S, Hkv, G, D, valid): the JAX package's three shapes, a small odd one
-# (D = 20 as in reduced smollm, one live slot) and reduced danube's ring
-FD_SHAPES = [(1, 512, 2, 4, 32, 512), (2, 1024, 4, 3, 64, 700),
-             (3, 512, 1, 1, 128, 17), (2, 48, 1, 3, 20, 1),
-             (2, 16, 2, 2, 16, 16)]
-
-
-def _fd_inputs(B, S, Hkv, G, D):
-    return (_rand(B * S, B, Hkv, G, D), _rand(B * S + 1, B, S, Hkv, D),
-            _rand(B * S + 2, B, S, Hkv, D))
-
 
 @pytest.mark.parametrize("B,S,Hkv,G,D,valid", FD_SHAPES)
 def test_flash_decode_matches_jax(B, S, Hkv, G, D, valid):
@@ -270,124 +223,3 @@ def test_cpu_dispatch_counts_no_launches():
     assert {"cavity_tconv_step", "graph_sconv_csr", "windowed_similarity",
             "flash_decode"} <= set(_build.KERNELS)
     assert _build.LAUNCHES == dict.fromkeys(_build.KERNELS, 0)
-
-
-# ------------------------------------------------ CUDA kernels (card only)
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("R,V,Ci,Co,K", SCONV_SHAPES + [
-    (2400, 25, 3, 64, 3), (608, 25, 77, 256, 3), (1200, 50, 90, 256, 3),
-    (8, 50, 90, 256, 3), (8, 25, 77, 256, 3), (300, 50, 256, 256, 3)])
-def test_graph_sconv_kernel_matches_plain(cuda, R, V, Ci, Co, K):
-    x, g, w = (torch.from_numpy(a).to(cuda)
-               for a in _sconv_inputs(R, V, Ci, Co, K))
-    torch.testing.assert_close(gs.graph_sconv_cuda(x, g, w),
-                               gs.graph_sconv_plain(x, g, w),
-                               atol=1e-4, rtol=1e-4)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,T,C,F,stride,pattern,V", [
-    c + (1,) for c in TCONV_CASES] + [(2, 75, 256, 77, 2, "cav-70-1", 1),
-                                      (2, 75, 64, 38, 1, "cav-70-1", 25)])
-def test_cavity_tconv_kernel_matches_plain(cuda, B, T, C, F, stride, pattern,
-                                           V):
-    """(N, T, V, C) in place; V = 1 is the 3-D interface's view."""
-    mask = tile_pattern(cavity_pattern(pattern), F)
-    wp, taps, inv = ops.pack_cavity_weights(
-        _rand(F, F, C, 9) * mask[:, None, :], mask)
-    x = torch.from_numpy(_rand(T, B, T, V, C)).to(cuda)
-    wp, taps = torch.from_numpy(wp).to(cuda), torch.from_numpy(taps).to(cuda)
-    inv = torch.from_numpy(inv).long().to(cuda)
-    torch.testing.assert_close(
-        ct.cavity_tconv_cuda(x, wp, taps, inv, F, 9, stride),
-        ct.cavity_tconv_plain(x, wp, taps, inv, F, 9, stride),
-        atol=1e-4, rtol=1e-4)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,C,F,pattern", STEP_CASES + [
-    (200, 256, 256, "cav-70-1"), (25, 64, 64, "cav-70-1"),
-    (75, 128, 52, "none")])
-def test_cavity_tconv_step_kernel_matches_plain(cuda, B, C, F, pattern):
-    mask = tile_pattern(cavity_pattern(pattern), F)
-    wp, taps, _ = ops.pack_cavity_weights(
-        _rand(F, F, C, 9) * mask[:, None, :] / np.sqrt(C), mask)
-    x = torch.from_numpy(_rand(B, B, 9, C)).to(cuda)
-    wp, taps = torch.from_numpy(wp).to(cuda), torch.from_numpy(taps).to(cuda)
-    if C % 4:       # the kernel takes whole float4s; ops pads C with zeros
-        with pytest.raises(ValueError, match="multiple of 4"):
-            ct.cavity_tconv_step_cuda(x, wp, taps)
-        x, wp = ops._pad_to(x, 2, 4), ops._pad_to(wp, 2, 4).contiguous()
-    torch.testing.assert_close(ct.cavity_tconv_step_cuda(x, wp, taps),
-                               ct.cavity_tconv_step_plain(x, wp, taps),
-                               atol=1e-4, rtol=1e-4)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,cols", [r for r in RFC_SHAPES if r[1] % 16 == 0])
-def test_rfc_kernels_match_plain_exactly(cuda, rows, cols):
-    x = torch.from_numpy(_rand(rows, rows, cols)).to(cuda)
-    v, h = rp.rfc_encode_cuda(x)
-    v2, h2 = rp.rfc_encode_plain(x)
-    assert torch.equal(v, v2) and torch.equal(h, h2)
-    assert torch.equal(rp.rfc_decode_cuda(v, h), rp.rfc_decode_plain(v, h))
-
-
-# (R, V, Cin, Cout, topology, csr_eps): the clip and stream-tick shapes of
-# an ntu50 plan, D = the skeleton's degree (eps 1e-5) and D = V (eps 0)
-CSR_CASES = [(32, 50, 16, 32, "ntu50", 1e-5), (8, 50, 256, 256, "ntu50", 1e-5),
-             (7, 50, 38, 64, "ntu50", 0.0), (2400, 50, 3, 64, "ntu50", 1e-5),
-             (5, 21, 9, 20, "hand21", 0.0), (64, 46, 77, 128, "body_hand46",
-                                              1e-5)]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("R,V,Ci,Co,name,eps", CSR_CASES)
-def test_graph_sconv_csr_kernel_matches_plain(cuda, R, V, Ci, Co, name, eps):
-    from repro_torch.core.agcn.graph import dense_to_csr, get_topology
-    g = get_topology(name).adjacency + np.float32(1e-6)
-    idx, val = (torch.from_numpy(a).to(cuda) for a in ops.pack_csr_ell(
-        *dense_to_csr(g, eps), V))
-    x, _, w = (torch.from_numpy(a).to(cuda)
-               for a in _sconv_inputs(R, V, Ci, Co, 3))
-    _build.reset_launch_counts()
-    got = gs.graph_sconv_csr_cuda(x, idx, val, w)
-    assert _build.LAUNCHES["graph_sconv_csr"] == 1
-    torch.testing.assert_close(got, gs.graph_sconv_csr_plain(x, idx, val, w),
-                               atol=1e-4, rtol=1e-4)
-    with pytest.raises(TypeError, match="int32"):
-        gs.graph_sconv_csr_cuda(x, idx.long(), val, w)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("zero", [False, True])
-@pytest.mark.parametrize("S,K,V,Ce,valid", [
-    (1, 9, 25, 4, 25), (3, 9, 25, 16, 25), (8, 9, 50, 64, 25),
-    (8, 9, 25, 32, 20), (2, 3, 7, 4, 5)])
-def test_windowed_similarity_kernel_matches_plain(cuda, S, K, V, Ce, valid,
-                                                  zero):
-    scale = 0.0 if zero else 0.3
-    th, ph = (torch.from_numpy(_rand(s, S, K, V, Ce) * scale).to(cuda)
-              for s in (1, 2))
-    _build.reset_launch_counts()
-    got = ws.windowed_similarity_cuda(th, ph, valid)
-    assert _build.LAUNCHES["windowed_similarity"] == 1
-    torch.testing.assert_close(got, ws.windowed_similarity_plain(th, ph, valid),
-                               atol=1e-4, rtol=1e-4)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,S,Hkv,G,D,valid", FD_SHAPES + [
-    (4, 512, 5, 3, 64, 497), (4, 4096, 8, 4, 80, 4096), (2, 100, 2, 5, 16, 0),
-    (2, 100, 2, 5, 16, 300), (1, 300, 1, 9, 128, 129)])
-def test_flash_decode_kernel_matches_plain(cuda, B, S, Hkv, G, D, valid):
-    q, k, v = (torch.from_numpy(a).to(cuda) for a in _fd_inputs(B, S, Hkv, G, D))
-    want = fd.flash_decode_plain(q, k, v, valid)
-    _build.reset_launch_counts()
-    for vt in (valid, torch.tensor([valid], dtype=torch.int32, device=cuda)):
-        torch.testing.assert_close(fd.flash_decode(q, k, v, vt), want,
-                                   atol=1e-4, rtol=1e-4)
-    assert _build.LAUNCHES["flash_decode"] == 2
-    with pytest.raises(TypeError, match="int32"):
-        fd.flash_decode(q, k, v, torch.tensor([valid], device=cuda))

@@ -111,6 +111,31 @@ def test_lm_decode_path_runs_without_jax():
     assert out.stdout.strip() == "[]"
 
 
+# the card's kernel tests are collected where there is no JAX: the module
+# imports in an interpreter where jax and repro cannot be imported
+_IMPORT_CARD_TESTS = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, sys.argv[1])
+import test_torch_cuda_kernels as m
+tests = [n for n in dir(m) if n.startswith("test_")]
+bad = sorted(k for k, mod in sys.modules.items() if mod is not None
+             and (k in ("jax", "repro") or k.startswith(("jax.", "repro."))))
+print(len(tests), bad)
+"""
+
+
+def test_card_kernel_tests_import_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_CARD_TESTS,
+                          str(ROOT / "tests")], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) >= 7 and bad.strip() == "[]"
+
+
 _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
                         r"from\s+(jax|repro)(\.|\s)(?!_))", re.M)
 
