@@ -131,7 +131,8 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
-TENSOR_CORE_KERNELS = ("graph_sconv", "cavity_tconv")
+TENSOR_CORE_KERNELS = ("graph_sconv", "cavity_tconv", "graph_sconv_csr",
+                       "cavity_tconv_step")
 
 KERNEL_INFO = {   # name -> (CUDA source, TPU kernel it replaces)
     "graph_sconv_csr": ("src/repro_torch/csrc/graph_sconv_csr.cu",
@@ -274,7 +275,7 @@ def capture(modules, run):
     gs, ct, rp, ws = modules
     targets = [(gs, "graph_sconv_cuda", "graph_sconv"),
                (ct, "cavity_tconv_cuda", "cavity_tconv"),
-               (ct, "cavity_tconv_step_cuda", "cavity_tconv_step"),
+               (ct, "cavity_tconv_step_ring_cuda", "cavity_tconv_step"),
                (rp, "rfc_encode_cuda", "rfc_encode"),
                (rp, "rfc_decode_cuda", "rfc_decode"),
                (gs, "graph_sconv_csr_cuda", "graph_sconv_csr"),
@@ -301,6 +302,15 @@ def capture(modules, run):
     return captured
 
 
+def _chrono(ring, head):
+    """Each slot's window (S, K, V, C) gathered oldest first from its ring
+    at ``head``."""
+    import torch
+    S, K, V, C = ring.shape
+    idx = (head.long()[:, None] + torch.arange(K, device=ring.device)) % K
+    return torch.gather(ring, 1, idx[:, :, None, None].expand(S, K, V, C))
+
+
 def _dense_cavity(wp, taps, ks):
     """The masked dense weights (F, C, K) of packed cavity weights, filter
     f = g + L*i in natural order."""
@@ -320,7 +330,7 @@ def measure_case(name, args, kwargs, modules):
     import torch.nn.functional as F
     gs, ct, rp, ws = modules
     from repro_torch.kernels import flash_decode as fd
-    library, natural, as_kernel = None, None, None
+    library, as_kernel, fma = None, None, None
     if name == "graph_sconv":
         x, g, w = args
         kern = lambda: gs.graph_sconv_cuda(x, g, w)
@@ -355,20 +365,32 @@ def measure_case(name, args, kwargs, modules):
                       + N * T_out * V * nf) + 8 * inv.numel()
         flops = 2 * N * V * T_out * C * pairs
     elif name == "cavity_tconv_step":
-        x, wp, taps = args
-        kern = lambda: ct.cavity_tconv_step_cuda(x, wp, taps)
-        plain = lambda: ct.cavity_tconv_step_plain(x, wp, taps)
-        B, K, C = x.shape
+        ring, head, wp, taps, slot_col, bias = args
+        kern = lambda: ct.cavity_tconv_step_ring_cuda(*args)
+        plain = lambda: ct.cavity_tconv_step_ring_plain(*args)
+        fma = lambda: ct.cavity_tconv_step_ring_cuda(*args, fma=True)
+        S, K, V, C = ring.shape
         L, n_keep, _, Fg = wp.shape
-        w_dense = _dense_cavity(wp, taps, K)
-        library = lambda: torch.einsum("bkc,fck->bf", x, w_dense)
-        natural = lambda out: library()
-        pairs = int((wp != 0).any(dim=2).sum())
+        cout = bias.shape[0]
+        # the yardstick: one einsum of the chronological windows (gathered
+        # here, outside the timing) with the dense masked weights laid out
+        # in output-column order; the bias and the zero columns follow
+        xb = _chrono(ring, head).permute(0, 2, 1, 3).reshape(S * V, K, C)
+        src = ct.column_sources(slot_col, cout)
+        live = src < L * Fg
+        filt = torch.where(live, src % Fg * L + src // Fg, 0)
+        w_cols = _dense_cavity(wp, taps, K)[filt] * live[:, None, None]
+        library = lambda: torch.einsum("bkc,fck->bf", xb, w_cols)
+        as_kernel = lambda: torch.where(live, library() + bias, 0.0).reshape(
+            S, V, cout)
+        # (slot, tap) pairs with weights on live slots
+        pairs = int(((wp != 0).any(dim=2)
+                     & (slot_col.reshape(L, 1, Fg) >= 0)).sum())
         # the frames some group reads (the union of the kept taps)
         frames = len(set(taps.flatten().tolist()))
-        nbytes = 4 * (B * frames * C + wp.numel() + taps.numel()
-                      + B * L * Fg)
-        flops = 2 * B * C * pairs
+        nbytes = 4 * (S * V * frames * C + wp.numel() + taps.numel()
+                      + slot_col.numel() + cout + S + S * V * cout)
+        flops = 2 * S * V * C * pairs
     elif name == "graph_sconv_csr":
         x, idx, val, w = args
         kern = lambda: gs.graph_sconv_csr_cuda(x, idx, val, w)
@@ -429,15 +451,10 @@ def measure_case(name, args, kwargs, modules):
     else:
         ok = all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
                  for a, b in zip(got, want))
-    if natural is not None:
-        # the yardstick computes the same sums in natural filter order
-        ref = natural(got[0])
-        L = wp.shape[0]
-        n = ref.shape[-1]
-        flat = got[0].reshape(*ref.shape[:-1], -1)
-        perm = torch.arange(n, device=ref.device).reshape(-1, L).T.reshape(-1)
-        ok = ok and torch.allclose(flat, ref[..., perm], atol=1e-4, rtol=1e-4)
-    elif library is not None:
+    if fma is not None:
+        # the float32 FMA variant of the kernel, timed beside it
+        ok = ok and torch.allclose(fma(), want[0], atol=1e-4, rtol=1e-4)
+    if library is not None:
         ref = as_kernel() if as_kernel is not None else library()
         ok = ok and torch.allclose(got[0], ref, atol=1e-4, rtol=1e-4)
     tc = name in TENSOR_CORE_KERNELS
@@ -456,6 +473,7 @@ def measure_case(name, args, kwargs, modules):
         "bound_f32_ms": bound_ms(nbytes, flops)[0],
         "split_floor_ms": (bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)[0]
                            if tc else None),
+        "fma_ms": cuda_ms(fma, label=f"{name} fma") if fma else None,
     }
 
 
@@ -473,8 +491,9 @@ def summarize(cs):
                        if cs[0]["library_ms"] is not None else None),
         "bound_f32_ms": sum(c["bound_f32_ms"] for c in cs),
     }
-    if cs[0]["split_floor_ms"] is not None:
-        out["split_floor_ms"] = sum(c["split_floor_ms"] for c in cs)
+    for key in ("split_floor_ms", "fma_ms"):
+        if cs[0][key] is not None:
+            out[key] = sum(c[key] for c in cs)
     return out
 
 
@@ -1025,8 +1044,8 @@ def main() -> int:
                 # a window whose kept-tap frames are all zero cannot tell a
                 # right kernel from a wrongly indexed one
                 empty = [i for i, (a, _) in enumerate(captured[name])
-                         if any(not a[0][:, k].any()
-                                for k in set(a[2].flatten().tolist()))]
+                         if any(not _chrono(a[0], a[1])[:, k].any()
+                                for k in set(a[3].flatten().tolist()))]
                 if empty:
                     failures.append(f"{path} {name}: calls {empty} read a "
                                     f"kept-tap frame that is all zero")
@@ -1047,6 +1066,8 @@ def main() -> int:
             s = summary[(path, name)] = summarize(cs)
             tc = (f", float32 bound {s['bound_f32_ms']:.4f}, 3-pass floor "
                   f"{s['split_floor_ms']:.4f}" if "split_floor_ms" in s else "")
+            if "fma_ms" in s:
+                tc += f"; float32 FMA variant {s['fma_ms']:.4f} ms"
             print(f"kernel {name} [{path}]: {'ok' if not bad else 'FAIL'} on "
                   f"{len(cs)} inputs, max_abs_err {s['max_abs_err']:.3g}; per "
                   f"ensemble step {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "

@@ -197,9 +197,10 @@ class Backend(Protocol):
         """Clip-mode temporal conv over T: (N,T,V,C) -> (N,T_out,V,Cout)."""
         ...
 
-    def temporal_step(self, win: torch.Tensor, ba: Dict[str, Any],
-                      bs: BlockStatic) -> torch.Tensor:
-        """One output frame from a K-frame window: (N,K,V,C) -> (N,V,Cout)."""
+    def temporal_step(self, ring: torch.Tensor, head: torch.Tensor,
+                      ba: Dict[str, Any], bs: BlockStatic) -> torch.Tensor:
+        """One output frame per slot from its K-frame ring (N,K,V,C), whose
+        oldest frame is at ``head`` (N,): -> (N,V,Cout)."""
         ...
 
     def transfer(self, h: torch.Tensor, ps: PlanStatic) -> torch.Tensor:
@@ -263,10 +264,15 @@ class ReferenceBackend:
             out = _scatter_filters(out, ba["kept_filters"], bs.cout)
         return out
 
-    def temporal_step(self, win, ba, bs):
-        """One output frame from a chronological window (N, K, V, C): the
-        streaming form of ``temporal`` (the engine gates emission by the
-        stride; the window always yields one output)."""
+    def temporal_step(self, ring, head, ba, bs):
+        """One output frame from each slot's window, gathered oldest first
+        from its ring (N, K, V, C): the streaming form of ``temporal`` (the
+        engine gates emission by the stride; the window always yields one
+        output)."""
+        K = ring.shape[1]
+        chrono = (head.long()[:, None]
+                  + torch.arange(K, device=ring.device)[None, :]) % K
+        win = _gather_k(ring, chrono)
         out = torch.einsum("nkvc,fck->nvf", win, ba["tw"]) + ba["tb"]
         if bs.pruned_filters:
             out = _scatter_filters(out, ba["kept_filters"], bs.cout)
@@ -309,18 +315,13 @@ class CudaBackend:
             out = _scatter_filters(out, ba["kept_filters"], bs.cout)
         return out
 
-    def temporal_step(self, win, ba, bs):
-        """Single-step packed cavity tconv kernel on a chronological window
-        (N, K, V, C), over its (N·V, K, C) rows: the same packed weights
-        and taps as the clip form."""
-        N, K, V, C = win.shape
-        xb = win.permute(0, 2, 1, 3).reshape(N * V, K, C)
-        out = ops.cavity_tconv_step(xb, ba["wp"], ba["taps"], ba["inv_perm"],
-                                    num_filters=bs.n_kept_filters)
-        out = out.reshape(N, V, -1) + ba["tb"]
-        if bs.pruned_filters:
-            out = _scatter_filters(out, ba["kept_filters"], bs.cout)
-        return out
+    def temporal_step(self, ring, head, ba, bs):
+        """Single-step packed cavity tconv kernel on the ring (N, K, V, C)
+        as it lies, each slot read at its ``head``: one launch that also
+        adds the bias and stores the kept filters at their columns (the
+        pruned ones 0), with the clip form's packed weights and taps."""
+        return ops.cavity_tconv_step_ring(ring, head, ba["wp"], ba["taps"],
+                                          ba["slot_col"], ba["tb_col"])
 
     def transfer(self, h, ps):
         """RFC encode/decode round trip (lossless on post-ReLU values)."""
@@ -455,6 +456,7 @@ def build_execution_plan(
             "down_w": blk.get("down_w"), "bn_down": blk.get("bn_down"),
             "short_w": blk.get("short_w"), "bn_short": blk.get("bn_short"),
             "wp": None, "taps": None, "inv_perm": None,
+            "slot_col": None, "tb_col": None,
             "csr_indptr": None, "csr_indices": None, "csr_values": None,
             "ell_idx": None, "ell_val": None,
         }
@@ -481,6 +483,13 @@ def build_execution_plan(
             ba["taps"] = torch.as_tensor(taps, device=device)
             ba["inv_perm"] = torch.as_tensor(inv, dtype=torch.int64,
                                              device=device)
+            # the streaming kernel's store: packed slot -> output column,
+            # and the bias per column (0 on pruned filters)
+            ba["slot_col"] = torch.as_tensor(ops.slot_columns(
+                inv, n_kept, None if kept_filters is None
+                else pb.kept_filters), device=device)
+            ba["tb_col"] = (tb if kept_filters is None else tb.new_zeros(
+                cout).index_copy_(0, kept_filters, tb))
             ba["tw"] = None          # the packed form replaces the dense one
 
         blocks_a.append(ba)
@@ -1046,8 +1055,8 @@ def step_frame(
         # clip output o completes when input t = o*stride + pad arrives; its
         # centre tap (and residual source) is input t - pad
         emit = has_input & (t >= pad) & ((t - pad) % bs.stride == 0)
-        chrono = ((t[:, None] + 1 + ks[None, :]) % K).long()   # oldest first
-        out = backend.temporal_step(_gather_k(ring_s, chrono), ba, bs)
+        head = ((t + 1) % K).to(torch.int32)           # oldest frame
+        out = backend.temporal_step(ring_s, head, ba, bs)
         out = bn(tag + "bn_t", out, ba["bn_t"])
         center = ((t - pad) % K).long()[:, None]       # (S, 1)
         h_c = _gather_k(ring_h, center)[:, 0]

@@ -1,205 +1,359 @@
-// Cavity-pruned temporal convolution, streaming form, for Hopper (sm_90a):
-//     out[b, g, f] = sum_j sum_c x[b, taps[g, j], c] * wp[g, j, c, f]
+// Cavity-pruned temporal convolution, streaming form, for Hopper (sm_90a),
+// read from the stream state's ring in place and stored in the block's
+// output layout:
+//     out[s, v, col(g*Fg + i)] = bias[col] + sum_j sum_c
+//         ring[s, (head[s] + taps[g, j]) mod K, v, c] * wp[g, j, c, i]
+// ring (S, K, V, C) is a block's tconv-input ring, head (S,) each slot's
+// oldest frame ((t + 1) mod K for its clock t), so slots at different
+// phases share one launch.  col = slot_col[g*Fg + i] sends packed slot
+// g*Fg + i to its column of the (S, V, cout) output, or nowhere (-1: a
+// padding slot or a pruned filter); the columns no slot reaches (the
+// pruned filters) are written as exactly 0.0.
 //
-// Replaces src/repro/kernels/cavity_tconv.py:cavity_tconv_step_pallas.  Each
-// row b (one joint of one stream slot) holds a chronological K-frame window
-// (oldest first); the kernel emits the one output step that window
-// completes.  Filter group g (of L = 8) sums only its n_keep kept taps, so
-// the frames of the pruned taps are never read: the paper's C2 skip.
+// Replaces src/repro/kernels/cavity_tconv.py:cavity_tconv_step_pallas,
+// composed with what the engine did around it: the chronological gather
+// of the ring, the (N*V, K, C) transpose copy, the filter permutation, the
+// bias add and the kept-filter scatter.  Filter group g (of L = 8) sums
+// only its n_keep kept taps, so the frames of the pruned taps are never
+// read: the paper's C2 skip.
 //
-// What bounds it on the H100: at the streaming shapes (B = S*25 rows with
-// S = 1..8 slots, C <= 256, n_keep = 3, Fg = 4..32 filters a group) one
-// launch moves under 3 MB and does under 0.1 GFLOP, about a microsecond
-// of either at 3.35 TB/s and 67 TFLOP/s.  So little work leaves each block
-// latency-bound: what matters is how many memory round trips lie on a
-// thread's path and how many warps are in flight to hide them.
+// What bounds it on the H100: latency.  At the streaming shapes (B = S*V
+// rows with S = 1..8 slots, C <= 256, n_keep = 3, Fg <= 32) one launch
+// moves about 1 MB (the packed weights, then the kept-tap frames; about
+// 0.4 us at 3.35 TB/s) and does under 0.1 GFLOP.  The floor is the launch
+// latency plus one round trip to memory: the design issues every load of
+// a block at once and waits once.
 //
-// Design: one block per (tile of kRows rows, filter group).  Per tile of
-// channels the block stages the kept-tap frames of its rows in shared
-// memory, channel-major ([tap][channel][row], rows padded to a multiple of
-// 4, bank-free stores), and the group's packed weights of those channels,
-// with kUnroll loads in flight per thread, so the staging costs a few
-// memory round trips rather than one per channel.  An output item is 4
-// rows x 1 filter: per kept tap and channel one float4 of x (a broadcast
-// among the lanes that share its rows), one weight (lanes on neighbouring
-// filters) and 4 FMAs, all from shared memory.
-// A group has only 4*Fg items, so the block's 256 threads split each
-// item's channel sum into ksplit interleaved parts and add the parts
-// through shared memory at the end.  Plain float32 FMAs, no tensor cores.
+// Design: a block owns 16*WM rows x one group's Fg slots (padded to a
+// multiple of 8) and a contiguous share of the contraction, whose steps
+// are (kept tap, 8 channels); the `parts` blocks that share a tile form a
+// thread-block cluster along z, so S = 1, 3 and 8 each reach about 128
+// blocks.  Each block stages, with cp.async (16-byte copies where C and
+// Fg are multiples of 4, 4-byte ones otherwise), the frame rows of its
+// steps straight from the ring and the matching rows of the packed
+// weights, then its 4 warps each take a tile of 16 rows (WM of them) and
+// a share of the steps (4 / WM ways) on TF32 mma.sync.m16n8k8 with the
+// 3-pass split done in registers as the fragments load (each value is
+// used once per block, so nothing is split in shared memory), three MMAs
+// to a fresh fragment added in float32 (tf32_mma.cuh).  kFma selects
+// plain float32 FMAs for the same tile instead.  The warps' partial tiles
+// are added in shared memory in a fixed order, then across the cluster
+// through distributed shared memory, each block adding, in rank order,
+// its share of the tile's elements, and storing them with the bias at
+// their columns.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "tf32_mma.cuh"
+
+namespace cg = cooperative_groups;
+using namespace tc;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 16;                         // rows per block
-constexpr int kRM = 4;                            // rows per item
-constexpr int kLdx = kRows + 4;                   // padded row stride of x
-constexpr int kUnroll = 8;                        // staging loads in flight
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxKeep = 16;
+constexpr int kMaxNT = 8;                 // Fg <= 64
 
-__global__ void __launch_bounds__(kThreads)
-cavity_tconv_step_kernel(const float* __restrict__ x,
-                         const float* __restrict__ wp,
-                         const int* __restrict__ taps, float* __restrict__ out,
-                         int B, int K, int C, int L, int n_keep, int Fg,
-                         int ctile) {
-  extern __shared__ float4 smem4[];               // 16-byte aligned
-  float* xs = reinterpret_cast<float*>(smem4);    // [n_keep][ctile][kLdx]
-  float* ws = xs + (size_t)n_keep * ctile * kLdx;  // [n_keep][ctile][Fg]
-  float* red = ws + (size_t)n_keep * ctile * Fg;   // [ksplit][items][kRM]
-  __shared__ int s_taps[kMaxKeep];
-  const int b0 = blockIdx.x * kRows;
-  const int g = blockIdx.y;
-  const int nr = min(kRows, B - b0);
-  if (threadIdx.x < n_keep) s_taps[threadIdx.x] = taps[g * n_keep + threadIdx.x];
+__host__ __device__ constexpr int up4(int n) { return (n + 3) / 4 * 4; }
 
-  // item = (row group rg, filter f); part kp of ksplit takes channels
-  // kp, kp + ksplit, ... of every kept tap
-  const int items = (kRows / kRM) * Fg;
-  const int ksplit = kThreads / items;
-  const int item = threadIdx.x % items;
-  const int kp = threadIdx.x / items;
-  const int f = item % Fg;
-  const int rg = item / Fg;
-  const bool active = kp < ksplit && rg * kRM < nr;
-  float acc[kRM] = {0.f, 0.f, 0.f, 0.f};
-  __syncthreads();
-
-  for (int c0 = 0; c0 < C; c0 += ctile) {
-    const int ct = min(ctile, C - c0);
-    // stage x: element i = (j * nw + cw) * kRows + r, so the 16 lanes of
-    // a half-warp read one float4 of 16 rows and the two halves read the
-    // two halves of a 32-byte sector (full sectors), and their shared
-    // stores fall in 32 different banks; rows past B and taps outside
-    // [0, K) stage as zeros
-    const int nw = ct / 4;                        // float4s per frame row
-    const int total = n_keep * nw * kRows;
-    for (int base = threadIdx.x; base < total; base += kThreads * kUnroll) {
-      float4 v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = base + u * kThreads;
-        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        const int r = i % kRows;
-        const int cw = (i / kRows) % nw;
-        const int off = s_taps[min(i / (kRows * nw), n_keep - 1)];
-        if (i < total && r < nr && off >= 0 && off < K) {
-          v[u] = *reinterpret_cast<const float4*>(
-              x + ((size_t)(b0 + r) * K + off) * C + c0 + cw * 4);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = base + u * kThreads;
-        if (i < total) {
-          const int r = i % kRows;
-          const int cw = (i / kRows) % nw;
-          const int j = i / (kRows * nw);
-          float* dst = xs + (j * ctile + cw * 4) * kLdx + r;
-          dst[0] = v[u].x;
-          dst[kLdx] = v[u].y;
-          dst[2 * kLdx] = v[u].z;
-          dst[3 * kLdx] = v[u].w;
-        }
-      }
-    }
-    // stage the group's packed weights of these channels: per kept tap
-    // one contiguous run of ct * Fg floats
-    const int wtotal = n_keep * ct * Fg;
-    for (int base = threadIdx.x; base < wtotal; base += kThreads * kUnroll) {
-      float v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = base + u * kThreads;
-        const int j = min(i / (ct * Fg), n_keep - 1);
-        v[u] = i < wtotal ? __ldg(wp + ((size_t)(g * n_keep + j) * C + c0) * Fg
-                                  + (i - j * ct * Fg))
-                          : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = base + u * kThreads;
-        if (i < wtotal) {
-          const int j = i / (ct * Fg);
-          ws[j * ctile * Fg + (i - j * ct * Fg)] = v[u];
-        }
-      }
-    }
-    __syncthreads();
-    if (active) {
-      for (int j = 0; j < n_keep; ++j) {
-        const float* wr = ws + j * ctile * Fg + f;
-        const float* xr = xs + j * ctile * kLdx + rg * kRM;
-#pragma unroll 4
-        for (int c = kp; c < ct; c += ksplit) {
-          const float w = wr[c * Fg];
-          const float4 xv = *reinterpret_cast<const float4*>(xr + c * kLdx);
-          acc[0] = fmaf(xv.x, w, acc[0]);
-          acc[1] = fmaf(xv.y, w, acc[1]);
-          acc[2] = fmaf(xv.z, w, acc[2]);
-          acc[3] = fmaf(xv.w, w, acc[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // add the ksplit parts of each item in a fixed order
-  if (kp < ksplit) {
-#pragma unroll
-    for (int q = 0; q < kRM; ++q) red[(kp * items + item) * kRM + q] = acc[q];
-  }
-  __syncthreads();
-  if (kp != 0 || rg * kRM >= nr) return;
-  for (int q = 0; q < kRM; ++q) {
-    const int r = rg * kRM + q;
-    if (r >= nr) break;
-    float s = 0.f;
-    for (int p = 0; p < ksplit; ++p) s += red[(p * items + item) * kRM + q];
-    out[((size_t)(b0 + r) * L + g) * Fg + f] = s;
-  }
+// shared memory (in 4-byte words) of a block of 16*wm rows, qw contraction
+// columns and nb slots: the frame rows, the weight rows, the warps'
+// partial tiles, the (row, kept tap) frame indices and the column marks;
+// mirrored by kernels/cavity_tconv.py:_step_smem_bytes
+__host__ __device__ inline int step_smem_words(int wm, int qw, int nb,
+                                               int n_keep, int cout) {
+  const int bm = 16 * wm;
+  return bm * ld_a(qw) + qw * ld_b(nb) + (kWarps / wm) * bm * nb +
+         up4(bm * n_keep) + cout;
 }
 
-int launch(const float* x, const float* wp, const int* taps, float* out,
-           int B, int K, int C, int L, int n_keep, int Fg, cudaStream_t stream) {
-  // channels per stage: all of C, halved (keeping a multiple of 4) while
-  // the staged frames and weights need more than 96 KB
-  const int items = (kRows / kRM) * Fg;
-  const int ksplit = kThreads / items;
-  int ctile = C;
-  auto smem_of = [&](int ct) {
-    return ((size_t)n_keep * ct * (kLdx + Fg) + (size_t)ksplit * items * kRM)
-           * sizeof(float);
-  };
-  while (ctile > 8 && smem_of(ctile) > 96 * 1024)
-    ctile = ((ctile + 1) / 2 + 3) / 4 * 4;
-  const size_t smem = smem_of(ctile);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        cavity_tconv_step_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+__device__ __forceinline__ void split_u(float a, uint32_t& hi, uint32_t& lo) {
+  float h, l;
+  split(a, h, l);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(l);
+}
+
+template <int WM, bool kFma>
+__global__ void __launch_bounds__(kThreads)
+step_kernel(const float* __restrict__ ring, const int* __restrict__ head,
+            const float* __restrict__ wp, const int* __restrict__ taps,
+            const int* __restrict__ slot_col, const float* __restrict__ bias,
+            float* __restrict__ out, int S, int K, int V, int C, int n_keep,
+            int Fg, int cout, int vec_x, int vec_w) {
+  constexpr int BM = 16 * WM, WK = kWarps / WM;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int parts = (int)cluster.num_blocks();
+  const int part = (int)cluster.block_rank();
+
+  const int B = S * V, b0 = blockIdx.x * BM, g = blockIdx.y;
+  const int NB = up8(Fg), NT = NB / 8;
+  const int spt = (C + 7) / 8;                 // 8-channel steps per tap
+  const int NS = n_keep * spt;
+  const int s0 = part * NS / parts, ns = (part + 1) * NS / parts - s0;
+  const int qwm = (NS + parts - 1) / parts * 8;
+  const int lda = ld_a(qwm), ldw = ld_b(NB);
+  float* As = smem;                            // [row][step * 8 + e]
+  float* Ws = As + BM * lda;                   // [step * 8 + e][slot]
+  float* red = Ws + qwm * ldw;                 // [warp share][row][slot]
+  int* rowf = reinterpret_cast<int*>(red + WK * BM * NB);
+  int* mark = rowf + up4(BM * n_keep);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+
+  // the ring row (s, frame, v) each (row, kept tap) reads, or -1
+  for (int i = tid; i < BM * n_keep; i += kThreads) {
+    const int r = i / n_keep, j = i % n_keep, b = b0 + r;
+    int f = -1;
+    if (b < B) {
+      const int s = b / V, v = b % V, off = taps[g * n_keep + j];
+      if (off >= 0 && off < K) {
+        int k = (head[s] + off) % K;
+        if (k < 0) k += K;
+        f = (s * K + k) * V + v;
+      }
+    }
+    rowf[i] = f;
   }
-  dim3 grid((B + kRows - 1) / kRows, L);
-  cavity_tconv_step_kernel<<<grid, kThreads, smem, stream>>>(
-      x, wp, taps, out, B, K, C, L, n_keep, Fg, ctile);
-  return (int)cudaGetLastError();
+  __syncthreads();
+
+  // stage the block's steps: frame rows (zero past B and C) and weight
+  // rows (zero past C and Fg), all in flight at once
+  if (vec_x) {
+    for (int i = tid; i < BM * ns * 2; i += kThreads) {
+      const int h = i & 1, t = (i >> 1) % ns, r = (i >> 1) / ns;
+      const int q = s0 + t, c = q % spt * 8 + 4 * h;
+      const int f = rowf[r * n_keep + q / spt];
+      const bool ok = f >= 0 && c < C;
+      cp_async16(As + r * lda + t * 8 + 4 * h,
+                 ok ? ring + (size_t)f * C + c : ring, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < BM * ns * 8; i += kThreads) {
+      const int e = i & 7, t = (i >> 3) % ns, r = (i >> 3) / ns;
+      const int q = s0 + t, c = q % spt * 8 + e;
+      const int f = rowf[r * n_keep + q / spt];
+      const bool ok = f >= 0 && c < C;
+      cp_async4(As + r * lda + t * 8 + e,
+                ok ? ring + (size_t)f * C + c : ring, ok);
+    }
+  }
+  if (vec_w) {
+    const int nq = NB / 4;
+    for (int i = tid; i < ns * 8 * nq; i += kThreads) {
+      const int n = i % nq * 4, row = i / nq, q = s0 + row / 8;
+      const int c = q % spt * 8 + row % 8;
+      const bool ok = c < C && n < Fg;
+      cp_async16(Ws + row * ldw + n,
+                 ok ? wp + ((size_t)(g * n_keep + q / spt) * C + c) * Fg + n
+                    : wp,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < ns * 8 * NB; i += kThreads) {
+      const int n = i % NB, row = i / NB, q = s0 + row / 8;
+      const int c = q % spt * 8 + row % 8;
+      const bool ok = c < C && n < Fg;
+      cp_async4(Ws + row * ldw + n,
+                ok ? wp + ((size_t)(g * n_keep + q / spt) * C + c) * Fg + n
+                   : wp,
+                ok);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // warp (wm, wk): rows wm*16.., every slot, steps wk, wk + WK, ...
+  const int wm = warp % WM, wk = warp / WM;
+  float* mine = red + wk * BM * NB;
+  if constexpr (!kFma) {
+    float acc[kMaxNT][4];
+#pragma unroll
+    for (int b = 0; b < kMaxNT; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[b][e] = 0.f;
+    for (int t = wk; t < ns; t += WK) {
+      uint32_t ah[4], al[4];
+      const float* a = As + (wm * 16 + gq) * lda + t * 8 + tq;
+      split_u(a[0], ah[0], al[0]);
+      split_u(a[8 * lda], ah[1], al[1]);
+      split_u(a[4], ah[2], al[2]);
+      split_u(a[8 * lda + 4], ah[3], al[3]);
+#pragma unroll
+      for (int b = 0; b < kMaxNT; ++b) {
+        if (b >= NT) break;
+        uint32_t bh[2], bl[2];
+        const float* w = Ws + (t * 8 + tq) * ldw + b * 8 + gq;
+        split_u(w[0], bh[0], bl[0]);
+        split_u(w[4 * ldw], bh[1], bl[1]);
+        mma3_add(acc[b], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kMaxNT; ++b) {
+      if (b >= NT) break;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* d = mine + (wm * 16 + gq + 8 * h) * NB + b * 8 + 2 * tq;
+        d[0] = acc[b][2 * h];
+        d[1] = acc[b][2 * h + 1];
+      }
+    }
+  } else {
+    // lane: slots lane % 8 + 8 b, rows wm*16 + lane / 8 + 4 i
+    float acc[4][kMaxNT];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int b = 0; b < kMaxNT; ++b) acc[i][b] = 0.f;
+    const float* a = As + (wm * 16 + lane / 8) * lda;
+    for (int t = wk; t < ns; t += WK) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int q = t * 8 + e;
+        float av[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = a[4 * i * lda + q];
+#pragma unroll
+        for (int b = 0; b < kMaxNT; ++b) {
+          if (b >= NT) break;
+          const float w = Ws[q * ldw + lane % 8 + 8 * b];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][b] = fmaf(av[i], w, acc[i][b]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int b = 0; b < kMaxNT; ++b) {
+        if (b >= NT) break;
+        mine[(wm * 16 + lane / 8 + 4 * i) * NB + lane % 8 + 8 * b] =
+            acc[i][b];
+      }
+  }
+  __syncthreads();
+  if (WK > 1)                      // the warps' shares, in order
+    for (int e = tid; e < BM * NB; e += kThreads) {
+      float s = red[e];
+      for (int w = 1; w < WK; ++w) s += red[w * BM * NB + e];
+      red[e] = s;
+    }
+  cluster.sync();                  // every block's tile is complete
+
+  // this block's share of the tile's elements: the cluster's partial
+  // tiles added in rank order, stored with the bias at their columns
+  const int E = BM * NB, e0 = part * E / parts, e1 = (part + 1) * E / parts;
+  for (int e = e0 + tid; e < e1; e += kThreads) {
+    const int r = e / NB, i = e % NB, b = b0 + r;
+    if (b >= B || i >= Fg) continue;
+    const int col = slot_col[g * Fg + i];
+    if (col < 0) continue;
+    float s = 0.f;
+    for (int p = 0; p < parts; ++p) {
+      const float* tile = cluster.map_shared_rank(red, p);
+      s = p == 0 ? tile[e] : s + tile[e];
+    }
+    out[(size_t)b * cout + col] = s + bias[col];
+  }
+  // the columns no slot reaches (pruned filters) get exact zeros, from the
+  // first group's first part
+  if (g == 0 && part == 0) {
+    for (int o = tid; o < cout; o += kThreads) mark[o] = 0;
+    __syncthreads();
+    const int L = gridDim.y;
+    for (int i = tid; i < L * Fg; i += kThreads) {
+      const int col = slot_col[i];
+      if (col >= 0 && col < cout) mark[col] = 1;
+    }
+    __syncthreads();
+    for (int i = tid; i < BM * cout; i += kThreads) {
+      const int r = i / cout, o = i % cout;
+      if (b0 + r < B && !mark[o]) out[(size_t)(b0 + r) * cout + o] = 0.f;
+    }
+  }
+  cluster.sync();                  // keep this tile alive for the cluster
+}
+
+template <int WM, bool kFma>
+cudaError_t launch(dim3 grid, int parts, size_t smem, cudaStream_t stream,
+                   const float* ring, const int* head, const float* wp,
+                   const int* taps, const int* slot_col, const float* bias,
+                   float* out, int S, int K, int V, int C, int n_keep, int Fg,
+                   int cout, int vec_x, int vec_w) {
+  static int limit[kMaxDevices];
+  auto kern = step_kernel<WM, kFma>;
+  cudaError_t err = allow_smem((const void*)kern, smem, limit);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = parts;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, ring, head, wp, taps, slot_col, bias,
+                           out, S, K, V, C, n_keep, Fg, cout, vec_x, vec_w);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int cavity_tconv_step_f32(const void* x, const void* wp,
-                                     const void* taps, void* out, int B, int K,
-                                     int C, int L, int n_keep, int Fg,
+// wm: 16-row tiles per block (1, 2 or 4); parts: blocks of a cluster that
+// share one tile's contraction (1, 2, 4 or 8); fma: float32 FMAs in place
+// of the tensor cores.  kernels/cavity_tconv.py:step_plan picks wm, parts.
+extern "C" int cavity_tconv_step_f32(const void* ring, const void* head,
+                                     const void* wp, const void* taps,
+                                     const void* slot_col, const void* bias,
+                                     void* out, int S, int K, int V, int C,
+                                     int L, int n_keep, int Fg, int cout,
+                                     int wm, int parts, int fma,
                                      void* stream) {
-  // the float4 staging needs 16-byte aligned rows: C a multiple of 4 and
-  // an aligned base (ops.cavity_tconv_step pads C and copies a misaligned x)
-  if (B <= 0 || K <= 0 || C <= 0 || C % 4 != 0 ||
-      reinterpret_cast<size_t>(x) % 16 != 0 || L <= 0 || L > 65535 ||
-      n_keep <= 0 || n_keep > kMaxKeep || Fg <= 0 ||
-      (kRows / kRM) * Fg > kThreads)
+  if (S <= 0 || K <= 0 || V <= 0 || C <= 0 || L <= 0 || L > 65535 ||
+      n_keep <= 0 || n_keep > kMaxKeep || Fg <= 0 || Fg > 8 * kMaxNT ||
+      cout <= 0 || (wm != 1 && wm != 2 && wm != 4) ||
+      (parts != 1 && parts != 2 && parts != 4 && parts != 8) ||
+      parts > n_keep * ((C + 7) / 8))
     return (int)cudaErrorInvalidValue;
-  return launch((const float*)x, (const float*)wp, (const int*)taps,
-                (float*)out, B, K, C, L, n_keep, Fg, (cudaStream_t)stream);
+  const int NS = n_keep * ((C + 7) / 8);
+  const int qwm = (NS + parts - 1) / parts * 8;
+  const size_t smem = sizeof(float) *
+                      (size_t)step_smem_words(wm, qwm, up8(Fg), n_keep, cout);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const long long B = (long long)S * V;
+  const long long gx = (B + 16 * wm - 1) / (16 * wm);
+  if (gx > 0x7fffffffLL || (long long)S * K * V > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int vec_x = (C % 4 == 0 && reinterpret_cast<size_t>(ring) % 16 == 0);
+  const int vec_w = (Fg % 4 == 0 && reinterpret_cast<size_t>(wp) % 16 == 0);
+  const dim3 grid((unsigned)gx, L, parts);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float *rf = (const float*)ring, *wf = (const float*)wp;
+  const float* bf = (const float*)bias;
+  const int *hi = (const int*)head, *ti = (const int*)taps;
+  const int* ci = (const int*)slot_col;
+  float* of = (float*)out;
+#define STEP_LAUNCH(WM, FMA)                                                 \
+  return (int)launch<WM, FMA>(grid, parts, smem, s, rf, hi, wf, ti, ci, bf, \
+                              of, S, K, V, C, n_keep, Fg, cout, vec_x,      \
+                              vec_w)
+  if (fma) {
+    if (wm == 1) STEP_LAUNCH(1, true);
+    if (wm == 2) STEP_LAUNCH(2, true);
+    STEP_LAUNCH(4, true);
+  }
+  if (wm == 1) STEP_LAUNCH(1, false);
+  if (wm == 2) STEP_LAUNCH(2, false);
+  STEP_LAUNCH(4, false);
+#undef STEP_LAUNCH
 }

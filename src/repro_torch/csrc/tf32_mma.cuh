@@ -1,6 +1,7 @@
-// Tensor-core helpers shared by the dense spatial conv (graph_sconv.cu) and
-// the clip temporal conv (cavity_tconv.cu): the 3-pass TF32 split, the
-// m16n8k8 TF32 MMA, cp.async and the one-time shared-memory opt-in.
+// Tensor-core helpers shared by the spatial convs (sconv_mma.cuh, dense
+// and ELL) and the temporal convs (cavity_tconv.cu, cavity_tconv_step.cu):
+// the 3-pass TF32 split, the m16n8k8 TF32 MMA, cp.async and the one-time
+// shared-memory opt-in.
 //
 // Why three passes.  A TF32 operand keeps 10 of float32's 23 mantissa bits,
 // so one TF32 product of model-scale operands is off by about 1e-3 against

@@ -38,13 +38,15 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # x, g, w, out, R, V, Cin, Cout, K, tile, rows, wt, xres, stream
     "graph_sconv_f32": (_P, _P, _P, _P, *(_I,) * 9, _P),
-    # x, idx (int32), val, w, out, R, V, Cin, Cout, K, D, stream
-    "graph_sconv_csr_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, idx (int32), val, w, out, R, V, Cin, Cout, K, D, tile, rows, wt,
+    # xres, stream
+    "graph_sconv_csr_f32": (*(_P,) * 5, *(_I,) * 10, _P),
     # x, wp, taps, inv_perm (int64), out, scratch, N, T, V, C, L, n_keep,
     # Fg, F, T_out, stride, ksize, pad, tt, nb, stream
     "cavity_tconv_f32": (_P, _P, _P, _P, _P, _P, *(_I,) * 14, _P),
-    # x, wp, taps, out, B, K, C, L, n_keep, Fg, stream
-    "cavity_tconv_step_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # ring, head (int32), wp, taps, slot_col (int32), bias, out, S, K, V, C,
+    # L, n_keep, Fg, cout, wm, parts, fma, stream
+    "cavity_tconv_step_f32": (*(_P,) * 7, *(_I,) * 11, _P),
     # x, values, hot, n, stream
     "rfc_encode_f32": (_P, _P, _P, _L, _P),
     # values, hot, out, n, stream

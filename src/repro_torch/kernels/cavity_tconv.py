@@ -5,26 +5,33 @@ Ports of ``repro.kernels.cavity_tconv.cavity_tconv_pallas`` (clip) and
 streaming hot path).  Filters fall into L (=8) groups with identical
 kept-tap sets; group g holds filters g, g+L, g+2L, … and computes only its
 ``n_keep`` shifted (C×Fg) products — the paper's FLOP skip.  The CUDA
-kernels are ``csrc/cavity_tconv.cu`` (tensor cores, TF32 with a 3-pass
-split, float32 in and out) and ``csrc/cavity_tconv_step.cu``.
+kernels are ``csrc/cavity_tconv.cu`` and ``csrc/cavity_tconv_step.cu``
+(tensor cores, TF32 with a 3-pass split, float32 in and out).  The
+streaming kernel reads the stream state's ring in place at each slot's
+phase and stores the block's output layout: kept filters at their
+columns with the bias, pruned columns zero.
 
 Layouts (after ``ops.pack_cavity_weights``):
   x:    (N, T, V, C)         clip input, read in place: row (n, v) walks
                              t; 'same' zero padding is the kernel's bound
                              check
-        (B, K, C)            streaming window, oldest frame first
+  ring: (S, K, V, C)         streaming: a block's tconv-input ring, with
+                             head (S,) int32, each slot's oldest frame
   wp:   (L, n_keep, C, Fg)   packed kept-tap weights per group
   taps: (L, n_keep) int32    kept tap offsets per group, each in [0, K)
   inv_perm: (L·Fg,) int64    natural filter f sits in packed slot
                              inv_perm[f] = g·Fg + i
+  slot_col: (L·Fg,) int32    streaming: packed slot g·Fg + i -> its output
+                             column, or −1 (padding, pruned)
+  bias: (cout,)              streaming: per output column
   out:  (N, T_out, V, F)     clip, natural filter order, the first F
                              filters; T_out = (T + 2·(K//2) − K)//stride + 1
-        (B, L, Fg)           streaming, packed slot order
+        (S, V, cout)         streaming, output columns
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +39,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 SMEM_MAX = 227 * 1024          # dynamic shared memory a block may use
+SM_COUNT = 132                 # the H100's streaming multiprocessors
+SM_SMEM = 228 * 1024           # shared memory of one SM
 TCONV_PAIRS = 128              # (row, step) pairs of a clip block's tile
 _KC, _LDX, _LDB, _GROUPS = 8, 12, 8, 8   # csrc/cavity_tconv.cu's tiling
 
@@ -166,8 +175,9 @@ def cavity_tconv_cuda(x: torch.Tensor, wp: torch.Tensor, taps: torch.Tensor,
 
 def cavity_tconv_step_plain(x: torch.Tensor, wp: torch.Tensor,
                             taps: torch.Tensor) -> torch.Tensor:
-    """Plain version of the streaming form: a loop over the packed
-    (L, n_keep) taps, one (B, C)·(C, Fg) product each."""
+    """Plain version of the packed streaming product on chronological
+    windows (B, K, C) -> (B, L, Fg): a loop over the packed (L, n_keep)
+    taps, one (B, C)·(C, Fg) product each."""
     B, K, C = x.shape
     L, n_keep, _, Fg = wp.shape
     out = torch.zeros((B, L, Fg), dtype=x.dtype, device=x.device)
@@ -177,24 +187,165 @@ def cavity_tconv_step_plain(x: torch.Tensor, wp: torch.Tensor,
     return out
 
 
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+class StepPlan(NamedTuple):
+    """One streaming launch: blocks of ``16·wm`` rows × one group's slots,
+    ``parts`` blocks (a cluster) sharing each tile's contraction; grid
+    (row tiles, L, parts)."""
+    wm: int
+    parts: int
+    grid: tuple
+    smem: int
+
+
+STEP_WM = (1, 2, 4)            # 16-row tiles of a block (its 4 warps)
+STEP_PARTS = (1, 2, 4, 8)      # blocks of a cluster (portable sizes)
+_STEP_WAVE_BYTES = 64 * 1024   # a wave's fixed latency, in staged bytes
+
+
+def _step_smem_bytes(wm: int, qw: int, nb: int, n_keep: int,
+                     cout: int) -> int:
+    """csrc/cavity_tconv_step.cu:step_smem_words, in bytes: the block's
+    frame rows (16·wm × qw) and weight rows (qw × nb), the warps' partial
+    tiles, the (row, tap) frame indices and the column marks."""
+    bm = 16 * wm
+    ld_b = _up(nb, 8) + (8 if _up(nb, 8) % 16 == 0 else 0)
+    return 4 * (bm * (_up(qw, 8) + 4) + qw * ld_b + (4 // wm) * bm * nb
+                + _up(bm * n_keep, 4) + cout)
+
+
+@functools.lru_cache(maxsize=512)
+def step_plan(B: int, C: int, L: int, n_keep: int, Fg: int,
+              cout: int) -> StepPlan:
+    """The tile and cluster size of one streaming launch over B rows.  A
+    block stages its share of the (tap, 8-channel) steps for its rows and
+    the group's weights at once, so its time is the bytes it stages; the
+    plan that fits shared memory with the least of (blocks a busiest SM
+    runs × bytes a block stages) plus a fixed cost per wave of resident
+    blocks is taken (ties: more blocks, more loads in flight).  S = 1, 3
+    and 8 slots of 25 joints reach 128 blocks or more: the row tiles × 8
+    groups × up to 8 parts."""
+    if not (B > 0 and C > 0 and L > 0 and 0 < n_keep <= 16
+            and 0 < Fg <= 64 and cout > 0):
+        raise ValueError(f"cavity_tconv_step: no plan for B={B} C={C} L={L} "
+                         f"n_keep={n_keep} Fg={Fg} cout={cout}")
+    steps, nb = n_keep * -(-C // 8), _up(Fg, 8)
+    best = None
+    for wm in STEP_WM:
+        for parts in STEP_PARTS:
+            if parts > steps:
+                continue
+            qw = -(-steps // parts) * 8
+            smem = _step_smem_bytes(wm, qw, nb, n_keep, cout)
+            if smem > SMEM_MAX:
+                continue
+            blocks = -(-B // (16 * wm)) * L * parts
+            per_sm = max(1, min(16, SM_SMEM // (smem + 1024)))
+            cost = (-(-blocks // SM_COUNT) * (16 * wm + nb) * qw * 4
+                    + -(-blocks // (SM_COUNT * per_sm)) * _STEP_WAVE_BYTES)
+            key = (cost, -blocks)
+            if best is None or key < best[0]:
+                best = key, StepPlan(wm, parts, (-(-B // (16 * wm)), L,
+                                                 parts), smem)
+    if best is None:
+        raise ValueError(f"cavity_tconv_step: no tile fits shared memory at "
+                         f"C={C}, n_keep={n_keep}, Fg={Fg}, cout={cout}")
+    return best[1]
+
+
+def column_sources(slot_col: torch.Tensor, cout: int) -> torch.Tensor:
+    """The inverse of ``slot_col``: (cout,) int64, the packed slot each
+    output column takes, or L·Fg (no slot: a pruned filter).  No host
+    sync: the unmapped slots scatter into a dropped extra column."""
+    n = slot_col.shape[0]
+    dest = torch.where(slot_col >= 0, slot_col.long(),
+                       torch.full_like(slot_col, cout, dtype=torch.int64))
+    src = torch.full((cout + 1,), n, dtype=torch.int64,
+                     device=slot_col.device)
+    src.scatter_(0, dest, torch.arange(n, device=slot_col.device))
+    return src[:cout]
+
+
+def cavity_tconv_step_ring_plain(ring: torch.Tensor, head: torch.Tensor,
+                                 wp: torch.Tensor, taps: torch.Tensor,
+                                 slot_col: torch.Tensor,
+                                 bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ring form, (S, K, V, C) -> (S, V, cout): each
+    slot's window gathered oldest first from ``head``, transposed to
+    (S·V, K, C) rows, :func:`cavity_tconv_step_plain`, then each output
+    column takes its slot plus its bias (columns no slot reaches: 0)."""
+    S, K, V, C = ring.shape
+    L, _, _, Fg = wp.shape
+    cout = bias.shape[0]
+    chrono = (head.long()[:, None]
+              + torch.arange(K, device=ring.device)[None, :]) % K
+    win = torch.gather(ring, 1, chrono[:, :, None, None].expand(S, K, V, C))
+    packed = cavity_tconv_step_plain(
+        win.permute(0, 2, 1, 3).reshape(S * V, K, C), wp, taps)
+    src = column_sources(slot_col, cout)
+    flat = torch.cat([packed.reshape(S * V, L * Fg),
+                      packed.new_zeros((S * V, 1))], 1).index_select(1, src)
+    out = torch.where(src < L * Fg, flat + bias, 0.0)
+    return out.reshape(S, V, cout)
+
+
+def cavity_tconv_step_ring_cuda(ring: torch.Tensor, head: torch.Tensor,
+                                wp: torch.Tensor, taps: torch.Tensor,
+                                slot_col: torch.Tensor, bias: torch.Tensor,
+                                plan: Optional[StepPlan] = None,
+                                fma: bool = False) -> torch.Tensor:
+    """One output step per slot from its ring, (S, K, V, C) ->
+    (S, V, cout): launches the CUDA kernel for CUDA tensors; CPU tensors
+    take :func:`cavity_tconv_step_ring_plain`.  ``plan`` overrides
+    :func:`step_plan`; ``fma`` runs the product on float32 FMAs in place
+    of the tensor cores (a variant kept for timing)."""
+    if _build.dispatch_device("cavity_tconv_step", ring) == "cpu":
+        return cavity_tconv_step_ring_plain(ring, head, wp, taps, slot_col,
+                                            bias)
+    if ring.dim() != 4:
+        raise ValueError(f"cavity_tconv_step: ring{tuple(ring.shape)} is not "
+                         f"(S, K, V, C)")
+    _check_packed("cavity_tconv_step", ring, wp, taps)
+    S, K, V, C = ring.shape
+    L, n_keep, _, Fg = wp.shape
+    cout = bias.shape[0] if bias.dim() == 1 else -1
+    for name, t, shape in (("head", head, (S,)),
+                           ("slot_col", slot_col, (L * Fg,))):
+        if (t.dtype != torch.int32 or t.device != ring.device
+                or t.shape != shape or not t.is_contiguous()):
+            raise ValueError(f"cavity_tconv_step: {name} must be a contiguous "
+                             f"int32 {shape} tensor on the ring's device")
+    if cout <= 0:
+        raise ValueError(f"cavity_tconv_step: bias{tuple(bias.shape)} is not "
+                         f"(cout,)")
+    _build.check_cuda_f32("cavity_tconv_step", ring, bias)
+    p = plan or step_plan(S * V, C, L, n_keep, Fg, cout)
+    out = torch.empty((S, V, cout), dtype=ring.dtype, device=ring.device)
+    _build.launch("cavity_tconv_step", "cavity_tconv_step_f32", ring.device,
+                  ring.data_ptr(), head.data_ptr(), wp.data_ptr(),
+                  taps.data_ptr(), slot_col.data_ptr(), bias.data_ptr(),
+                  out.data_ptr(), S, K, V, C, L, n_keep, Fg, cout, p.wm,
+                  p.parts, int(fma))
+    return out
+
+
 def cavity_tconv_step_cuda(x: torch.Tensor, wp: torch.Tensor,
                            taps: torch.Tensor) -> torch.Tensor:
-    """One output step per K-frame window, (B, K, C) -> (B, L, Fg):
-    launches the CUDA kernel for CUDA tensors; CPU tensors take
-    :func:`cavity_tconv_step_plain`.  The kernel stages x in float4s, so
-    on the card C must be a multiple of 4 and x 16-byte aligned
-    (``ops.cavity_tconv_step`` pads and copies to make it so)."""
+    """The packed streaming product on chronological windows, (B, K, C) ->
+    (B, L, Fg) in packed slot order: CPU tensors take
+    :func:`cavity_tconv_step_plain`; CUDA tensors launch the ring kernel
+    on the windows as a ring of B slots of one joint, every head 0, each
+    slot its own column, no bias."""
     if _build.dispatch_device("cavity_tconv_step", x) == "cpu":
         return cavity_tconv_step_plain(x, wp, taps)
-    _check_packed("cavity_tconv_step", x, wp, taps)
-    if x.shape[2] % 4 or x.data_ptr() % 16:
-        raise ValueError(f"cavity_tconv_step: C={x.shape[2]} is not a "
-                         f"multiple of 4 or x is not 16-byte aligned")
     B, K, C = x.shape
-    L, n_keep, _, Fg = wp.shape
-    out = torch.empty((B, L, Fg), dtype=x.dtype, device=x.device)
-    if B:
-        _build.launch("cavity_tconv_step", "cavity_tconv_step_f32", x.device,
-                      x.data_ptr(), wp.data_ptr(), taps.data_ptr(),
-                      out.data_ptr(), B, K, C, L, n_keep, Fg)
-    return out
+    L, _, _, Fg = wp.shape
+    dev = x.device
+    out = cavity_tconv_step_ring_cuda(
+        x.reshape(B, K, 1, C), torch.zeros(B, dtype=torch.int32, device=dev),
+        wp, taps, torch.arange(L * Fg, dtype=torch.int32, device=dev),
+        torch.zeros(L * Fg, dtype=x.dtype, device=dev))
+    return out.reshape(B, L, Fg)

@@ -3,12 +3,14 @@ over a dense graph and over an ELL-packed sparse one.
 
 Ports of ``repro.kernels.graph_sconv.graph_sconv_pallas`` (dense) and
 ``graph_sconv_csr_pallas`` (sparse).  The CUDA kernels
-(``csrc/graph_sconv.cu``, ``csrc/graph_sconv_csr.cu``) keep the G·x
-intermediate in shared memory, as the TPU kernels keep it in VMEM.  Cin is
-the *kept* channel count: channel compaction happens before the call.
-The dense kernel runs both products on the tensor cores (TF32 with a
-3-pass split, float32 in and out) over the block tile that
-:func:`sconv_plan` chooses here.
+(``csrc/graph_sconv.cu``, ``csrc/graph_sconv_csr.cu``, one template in
+``csrc/sconv_mma.cuh``) keep the G·x intermediate in shared memory, as the
+TPU kernels keep it in VMEM.  Cin is the *kept* channel count: channel
+compaction happens before the call.  Both run the 1×1 product on the
+tensor cores (TF32 with a 3-pass split, float32 in and out); the dense
+kernel's graph product is a TF32 GEMM too, the sparse kernel's an ELL
+gather in float32 on the CUDA cores.  The block tiles come from
+:func:`sconv_plan` and :func:`csr_plan` here.
 
 Layouts, float32 unless noted:
   dense:  x (R, V, Cin), g (K, V, V), w (K, Cin, Cout) -> (R, V, Cout)
@@ -34,7 +36,7 @@ MAX_JOINTS = 128
 # WM x WN warps, each a (16·MT) × (8·NT) tile of (row, joint) pairs ×
 # output channels, so the block's tile is (16·WM·MT) × (8·WN·NT); KC input
 # channels a contraction chunk; W warps in all (the ones past WM·WN only
-# stage and form G·x).  The order is csrc/graph_sconv.cu's kTiles.
+# stage and form G·x).  The order is csrc/sconv_mma.cuh's kTiles.
 SCONV_TILES = ((4, 4, 2, 8, 16, 16), (4, 2, 2, 8, 16, 8),
                (4, 2, 2, 4, 16, 8), (2, 1, 2, 8, 32, 4), (1, 2, 2, 2, 64, 4),
                (1, 1, 1, 2, 64, 4), (1, 1, 1, 1, 64, 4))
@@ -63,19 +65,24 @@ def _up(n: int, m: int) -> int:
 
 
 def _smem_bytes(bm: int, bn: int, kc: int, rows: int, wt: int, V: int,
-                Cin: int, xres: bool) -> int:
-    """csrc/graph_sconv.cu:smem_floats, in bytes: the block's x rows (every
-    channel, or a chunk's kc), G_k's rows, the y chunk (each as hi and lo
-    planes) and two W_k chunk buffers."""
+                Cin: int, xres: bool, D: int = 0) -> int:
+    """csrc/sconv_mma.cuh:smem_floats, in bytes: the block's x rows (every
+    channel, or a chunk's kc) and its joints' graph rows (dense, D = 0: x
+    and G_k's rows as hi and lo planes; ELL: x in float32 and the D
+    indices and values of its wt joints), the y chunk (hi and lo) and two
+    W_k chunk buffers (hi and lo)."""
     def ld_a(k):
         return _up(k, 8) + 4
 
     def ld_b(n):
         return _up(n, 8) + (8 if _up(n, 8) % 16 == 0 else 0)
-    floats = (2 * (rows * V + _up(V, 8) - V) * ld_b(Cin if xres else kc)
-              + 2 * _up(wt, 16) * ld_a(V) + 2 * bm * ld_a(kc)
-              + 4 * kc * ld_b(bn))
-    return 4 * floats
+    xcols = ld_b(Cin if xres else kc)
+    if D == 0:
+        graph = (2 * (rows * V + _up(V, 8) - V) * xcols
+                 + 2 * _up(wt, 16) * ld_a(V))
+    else:
+        graph = rows * V * xcols + 2 * _up(wt * D, 4)
+    return 4 * (graph + 2 * bm * ld_a(kc) + 4 * kc * ld_b(bn))
 
 
 def output_tiles(R: int, V: int, Cout: int) -> int:
@@ -93,8 +100,25 @@ def sconv_plan(R: int, V: int, Cin: int, Cout: int, K: int) -> SconvPlan:
     output channel (Cout ≤ 256), so y = G·x is formed once per row tile; at
     stream shapes (a few rows) it is a small tile, down to 16 joints × 8
     channels, and each block recomputes its cheap G·x."""
+    return _plan("graph_sconv", R, V, Cin, Cout, K, 0)
+
+
+@functools.lru_cache(maxsize=512)
+def csr_plan(R: int, V: int, Cin: int, Cout: int, K: int,
+             D: int) -> SconvPlan:
+    """The block tile for one ELL launch of width D: :func:`sconv_plan`'s
+    rule, with shared memory counting the block's x rows in float32 and
+    its joints' D indices and values in place of G_k's rows."""
+    if D <= 0:
+        raise ValueError(f"graph_sconv_csr: no plan for ELL width D={D}")
+    return _plan("graph_sconv_csr", R, V, Cin, Cout, K, D)
+
+
+def _plan(name: str, R: int, V: int, Cin: int, Cout: int, K: int,
+          D: int) -> SconvPlan:
+    """The tile rule of :func:`sconv_plan` (D = 0) and :func:`csr_plan`."""
     if not (R > 0 and 0 < V <= MAX_JOINTS and Cin > 0 and Cout > 0 and K > 0):
-        raise ValueError(f"graph_sconv: no plan for R={R} V={V} Cin={Cin} "
+        raise ValueError(f"{name}: no plan for R={R} V={V} Cin={Cin} "
                          f"Cout={Cout} K={K}")
     target = min(SM_COUNT, output_tiles(R, V, Cout))
     plans = []
@@ -109,12 +133,12 @@ def sconv_plan(R: int, V: int, Cin: int, Cout: int, K: int) -> SconvPlan:
         # x resident (staged and split once, not per k) unless it costs
         # the second block on an SM or does not fit; then fewer rows
         threads = 32 * warps
-        res = _smem_bytes(bm, bn, kc, rows, wt, V, Cin, True)
+        res = _smem_bytes(bm, bn, kc, rows, wt, V, Cin, True, D)
         xres = res <= (SMEM_MAX if threads > 256 else SMEM_TWO)
         while rows > 1 and _smem_bytes(bm, bn, kc, rows, wt, V, Cin,
-                                       xres) > SMEM_MAX:
+                                       xres, D) > SMEM_MAX:
             rows -= 1
-        smem = _smem_bytes(bm, bn, kc, rows, wt, V, Cin, xres)
+        smem = _smem_bytes(bm, bn, kc, rows, wt, V, Cin, xres, D)
         if smem <= SMEM_MAX:
             grid = (-(-R // rows) * -(-V // wt), -(-Cout // bn))
             plans.append(SconvPlan(tile, rows, wt, xres, bm, bn, threads,
@@ -197,10 +221,12 @@ def graph_sconv_csr_cuda(x: torch.Tensor, idx: torch.Tensor,
     _check_ell(x, idx, val, w)
     R, V, Cin = x.shape
     K, _, Cout = w.shape
+    D = idx.shape[-1]
     out = torch.empty((R, V, Cout), dtype=x.dtype, device=x.device)
     if R:
+        p = csr_plan(R, V, Cin, Cout, K, D)
         _build.launch("graph_sconv_csr", "graph_sconv_csr_f32", x.device,
                       x.data_ptr(), idx.data_ptr(), val.data_ptr(),
-                      w.data_ptr(), out.data_ptr(), R, V, Cin, Cout, K,
-                      idx.shape[-1])
+                      w.data_ptr(), out.data_ptr(), R, V, Cin, Cout, K, D,
+                      p.tile, p.rows, p.wt, int(p.xres))
     return out

@@ -117,6 +117,38 @@ def cavity_tconv(
     return out.squeeze(2) if x.dim() == 3 else out
 
 
+def slot_columns(inv_perm: np.ndarray, num_filters: int,
+                 columns: np.ndarray = None) -> np.ndarray:
+    """The streaming kernel's store map, (L·Fg,) int32: packed slot
+    ``inv_perm[f]`` of natural filter f < ``num_filters`` goes to output
+    column ``columns[f]`` (default f: the kept-filter scatter when given);
+    padding slots and filters past ``num_filters`` go nowhere (−1)."""
+    inv_perm = np.asarray(inv_perm)
+    col = np.full(inv_perm.shape[0], -1, np.int32)
+    col[inv_perm[:num_filters]] = (np.arange(num_filters) if columns is None
+                                   else np.asarray(columns)[:num_filters])
+    return col
+
+
+def cavity_tconv_step_ring(
+    ring: torch.Tensor,       # (S, K, V, C) per-slot tconv-input ring
+    head: torch.Tensor,       # (S,) int32 each slot's oldest frame
+    wp: torch.Tensor,
+    taps: torch.Tensor,
+    slot_col: torch.Tensor,   # (L·Fg,) int32 from :func:`slot_columns`
+    bias: torch.Tensor,       # (cout,) per output column
+) -> torch.Tensor:
+    """Single-step cavity tconv of the streaming engine, read from the
+    ring in place.  Returns (S, V, cout): each kept filter at its column
+    with its bias, the other columns 0.
+
+    No padding (the ring holds K frames; its zeros stand in for the clip's
+    'same' padding) and no stride (emission gating lives in the engine).
+    Same packed weights and tap sets as :func:`cavity_tconv`."""
+    return _ct.cavity_tconv_step_ring_cuda(ring.contiguous(), head, wp, taps,
+                                           slot_col, bias)
+
+
 def cavity_tconv_step(
     x: torch.Tensor,          # (B, K, C) chronological window, oldest first
     wp: torch.Tensor,
@@ -124,22 +156,20 @@ def cavity_tconv_step(
     inv_perm: torch.Tensor,
     num_filters: int,
 ) -> torch.Tensor:
-    """Single-step cavity tconv over a full window.  Returns (B, F).
-
-    The streaming engine's per-frame path: no padding (the window holds K
-    frames; the ring's zeros stand in for the clip's 'same' padding) and
-    no stride (emission gating lives in the engine).  Same packed weights,
-    tap sets and filter permutation as :func:`cavity_tconv`.  The kernel
-    takes C in whole float4s: a C that is not a multiple of 4 is zero-padded
-    on x and wp (no configuration has one), and a misaligned x is copied."""
-    x = _pad_to(x, 2, 4).contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()
-    wp = _pad_to(wp, 2, 4).contiguous()
-    out = _ct.cavity_tconv_step_cuda(x, wp, taps)  # (B, L, Fg)
-    B, L, Fg = out.shape
-    flat = out.reshape(B, L * Fg).index_select(-1, inv_perm)
-    return flat[:, :num_filters]
+    """Single-step cavity tconv over chronological windows.  Returns
+    (B, F) in natural filter order: :func:`cavity_tconv_step_ring` on the
+    windows as a ring of B slots of one joint, each head at 0."""
+    B, K, C = x.shape
+    L, _, _, Fg = wp.shape
+    dev = x.device
+    slot_col = torch.full((L * Fg,), -1, dtype=torch.int32, device=dev)
+    slot_col[inv_perm[:num_filters]] = torch.arange(
+        num_filters, dtype=torch.int32, device=dev)
+    out = cavity_tconv_step_ring(
+        x.reshape(B, K, 1, C), torch.zeros(B, dtype=torch.int32, device=dev),
+        wp.contiguous(), taps, slot_col,
+        torch.zeros(num_filters, dtype=x.dtype, device=dev))
+    return out.reshape(B, num_filters)
 
 
 # ---------------------------------------------------------------------------

@@ -68,6 +68,12 @@ CSR_CASES = [(32, 50, 16, 32, "ntu50", 1e-5), (8, 50, 256, 256, "ntu50", 1e-5),
              (5, 21, 9, 20, "hand21", 0.0), (64, 46, 77, 128, "body_hand46",
                                               1e-5)]
 
+# the full-width ntu50 clip (batch 8: R = 1200 rows into the first block,
+# 304 into the last) and S = 8 stream shapes, at D = degree and D = V
+CSR_FULL_WIDTH = [(R, 50, Ci, Co, "ntu50", eps) for eps in (1e-5, 0.0)
+                  for R, Ci, Co in ((1200, 3, 64), (304, 256, 256),
+                                    (8, 3, 64), (8, 256, 256))]
+
 # dense plans of hand21 (V = 21: 6 rows a 128-pair tile) and body_hand46
 # (V = 46: 2 rows a tile), agcn-2s's first and last blocks (Cin 3 -> 64,
 # 256 -> 256): clip rows at batch 8 of one person (T = 150, then 38 after
@@ -127,16 +133,55 @@ def test_cavity_tconv_kernel_matches_plain(cuda, B, T, C, F, stride, pattern,
 def test_cavity_tconv_step_kernel_matches_plain(cuda, B, C, F, pattern):
     mask = tile_pattern(cavity_pattern(pattern), F)
     wp, taps, _ = ops.pack_cavity_weights(
-        _rand(F, F, C, 9) * mask[:, None, :] / np.sqrt(C), mask)
+        _rand(F, F, C, 9) * mask[:, None, :] / np.float32(np.sqrt(C)), mask)
     x = torch.from_numpy(_rand(B, B, 9, C)).to(cuda)
     wp, taps = torch.from_numpy(wp).to(cuda), torch.from_numpy(taps).to(cuda)
-    if C % 4:       # the kernel takes whole float4s; ops pads C with zeros
-        with pytest.raises(ValueError, match="multiple of 4"):
-            ct.cavity_tconv_step_cuda(x, wp, taps)
+    if C % 4:       # 4-byte copies take any C; zero-padded C agrees too
+        torch.testing.assert_close(ct.cavity_tconv_step_cuda(x, wp, taps),
+                                   ct.cavity_tconv_step_plain(x, wp, taps),
+                                   atol=1e-4, rtol=1e-4)
         x, wp = ops._pad_to(x, 2, 4), ops._pad_to(wp, 2, 4).contiguous()
     torch.testing.assert_close(ct.cavity_tconv_step_cuda(x, wp, taps),
                                ct.cavity_tconv_step_plain(x, wp, taps),
                                atol=1e-4, rtol=1e-4)
+
+
+# (S, V, C, F, cout, pattern): the ring-form step at S = 1, 3 and 8 slots,
+# at the model's widths, with pruned columns (cout > F) and an odd C
+RING_CASES = [(1, 25, 64, 64, 64, "cav-70-1"),
+              (3, 25, 128, 90, 128, "cav-70-1"),
+              (8, 25, 256, 256, 256, "cav-70-1"),
+              (8, 50, 256, 180, 256, "cav-70-1"),
+              (3, 25, 38, 38, 51, "none"), (8, 25, 7, 13, 20, "cav-50-1")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,V,C,F,cout,pattern", RING_CASES)
+def test_cavity_tconv_step_ring_kernel_matches_plain(cuda, S, V, C, F, cout,
+                                                     pattern):
+    """The ring read in place at mixed phases, the kept filters stored at
+    their columns with the bias, the pruned columns exactly 0; the float32
+    FMA variant agrees too."""
+    mask = tile_pattern(cavity_pattern(pattern), F)
+    wp, taps, inv = ops.pack_cavity_weights(
+        _rand(F, F, C, 9) * mask[:, None, :] / np.float32(np.sqrt(C)), mask)
+    rng = np.random.default_rng(S + C)
+    kept = np.sort(rng.choice(cout, F, replace=False))
+    head = rng.integers(0, 9, S).astype(np.int32)
+    args = (torch.from_numpy(_rand(S * C, S, 9, V, C)).to(cuda),
+            torch.from_numpy(head).to(cuda), torch.from_numpy(wp).to(cuda),
+            torch.from_numpy(taps).to(cuda),
+            torch.from_numpy(ops.slot_columns(inv, F, kept)).to(cuda),
+            torch.from_numpy(_rand(cout, cout)).to(cuda))
+    want = ct.cavity_tconv_step_ring_plain(*args)
+    _build.reset_launch_counts()
+    got = ct.cavity_tconv_step_ring_cuda(*args)
+    assert _build.LAUNCHES["cavity_tconv_step"] == 1
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    pruned = np.setdiff1d(np.arange(cout), kept)
+    assert (got[..., pruned] == 0).all()
+    torch.testing.assert_close(ct.cavity_tconv_step_ring_cuda(*args, fma=True),
+                               want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -150,7 +195,7 @@ def test_rfc_kernels_match_plain_exactly(cuda, rows, cols):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,V,Ci,Co,name,eps", CSR_CASES)
+@pytest.mark.parametrize("R,V,Ci,Co,name,eps", CSR_CASES + CSR_FULL_WIDTH)
 def test_graph_sconv_csr_kernel_matches_plain(cuda, R, V, Ci, Co, name, eps):
     from repro_torch.core.agcn.graph import dense_to_csr, get_topology
     g = get_topology(name).adjacency + np.float32(1e-6)

@@ -423,10 +423,10 @@ def test_fused_tick_reads_nothing_back_to_the_host(tparams, prune_plans, x,
     plain version (which reads its taps on the host) is swapped for a
     stand-in of its shape; on a card the kernel takes its place and
     chip_smoke checks the same tick under ``set_sync_debug_mode``."""
-    def stand_in(xb, wp, taps):
-        return xb.new_zeros((xb.shape[0], wp.shape[0], wp.shape[-1]))
+    def stand_in(ring, head, wp, taps, slot_col, bias):
+        return ring.new_zeros((ring.shape[0], ring.shape[2], bias.shape[0]))
 
-    monkeypatch.setattr(ct, "cavity_tconv_step_cuda", stand_in)
+    monkeypatch.setattr(ct, "cavity_tconv_step_ring_cuda", stand_in)
     S, R, E = 3, 4, 3
     tplans = tuple(_tplan(tparams, prune_plans, "cuda", i) for i in (0, 1))
     slabs = tuple(engine.init_session_slab(p, S, x_calib=torch.from_numpy(x))

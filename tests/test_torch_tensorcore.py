@@ -20,6 +20,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.agcn import engine
+from repro_torch.core.agcn.graph import dense_to_csr, get_topology
 from repro_torch.core.pruning.cavity import cavity_pattern, tile_pattern
 from repro_torch.kernels import cavity_tconv as ct
 from repro_torch.kernels import graph_sconv as gs
@@ -240,3 +242,209 @@ def test_cavity_tconv_plan_covers_every_pair_once(B, T_out, n_keep, Fg, stride):
         seen[b0:b0 + p.nb, t0:t0 + p.tt] += 1
     assert (seen == 1).all()
     assert p.grid[1] == -(-Fg // 8)
+
+
+# ------------------------------------------------- graph_sconv_csr, ELL form
+
+def _ell(name, eps):
+    """The ELL pack (idx, val) of a registry skeleton's graph plus B_k's
+    1e-6 init, at threshold ``eps``: D = its degree (1e-5) or V (0)."""
+    g = get_topology(name).adjacency + np.float32(1e-6)
+    return ops.pack_csr_ell(*dense_to_csr(g, eps), g.shape[-1])
+
+
+@pytest.mark.parametrize("name", ("ntu25", "ntu50", "hand21", "body_hand46"))
+@pytest.mark.parametrize("R", PLAN_R)
+def test_csr_plan_fits_covers_and_fills_the_card(R, name):
+    """The ELL tile plan at the skeleton's degree and at D = V: it fits
+    shared memory (counted with the block's ELL rows), its blocks cover
+    every (row, joint, output channel) once, and the grid reaches
+    min(132, output 16×8 tiles) blocks."""
+    V = get_topology(name).num_joints
+    for D in sorted({_ell(name, 1e-5)[0].shape[-1], V}):
+        for Cin in PLAN_CIN:
+            for Cout in PLAN_COUT:
+                p = gs.csr_plan(R, V, Cin, Cout, 3, D)
+                wm, wn, mt, nt, kc, _ = gs.SCONV_TILES[p.tile]
+                assert p.smem == gs._smem_bytes(p.bm, p.bn, kc, p.rows, p.wt,
+                                                V, Cin, p.xres, D)
+                assert p.smem <= 227 * 1024
+                assert p.rows * p.wt <= p.bm
+                assert p.wt == V or (p.wt % 16 == 0 and p.rows == 1)
+                pairs = np.zeros((p.grid[1], R, V), np.int32)
+                chans = np.zeros((p.grid[0], Cout), np.int32)
+                for i, ((ra, rb), (wa, wb), (oa, ob)) in enumerate(
+                        _plan_blocks(p, R, V, Cout)):
+                    pairs[i % p.grid[1], ra:rb, wa:wb] += 1
+                    chans[i // p.grid[1], oa:ob] += 1
+                assert (pairs == 1).all() and (chans == 1).all()
+                assert (p.grid[0] * p.grid[1]
+                        >= min(gs.SM_COUNT, gs.output_tiles(R, V, Cout)))
+
+
+def test_csr_plan_forms_y_once_per_row_tile_on_clips():
+    """As the dense plan: at the clip path's widths one block owns every
+    output channel; and the ELL rows take less room than G_k's."""
+    for R, V, Cout, D in [(1200, 50, 64, 5), (1200, 50, 256, 50),
+                          (2400, 25, 64, 4), (304, 50, 256, 5)]:
+        assert gs.csr_plan(R, V, 51, Cout, 3, D).grid[1] == 1
+    assert (gs._smem_bytes(128, 64, 16, 2, 50, 50, 90, True, 5)
+            < gs._smem_bytes(128, 64, 16, 2, 50, 50, 90, True))
+    with pytest.raises(ValueError):
+        gs.csr_plan(8, 50, 16, 64, 3, 0)
+
+
+def _emulate_csr(x, idx, val, w, p):
+    """graph_sconv_csr block by block as the plan tiles it: each block
+    gathers its joints' y from whole x rows, slot by slot in float32, then
+    the 1×1 product of its channels."""
+    R, V, _ = x.shape
+    Cout = w.shape[-1]
+    out = torch.full((R, V, Cout), float("nan"))
+    for (ra, rb), (wa, wb), (oa, ob) in _plan_blocks(p, R, V, Cout):
+        y = torch.zeros((w.shape[0], rb - ra, wb - wa, x.shape[-1]))
+        for d in range(idx.shape[-1]):
+            y = y + (x[ra:rb][:, idx[:, wa:wb, d].long()].permute(1, 0, 2, 3)
+                     * val[:, wa:wb, d][:, None, :, None])
+        out[ra:rb, wa:wb, oa:ob] = torch.einsum("krwc,kco->rwo", y,
+                                                w[:, :, oa:ob])
+    return out
+
+
+@pytest.mark.parametrize("R,name,eps,Ci,Co", [
+    (8, "ntu50", 1e-5, 77, 256), (3, "body_hand46", 0.0, 51, 128),
+    (40, "hand21", 1e-5, 90, 256), (17, "ntu25", 0.0, 35, 20)])
+def test_csr_plan_tiles_compute_the_whole_product(R, name, eps, Ci, Co):
+    idx, val = map(torch.from_numpy, _ell(name, eps))
+    V, D = idx.shape[1], idx.shape[2]
+    x, _, w = map(torch.from_numpy, _sconv_inputs(R, V, Ci, Co, 3))
+    got = _emulate_csr(x, idx, val, w, gs.csr_plan(R, V, Ci, Co, 3, D))
+    torch.testing.assert_close(got, gs.graph_sconv_csr_plain(x, idx, val, w),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name,eps,Ci,Co", [
+    ("ntu50", 1e-5, 90, 256), ("ntu50", 0.0, 90, 256), ("hand21", 1e-5, 3, 64),
+    ("body_hand46", 0.0, 38, 64)])
+def test_three_pass_split_holds_the_ell_product_to_float32(name, eps, Ci, Co):
+    """The ELL kernel's stages: y_k gathered in float32, slot by slot, then
+    split, and Σ_k y_k·W_k in three TF32 passes: within 1e-4 of float64."""
+    idx, val = _ell(name, eps)
+    R, (K, V, D) = 16, idx.shape
+    x, _, w = _sconv_inputs(R, V, Ci, Co, K)
+    g = np.zeros((K, V, V))
+    for k in range(K):
+        np.add.at(g[k], (np.arange(V)[:, None], idx[k]), val[k])
+    want = np.einsum("rvc,kwv,kco->rwo", x.astype(np.float64), g,
+                     w.astype(np.float64))
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    y = torch.zeros((K, R, V, Ci))
+    for d in range(D):
+        y = y + (tx[:, torch.from_numpy(idx[:, :, d]).long()].permute(
+            1, 0, 2, 3) * torch.from_numpy(val[:, :, d])[:, None, :, None])
+    out = sum(_product("rwc,co->rwo", y[k], tw[k], 3) for k in range(K))
+    assert float(np.abs(out.numpy() - want).max()) < 1e-4
+
+
+# ------------------------------------------- cavity_tconv_step, ring form
+
+def _emulate_step(ring, head, wp, taps, slot_col, bias, p):
+    """cavity_tconv_step's blocks as the plan tiles them: each block's
+    (row, tap, channel) values read from the flat ring at the index the
+    kernel computes (frame (head[s] + tap) mod K), its share of the steps'
+    products, the shares added in rank order, then the store through
+    slot_col with the bias and the zero columns.  Returns (out, the staged
+    rows (B, L, n_keep, C) and how often each was staged)."""
+    S, K, V, C = ring.shape
+    L, n_keep, _, Fg = wp.shape
+    cout, B = bias.shape[0], S * V
+    flat = ring.reshape(-1, C)
+    spt = -(-C // 8)
+    NS, bm = n_keep * spt, 16 * p.wm
+    staged = torch.zeros((B, L, n_keep, C))
+    seen = torch.zeros((B, L, n_keep, spt), dtype=torch.int32)
+    out = torch.full((B, cout), float("nan"))
+    for bx in range(p.grid[0]):
+        for g in range(L):
+            tile = torch.zeros((bm, Fg))
+            for part in range(p.parts):
+                s0, s1 = part * NS // p.parts, (part + 1) * NS // p.parts
+                for r in range(bm):
+                    b = bx * bm + r
+                    if b >= B:
+                        continue
+                    s, v = divmod(b, V)
+                    for q in range(s0, s1):
+                        j, c0 = q // spt, q % spt * 8
+                        off = int(taps[g, j])
+                        f = (s * K + (int(head[s]) + off) % K) * V + v
+                        a = flat[f, c0:c0 + 8]
+                        staged[b, g, j, c0:c0 + 8] = a
+                        seen[b, g, j, q % spt] += 1
+                        tile[r] += a @ wp[g, j, c0:c0 + 8]
+            for r in range(bm):
+                b = bx * bm + r
+                if b >= B:
+                    continue
+                for i in range(Fg):
+                    col = int(slot_col[g * Fg + i])
+                    if col >= 0:
+                        out[b, col] = tile[r, i] + bias[col]
+    dead = sorted(set(range(cout)) - set(slot_col.tolist()))
+    out[:, dead] = 0.0
+    return out.reshape(S, V, cout), staged, seen
+
+
+@pytest.mark.parametrize("S,V,C,F_,pattern,heads", [
+    (3, 5, 12, 24, "cav-70-1", [7, 0, 4]), (9, 2, 8, 13, "cav-70-1",
+                                            list(range(9))),
+    (1, 25, 6, 38, "none", [5])])
+def test_step_kernel_grid_reads_the_chronological_rows(S, V, C, F_, pattern,
+                                                       heads):
+    """The kernel's index arithmetic, over torch tensors: every (row,
+    group, tap, 8-channel step) is staged exactly once, from the frame
+    ``_gather_k(ring, chrono)`` holds at that tap, and the tiles' products
+    stored through the map equal the plain version."""
+    K = 9
+    mask = tile_pattern(cavity_pattern(pattern), F_)
+    wp, taps, inv = ops.pack_cavity_weights(
+        _rand(F_, F_, C, K) * mask[:, None, :], mask)
+    kept = np.sort(np.random.default_rng(C).choice(F_ + 7, F_, replace=False))
+    slot_col = torch.from_numpy(ops.slot_columns(inv, F_, kept))
+    bias = torch.from_numpy(_rand(1, F_ + 7))
+    ring = torch.from_numpy(_rand(S, S, K, V, C))
+    head = torch.tensor(heads, dtype=torch.int32)
+    wp, taps = torch.from_numpy(wp), torch.from_numpy(taps)
+    L, n_keep, _, Fg = wp.shape
+    p = ct.step_plan(S * V, C, L, n_keep, Fg, F_ + 7)
+    assert p.smem == ct._step_smem_bytes(
+        p.wm, -(-n_keep * -(-C // 8) // p.parts) * 8, -(-Fg // 8) * 8,
+        n_keep, F_ + 7)
+    got, staged, seen = _emulate_step(ring, head, wp, taps, slot_col, bias, p)
+    assert (seen == 1).all()
+    chrono = ((head.long()[:, None] + torch.arange(K)[None, :]) % K)
+    win = engine._gather_k(ring, chrono)               # (S, K, V, C)
+    rows = win.permute(0, 2, 1, 3).reshape(S * V, K, C)
+    for g in range(L):
+        for j in range(n_keep):
+            assert torch.equal(staged[:, g, j], rows[:, int(taps[g, j])])
+    torch.testing.assert_close(got, ct.cavity_tconv_step_ring_plain(
+        ring, head, wp, taps, slot_col, bias), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("V", (25, 50))
+@pytest.mark.parametrize("S", (1, 3, 8))
+def test_step_plan_fits_and_fills_the_card(S, V):
+    """At the model's widths (C 64..256, F 64..256, n_keep 3 of 9) the plan
+    fits shared memory, its clusters are portable (≤ 8 blocks) and split
+    no step, and S = 1, 3, 8 slots of 25 joints reach 128 blocks or more:
+    (row tiles) × 8 groups × parts."""
+    for C, F_ in ((64, 64), (128, 128), (256, 256), (64, 38)):
+        Fg = -(-F_ // 8)
+        p = ct.step_plan(S * V, C, 8, 3, Fg, F_)
+        assert p.smem <= 227 * 1024 and p.parts in (1, 2, 4, 8)
+        assert p.parts <= 3 * -(-C // 8)
+        assert p.grid == (-(-S * V // (16 * p.wm)), 8, p.parts)
+        assert p.grid[0] * p.grid[1] * p.grid[2] >= 128
+    with pytest.raises(ValueError):
+        ct.step_plan(8, 64, 8, 3, 65, 64)
