@@ -12,6 +12,11 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
   2. build   — the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, one
                process per source, in parallel), with ptxas's register and
                spill report.
+     card_tests — the JAX-free kernel tests, every case marked ``cuda``:
+               ``python3 -m pytest -q --noconftest -p no:cacheprovider -m
+               cuda tests/test_torch_cuda_kernels.py`` with PYTHONPATH=src;
+               fails unless pytest exits 0 with no case skipped, and
+               prints the count that passed.
   3. kernels — one clip ensemble step (full agcn-2s, batch 8) and one
                stream tick at S = 1, 3 and 8 slots (after 200 raw frames,
                past the last block's first full window, so every kept tap
@@ -23,14 +28,22 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                an RFC case with C % 16 != 0; likewise a clip step of the
                50-joint two-person skeleton (ntu50, persons not folded) on
                a CSR plan (graph_sconv_csr) and a dense one (graph_sconv at
-               V = 50).  Each kernel is timed with CUDA events behind a
-               spin kernel (device time, without the host's launch cost)
-               beside its plain version, a one-call PyTorch yardstick where
-               one exists, and its bound on this card (graph_sconv and
-               cavity_tconv run on the tensor cores: TF32 rate, with the
-               float32 bound and the 3-pass split's floor beside it).  The ticks of the
-               later streams are held the same way in their phases, on the
-               state their own run reached 200 frames in.
+               V = 50), and a clip step and an S = 8 tick (200 frames in) of
+               hand21 and body_hand46 on dense plans (graph_sconv at V = 21
+               and 46).  Each kernel, its plain version and a one-call
+               PyTorch yardstick where one exists are timed on one clock
+               (``cuda_ms``): CUDA events around ten back-to-back calls,
+               behind a spin kernel sized to outlast the host's measured
+               time to queue them, so the events time device work and no
+               host gap (calls that wait for the device themselves, as the
+               plain versions that read taps on the host do, are timed with
+               their waits and named on the ``clock:`` line); beside them
+               the bound on this card (the four tensor-core kernels take
+               the TF32 rate, with the float32 bound and the 3-pass split's
+               floor beside it), and for cavity_tconv_step its float32 FMA
+               variant.  The ticks of the later streams are held the same
+               way in their phases, on the state their own run reached 200
+               frames in.
   4. main    — ``serve_gcn`` at the full agcn-2s config (batch 8, a few
                batches) on the ``cuda`` and ``reference`` backends: clips/s,
                logit agreement within atol=rtol=1e-3, and the launch

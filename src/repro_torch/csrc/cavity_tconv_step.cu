@@ -60,13 +60,15 @@ __host__ __device__ constexpr int up4(int n) { return (n + 3) / 4 * 4; }
 
 // shared memory (in 4-byte words) of a block of 16*wm rows, qw contraction
 // columns and nb slots: the frame rows, the weight rows, the warps'
-// partial tiles, the (row, kept tap) frame indices and the column marks;
-// mirrored by kernels/cavity_tconv.py:_step_smem_bytes
+// partial tiles, the (row, kept tap) frame indices, the store map of all
+// `slots` packed slots, the bias and the column marks; mirrored by
+// kernels/cavity_tconv.py:_step_smem_bytes
 __host__ __device__ inline int step_smem_words(int wm, int qw, int nb,
-                                               int n_keep, int cout) {
+                                               int n_keep, int slots,
+                                               int cout) {
   const int bm = 16 * wm;
   return bm * ld_a(qw) + qw * ld_b(nb) + (kWarps / wm) * bm * nb +
-         up4(bm * n_keep) + cout;
+         up4(bm * n_keep) + up4(slots) + up4(cout) + cout;
 }
 
 __device__ __forceinline__ void split_u(float a, uint32_t& hi, uint32_t& lo) {
@@ -81,8 +83,8 @@ __global__ void __launch_bounds__(kThreads)
 step_kernel(const float* __restrict__ ring, const int* __restrict__ head,
             const float* __restrict__ wp, const int* __restrict__ taps,
             const int* __restrict__ slot_col, const float* __restrict__ bias,
-            float* __restrict__ out, int S, int K, int V, int C, int n_keep,
-            int Fg, int cout, int vec_x, int vec_w) {
+            float* __restrict__ out, int S, int K, int V, int C, int L,
+            int n_keep, int Fg, int cout, int vec_x, int vec_w) {
   constexpr int BM = 16 * WM, WK = kWarps / WM;
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -100,47 +102,15 @@ step_kernel(const float* __restrict__ ring, const int* __restrict__ head,
   float* Ws = As + BM * lda;                   // [step * 8 + e][slot]
   float* red = Ws + qwm * ldw;                 // [warp share][row][slot]
   int* rowf = reinterpret_cast<int*>(red + WK * BM * NB);
-  int* mark = rowf + up4(BM * n_keep);
+  int* scol = rowf + up4(BM * n_keep);         // slot_col, every slot
+  float* bs = reinterpret_cast<float*>(scol + up4(L * Fg));   // bias
+  int* mark = reinterpret_cast<int*>(bs + up4(cout));
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;
 
-  // the ring row (s, frame, v) each (row, kept tap) reads, or -1
-  for (int i = tid; i < BM * n_keep; i += kThreads) {
-    const int r = i / n_keep, j = i % n_keep, b = b0 + r;
-    int f = -1;
-    if (b < B) {
-      const int s = b / V, v = b % V, off = taps[g * n_keep + j];
-      if (off >= 0 && off < K) {
-        int k = (head[s] + off) % K;
-        if (k < 0) k += K;
-        f = (s * K + k) * V + v;
-      }
-    }
-    rowf[i] = f;
-  }
-  __syncthreads();
-
-  // stage the block's steps: frame rows (zero past B and C) and weight
-  // rows (zero past C and Fg), all in flight at once
-  if (vec_x) {
-    for (int i = tid; i < BM * ns * 2; i += kThreads) {
-      const int h = i & 1, t = (i >> 1) % ns, r = (i >> 1) / ns;
-      const int q = s0 + t, c = q % spt * 8 + 4 * h;
-      const int f = rowf[r * n_keep + q / spt];
-      const bool ok = f >= 0 && c < C;
-      cp_async16(As + r * lda + t * 8 + 4 * h,
-                 ok ? ring + (size_t)f * C + c : ring, ok ? 16 : 0);
-    }
-  } else {
-    for (int i = tid; i < BM * ns * 8; i += kThreads) {
-      const int e = i & 7, t = (i >> 3) % ns, r = (i >> 3) / ns;
-      const int q = s0 + t, c = q % spt * 8 + e;
-      const int f = rowf[r * n_keep + q / spt];
-      const bool ok = f >= 0 && c < C;
-      cp_async4(As + r * lda + t * 8 + e,
-                ok ? ring + (size_t)f * C + c : ring, ok);
-    }
-  }
+  // first the loads that need no index, in flight while the ring's
+  // indices are read: the weight rows of the block's steps (zero past C
+  // and Fg), the store map and the bias
   if (vec_w) {
     const int nq = NB / 4;
     for (int i = tid; i < ns * 8 * nq; i += kThreads) {
@@ -161,6 +131,48 @@ step_kernel(const float* __restrict__ ring, const int* __restrict__ head,
                 ok ? wp + ((size_t)(g * n_keep + q / spt) * C + c) * Fg + n
                    : wp,
                 ok);
+    }
+  }
+  for (int i = tid; i < L * Fg; i += kThreads)
+    cp_async4(reinterpret_cast<float*>(scol) + i,
+              reinterpret_cast<const float*>(slot_col) + i, true);
+  for (int i = tid; i < cout; i += kThreads) cp_async4(bs + i, bias + i, true);
+  cp_async_commit();
+
+  // the ring row (s, frame, v) each (row, kept tap) reads, or -1
+  for (int i = tid; i < BM * n_keep; i += kThreads) {
+    const int r = i / n_keep, j = i % n_keep, b = b0 + r;
+    int f = -1;
+    if (b < B) {
+      const int s = b / V, v = b % V, off = taps[g * n_keep + j];
+      if (off >= 0 && off < K) {
+        int k = (head[s] + off) % K;
+        if (k < 0) k += K;
+        f = (s * K + k) * V + v;
+      }
+    }
+    rowf[i] = f;
+  }
+  __syncthreads();
+
+  // then the block's frame rows (zero past B and C), and one wait
+  if (vec_x) {
+    for (int i = tid; i < BM * ns * 2; i += kThreads) {
+      const int h = i & 1, t = (i >> 1) % ns, r = (i >> 1) / ns;
+      const int q = s0 + t, c = q % spt * 8 + 4 * h;
+      const int f = rowf[r * n_keep + q / spt];
+      const bool ok = f >= 0 && c < C;
+      cp_async16(As + r * lda + t * 8 + 4 * h,
+                 ok ? ring + (size_t)f * C + c : ring, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < BM * ns * 8; i += kThreads) {
+      const int e = i & 7, t = (i >> 3) % ns, r = (i >> 3) / ns;
+      const int q = s0 + t, c = q % spt * 8 + e;
+      const int f = rowf[r * n_keep + q / spt];
+      const bool ok = f >= 0 && c < C;
+      cp_async4(As + r * lda + t * 8 + e,
+                ok ? ring + (size_t)f * C + c : ring, ok);
     }
   }
   cp_async_commit();
@@ -251,23 +263,22 @@ step_kernel(const float* __restrict__ ring, const int* __restrict__ head,
   for (int e = e0 + tid; e < e1; e += kThreads) {
     const int r = e / NB, i = e % NB, b = b0 + r;
     if (b >= B || i >= Fg) continue;
-    const int col = slot_col[g * Fg + i];
+    const int col = scol[g * Fg + i];
     if (col < 0) continue;
     float s = 0.f;
     for (int p = 0; p < parts; ++p) {
       const float* tile = cluster.map_shared_rank(red, p);
       s = p == 0 ? tile[e] : s + tile[e];
     }
-    out[(size_t)b * cout + col] = s + bias[col];
+    out[(size_t)b * cout + col] = s + bs[col];
   }
   // the columns no slot reaches (pruned filters) get exact zeros, from the
   // first group's first part
   if (g == 0 && part == 0) {
     for (int o = tid; o < cout; o += kThreads) mark[o] = 0;
     __syncthreads();
-    const int L = gridDim.y;
     for (int i = tid; i < L * Fg; i += kThreads) {
-      const int col = slot_col[i];
+      const int col = scol[i];
       if (col >= 0 && col < cout) mark[col] = 1;
     }
     __syncthreads();
@@ -283,8 +294,8 @@ template <int WM, bool kFma>
 cudaError_t launch(dim3 grid, int parts, size_t smem, cudaStream_t stream,
                    const float* ring, const int* head, const float* wp,
                    const int* taps, const int* slot_col, const float* bias,
-                   float* out, int S, int K, int V, int C, int n_keep, int Fg,
-                   int cout, int vec_x, int vec_w) {
+                   float* out, int S, int K, int V, int C, int L, int n_keep,
+                   int Fg, int cout, int vec_x, int vec_w) {
   static int limit[kMaxDevices];
   auto kern = step_kernel<WM, kFma>;
   cudaError_t err = allow_smem((const void*)kern, smem, limit);
@@ -302,7 +313,8 @@ cudaError_t launch(dim3 grid, int parts, size_t smem, cudaStream_t stream,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kern, ring, head, wp, taps, slot_col, bias,
-                           out, S, K, V, C, n_keep, Fg, cout, vec_x, vec_w);
+                           out, S, K, V, C, L, n_keep, Fg, cout, vec_x,
+                           vec_w);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -327,8 +339,9 @@ extern "C" int cavity_tconv_step_f32(const void* ring, const void* head,
     return (int)cudaErrorInvalidValue;
   const int NS = n_keep * ((C + 7) / 8);
   const int qwm = (NS + parts - 1) / parts * 8;
-  const size_t smem = sizeof(float) *
-                      (size_t)step_smem_words(wm, qwm, up8(Fg), n_keep, cout);
+  const size_t smem =
+      sizeof(float) *
+      (size_t)step_smem_words(wm, qwm, up8(Fg), n_keep, L * Fg, cout);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const long long B = (long long)S * V;
   const long long gx = (B + 16 * wm - 1) / (16 * wm);
@@ -345,7 +358,7 @@ extern "C" int cavity_tconv_step_f32(const void* ring, const void* head,
   float* of = (float*)out;
 #define STEP_LAUNCH(WM, FMA)                                                 \
   return (int)launch<WM, FMA>(grid, parts, smem, s, rf, hi, wf, ti, ci, bf, \
-                              of, S, K, V, C, n_keep, Fg, cout, vec_x,      \
+                              of, S, K, V, C, L, n_keep, Fg, cout, vec_x,   \
                               vec_w)
   if (fma) {
     if (wm == 1) STEP_LAUNCH(1, true);

@@ -209,21 +209,29 @@ sconv_kernel(const float* __restrict__ x, const float* __restrict__ g,
 
     if constexpr (kEll) {
       // ELL graph stage on the CUDA cores, float32, slot by slot: item =
-      // (pair, channel), neighbouring threads on neighbouring channels;
-      // y lands split into its hi, lo planes
-      const int nch = ksteps * 8;
-      for (int i = tid; i < rows * wt * nch; i += kThreads) {
-        const int c = i % nch, m = i / nch, r = m / wt, jw = m - r * wt;
+      // (pair, 4 channels), neighbouring threads on neighbouring channels,
+      // one float4 of x per slot; y lands split into its hi, lo planes
+      const int nq = ksteps * 2;
+      for (int i = tid; i < rows * wt * nq; i += kThreads) {
+        const int c = i % nq * 4, m = i / nq, r = m / wt, jw = m - r * wt;
         if (r >= nrows || jw >= nj) continue;
         const float* xr = xs + r * V * ldx + (xres ? c0 : 0) + c;
         const float* vj = es + jw * D;
         const int* ij = eis + jw * D;
-        float s = 0.f;
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
         for (int d = 0; d < D; ++d) {
           const int jj = ij[d];
-          if ((unsigned)jj < (unsigned)V) s = fmaf(vj[d], xr[jj * ldx], s);
+          if ((unsigned)jj >= (unsigned)V) continue;
+          const float a = vj[d];
+          const float4 xv = *reinterpret_cast<const float4*>(xr + jj * ldx);
+          s[0] = fmaf(a, xv.x, s[0]);
+          s[1] = fmaf(a, xv.y, s[1]);
+          s[2] = fmaf(a, xv.z, s[2]);
+          s[3] = fmaf(a, xv.w, s[3]);
         }
-        split(s, ys[m * kLdY + c], ys[yplane + m * kLdY + c]);
+        const int at = m * kLdY + c;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split(s[e], ys[at + e], ys[yplane + at + e]);
       }
     }
     // dense graph stage: task = (row, 16-joint tile, pair of 8-channel

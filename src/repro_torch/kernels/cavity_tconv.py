@@ -39,8 +39,6 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 SMEM_MAX = 227 * 1024          # dynamic shared memory a block may use
-SM_COUNT = 132                 # the H100's streaming multiprocessors
-SM_SMEM = 228 * 1024           # shared memory of one SM
 TCONV_PAIRS = 128              # (row, step) pairs of a clip block's tile
 _KC, _LDX, _LDB, _GROUPS = 8, 12, 8, 8   # csrc/cavity_tconv.cu's tiling
 
@@ -202,58 +200,55 @@ class StepPlan(NamedTuple):
 
 
 STEP_WM = (1, 2, 4)            # 16-row tiles of a block (its 4 warps)
-STEP_PARTS = (1, 2, 4, 8)      # blocks of a cluster (portable sizes)
-_STEP_WAVE_BYTES = 64 * 1024   # a wave's fixed latency, in staged bytes
+STEP_PARTS = (8, 4, 2, 1)      # blocks of a cluster (portable sizes)
+STEP_MAX_BLOCKS = 512          # about 4 resident blocks an SM
 
 
-def _step_smem_bytes(wm: int, qw: int, nb: int, n_keep: int,
+def _step_smem_bytes(wm: int, qw: int, nb: int, n_keep: int, slots: int,
                      cout: int) -> int:
     """csrc/cavity_tconv_step.cu:step_smem_words, in bytes: the block's
     frame rows (16·wm × qw) and weight rows (qw × nb), the warps' partial
-    tiles, the (row, tap) frame indices and the column marks."""
+    tiles, the (row, tap) frame indices, the store map of all ``slots``,
+    the bias and the column marks."""
     bm = 16 * wm
     ld_b = _up(nb, 8) + (8 if _up(nb, 8) % 16 == 0 else 0)
     return 4 * (bm * (_up(qw, 8) + 4) + qw * ld_b + (4 // wm) * bm * nb
-                + _up(bm * n_keep, 4) + cout)
+                + _up(bm * n_keep, 4) + _up(slots, 4) + _up(cout, 4) + cout)
 
 
 @functools.lru_cache(maxsize=512)
 def step_plan(B: int, C: int, L: int, n_keep: int, Fg: int,
               cout: int) -> StepPlan:
     """The tile and cluster size of one streaming launch over B rows.  A
-    block stages its share of the (tap, 8-channel) steps for its rows and
-    the group's weights at once, so its time is the bytes it stages; the
-    plan that fits shared memory with the least of (blocks a busiest SM
-    runs × bytes a block stages) plus a fixed cost per wave of resident
-    blocks is taken (ties: more blocks, more loads in flight).  S = 1, 3
-    and 8 slots of 25 joints reach 128 blocks or more: the row tiles × 8
-    groups × up to 8 parts."""
+    block's time is latency, so the work is spread over as many blocks as
+    help: 16-row tiles, with clusters of as many parts as the (tap,
+    8-channel) steps allow up to 8 (the portable size), halved while the
+    grid would pass 512 blocks (about 4 resident an SM); larger tiles only
+    where that is not enough or shared memory would not fit.  S = 1, 3
+    and 8 slots of 25 joints take 128, 320 and 416 blocks.  (Same-call
+    timings on the H100 of every tile and cluster size,
+    ``tools/torch_kernel_plans.py``, put the fastest there or within 6%
+    of it.)"""
     if not (B > 0 and C > 0 and L > 0 and 0 < n_keep <= 16
             and 0 < Fg <= 64 and cout > 0):
         raise ValueError(f"cavity_tconv_step: no plan for B={B} C={C} L={L} "
                          f"n_keep={n_keep} Fg={Fg} cout={cout}")
     steps, nb = n_keep * -(-C // 8), _up(Fg, 8)
-    best = None
+    fits = []
     for wm in STEP_WM:
         for parts in STEP_PARTS:
-            if parts > steps:
-                continue
             qw = -(-steps // parts) * 8
-            smem = _step_smem_bytes(wm, qw, nb, n_keep, cout)
-            if smem > SMEM_MAX:
-                continue
-            blocks = -(-B // (16 * wm)) * L * parts
-            per_sm = max(1, min(16, SM_SMEM // (smem + 1024)))
-            cost = (-(-blocks // SM_COUNT) * (16 * wm + nb) * qw * 4
-                    + -(-blocks // (SM_COUNT * per_sm)) * _STEP_WAVE_BYTES)
-            key = (cost, -blocks)
-            if best is None or key < best[0]:
-                best = key, StepPlan(wm, parts, (-(-B // (16 * wm)), L,
-                                                 parts), smem)
-    if best is None:
+            smem = _step_smem_bytes(wm, qw, nb, n_keep, L * Fg, cout)
+            if parts <= steps and smem <= SMEM_MAX:
+                fits.append(StepPlan(wm, parts, (-(-B // (16 * wm)), L,
+                                                 parts), smem))
+    if not fits:
         raise ValueError(f"cavity_tconv_step: no tile fits shared memory at "
                          f"C={C}, n_keep={n_keep}, Fg={Fg}, cout={cout}")
-    return best[1]
+    for p in fits:
+        if p.grid[0] * p.grid[1] * p.grid[2] <= STEP_MAX_BLOCKS:
+            return p
+    return min(fits, key=lambda p: p.grid[0] * p.grid[1] * p.grid[2])
 
 
 def column_sources(slot_col: torch.Tensor, cout: int) -> torch.Tensor:

@@ -43,7 +43,7 @@ SCONV_TILES = ((4, 4, 2, 8, 16, 16), (4, 2, 2, 8, 16, 8),
 
 
 class SconvPlan(NamedTuple):
-    """One launch of the dense kernel: block tile ``tile`` (an index into
+    """One launch of either kernel: block tile ``tile`` (an index into
     :data:`SCONV_TILES`) of ``bm`` pairs × ``bn`` channels; each block
     owns ``rows`` rows of ``wt`` joints (whole rows when ``wt == V``, else
     a 16-joint-aligned slice of one row) and ``bn`` output channels, and
