@@ -337,14 +337,16 @@ sconv_kernel(const float* __restrict__ x, const float* __restrict__ g,
 // SCONV_TILES lists them in the same order.  The stream tiles take 64
 // input channels a chunk (fewer chunk rounds, each a few barriers and a
 // copy's latency) and 4 warps, the ones past the output tile's sharing the
-// staging, the splits and the graph product.
+// staging, the splits and the graph product.  The last (16 pairs x 32
+// channels) only the ELL planner takes: at stream shapes it forms each
+// joint tile's y for half as many channel tiles as 16 x 16 does.
 struct Tile {
   int wm, wn, mt, nt, kc, w;
 };
 constexpr Tile kTiles[] = {{4, 4, 2, 8, 16, 16}, {4, 2, 2, 8, 16, 8},
                            {4, 2, 2, 4, 16, 8},  {2, 1, 2, 8, 32, 4},
                            {1, 2, 2, 2, 64, 4},  {1, 1, 1, 2, 64, 4},
-                           {1, 1, 1, 1, 64, 4}};
+                           {1, 1, 1, 1, 64, 4},  {1, 1, 1, 4, 64, 4}};
 constexpr int kNumTiles = sizeof(kTiles) / sizeof(kTiles[0]);
 
 template <int WM, int WN, int MT, int NT, int KC, int W, bool kEll>
@@ -403,6 +405,7 @@ int sconv_launch(const float* x, const float* g, const int* idx,
     SCONV_LAUNCH(4, 1, 2, 2, 2, 64, 4)
     SCONV_LAUNCH(5, 1, 1, 1, 2, 64, 4)
     SCONV_LAUNCH(6, 1, 1, 1, 1, 64, 4)
+    SCONV_LAUNCH(7, 1, 1, 1, 4, 64, 4)
   }
 #undef SCONV_LAUNCH
   return (int)cudaErrorInvalidValue;

@@ -39,7 +39,12 @@ MAX_JOINTS = 128
 # stage and form G·x).  The order is csrc/sconv_mma.cuh's kTiles.
 SCONV_TILES = ((4, 4, 2, 8, 16, 16), (4, 2, 2, 8, 16, 8),
                (4, 2, 2, 4, 16, 8), (2, 1, 2, 8, 32, 4), (1, 2, 2, 2, 64, 4),
-               (1, 1, 1, 2, 64, 4), (1, 1, 1, 1, 64, 4))
+               (1, 1, 1, 2, 64, 4), (1, 1, 1, 1, 64, 4), (1, 1, 1, 4, 64, 4))
+# the tiles each planner tries, largest first: the ELL planner also takes
+# 16 pairs × 32 channels, so that at stream shapes its costlier y (the
+# gather) is formed for half as many channel tiles
+DENSE_TILES = (0, 1, 2, 3, 4, 5, 6)
+CSR_TILES = (0, 1, 2, 3, 4, 7, 5, 6)
 
 
 class SconvPlan(NamedTuple):
@@ -122,7 +127,8 @@ def _plan(name: str, R: int, V: int, Cin: int, Cout: int, K: int,
                          f"Cout={Cout} K={K}")
     target = min(SM_COUNT, output_tiles(R, V, Cout))
     plans = []
-    for tile, (wm, wn, mt, nt, kc, warps) in enumerate(SCONV_TILES):
+    for tile in (CSR_TILES if D else DENSE_TILES):
+        wm, wn, mt, nt, kc, warps = SCONV_TILES[tile]
         bm, bn = 16 * wm * mt, 8 * wn * nt
         if bn >= 2 * _up(Cout, 8):
             continue
