@@ -40,8 +40,7 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                their waits and named on the ``clock:`` line); beside them
                the bound on this card (the four tensor-core kernels take
                the TF32 rate, with the float32 bound and the 3-pass split's
-               floor beside it), and for cavity_tconv_step its float32 FMA
-               variant.  The ticks of the later streams are held the same
+               floor beside it).  The ticks of the later streams are held the same
                way in their phases, on the state their own run reached 200
                frames in.
   4. main    — ``serve_gcn`` at the full agcn-2s config (batch 8, a few
@@ -343,7 +342,7 @@ def measure_case(name, args, kwargs, modules):
     import torch.nn.functional as F
     gs, ct, rp, ws = modules
     from repro_torch.kernels import flash_decode as fd
-    library, as_kernel, fma = None, None, None
+    library, as_kernel = None, None
     if name == "graph_sconv":
         x, g, w = args
         kern = lambda: gs.graph_sconv_cuda(x, g, w)
@@ -381,7 +380,6 @@ def measure_case(name, args, kwargs, modules):
         ring, head, wp, taps, slot_col, bias = args
         kern = lambda: ct.cavity_tconv_step_ring_cuda(*args)
         plain = lambda: ct.cavity_tconv_step_ring_plain(*args)
-        fma = lambda: ct.cavity_tconv_step_ring_cuda(*args, fma=True)
         S, K, V, C = ring.shape
         L, n_keep, _, Fg = wp.shape
         cout = bias.shape[0]
@@ -464,9 +462,6 @@ def measure_case(name, args, kwargs, modules):
     else:
         ok = all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
                  for a, b in zip(got, want))
-    if fma is not None:
-        # the float32 FMA variant of the kernel, timed beside it
-        ok = ok and torch.allclose(fma(), want[0], atol=1e-4, rtol=1e-4)
     if library is not None:
         ref = as_kernel() if as_kernel is not None else library()
         ok = ok and torch.allclose(got[0], ref, atol=1e-4, rtol=1e-4)
@@ -486,7 +481,6 @@ def measure_case(name, args, kwargs, modules):
         "bound_f32_ms": bound_ms(nbytes, flops)[0],
         "split_floor_ms": (bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)[0]
                            if tc else None),
-        "fma_ms": cuda_ms(fma, label=f"{name} fma") if fma else None,
     }
 
 
@@ -504,9 +498,8 @@ def summarize(cs):
                        if cs[0]["library_ms"] is not None else None),
         "bound_f32_ms": sum(c["bound_f32_ms"] for c in cs),
     }
-    for key in ("split_floor_ms", "fma_ms"):
-        if cs[0][key] is not None:
-            out[key] = sum(c[key] for c in cs)
+    if cs[0]["split_floor_ms"] is not None:
+        out["split_floor_ms"] = sum(c["split_floor_ms"] for c in cs)
     return out
 
 
@@ -1079,8 +1072,6 @@ def main() -> int:
             s = summary[(path, name)] = summarize(cs)
             tc = (f", float32 bound {s['bound_f32_ms']:.4f}, 3-pass floor "
                   f"{s['split_floor_ms']:.4f}" if "split_floor_ms" in s else "")
-            if "fma_ms" in s:
-                tc += f"; float32 FMA variant {s['fma_ms']:.4f} ms"
             print(f"kernel {name} [{path}]: {'ok' if not bad else 'FAIL'} on "
                   f"{len(cs)} inputs, max_abs_err {s['max_abs_err']:.3g}; per "
                   f"ensemble step {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "

@@ -35,8 +35,9 @@
 // a share of the steps (4 / WM ways) on TF32 mma.sync.m16n8k8 with the
 // 3-pass split done in registers as the fragments load (each value is
 // used once per block, so nothing is split in shared memory), three MMAs
-// to a fresh fragment added in float32 (tf32_mma.cuh).  kFma selects
-// plain float32 FMAs for the same tile instead.  The warps' partial tiles
+// to a fresh fragment added in float32 (tf32_mma.cuh); a float32 FMA
+// variant of the same tile, timed beside it, was slower at every stream
+// shape (PERF.md).  The warps' partial tiles
 // are added in shared memory in a fixed order, then across the cluster
 // through distributed shared memory, each block adding, in rank order,
 // its share of the tile's elements, and storing them with the bias at
@@ -78,7 +79,7 @@ __device__ __forceinline__ void split_u(float a, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(l);
 }
 
-template <int WM, bool kFma>
+template <int WM>
 __global__ void __launch_bounds__(kThreads)
 step_kernel(const float* __restrict__ ring, const int* __restrict__ head,
             const float* __restrict__ wp, const int* __restrict__ taps,
@@ -182,71 +183,37 @@ step_kernel(const float* __restrict__ ring, const int* __restrict__ head,
   // warp (wm, wk): rows wm*16.., every slot, steps wk, wk + WK, ...
   const int wm = warp % WM, wk = warp / WM;
   float* mine = red + wk * BM * NB;
-  if constexpr (!kFma) {
-    float acc[kMaxNT][4];
+  float acc[kMaxNT][4];
 #pragma unroll
-    for (int b = 0; b < kMaxNT; ++b)
+  for (int b = 0; b < kMaxNT; ++b)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[b][e] = 0.f;
-    for (int t = wk; t < ns; t += WK) {
-      uint32_t ah[4], al[4];
-      const float* a = As + (wm * 16 + gq) * lda + t * 8 + tq;
-      split_u(a[0], ah[0], al[0]);
-      split_u(a[8 * lda], ah[1], al[1]);
-      split_u(a[4], ah[2], al[2]);
-      split_u(a[8 * lda + 4], ah[3], al[3]);
-#pragma unroll
-      for (int b = 0; b < kMaxNT; ++b) {
-        if (b >= NT) break;
-        uint32_t bh[2], bl[2];
-        const float* w = Ws + (t * 8 + tq) * ldw + b * 8 + gq;
-        split_u(w[0], bh[0], bl[0]);
-        split_u(w[4 * ldw], bh[1], bl[1]);
-        mma3_add(acc[b], ah, al, bh, bl);
-      }
-    }
+    for (int e = 0; e < 4; ++e) acc[b][e] = 0.f;
+  for (int t = wk; t < ns; t += WK) {
+    uint32_t ah[4], al[4];
+    const float* a = As + (wm * 16 + gq) * lda + t * 8 + tq;
+    split_u(a[0], ah[0], al[0]);
+    split_u(a[8 * lda], ah[1], al[1]);
+    split_u(a[4], ah[2], al[2]);
+    split_u(a[8 * lda + 4], ah[3], al[3]);
 #pragma unroll
     for (int b = 0; b < kMaxNT; ++b) {
       if (b >= NT) break;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float* d = mine + (wm * 16 + gq + 8 * h) * NB + b * 8 + 2 * tq;
-        d[0] = acc[b][2 * h];
-        d[1] = acc[b][2 * h + 1];
-      }
+      uint32_t bh[2], bl[2];
+      const float* w = Ws + (t * 8 + tq) * ldw + b * 8 + gq;
+      split_u(w[0], bh[0], bl[0]);
+      split_u(w[4 * ldw], bh[1], bl[1]);
+      mma3_add(acc[b], ah, al, bh, bl);
     }
-  } else {
-    // lane: slots lane % 8 + 8 b, rows wm*16 + lane / 8 + 4 i
-    float acc[4][kMaxNT];
+  }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int b = 0; b < kMaxNT; ++b) {
+    if (b >= NT) break;
 #pragma unroll
-      for (int b = 0; b < kMaxNT; ++b) acc[i][b] = 0.f;
-    const float* a = As + (wm * 16 + lane / 8) * lda;
-    for (int t = wk; t < ns; t += WK) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int q = t * 8 + e;
-        float av[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = a[4 * i * lda + q];
-#pragma unroll
-        for (int b = 0; b < kMaxNT; ++b) {
-          if (b >= NT) break;
-          const float w = Ws[q * ldw + lane % 8 + 8 * b];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][b] = fmaf(av[i], w, acc[i][b]);
-        }
-      }
+    for (int h = 0; h < 2; ++h) {
+      float* d = mine + (wm * 16 + gq + 8 * h) * NB + b * 8 + 2 * tq;
+      d[0] = acc[b][2 * h];
+      d[1] = acc[b][2 * h + 1];
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int b = 0; b < kMaxNT; ++b) {
-        if (b >= NT) break;
-        mine[(wm * 16 + lane / 8 + 4 * i) * NB + lane % 8 + 8 * b] =
-            acc[i][b];
-      }
   }
   __syncthreads();
   if (WK > 1)                      // the warps' shares, in order
@@ -290,14 +257,14 @@ step_kernel(const float* __restrict__ ring, const int* __restrict__ head,
   cluster.sync();                  // keep this tile alive for the cluster
 }
 
-template <int WM, bool kFma>
+template <int WM>
 cudaError_t launch(dim3 grid, int parts, size_t smem, cudaStream_t stream,
                    const float* ring, const int* head, const float* wp,
                    const int* taps, const int* slot_col, const float* bias,
                    float* out, int S, int K, int V, int C, int L, int n_keep,
                    int Fg, int cout, int vec_x, int vec_w) {
   static int limit[kMaxDevices];
-  auto kern = step_kernel<WM, kFma>;
+  auto kern = step_kernel<WM>;
   cudaError_t err = allow_smem((const void*)kern, smem, limit);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -322,15 +289,14 @@ cudaError_t launch(dim3 grid, int parts, size_t smem, cudaStream_t stream,
 }  // namespace
 
 // wm: 16-row tiles per block (1, 2 or 4); parts: blocks of a cluster that
-// share one tile's contraction (1, 2, 4 or 8); fma: float32 FMAs in place
-// of the tensor cores.  kernels/cavity_tconv.py:step_plan picks wm, parts.
+// share one tile's contraction (1, 2, 4 or 8); kernels/cavity_tconv.py:
+// step_plan picks them.
 extern "C" int cavity_tconv_step_f32(const void* ring, const void* head,
                                      const void* wp, const void* taps,
                                      const void* slot_col, const void* bias,
                                      void* out, int S, int K, int V, int C,
                                      int L, int n_keep, int Fg, int cout,
-                                     int wm, int parts, int fma,
-                                     void* stream) {
+                                     int wm, int parts, void* stream) {
   if (S <= 0 || K <= 0 || V <= 0 || C <= 0 || L <= 0 || L > 65535 ||
       n_keep <= 0 || n_keep > kMaxKeep || Fg <= 0 || Fg > 8 * kMaxNT ||
       cout <= 0 || (wm != 1 && wm != 2 && wm != 4) ||
@@ -356,17 +322,11 @@ extern "C" int cavity_tconv_step_f32(const void* ring, const void* head,
   const int *hi = (const int*)head, *ti = (const int*)taps;
   const int* ci = (const int*)slot_col;
   float* of = (float*)out;
-#define STEP_LAUNCH(WM, FMA)                                                 \
-  return (int)launch<WM, FMA>(grid, parts, smem, s, rf, hi, wf, ti, ci, bf, \
-                              of, S, K, V, C, L, n_keep, Fg, cout, vec_x,   \
-                              vec_w)
-  if (fma) {
-    if (wm == 1) STEP_LAUNCH(1, true);
-    if (wm == 2) STEP_LAUNCH(2, true);
-    STEP_LAUNCH(4, true);
-  }
-  if (wm == 1) STEP_LAUNCH(1, false);
-  if (wm == 2) STEP_LAUNCH(2, false);
-  STEP_LAUNCH(4, false);
+#define STEP_LAUNCH(WM)                                                     \
+  return (int)launch<WM>(grid, parts, smem, s, rf, hi, wf, ti, ci, bf, of, S, \
+                         K, V, C, L, n_keep, Fg, cout, vec_x, vec_w)
+  if (wm == 1) STEP_LAUNCH(1);
+  if (wm == 2) STEP_LAUNCH(2);
+  STEP_LAUNCH(4);
 #undef STEP_LAUNCH
 }

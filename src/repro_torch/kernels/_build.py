@@ -45,8 +45,8 @@ _SIGNATURES = {
     # Fg, F, T_out, stride, ksize, pad, tt, nb, stream
     "cavity_tconv_f32": (_P, _P, _P, _P, _P, _P, *(_I,) * 14, _P),
     # ring, head (int32), wp, taps, slot_col (int32), bias, out, S, K, V, C,
-    # L, n_keep, Fg, cout, wm, parts, fma, stream
-    "cavity_tconv_step_f32": (*(_P,) * 7, *(_I,) * 11, _P),
+    # L, n_keep, Fg, cout, wm, parts, stream
+    "cavity_tconv_step_f32": (*(_P,) * 7, *(_I,) * 10, _P),
     # x, values, hot, n, stream
     "rfc_encode_f32": (_P, _P, _P, _L, _P),
     # values, hot, out, n, stream

@@ -227,8 +227,9 @@ def step_plan(B: int, C: int, L: int, n_keep: int, Fg: int,
     where that is not enough or shared memory would not fit.  S = 1, 3
     and 8 slots of 25 joints take 128, 320 and 416 blocks.  (Same-call
     timings on the H100 of every tile and cluster size,
-    ``tools/torch_kernel_plans.py``, put the fastest there or within 6%
-    of it.)"""
+    ``tools/torch_kernel_plans.py``, put this pick within 6% of the
+    fastest at 25 joints; at 50 joints it is up to 33% slower, at S = 8
+    and C = 256, where 32-row tiles in clusters of 8 win.)"""
     if not (B > 0 and C > 0 and L > 0 and 0 < n_keep <= 16
             and 0 < Fg <= 64 and cout > 0):
         raise ValueError(f"cavity_tconv_step: no plan for B={B} C={C} L={L} "
@@ -290,13 +291,12 @@ def cavity_tconv_step_ring_plain(ring: torch.Tensor, head: torch.Tensor,
 def cavity_tconv_step_ring_cuda(ring: torch.Tensor, head: torch.Tensor,
                                 wp: torch.Tensor, taps: torch.Tensor,
                                 slot_col: torch.Tensor, bias: torch.Tensor,
-                                plan: Optional[StepPlan] = None,
-                                fma: bool = False) -> torch.Tensor:
+                                plan: Optional[StepPlan] = None
+                                ) -> torch.Tensor:
     """One output step per slot from its ring, (S, K, V, C) ->
     (S, V, cout): launches the CUDA kernel for CUDA tensors; CPU tensors
     take :func:`cavity_tconv_step_ring_plain`.  ``plan`` overrides
-    :func:`step_plan`; ``fma`` runs the product on float32 FMAs in place
-    of the tensor cores (a variant kept for timing)."""
+    :func:`step_plan` (``tools/torch_kernel_plans.py`` times them all)."""
     if _build.dispatch_device("cavity_tconv_step", ring) == "cpu":
         return cavity_tconv_step_ring_plain(ring, head, wp, taps, slot_col,
                                             bias)
@@ -323,7 +323,7 @@ def cavity_tconv_step_ring_cuda(ring: torch.Tensor, head: torch.Tensor,
                   ring.data_ptr(), head.data_ptr(), wp.data_ptr(),
                   taps.data_ptr(), slot_col.data_ptr(), bias.data_ptr(),
                   out.data_ptr(), S, K, V, C, L, n_keep, Fg, cout, p.wm,
-                  p.parts, int(fma))
+                  p.parts)
     return out
 
 

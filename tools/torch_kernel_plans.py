@@ -6,8 +6,8 @@ and sparse spatial kernels over their plan choices.
 
 - ``cavity_tconv_step`` (ring form) at S = 1, 3, 8 slots of 25 and 50
   joints and C = F = 64, 128, 256 (agcn-2s's widths, cav-70-1): every
-  (16-row tiles, cluster parts) plan that fits, on the tensor cores and on
-  float32 FMAs, beside the plan ``step_plan`` picks.
+  (16-row tiles, cluster parts) plan that fits, beside the plan
+  ``step_plan`` picks.
 - ``graph_sconv_csr`` at the ntu50 clip (R = 1200, 600, 300 rows) and
   S = 8 stream shapes, D = the skeleton's degree and D = V, beside the
   dense ``graph_sconv`` and the 3-operand einsum on the densified graph.
@@ -37,7 +37,7 @@ from repro_torch.kernels import ops  # noqa: E402
 
 
 def step_cases(dev, gen):
-    print("cavity_tconv_step: us per launch, tensor cores / float32 FMAs")
+    print("cavity_tconv_step: us per launch")
     for V, S, C in itertools.product((25, 50), (1, 3, 8), (64, 128, 256)):
         mask = tile_pattern(cavity_pattern("cav-70-1"), C)
         w = (np.random.default_rng(C).standard_normal((C, C, 9))
@@ -60,20 +60,19 @@ def step_cases(dev, gen):
                 continue
             p = ct.StepPlan(wm, parts, (-(-S * V // (16 * wm)), L, parts),
                             smem)
-            ok = all(torch.allclose(ct.cavity_tconv_step_ring_cuda(
-                *args, plan=p, fma=f), want, atol=1e-4, rtol=1e-4)
-                for f in (False, True))
-            t, tf = (cs.cuda_ms(lambda: ct.cavity_tconv_step_ring_cuda(
-                *args, plan=p, fma=f)) for f in (False, True))
-            rows.append((t, tf, wm, parts, ok))
+            ok = torch.allclose(ct.cavity_tconv_step_ring_cuda(
+                *args, plan=p), want, atol=1e-4, rtol=1e-4)
+            t = cs.cuda_ms(lambda: ct.cavity_tconv_step_ring_cuda(*args,
+                                                                  plan=p))
+            rows.append((t, wm, parts, ok))
         rows.sort()
         pick = ct.step_plan(S * V, C, L, n_keep, Fg, C)
         t = cs.cuda_ms(lambda: ct.cavity_tconv_step_ring_cuda(*args))
         print(f"S={S} V={V} C={C}: picked wm={pick.wm} parts={pick.parts} "
               f"{t * 1e3:.1f}; " + "; ".join(
-                  f"wm={wm} parts={p} {a * 1e3:.1f}/{b * 1e3:.1f}"
+                  f"wm={wm} parts={p} {a * 1e3:.1f}"
                   + ("" if ok else " DISAGREES")
-                  for a, b, wm, p, ok in rows))
+                  for a, wm, p, ok in rows))
 
 
 def csr_cases(dev, gen):
