@@ -231,7 +231,7 @@ step_kernel(const float* __restrict__ ring, const int* __restrict__ head,
     const int r = e / NB, i = e % NB, b = b0 + r;
     if (b >= B || i >= Fg) continue;
     const int col = scol[g * Fg + i];
-    if (col < 0) continue;
+    if (col < 0 || col >= cout) continue;
     float s = 0.f;
     for (int p = 0; p < parts; ++p) {
       const float* tile = cluster.map_shared_rank(red, p);
