@@ -34,15 +34,16 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                PyTorch yardstick where one exists are timed on one clock
                (``cuda_ms``): CUDA events around ten back-to-back calls,
                behind a spin kernel sized to outlast the host's measured
-               time to queue them, so the events time device work and no
-               host gap (calls that wait for the device themselves, as the
-               plain versions that read taps on the host do, are timed with
-               their waits and named on the ``clock:`` line); beside them
-               the bound on this card (the four tensor-core kernels take
-               the TF32 rate, with the float32 bound and the 3-pass split's
-               floor beside it).  The ticks of the later streams are held the same
-               way in their phases, on the state their own run reached 200
-               frames in.
+               time to queue them (retried with a longer spin after a host
+               hiccup), so the events time device work and no host gap;
+               the plain versions that read taps on the host wait for the
+               device and are timed with their waits (named on the
+               ``clock:`` line with any timing three spins did not hide);
+               beside them the bound on this card (the four tensor-core
+               kernels take the TF32 rate, with the float32 bound and the
+               3-pass split's floor beside it).  The ticks of the later
+               streams are held the same way in their phases, on the state
+               their own run reached 200 frames in.
   4. main    — ``serve_gcn`` at the full agcn-2s config (batch 8, a few
                batches) on the ``cuda`` and ``reference`` backends: clips/s,
                logit agreement within atol=rtol=1e-3, and the launch
@@ -178,7 +179,7 @@ CSR_EPS = 1e-5                     # above B_k's 1e-6 init: D = degree
 CARD_TESTS = "tests/test_torch_cuda_kernels.py"
 SPIN_CYCLES = 2_000_000            # about 1 ms at the H100's boost clock
 _CLOCK = {}                        # the spin kernel's cycles per ms
-HOST_GAPS = set()                  # timings whose host waits could not be
+HOST_GAPS = set()                  # timings whose host time could not be
                                    # hidden behind a spin
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "smollm-360m", 4, 496, 16
 # flash_decode cases off the served run: (label, B, S, Hkv, G, D, valid)
@@ -223,7 +224,8 @@ def spin_cycles_per_ms() -> float:
     return _CLOCK["cycles_per_ms"]
 
 
-def cuda_ms(fn, reps: int = 7, inner: int = 10, label: str = "") -> float:
+def cuda_ms(fn, reps: int = 7, inner: int = 10, label: str = "",
+            waits: bool = False) -> float:
     """Median over ``reps`` of the mean device time of ``inner``
     back-to-back calls, by CUDA events, after one warm-up call.
 
@@ -231,14 +233,13 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10, label: str = "") -> float:
     repetition first queues a spin kernel that outlasts the host's time to
     queue the ``inner`` calls: that time is measured once before the
     repetitions and again in each; a repetition whose queueing outlasted
-    its spin is run again with a spin twice as long as the queueing took
-    (up to three tries).  The device then reaches the first call only once
-    the last is queued, and the events time its work alone.  A call that
-    waits for the device itself (the plain versions that read their taps
-    on the host) cannot be hidden so: once a try's queueing outlasts its
-    spin by half the earlier queueing time, the call is taken to wait for
-    the device, the rest run without a spin and are timed with the waits
-    included, and ``label`` goes into ``HOST_GAPS``."""
+    its spin (a host hiccup) is run again with a spin twice as long as the
+    queueing took, up to three tries.  The device then reaches the first
+    call only once the last is queued, and the events time its work alone.
+    A call that waits for the device itself (``waits``: the plain versions
+    that read their taps on the host) cannot be hidden so: it runs without
+    a spin and is timed with its waits.  Either way an unhidden timing
+    puts ``label`` into ``HOST_GAPS``."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -247,9 +248,9 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10, label: str = "") -> float:
         fn()
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    times, waits = [], False
+    times = []
     for _ in range(reps):
-        for _ in range(3):
+        for _ in range(1 if waits else 3):
             spin_ms = 0.0 if waits else max(1.0, 2.0 * host_ms + 0.5)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -262,14 +263,12 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10, label: str = "") -> float:
             end.record()
             queued_ms = (time.perf_counter() - h0) * 1e3
             end.synchronize()
-            if waits or queued_ms < spin_ms:
+            if queued_ms < spin_ms:
                 break
-            waits = queued_ms >= spin_ms + 0.5 * host_ms
             host_ms = queued_ms
-            if waits:
-                if label:
-                    HOST_GAPS.add(label)
-                break
+        else:
+            if label:
+                HOST_GAPS.add(label)
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
@@ -472,7 +471,8 @@ def measure_case(name, args, kwargs, modules):
         "shape": [list(a.shape) for a in args if hasattr(a, "shape")],
         "stride": kwargs.get("stride"), "ok": bool(ok), "max_abs_err": err,
         "ms": cuda_ms(kern, label=f"{name} kernel"),
-        "plain_ms": cuda_ms(plain, reps=3, inner=3, label=f"{name} plain"),
+        "plain_ms": cuda_ms(plain, reps=3, inner=3, label=f"{name} plain",
+                            waits=name.startswith("cavity")),
         "library_ms": (cuda_ms(library, label=f"{name} library")
                        if library is not None else None),
         "bound_ms": b_ms, "bytes_ms": t_bytes, "ops_ms": t_ops,
@@ -1163,8 +1163,9 @@ def main() -> int:
     if not rfc_pad_ok:
         failures.append("rfc: C % 16 != 0 case is not bit-equal")
 
-    print(f"clock: spin {spin_cycles_per_ms():.0f} cycles/ms; timings that "
-          f"wait for the device (host waits included): "
+    print(f"clock: spin {spin_cycles_per_ms():.0f} cycles/ms; timings with "
+          f"host time included (the plain versions that read taps on the "
+          f"host, and any whose queueing outlasted three spins): "
           f"{sorted(HOST_GAPS) or 'none'}")
     phase_done("kernels")
     launches, per_step = {}, {}
