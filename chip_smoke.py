@@ -237,9 +237,10 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10, label: str = "",
     queueing took, up to three tries.  The device then reaches the first
     call only once the last is queued, and the events time its work alone.
     A call that waits for the device itself (``waits``: the plain versions
-    that read their taps on the host) cannot be hidden so: it runs without
-    a spin and is timed with its waits.  Either way an unhidden timing
-    puts ``label`` into ``HOST_GAPS``."""
+    that read their taps on the host), or whose launches fill the launch
+    queue behind the spin (three tries fail), cannot be hidden so: it runs
+    without a spin and is timed with its waits, and ``label`` goes into
+    ``HOST_GAPS``."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -267,6 +268,9 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10, label: str = "",
                 break
             host_ms = queued_ms
         else:
+            # the calls wait for the device (or fill the launch queue behind
+            # the spin): the remaining repetitions run without one
+            waits = True
             if label:
                 HOST_GAPS.add(label)
         times.append(start.elapsed_time(end) / inner)
@@ -1063,7 +1067,9 @@ def main() -> int:
                 if empty:
                     failures.append(f"{path} {name}: calls {empty} hold a "
                                     f"slot whose rings are all zero")
+            t_hold = time.perf_counter()
             cs = [measure_case(name, a, k, modules) for a, k in captured[name]]
+            t_hold = time.perf_counter() - t_hold
             cases[f"{path}/{name}"] = cs
             bad = [i for i, c in enumerate(cs) if not c["ok"]]
             if bad:
@@ -1073,7 +1079,8 @@ def main() -> int:
             tc = (f", float32 bound {s['bound_f32_ms']:.4f}, 3-pass floor "
                   f"{s['split_floor_ms']:.4f}" if "split_floor_ms" in s else "")
             print(f"kernel {name} [{path}]: {'ok' if not bad else 'FAIL'} on "
-                  f"{len(cs)} inputs, max_abs_err {s['max_abs_err']:.3g}; per "
+                  f"{len(cs)} inputs (held and timed in {t_hold:.1f} s), "
+                  f"max_abs_err {s['max_abs_err']:.3g}; per "
                   f"ensemble step {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
                   f"library {s['library_ms']}, bound {s['bound_ms']:.4f} ms by "
                   f"{s['bound_by']}{tc})")
@@ -1163,10 +1170,6 @@ def main() -> int:
     if not rfc_pad_ok:
         failures.append("rfc: C % 16 != 0 case is not bit-equal")
 
-    print(f"clock: spin {spin_cycles_per_ms():.0f} cycles/ms; timings with "
-          f"host time included (the plain versions that read taps on the "
-          f"host, and any whose queueing outlasted three spins): "
-          f"{sorted(HOST_GAPS) or 'none'}")
     phase_done("kernels")
     launches, per_step = {}, {}
 
@@ -1542,6 +1545,10 @@ def main() -> int:
     lm_phase(dev, failures, cases, summary, check_launches, modules)
     phase_done("lm")
 
+    print(f"clock: spin {spin_cycles_per_ms():.0f} cycles/ms; timings with "
+          f"host time included (the plain versions that read taps on the "
+          f"host, and any whose queueing outlasted three spins): "
+          f"{sorted(HOST_GAPS) or 'none'}")
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_cases.json").write_text(json.dumps(
