@@ -21,14 +21,17 @@
 // rows with S = 1..8 slots, C <= 256, n_keep = 3, Fg <= 32) one launch
 // moves about 1 MB (the packed weights, then the kept-tap frames; about
 // 0.4 us at 3.35 TB/s) and does under 0.1 GFLOP.  The floor is the launch
-// latency plus one round trip to memory: the design issues every load of
-// a block at once and waits once.
+// latency plus two dependent round trips to memory (each slot's head,
+// then its frames): the design issues the weights, the store map and the
+// bias before the head is read, then every frame row at once, and waits
+// once (measured: about 7 us a launch at the smallest shapes,
+// tools/torch_kernel_plans.py).
 //
 // Design: a block owns 16*WM rows x one group's Fg slots (padded to a
 // multiple of 8) and a contiguous share of the contraction, whose steps
 // are (kept tap, 8 channels); the `parts` blocks that share a tile form a
-// thread-block cluster along z, so S = 1, 3 and 8 each reach about 128
-// blocks.  Each block stages, with cp.async (16-byte copies where C and
+// thread-block cluster along z, so S = 1, 3 and 8 reach 128 blocks or
+// more.  Each block stages, with cp.async (16-byte copies where C and
 // Fg are multiples of 4, 4-byte ones otherwise), the frame rows of its
 // steps straight from the ring and the matching rows of the packed
 // weights, then its 4 warps each take a tile of 16 rows (WM of them) and

@@ -24,7 +24,7 @@
 //   - graph stage, dense: one TF32 GEMM per row, Y[w, c] = G_k[w, :] .
 //     X[:, c], M = the block's joints padded to 16, contraction V padded
 //     to 8, N = the chunk's channels; ELL: float32 FMAs on the CUDA cores
-//     in a fixed order (slot by slot), each (pair, channel) item reading
+//     in a fixed order (slot by slot), each (pair, 4 channels) item reading
 //     x as it landed.  Either way the float32 y is split as it lands in
 //     the y planes;
 //   - 1x1 stage: acc[(r, w), o] += Y[(r, w), c] . W_k[c, o], each warp a
