@@ -111,12 +111,16 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                launches per ``cuda`` step and none on ``reference``; one
                decode step under ``set_sync_debug_mode("error")``; one step
                profiled.  flash_decode is held against its plain version
-               (atol=rtol=1e-4) on the 32 layers' inputs of the first step
-               after the prompt and of the last step, a long-context case
+               (atol=rtol=1e-4) on the 32 layers' inputs of an early step
+               (valid 17), the first step after the prompt and the last
+               step, a long-context case
                (B 8, S 32 768, valid 30 000), h2o-danube's ring shape
                (B 4, L 4 096, 8 kv heads, G 4, D 80) and a small odd case
                (S 48, D 20, valid 1), beside one
-               ``F.scaled_dot_product_attention`` call (the yardstick).
+               ``F.scaled_dot_product_attention`` call (the yardstick);
+               each ``kernel flash_decode`` line names the launch's plan
+               (splits, warps, stages), its µs per launch and its share of
+               the bound.
 
 Prints the kernels JSON line, the nvidia-smi line and, last, the result
 line.  Any failed phase exits non-zero.  Per-case kernel numbers go to
@@ -182,6 +186,7 @@ _CLOCK = {}                        # the spin kernel's cycles per ms
 HOST_GAPS = set()                  # timings whose host time could not be
                                    # hidden behind a spin
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "smollm-360m", 4, 496, 16
+LM_EARLY = 16                      # an early serve step: valid = 17
 # flash_decode cases off the served run: (label, B, S, Hkv, G, D, valid)
 FD_CASES = [("long context", 8, 32768, 5, 3, 64, 30000),
             ("danube ring", 4, 4096, 8, 4, 80, 4096),
@@ -345,7 +350,7 @@ def measure_case(name, args, kwargs, modules):
     import torch.nn.functional as F
     gs, ct, rp, ws = modules
     from repro_torch.kernels import flash_decode as fd
-    library, as_kernel = None, None
+    library, as_kernel, extra = None, None, {}
     if name == "graph_sconv":
         x, g, w = args
         kern = lambda: gs.graph_sconv_cuda(x, g, w)
@@ -443,6 +448,9 @@ def measure_case(name, args, kwargs, modules):
         n = min(n, S) if n >= 1 else S
         nbytes = 4 * (2 * q.numel() + 2 * B * n * Hkv * D + 1)
         flops = B * Hkv * G * n * (4 * D + 5)
+        p = fd.decode_plan(B, S, Hkv, G, D, torch.cuda.get_device_properties(
+            q.device).multi_processor_count)
+        extra = {"plan": [p.splits, p.warps, p.stages]}
     elif name == "rfc_encode":
         (x,) = args
         kern = lambda: rp.rfc_encode_cuda(x)
@@ -485,6 +493,7 @@ def measure_case(name, args, kwargs, modules):
         "bound_f32_ms": bound_ms(nbytes, flops)[0],
         "split_floor_ms": (bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)[0]
                            if tc else None),
+        **extra,
     }
 
 
@@ -788,6 +797,7 @@ def lm_phase(dev, failures, cases, summary, check_launches, modules):
     cfg = get_config(LM_ARCH)
     steps = LM_PROMPT + LM_GEN - 1
     first, last = LM_PROMPT, steps - 1       # first step fed a generated token
+    early = min(LM_EARLY, first - 1)
     params = registry.init_params(cfg, seed=SEED, device=dev)
 
     def hold(path, calls):
@@ -799,12 +809,16 @@ def lm_phase(dev, failures, cases, summary, check_launches, modules):
                             f"plain version on cases {bad}")
         sm = summary[(path, "flash_decode")] = summarize(cs)
         print(f"kernel flash_decode [{path}]: {'ok' if not bad else 'FAIL'} "
-              f"on {len(cs)} inputs {cs[0]['shape']}, max_abs_err "
-              f"{sm['max_abs_err']:.3g}; {sm['ms']:.4f} ms (plain "
+              f"on {len(cs)} inputs {cs[0]['shape']}, valid "
+              f"{int(calls[0][0][3].item())}, splits/warps/stages "
+              f"{'/'.join(map(str, cs[0]['plan']))}, max_abs_err "
+              f"{sm['max_abs_err']:.3g}; {sm['ms']:.4f} ms, "
+              f"{sm['ms'] / len(cs) * 1e3:.2f} us a launch, "
+              f"{sm['bound_ms'] / sm['ms'] * 100:.1f}% of the bound (plain "
               f"{sm['plain_ms']:.4f}, sdpa {sm['library_ms']:.4f}, bound "
               f"{sm['bound_ms']:.4f} ms by {sm['bound_by']})")
 
-    restore, got = record_decode((first, last), cfg.num_layers)
+    restore, got = record_decode((early, first, last), cfg.num_layers)
     try:
         res, counts = counted(lambda: generate(
             LM_ARCH, reduced=False, batch=LM_BATCH, prompt_len=LM_PROMPT,
@@ -887,6 +901,7 @@ def lm_phase(dev, failures, cases, summary, check_launches, modules):
           f"{sum(counts.values())} kernel launches on reference")
 
     # kernel cases: the served run's inputs, then shapes off the run
+    hold("lm early decode step", got[early])
     hold("lm first decode step", got[first])
     hold("lm last step", got[last])
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1572,7 +1587,7 @@ def main() -> int:
                             f"ntu50 csr eps=0 stream S={S8}"],
         "windowed_similarity": ["ck stream S=1", "ck stream S=3",
                                 f"ck padded stream S={S8}"],
-        "flash_decode": ["lm first decode step",
+        "flash_decode": ["lm early decode step", "lm first decode step",
                          *(c[0] for c in FD_CASES)]}
     kernels = []
     for name in _build.KERNELS:

@@ -3,7 +3,8 @@
 //     out[b,h,g,:] = sum_{s<valid} softmax_s(q[b,h,g,:].k[b,s,h,:] / sqrt(D))
 //                    * v[b,s,h,:]
 // with cache slots s >= valid given -1e30 before the max (as the TPU kernel
-// does), float32 statistics and accumulators, and a final division by
+// does; valid <= 0 masks every slot, so the result is the mean of V over
+// all S), float32 statistics and accumulators, and a final division by
 // max(l, 1e-20).
 //
 // Replaces src/repro/kernels/flash_decode.py:flash_decode_pallas (the TPU
@@ -11,212 +12,536 @@
 // max, sum and accumulator in scratch, one sequential grid step per block).
 //
 // What bounds it on the H100: bytes.  Each launch reads the K and V rows
-// the softmax needs once (2 * B * valid * Hkv * D floats) and does about
-// 4 * G flops per float read; at G = 3 to 4 that is far below the card's
-// float32 rate per byte, so its floor is the cache read at 3.35 TB/s.
+// the softmax needs once (2 * B * n * Hkv * D floats, n = valid clamped to
+// [1, S], S when valid <= 0) and does about 4 * G flops per float read; at
+// G = 3 to 4 that is far below the card's float32 rate per byte, so its
+// floor is the cache read at 3.35 TB/s.  At the served shape (smollm-360m,
+// batch 4: 5.2 MB a launch) that floor is 1.6 us, under the launch latency:
+// there the design aims to have every byte requested in the first round
+// trip.
 //
-// Design (right and simple first): one block of 256 threads per (b, h).
-// It loads the group's G query rows into shared memory once and walks the
-// first n = valid cache rows (all S when valid <= 0, where every row is
-// masked and weighs the same, as in the TPU kernel; rows past valid >= 1
-// get probability exactly 0 and are not read) in tiles of 64 rows, two
-// tiles in flight:
-//   1. stage: every thread issues cp.async copies of some elements of the
-//      next K and V tile into the other shared-memory buffer (rows spread
-//      over the warps, lanes over D, so any D <= 128 and neighbouring
-//      addresses), with an odd row stride D + 1; rows past the cache's
-//      end are zero-filled.  Then it waits for the current tile only, so
-//      the next tile's loads overlap this tile's arithmetic;
-//   2. scores: each thread computes q_g . k_r for some (g, r) pairs, scaled,
-//      -1e30 past valid and -inf past the tile's rows; the odd stride puts
-//      a warp's 32 rows on 32 banks;
-//   3. softmax: one warp per query row g updates the running max m_g,
-//      rescales the running sum l_g and turns the tile's scores into
-//      probabilities (warp shuffles for the max and the sum);
-//   4. accumulate: each thread owns some (g, d) outputs in shared memory,
-//      rescales them by exp(m_old - m_new) and adds the tile's p . v.
-// The loop bound comes from `valid`, read from device memory, so a decode
-// step never reads its position back to the host.  Split-S across blocks
-// (flash-decoding), TMA staging and bf16 caches are later work: with
-// B * Hkv blocks (20 at smollm-360m's batch 4) most SMs idle.
+// Design (flash-decoding): the grid is (splits, Hkv * ceil(G / GQ), B),
+// GQ = G's query rows a block takes (G itself up to 4, else G's chunks
+// evened out; 4 under 4-byte staging); the `splits` blocks of one (b, h,
+// query chunk) form a thread-block cluster along x and split the first n
+// rows between them, in spans of ceil(n / splits) rows rounded up to 16,
+// so every split shares the work at every decode position (n comes from
+// `valid`, read on the card: a decode step never syncs with the host).  A
+// split with no rows reads nothing and holds an empty partial (m = -inf,
+// l = 0).
+//   1. Each warp is its own pipeline, with no block barrier in the loop:
+//      it takes the span's 16-row tiles w, w + W, w + 2W, ... through its
+//      own shared-memory ring of `stages` slots (the tile being read and
+//      stages - 1 in flight), staged by 16-byte cp.async.cg when D % 4 == 0
+//      and the cache is 16-byte aligned (4-byte cp.async otherwise, with
+//      the row's pad columns zeroed once: the template parameter kVec,
+//      which the wrapper picks), rows padded by 4 floats; it waits for its
+//      oldest tile and a __syncwarp.
+//   2. The warp's four groups of 8 lanes each take 4 rows of the tile
+//      (rows grp, grp + 4, ...); a lane holds the block's GQ query rows'
+//      float4 chunks lane % 8 + 8j of D in registers (prescaled by
+//      log2(e) / sqrt(D), so the softmax runs on exp2) and its share of
+//      the accumulators.  A row's dot products are the lanes' float4
+//      products added over the group by three xor shuffles; a group's
+//      running max is updated once per tile (one rescale for 4 rows).
+//      Each 8-lane phase of a float4 shared-memory load reads 128
+//      contiguous bytes of one row, so loads meet no bank conflict.
+//   3. Merge, always in one fixed order, so the result is bit-identical
+//      from run to run: the four groups by xor shuffles (8, then 16), the
+//      warps in index order through shared memory; each block pushes its
+//      partial of every (g, float4 chunk) item, with its m and l, into the
+//      shared memory of the cluster's block that owns the item (remote
+//      stores), then one cluster barrier, and each block merges its items
+//      over the cluster's blocks in rank order and stores them.  The
+//      barrier's arrival is split: arrive at the start, wait before the
+//      first remote store (every block has started by then).
+// At the served shape latency rules: the launch, the dependent read of
+// `valid`, one round trip for the tiles and the merge.  A launch there
+// takes about 8 us at valid 511 and 7 us at valid 17 (chip_smoke.py,
+// PERF.md), against 1.6 us at the byte bound.  The block sizes come from
+// kernels/flash_decode.py:decode_plan (splits, warps, stages), fitted to
+// tools/torch_kernel_plans.py's sweep.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32_mma.cuh"   // cp.async, the shared-memory opt-in
+
+namespace cg = cooperative_groups;
+using tc::cp_async16;
+using tc::cp_async4;
+using tc::cp_async_commit;
+using tc::kMaxDevices;
+using tc::kMaxSmem;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;
+constexpr int kRows = 16;            // rows of a warp's tile
+constexpr int kGroupRows = 4;        // rows of a tile per 8-lane group
+constexpr int kMaxGQ = 4;            // query rows per block
 constexpr int kMaxD = 128;
-constexpr int kSmemMax = 227 * 1024;
+constexpr int kMaxSplits = 16;       // above 8: a non-portable cluster size
+constexpr int kMaxWarps = 8;
+constexpr int kMaxStages = 6;
 constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-size_t smem_bytes(int G, int D) {
-  return sizeof(float) * ((size_t)4 * kTile * (D + 1) + (size_t)2 * G * D +
-                          (size_t)G * kTile + 3 * (size_t)G);
+__host__ __device__ constexpr int up4(int n) { return (n + 3) / 4 * 4; }
+__host__ __device__ constexpr int row_ld(int d4) { return 4 * d4 + 4; }
+
+// floats of the cluster's gather buffer (each block's m and l of its GQ
+// query rows, then its float4 chunks of the (g, chunk) items this block
+// owns), which leads the shared memory, and of one warp's ring
+__host__ __device__ constexpr int own_items(int gq, int d4, int P) {
+  return (gq * d4 + P - 1) / P;
+}
+__host__ __device__ constexpr int gather_floats(int gq, int d4, int P) {
+  return up4(2 * P * gq) + 4 * P * own_items(gq, d4, P);
+}
+__host__ __device__ constexpr int ring_floats(int d4, int stages) {
+  return stages * 2 * kRows * row_ld(d4);
 }
 
-// 4-byte asynchronous global -> shared copy; zero-fills when !live
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool live) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(live ? 4 : 0));
+// query rows per block: G itself up to 4, else G's chunks evened out
+int query_rows(int G) {
+  const int chunks = (G + kMaxGQ - 1) / kMaxGQ;
+  return (G + chunks - 1) / chunks;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+size_t smem_bytes(int D, int gq, int splits, int warps, int stages) {
+  const int d4 = (D + 3) / 4;
+  return sizeof(float) * ((size_t)gather_floats(gq, d4, splits) +
+                          (size_t)warps * ring_floats(d4, stages));
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Queue the copies of rows [s0, s0 + rows) of K and V (row stride
-// `row_stride` floats from `k`/`v`) into the (kTile, ld) buffers; rows
-// from `rows` on are zero.
-__device__ __forceinline__ void stage_tile(float* ks, float* vs,
-                                           const float* k, const float* v,
-                                           size_t row_stride, int s0,
-                                           int rows, int D, int ld, int warp,
-                                           int lane) {
-  for (int r = warp; r < kTile; r += kWarps) {
-    const bool live = r < rows;
-    const size_t o = live ? (size_t)(s0 + r) * row_stride : 0;
-    for (int d = lane; d < D; d += 32) {
-      cp_async4(ks + r * ld + d, k + o + d, live);
-      cp_async4(vs + r * ld + d, v + o + d, live);
-    }
+// wait until at most `n` of this thread's newest cp.async groups are
+// pending (the PTX takes the count as an immediate)
+__device__ __forceinline__ void cp_async_wait_newest(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
   }
-  cp_async_commit();
 }
 
-__global__ void __launch_bounds__(kThreads)
+// the two halves of a cluster barrier: the arrival at the start costs
+// nothing, and the wait before the first remote store finds every block
+// of the cluster started (distributed shared memory needs that)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, s))));
+}
+
+__device__ __forceinline__ float4 axpby(float4 x, float a, float4 y,
+                                        float b) {
+  return make_float4(x.x * a + y.x * b, x.y * a + y.y * b,
+                     x.z * a + y.z * b, x.w * a + y.w * b);
+}
+
+// 2^(m - ref) with ref = max of the partials being merged; an empty
+// partial (m = -inf) weighs 0, also when every partial is empty
+__device__ __forceinline__ float weight(float m, float ref) {
+  return exp2f(m - (ref == -INFINITY ? 0.f : ref));
+}
+
+// NC: float4 chunks of D per lane, ceil(ceil(D / 4) / 8); GQ: query rows
+// per block (query_rows)
+template <bool kVec, int NC, int GQ>
+__global__ void __launch_bounds__(32 * kMaxWarps)
 flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const int* __restrict__ valid_ptr, float* __restrict__ out,
-                    int S, int Hkv, int G, int D, float scale) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* kbuf = smem;                  // 2 x (kTile, ld)
-  float* vbuf = kbuf + 2 * kTile * ld; // 2 x (kTile, ld)
-  float* qs = vbuf + 2 * kTile * ld;   // (G, D)
-  float* acc = qs + G * D;             // (G, D)
-  float* sc = acc + G * D;             // (G, kTile) scores, then p
-  float* m_run = sc + G * kTile;       // (G)
-  float* l_run = m_run + G;            // (G)
-  float* corr = l_run + G;             // (G)
-
-  const int h = blockIdx.x, b = blockIdx.y;
+                    int S, int Hkv, int G, int D, int stages, float qscale) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();
+  const int P = (int)cluster.num_blocks(), part = (int)cluster.block_rank();
+  const int W = blockDim.x / 32;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = lane / 8, l8 = lane % 8;
+  const int d4 = (D + 3) / 4, ld = row_ld(d4);
+  const int gz = (G + GQ - 1) / GQ;
+  const int h = blockIdx.y / gz, g0 = blockIdx.y % gz * GQ;
+  const int gn = min(GQ, G - g0), b = blockIdx.z;
+  const int items = GQ * d4, own = own_items(GQ, d4, P);
+
+  float* gm = smem;                             // [P][GQ] maxima
+  float* gl = gm + P * GQ;                      // [P][GQ] sums
+  float* ga = smem + up4(2 * P * GQ);           // [P][own] float4 chunks
+  float* rings = smem + gather_floats(GQ, d4, P);
+  float* ring = rings + warp * ring_floats(d4, stages);
   const size_t row_stride = (size_t)Hkv * D;
   const size_t base = (size_t)b * S * row_stride + (size_t)h * D;
   const float* kb = k + base;
   const float* vb = v + base;
-  const size_t qo = ((size_t)b * Hkv + h) * G * D;
+  const size_t qo = (((size_t)b * Hkv + h) * G + g0) * D;
 
-  for (int i = tid; i < G * D; i += kThreads) {
-    qs[i] = q[qo + i];
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    m_run[g] = kMasked;
-    l_run[g] = 0.f;
-  }
   const int valid = *valid_ptr;
+  // the query rows' chunks, prescaled; zero past D and past G
+  float4 qr[GQ][NC];
+#pragma unroll
+  for (int g = 0; g < GQ; ++g)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      float e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = 4 * (l8 + 8 * j) + i;
+        e[i] = (g < gn && d < D) ? q[qo + (size_t)g * D + d] * qscale : 0.f;
+      }
+      qr[g][j] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+  const int per = 4 * d4 - D;   // 4-byte staging leaves pad columns: zero
+  if (!kVec)
+    for (int i = lane; i < stages * 2 * kRows * per; i += 32)
+      ring[(i / per) * ld + D + i % per] = 0.f;
+
   const int n = (valid >= 1 && valid < S) ? valid : S;
-  stage_tile(kbuf, vbuf, kb, vb, row_stride, 0, min(kTile, n), D, ld, warp,
-             lane);
+  const bool masked = valid <= 0;
+  const int span = ((n + P - 1) / P + kRows - 1) / kRows * kRows;
+  const int r0 = min(n, part * span), r1 = min(n, r0 + span);
+  const int tiles = (r1 - r0 + kRows - 1) / kRows;
+  const int mine = warp < tiles ? (tiles - warp + W - 1) / W : 0;
+  // a lane's first (row, column) of a tile's copies and its step
+  const int unit = kVec ? d4 : D;
+  const int lr = lane / unit, lc = lane % unit;
+  const int sr = 32 / unit, sc = 32 % unit;
 
-  for (int t = 0, s0 = 0; s0 < n; ++t, s0 += kTile) {
-    const int rows = min(kTile, n - s0);
-    float* ks = kbuf + (t & 1) * kTile * ld;
-    float* vs = vbuf + (t & 1) * kTile * ld;
-    // 1. queue the next tile into the other buffer (freed by the barrier
-    //    that ended the previous iteration), then wait for this one
-    if (s0 + kTile < n) {
-      stage_tile(kbuf + ((t + 1) & 1) * kTile * ld,
-                 vbuf + ((t + 1) & 1) * kTile * ld, kb, vb, row_stride,
-                 s0 + kTile, min(kTile, n - s0 - kTile), D, ld, warp, lane);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    // 2. scores
-    for (int i = tid; i < G * kTile; i += kThreads) {
-      const int g = i / kTile, r = i % kTile;
-      float s = -INFINITY;
-      if (r < rows) {
-        const float* kr = ks + r * ld;
-        const float* qg = qs + g * D;
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot = fmaf(qg[d], kr[d], dot);
-        s = (s0 + r < valid) ? dot * scale : kMasked;
+  // queue the copies of this warp's t-th tile into ring slot `slot`
+  auto stage = [&](int t, int slot) {
+    float* ks = ring + slot * 2 * kRows * ld;
+    float* vs = ks + kRows * ld;
+    const int s0 = r0 + (warp + t * W) * kRows;
+    const int rows = min(kRows, r1 - s0);
+    for (int r = lr, c = lc; r < rows;) {
+      const size_t o = (size_t)(s0 + r) * row_stride;
+      if (kVec) {
+        cp_async16(ks + r * ld + 4 * c, kb + o + 4 * c, 16);
+        cp_async16(vs + r * ld + 4 * c, vb + o + 4 * c, 16);
+      } else {
+        cp_async4(ks + r * ld + c, kb + o + c, true);
+        cp_async4(vs + r * ld + c, vb + o + c, true);
       }
-      sc[i] = s;
-    }
-    __syncthreads();
-    // 3. online softmax, one warp per query row
-    for (int g = warp; g < G; g += kWarps) {
-      float* row = sc + g * kTile;
-      float mt = -INFINITY;
-      for (int r = lane; r < kTile; r += 32) mt = fmaxf(mt, row[r]);
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_old = m_run[g];
-      const float m_new = fmaxf(m_old, mt);
-      float sum = 0.f;
-      for (int r = lane; r < kTile; r += 32) {
-        const float p = expf(row[r] - m_new);
-        row[r] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float c = expf(m_old - m_new);
-        corr[g] = c;
-        l_run[g] = l_run[g] * c + sum;
-        m_run[g] = m_new;
+      r += sr;
+      c += sc;
+      if (c >= unit) {
+        c -= unit;
+        ++r;
       }
     }
-    __syncthreads();
-    // 4. rescale and accumulate p . v
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int g = i / D, d = i % D;
-      const float* p = sc + g * kTile;
-      float a = 0.f;
-      for (int r = 0; r < rows; ++r) a = fmaf(p[r], vs[r * ld + d], a);
-      acc[i] = acc[i] * corr[g] + a;
-    }
-    __syncthreads();
+  };
+
+  for (int t = 0; t < stages - 1; ++t) {
+    if (t < mine) stage(t, t);
+    cp_async_commit();
   }
+  float m[GQ], l[GQ];
+  float4 acc[GQ][NC];
+#pragma unroll
+  for (int g = 0; g < GQ; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[g][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int i = tid; i < G * D; i += kThreads)
-    out[qo + i] = acc[i] / fmaxf(l_run[i / D], 1e-20f);
+  for (int t = 0, slot = 0, next = stages - 1; t < mine; ++t) {
+    if (t + stages - 1 < mine) stage(t + stages - 1, next);
+    cp_async_commit();
+    cp_async_wait_newest(stages - 1);   // tile t has landed
+    __syncwarp();
+    const float* ks = ring + slot * 2 * kRows * ld;
+    const float* vs = ks + kRows * ld;
+    const int rows = min(kRows, r1 - (r0 + (warp + t * W) * kRows));
+    slot = slot + 1 == stages ? 0 : slot + 1;
+    next = next + 1 == stages ? 0 : next + 1;
+
+    float s[GQ][kGroupRows];
+#pragma unroll
+    for (int i = 0; i < kGroupRows; ++i) {
+      const int r = kGroupRows * i + grp;
+      float4 kc[NC];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int c = l8 + 8 * j;
+        kc[j] = c < d4 ? *reinterpret_cast<const float4*>(ks + r * ld + 4 * c)
+                       : zero4;
+      }
+#pragma unroll
+      for (int g = 0; g < GQ; ++g) {
+        float dot = 0.f;
+#pragma unroll
+        for (int j = 0; j < NC; ++j) dot = dot4(qr[g][j], kc[j], dot);
+#pragma unroll
+        for (int off = 4; off > 0; off /= 2)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s[g][i] = r < rows ? (masked ? kMasked : dot) : -INFINITY;
+      }
+    }
+    // online softmax: one rescale per group and tile
+#pragma unroll
+    for (int g = 0; g < GQ; ++g) {
+      float mt = s[g][0];
+#pragma unroll
+      for (int i = 1; i < kGroupRows; ++i) mt = fmaxf(mt, s[g][i]);
+      const float mn = fmaxf(m[g], mt);
+      const float corr = weight(m[g], mn);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < kGroupRows; ++i) {
+        s[g][i] = weight(s[g][i], mn);      // now the probability
+        sum += s[g][i];
+      }
+      l[g] = l[g] * corr + sum;
+      m[g] = mn;
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        acc[g][j] = make_float4(acc[g][j].x * corr, acc[g][j].y * corr,
+                                acc[g][j].z * corr, acc[g][j].w * corr);
+    }
+#pragma unroll
+    for (int i = 0; i < kGroupRows; ++i) {
+      const int r = kGroupRows * i + grp;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int c = l8 + 8 * j;
+        // a row past the tile's end holds stale or unset words: read as 0
+        const float4 vc =
+            (c < d4 && r < rows)
+                ? *reinterpret_cast<const float4*>(vs + r * ld + 4 * c)
+                : zero4;
+#pragma unroll
+        for (int g = 0; g < GQ; ++g) {
+          const float p = s[g][i];
+          acc[g][j].x = fmaf(p, vc.x, acc[g][j].x);
+          acc[g][j].y = fmaf(p, vc.y, acc[g][j].y);
+          acc[g][j].z = fmaf(p, vc.z, acc[g][j].z);
+          acc[g][j].w = fmaf(p, vc.w, acc[g][j].w);
+        }
+      }
+    }
+    __syncwarp();   // the ring slot is read: a later stage may refill it
+  }
+  tc::cp_async_wait_all();
+
+  // 3a. the warp's four lane groups, by xor shuffles
+#pragma unroll
+  for (int off = 8; off < 32; off *= 2)
+#pragma unroll
+    for (int g = 0; g < GQ; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float mn = fmaxf(m[g], mo);
+      const float a = weight(m[g], mn), c = weight(mo, mn);
+      l[g] = l[g] * a + lo * c;
+      m[g] = mn;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        float4 o;
+        o.x = __shfl_xor_sync(0xffffffffu, acc[g][j].x, off);
+        o.y = __shfl_xor_sync(0xffffffffu, acc[g][j].y, off);
+        o.z = __shfl_xor_sync(0xffffffffu, acc[g][j].z, off);
+        o.w = __shfl_xor_sync(0xffffffffu, acc[g][j].w, off);
+        acc[g][j] = axpby(acc[g][j], a, o, c);
+      }
+    }
+  // the warp's partial into the head of its ring (every copy has landed
+  // and every lane is past its reads)
+  __syncwarp();
+  if (grp == 0) {
+#pragma unroll
+    for (int g = 0; g < GQ; ++g) {
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int c = l8 + 8 * j;
+        if (c < d4)
+          *reinterpret_cast<float4*>(ring + g * 4 * d4 + 4 * c) = acc[g][j];
+      }
+      if (l8 == 0) {
+        ring[GQ * 4 * d4 + g] = m[g];
+        ring[GQ * 4 * d4 + GQ + g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3b. the warps in index order, pushed to the block of the cluster that
+  // owns each (g, chunk) item: its chunk at [part][slot], the block's m
+  // and l of row g at [part][g] (the item threads of one g write the
+  // same two values)
+  const int rf = ring_floats(d4, stages);
+  cluster_wait();
+  for (int it = tid; it < items; it += blockDim.x) {
+    const int g = it / d4, c = it % d4;
+    float mx = -INFINITY;
+    for (int w = 0; w < W; ++w)
+      mx = fmaxf(mx, rings[w * rf + GQ * 4 * d4 + g]);
+    float4 a = zero4;
+    float ls = 0.f;
+    for (int w = 0; w < W; ++w) {
+      const float* wp = rings + w * rf;
+      const float wt = weight(wp[GQ * 4 * d4 + g], mx);
+      a = axpby(a, 1.f,
+                *reinterpret_cast<const float4*>(wp + g * 4 * d4 + 4 * c), wt);
+      ls += wp[GQ * 4 * d4 + GQ + g] * wt;
+    }
+    const int r = it / own;
+    float* rm = cluster.map_shared_rank(gm, r);
+    *reinterpret_cast<float4*>(cluster.map_shared_rank(ga, r) +
+                               4 * (part * own + it % own)) = a;
+    rm[part * GQ + g] = mx;
+    rm[P * GQ + part * GQ + g] = ls;
+  }
+  cluster.sync();   // every block's pushes have landed
+
+  // 3c. this block's items: the cluster's partials in rank order
+  for (int sl = tid; sl < own; sl += blockDim.x) {
+    const int it = part * own + sl;
+    const int g = it / d4, c = it % d4;
+    if (it >= items || g >= gn) continue;
+    float mx = -INFINITY;
+    for (int p = 0; p < P; ++p) mx = fmaxf(mx, gm[p * GQ + g]);
+    float4 a = zero4;
+    float ls = 0.f;
+    for (int p = 0; p < P; ++p) {
+      const float wt = weight(gm[p * GQ + g], mx);
+      a = axpby(a, 1.f,
+                *reinterpret_cast<const float4*>(ga + 4 * (p * own + sl)), wt);
+      ls += gl[p * GQ + g] * wt;
+    }
+    const float den = fmaxf(ls, 1e-20f);
+    const float e[4] = {a.x / den, a.y / den, a.z / den, a.w / den};
+    float* o = out + qo + (size_t)g * D;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * c + i < D) o[4 * c + i] = e[i];
+  }
+}
+
+template <bool kVec, int NC, int GQ>
+cudaError_t launch(dim3 grid, int warps, size_t smem, cudaStream_t stream,
+                   const float* q, const float* k, const float* v,
+                   const int* valid, float* out, int S, int Hkv, int G, int D,
+                   int stages) {
+  static int limit[kMaxDevices];
+  static bool ready[kMaxDevices];
+  auto kern = flash_decode_kernel<kVec, NC, GQ>;
+  cudaError_t err = tc::allow_smem((const void*)kern, smem, limit);
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices || !ready[dev]) {
+    // clusters above 8 blocks; all of the SM's memory as shared memory,
+    // since the copies bypass L1
+    err = cudaFuncSetAttribute(
+        (const void*)kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          (const void*)kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    if (dev >= 0 && dev < kMaxDevices) ready[dev] = true;
+  }
+  const float qscale = kLog2e / sqrtf((float)D);
+  if (grid.x == 1) {   // one split: an implicit cluster of one block
+    kern<<<grid, 32 * warps, smem, stream>>>(q, k, v, valid, out, S, Hkv, G,
+                                             D, stages, qscale);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid.x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, q, k, v, valid, out, S, Hkv, G, D,
+                           stages, qscale);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <bool kVec, int NC>
+cudaError_t launch_gq(int gq, dim3 grid, int warps, size_t smem,
+                      cudaStream_t stream, const float* q, const float* k,
+                      const float* v, const int* valid, float* out, int S,
+                      int Hkv, int G, int D, int stages) {
+  switch (gq) {
+    case 1: return launch<kVec, NC, 1>(grid, warps, smem, stream, q, k, v,
+                                       valid, out, S, Hkv, G, D, stages);
+    case 2: return launch<kVec, NC, 2>(grid, warps, smem, stream, q, k, v,
+                                       valid, out, S, Hkv, G, D, stages);
+    case 3: return launch<kVec, NC, 3>(grid, warps, smem, stream, q, k, v,
+                                       valid, out, S, Hkv, G, D, stages);
+    default: return launch<kVec, NC, 4>(grid, warps, smem, stream, q, k, v,
+                                        valid, out, S, Hkv, G, D, stages);
+  }
 }
 
 }  // namespace
 
+// splits: blocks of a cluster that share one (b, h)'s rows (1 to 16);
+// warps per block (1, 2, 4 or 8); stages: ring slots per warp (2 to 6,
+// so stages - 1 tiles of 16 rows in flight); vec: 16-byte staging, which
+// needs D % 4 == 0 and 16-byte aligned k and v.  kernels/flash_decode.py:
+// decode_plan picks them.
 extern "C" int flash_decode_f32(const void* q, const void* k, const void* v,
                                 const void* valid, void* out, int B, int S,
-                                int Hkv, int G, int D, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || G <= 0 || D <= 0 || D > kMaxD)
+                                int Hkv, int G, int D, int splits, int warps,
+                                int stages, int vec, void* stream) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || G <= 0 || D <= 0 || D > kMaxD ||
+      splits < 1 || splits > kMaxSplits ||
+      (warps != 1 && warps != 2 && warps != 4 && warps != 8) || stages < 2 ||
+      stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(G, D);
-  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(Hkv, B);
-  flash_decode_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)valid,
-      (float*)out, S, Hkv, G, D, 1.0f / sqrtf((float)D));
-  return (int)cudaGetLastError();
+  if (vec && (D % 4 != 0 || reinterpret_cast<size_t>(k) % 16 != 0 ||
+              reinterpret_cast<size_t>(v) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  // 4-byte staging (odd D) takes 4 query rows a block, guarded past G
+  const int gq = vec ? query_rows(G) : kMaxGQ;
+  const long long gy = (long long)Hkv * ((G + gq - 1) / gq);
+  if (gy > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(D, gq, splits, warps, stages);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const dim3 grid(splits, (unsigned)gy, B);
+  const int nc = ((D + 3) / 4 + 7) / 8;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float *qf = (const float*)q, *kf = (const float*)k,
+              *vf = (const float*)v;
+  const int* vi = (const int*)valid;
+  float* of = (float*)out;
+#define FD_VEC(NC)                                                          \
+  return (int)launch_gq<true, NC>(gq, grid, warps, smem, s, qf, kf, vf, vi,  \
+                                  of, S, Hkv, G, D, stages)
+#define FD_ODD(NC)                                                          \
+  return (int)launch<false, NC, kMaxGQ>(grid, warps, smem, s, qf, kf, vf, vi, \
+                                        of, S, Hkv, G, D, stages)
+  if (vec) {
+    if (nc == 1) FD_VEC(1);
+    if (nc == 2) FD_VEC(2);
+    if (nc == 3) FD_VEC(3);
+    FD_VEC(4);
+  }
+  if (nc == 1) FD_ODD(1);
+  if (nc == 2) FD_ODD(2);
+  if (nc == 3) FD_ODD(3);
+  FD_ODD(4);
+#undef FD_VEC
+#undef FD_ODD
 }

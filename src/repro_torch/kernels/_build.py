@@ -53,8 +53,9 @@ _SIGNATURES = {
     "rfc_decode_f32": (_P, _P, _P, _L, _P),
     # ring_th, ring_ph, out, S, K, V, Ce, valid, stream
     "window_sim_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # q, k, v, valid (int32), out, B, S, Hkv, G, D, stream
-    "flash_decode_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # q, k, v, valid (int32), out, B, S, Hkv, G, D, splits, warps, stages,
+    # vec, stream
+    "flash_decode_f32": (*(_P,) * 5, *(_I,) * 9, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -89,6 +89,33 @@ FD_SHAPES = [(1, 512, 2, 4, 32, 512), (2, 1024, 4, 3, 64, 700),
              (2, 16, 2, 2, 16, 16)]
 
 
+# (B, S, Hkv, G, D, valid): the split kernel's masking cases: valid 0
+# (every slot masked: the mean of V), 1, S and past S; a valid that leaves
+# most splits empty; S not a multiple of the 16-row tile; D = 16, 20, 64
+# and 80 (16-byte staging)
+FD_SPLIT_CASES = [(2, 100, 2, 3, 16, 0), (2, 100, 2, 3, 20, 1),
+                  (2, 100, 2, 3, 64, 100), (2, 100, 2, 3, 80, 150),
+                  (2, 512, 2, 3, 64, 17), (1, 200, 3, 4, 80, 37),
+                  (3, 47, 1, 2, 16, 47)]
+
+# (splits, warps, stages) forced through make_plan; splits None: the most
+# the cache's 16-row tiles allow (at most 16)
+FD_FORCED = [(1, 4, 3), (2, 2, 4), (None, 1, 6), (None, 8, 2)]
+
+
+def _fd_forced(B, S, Hkv, G, D):
+    """The decode plan's pick, then each FD_FORCED plan that fits."""
+    plans = [fd.decode_plan(B, S, Hkv, G, D)]
+    for splits, warps, stages in FD_FORCED:
+        top = min(fd.MAX_SPLITS, -(-S // fd.TILE_ROWS))
+        try:
+            plans.append(fd.make_plan(B, S, Hkv, G, D, splits or top, warps,
+                                      stages))
+        except ValueError:
+            pass
+    return plans
+
+
 def _fd_inputs(B, S, Hkv, G, D):
     return (_rand(B * S, B, Hkv, G, D), _rand(B * S + 1, B, S, Hkv, D),
             _rand(B * S + 2, B, S, Hkv, D))
@@ -240,3 +267,23 @@ def test_flash_decode_kernel_matches_plain(cuda, B, S, Hkv, G, D, valid):
     assert _build.LAUNCHES["flash_decode"] == 2
     with pytest.raises(TypeError, match="int32"):
         fd.flash_decode(q, k, v, torch.tensor([valid], device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hkv,G,D,valid", FD_SPLIT_CASES + [
+    (4, 512, 5, 3, 64, 17), (8, 32768, 5, 3, 64, 30000),
+    (2, 300, 2, 3, 33, 200), (1, 64, 1, 6, 33, 0)])
+def test_flash_decode_split_plans_match_plain(cuda, B, S, Hkv, G, D, valid):
+    """Every forced plan (1, 2 and the most splits; 1 to 8 warps; 2 to 6
+    stages) against the plain version, and two calls bit-equal: the
+    served early step, the long context, odd D (4-byte staging)."""
+    q, k, v = (torch.from_numpy(a).to(cuda) for a in _fd_inputs(B, S, Hkv, G, D))
+    vt = torch.tensor([valid], dtype=torch.int32, device=cuda)
+    want = fd.flash_decode_plain(q, k, v, vt)
+    plans = _fd_forced(B, S, Hkv, G, D)
+    assert {p.splits for p in plans} >= {1, 2}
+    for plan in plans:
+        got = fd.flash_decode(q, k, v, vt, plan=plan)
+        assert torch.equal(got, fd.flash_decode(q, k, v, vt, plan=plan)), plan
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m: f"{plan}: {m}")

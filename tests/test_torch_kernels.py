@@ -7,7 +7,9 @@ in float32, in different orders), graph_sconv and RFC also against the Pallas
 kernels in interpret mode (1e-4 for graph_sconv, whose interpret-mode
 error against its own oracle reaches 2.3e-5; RFC is data movement and
 must match exactly), and flash_decode against the Pallas kernel in
-interpret mode and its oracle (3e-5, the JAX package's own bound).  The
+interpret mode and its oracle (3e-5, the JAX package's own bound), also
+through a torch emulation of the CUDA kernel's split-and-merge at forced
+plans, beside checks of ``decode_plan``'s picks.  The
 CUDA kernels against their plain versions run only on a card, from the
 JAX-free ``tests/test_torch_cuda_kernels.py``, which also holds the case
 lists and input helpers shared here."""
@@ -26,9 +28,10 @@ from repro_torch.kernels import graph_sconv as gs
 from repro_torch.kernels import ref
 from repro_torch.kernels import rfc_pack as rp
 from repro_torch.kernels import window_sim as ws
-from test_torch_cuda_kernels import (FD_SHAPES, RFC_SHAPES, SCONV_SHAPES,
-                                     STEP_CASES, TCONV_CASES, _fd_inputs,
-                                     _rand, _sconv_inputs)
+from test_torch_cuda_kernels import (FD_SHAPES, FD_SPLIT_CASES, RFC_SHAPES,
+                                     SCONV_SHAPES, STEP_CASES, TCONV_CASES,
+                                     _fd_forced, _fd_inputs, _rand,
+                                     _sconv_inputs)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -194,6 +197,128 @@ def test_flash_decode_matches_jax(B, S, Hkv, G, D, valid):
             for want in (pallas, oracle):
                 np.testing.assert_allclose(got.numpy(), want, atol=3e-5,
                                            rtol=3e-5)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((4, 512, 5, 3, 64), (4, 4, 2)),      # served smollm-360m step
+    ((8, 32768, 5, 3, 64), (8, 8, 2)),    # long context
+    ((4, 4096, 8, 4, 80), (2, 8, 2)),     # h2o-danube's ring
+    ((2, 48, 1, 3, 20), (1, 1, 2)),       # small odd: 3 tiles
+    ((1, 300, 1, 9, 128), (4, 2, 2))])    # G = 9: 3 blocks of 3 rows
+def test_decode_plan_picks(shape, want):
+    p = fd.decode_plan(*shape)
+    assert (p.splits, p.warps, p.stages) == want
+    B, S, Hkv, G, D = shape
+    assert p.grid == (p.splits, Hkv * -(-G // fd.query_rows(G, D)), B)
+    assert p == fd.make_plan(*shape, *want)
+
+
+@pytest.mark.parametrize("S", [1, 16, 17, 47, 100, 512, 4096, 32768])
+@pytest.mark.parametrize("B,Hkv,G,D", [(1, 1, 1, 16), (4, 5, 3, 64),
+                                       (2, 2, 9, 128), (1, 1, 6, 33)])
+def test_decode_plan_never_more_splits_than_tiles(B, S, Hkv, G, D):
+    p = fd.decode_plan(B, S, Hkv, G, D)
+    tiles = -(-S // fd.TILE_ROWS)
+    assert 1 <= p.splits <= min(tiles, fd.MAX_SPLITS)
+    assert p.warps in fd.WARPS and p.stages in fd.STAGES
+    assert p.smem == fd.decode_smem_bytes(D, G, p.splits, p.warps, p.stages)
+    assert p.smem <= fd.SMEM_MAX
+    with pytest.raises(ValueError):
+        fd.make_plan(B, S, Hkv, G, D, tiles + 1, 1, 2)
+
+
+def test_decode_plan_query_rows():
+    assert [fd.query_rows(G, 64) for G in (1, 3, 4, 5, 8, 9)] == \
+        [1, 3, 4, 3, 4, 3]
+    assert fd.query_rows(3, 33) == 4          # 4-byte staging: 4 rows
+
+
+def _merge(parts):
+    """(m, l, acc) partials merged in list order, base 2; an empty
+    partial (m = -inf) weighs 0."""
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    ref = torch.where(M == -torch.inf, torch.zeros_like(M), M)
+    L, A = None, None
+    for m, l, acc in parts:
+        w = torch.exp2(m - ref)
+        L = l * w if L is None else L + l * w
+        A = acc * w[..., None] if A is None else A + acc * w[..., None]
+    return M, L, A
+
+
+def _fd_split_emulation(q, k, v, valid, plan):
+    """csrc/flash_decode.cu's split-and-merge in torch (tests only): split
+    p of the cluster takes rows [p·span, (p+1)·span) of the first n, span
+    = ceil(n / splits) rounded up to 16; warp w its 16-row tiles w, w + W,
+    ...; 8-lane group j rows j, j + 4, ... of each tile, one online-softmax
+    update per tile on base-2 logits (q prescaled by log2(e)/sqrt(D));
+    then groups merge pairwise (0+1, 2+3, then both), warps and splits in
+    order, and the sum divides by max(l, 1e-20)."""
+    B, Hkv, G, D = q.shape
+    S = k.shape[1]
+    n = valid if 1 <= valid < S else S
+    s2 = torch.einsum("bhgd,bshd->bhgs", q * (np.log2(np.e) / np.sqrt(D)), k)
+    if valid <= 0:
+        s2 = torch.full_like(s2, -1e30)
+    empty = (torch.full(q.shape[:3], -torch.inf), torch.zeros(q.shape[:3]),
+             torch.zeros(q.shape))
+    span = -(-(-(-n // plan.splits)) // 16) * 16
+    splits = []
+    for p in range(plan.splits):
+        r0, r1 = min(n, p * span), min(n, p * span + span)
+        starts = list(range(r0, r1, 16))
+        warps = []
+        for w in range(plan.warps):
+            groups = []
+            for j in range(4):
+                m, l, acc = empty
+                for s0 in starts[w::plan.warps]:
+                    rows = [r for r in range(s0 + j, min(s0 + 16, r1), 4)]
+                    if not rows:
+                        continue
+                    s = s2[..., rows]
+                    mn = torch.maximum(m, s.amax(-1))
+                    corr = torch.exp2(m - mn)
+                    pr = torch.exp2(s - mn[..., None])
+                    l = l * corr + pr.sum(-1)
+                    acc = acc * corr[..., None] + torch.einsum(
+                        "bhgs,bshd->bhgd", pr, v[:, rows])
+                    m = mn
+                groups.append((m, l, acc))
+            warps.append(_merge([_merge(groups[:2]), _merge(groups[2:])]))
+        splits.append(_merge(warps))
+    _, L, A = _merge(splits)
+    return A / torch.clamp(L, min=1e-20)[..., None]
+
+
+@pytest.mark.parametrize("B,S,Hkv,G,D,valid", FD_SPLIT_CASES)
+def test_flash_decode_split_merge_matches_jax(B, S, Hkv, G, D, valid):
+    """The kernel's split-and-merge, emulated at every forced plan, against
+    the Pallas kernel (interpret mode) and the JAX oracle (3e-5)."""
+    from repro.kernels.flash_decode import flash_decode_pallas
+    q, k, v = _fd_inputs(B, S, Hkv, G, D)
+    pallas = np.asarray(flash_decode_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(valid, jnp.int32)))
+    oracle = np.asarray(jref.flash_decode_ref(q, k, v, valid))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    plans = _fd_forced(B, S, Hkv, G, D)
+    assert len({p.splits for p in plans}) >= 3
+    for plan in plans:
+        got = _fd_split_emulation(tq, tk, tv, valid, plan).numpy()
+        for want in (pallas, oracle):
+            np.testing.assert_allclose(got, want, atol=3e-5, rtol=3e-5,
+                                       err_msg=str(plan))
+
+
+def test_flash_decode_split_emulation_leaves_splits_empty():
+    """valid = 17 of 512 slots at 16 splits: two splits hold rows, the
+    other fourteen are empty partials, and the merge still matches."""
+    q, k, v = map(torch.from_numpy, _fd_inputs(2, 512, 2, 3, 64))
+    plan = fd.make_plan(2, 512, 2, 3, 64, 16, 2, 3)
+    got = _fd_split_emulation(q, k, v, 17, plan)
+    torch.testing.assert_close(got, fd.flash_decode_plain(q, k, v, 17),
+                               atol=3e-5, rtol=3e-5)
 
 
 def test_flash_decode_wrapper_rejects_mismatched_shapes():

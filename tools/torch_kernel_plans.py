@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Same-call timings, on one NVIDIA GPU, of the port's redesigned streaming
-and sparse spatial kernels over their plan choices.
+"""Same-call timings, on one NVIDIA GPU, of the port's redesigned streaming,
+sparse spatial and decode-attention kernels over their plan choices.
 
-    python3 tools/torch_kernel_plans.py
+    python3 tools/torch_kernel_plans.py [--only step|csr|flash_decode]
 
 - ``cavity_tconv_step`` (ring form) at S = 1, 3, 8 slots of 25 and 50
   joints and C = F = 64, 128, 256 (agcn-2s's widths, cav-70-1): every
@@ -17,6 +17,7 @@ behind a spin kernel longer than the host's queueing); every kernel output
 is held against its plain version at atol = rtol = 1e-4.  Imports torch,
 numpy and ``repro_torch`` only; needs the CUDA toolkit's nvcc.
 """
+import argparse
 import itertools
 import subprocess
 import sys
@@ -32,6 +33,7 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.core.agcn.graph import dense_to_csr, get_topology  # noqa: E402
 from repro_torch.core.pruning.cavity import cavity_pattern, tile_pattern  # noqa: E402
 from repro_torch.kernels import cavity_tconv as ct  # noqa: E402
+from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import graph_sconv as gs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
@@ -104,7 +106,60 @@ def csr_cases(dev, gen):
               f"einsum {te * 1e3:.1f}")
 
 
+# (label, B, S, Hkv, G, D, valid)
+DECODE_CASES = [("served last step", 4, 512, 5, 3, 64, 511),
+                ("served early step", 4, 512, 5, 3, 64, 17),
+                ("long context", 8, 32768, 5, 3, 64, 30000),
+                ("danube ring", 4, 4096, 8, 4, 80, 4096)]
+
+
+def decode_cases(dev, gen):
+    import torch.nn.functional as F
+    print("flash_decode: us per launch (splits/warps/stages), beside masked "
+          "SDPA with enable_gqa")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, B, S, Hkv, G, D, valid in DECODE_CASES:
+        q = torch.randn(B, Hkv, G, D, generator=gen, device=dev)
+        k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+                for _ in range(2))
+        vt = torch.full((1,), valid, dtype=torch.int32, device=dev)
+        want = fd.flash_decode_plain(q, k, v, vt)
+        live = (torch.arange(S, device=dev) < valid).view(1, 1, 1, S)
+        kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        t_sdpa = cs.cuda_ms(lambda: F.scaled_dot_product_attention(
+            q.reshape(B, Hkv * G, 1, D), kh, vh, attn_mask=live,
+            enable_gqa=True))
+        rows = []
+        for splits, warps, stages in itertools.product(
+                (1, 2, 4, 8, 12, 16), fd.WARPS, (2, 3, 4, 6)):
+            try:
+                p = fd.make_plan(B, S, Hkv, G, D, splits, warps, stages)
+            except ValueError:
+                continue
+            try:
+                ok = torch.allclose(fd.flash_decode(q, k, v, vt, plan=p),
+                                    want, atol=1e-4, rtol=1e-4)
+            except RuntimeError as e:     # a cluster the card refuses
+                print(f"  {splits}/{warps}/{stages} refused: {e}")
+                continue
+            t = cs.cuda_ms(lambda: fd.flash_decode(q, k, v, vt, plan=p))
+            rows.append((t, splits, warps, stages, ok))
+        rows.sort()
+        pick = fd.decode_plan(B, S, Hkv, G, D, sms)
+        t = cs.cuda_ms(lambda: fd.flash_decode(q, k, v, vt))
+        print(f"{label} (B={B} S={S} Hkv={Hkv} G={G} D={D} valid={valid}): "
+              f"picked {pick.splits}/{pick.warps}/{pick.stages} "
+              f"{t * 1e3:.1f}; sdpa {t_sdpa * 1e3:.1f}; " + "; ".join(
+                  f"{sp}/{w}/{st} {a * 1e3:.1f}"
+                  + ("" if ok else " DISAGREES")
+                  for a, sp, w, st, ok in rows))
+        del q, k, v
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    ap.add_argument("--only", choices=("step", "csr", "flash_decode"))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -114,8 +169,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    step_cases(dev, gen)
-    csr_cases(dev, gen)
+    for name, sweep in (("step", step_cases), ("csr", csr_cases),
+                        ("flash_decode", decode_cases)):
+        if args.only in (None, name):
+            sweep(dev, gen)
     return 0
 
 
