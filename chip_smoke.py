@@ -24,8 +24,12 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                are all zero fails) are run with recording wrappers, so each
                kernel is held against its plain version on exactly the
                inputs its path gives it (graph_sconv, cavity_tconv and
-               cavity_tconv_step within atol=rtol=1e-4, RFC bit-equal), plus
-               an RFC case with C % 16 != 0; likewise a clip step of the
+               cavity_tconv_step within atol=rtol=1e-4, RFC bit-equal:
+               rfc_encode is the block epilogue relu(t + res) fused with
+               the encode, and on a stream tick its step form), plus
+               rfc_encode without res on the clip step's t, its step form
+               with a mixed keep on the S = 8 tick's inputs and an RFC case
+               with C % 16 != 0; likewise a clip step of the
                50-joint two-person skeleton (ntu50, persons not folded) on
                a CSR plan (graph_sconv_csr) and a dense one (graph_sconv at
                V = 50), and a clip step and an S = 8 tick (200 frames in) of
@@ -39,6 +43,10 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                the plain versions that read taps on the host wait for the
                device and are timed with their waits (named on the
                ``clock:`` line with any timing three spins did not hide);
+               the two RFC kernels, bound by bytes from HBM, are timed on
+               rotating copies of their inputs that together exceed twice
+               the L2 (at most 64 copies), with their time on one set of inputs beside it (``ms_l2``;
+               a stream tick's 64 copies still fit the L2);
                beside them the bound on this card (the four tensor-core
                kernels take the TF32 rate, with the float32 bound and the
                3-pass split's floor beside it).  The ticks of the later
@@ -282,6 +290,38 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10, label: str = "",
     return statistics.median(times)
 
 
+def _clone_tree(a):
+    """A copy of ``a`` (tensors, None, and tuples and dicts of them) in
+    storage of its own, with each tensor's strides."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, (tuple, list)):
+        return type(a)(_clone_tree(x) for x in a)
+    if isinstance(a, dict):
+        return {k: _clone_tree(x) for k, x in a.items()}
+    return a
+
+
+def rotating(call, args, in_bytes: float):
+    """``call(args)`` on copies of ``args`` in turn, enough that their
+    inputs together exceed twice the L2 (at most 64 copies): a call then
+    finds none of its inputs left in L2 by the calls before it, as a byte
+    bound from HBM assumes.  Returns the function and whether the copies
+    do exceed twice the L2 (small inputs stay resident)."""
+    import torch
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 << 20)
+    n = min(64, max(2, -(-2 * l2 // max(int(in_bytes), 1))))
+    copies = [_clone_tree(args) for _ in range(n)]
+    k = [0]
+
+    def fn():
+        k[0] = (k[0] + 1) % n
+        return call(copies[k[0]])
+    return fn, n * in_bytes > 2 * l2
+
+
 def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
@@ -303,11 +343,15 @@ def capture(modules, run):
     captured = {name: [] for _, _, name in targets}
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
 
+    def clone(a):
+        if isinstance(a, dict):             # the RFC step form's old leaves
+            return {k: clone(v) for k, v in a.items()}
+        return a.clone() if torch.is_tensor(a) else a
+
     def recorder(orig, name):
         def rec(*args, **kwargs):
-            captured[name].append((
-                tuple(a.clone() if torch.is_tensor(a) else a for a in args),
-                dict(kwargs)))
+            captured[name].append((tuple(clone(a) for a in args),
+                                   dict(kwargs)))
             return orig(*args, **kwargs)
         return rec
 
@@ -452,15 +496,37 @@ def measure_case(name, args, kwargs, modules):
             q.device).multi_processor_count)
         extra = {"plan": [p.splits, p.warps, p.stages]}
     elif name == "rfc_encode":
-        (x,) = args
-        kern = lambda: rp.rfc_encode_cuda(x)
-        plain = lambda: rp.rfc_encode_plain(x)
-        nbytes, flops = 12 * x.numel(), x.numel()
+        t, res, live, keep, old = args
+        call = lambda a: rp.rfc_encode_cuda(*a)
+        kern = lambda: call(args)
+        plain = lambda: rp.rfc_encode_plain(*args)
+        C = t.shape[-1]
+        rows = t.numel() // C
+        # the rows whose t (and res) this run needs: emitting slots' live
+        # joints; the other slots read their old leaves instead
+        need = torch.ones(rows, dtype=torch.bool, device=t.device)
+        n_old = 0
+        if keep is not None:
+            need &= keep.repeat_interleave(rows // t.shape[0])
+            n_old = rows - int(need.sum())
+        if live is not None:
+            need &= live.repeat(rows // live.numel())
+        n_need = int(need.sum())
+        packed = 4 + 2 / 16                 # bytes of values and bits
+        nbytes = (4 * C * n_need * (1 + (res is not None)) + n_old * C * packed
+                  + rows * C * packed
+                  + sum(m.numel() for m in (live, keep) if m is not None))
+        flops = n_need * C * (1 + (res is not None))   # add, max
+        in_bytes = sum(a.numel() * a.element_size() for a in
+                       (t, res, live, keep, *(old or {}).values())
+                       if a is not None)
     else:
-        values, hot = args
-        kern = lambda: rp.rfc_decode_cuda(values, hot)
-        plain = lambda: rp.rfc_decode_plain(values, hot)
-        nbytes, flops = 12 * values.numel(), values.numel()
+        values, bits = args
+        call = lambda a: rp.rfc_decode_cuda(*a)
+        kern = lambda: call(args)
+        plain = lambda: rp.rfc_decode_plain(values, bits)
+        nbytes, flops = (4 + 2 / 16 + 4) * values.numel(), values.numel()
+        in_bytes = 4 * values.numel() + 2 * bits.numel()
 
     got, want = kern(), plain()
     torch.cuda.synchronize()
@@ -479,10 +545,16 @@ def measure_case(name, args, kwargs, modules):
     tc = name in TENSOR_CORE_KERNELS
     b_ms, t_bytes, t_ops = bound_ms(nbytes, flops,
                                     TF32_FLOP_PER_S if tc else F32_FLOP_PER_S)
+    timed = kern
+    if name.startswith("rfc"):
+        # bound by bytes from HBM: timed on inputs no earlier call left in
+        # L2, with the time on one set of inputs beside it
+        extra["ms_l2"] = cuda_ms(kern, label=f"{name} kernel")
+        timed, extra["cold"] = rotating(call, args, in_bytes)
     return {
         "shape": [list(a.shape) for a in args if hasattr(a, "shape")],
         "stride": kwargs.get("stride"), "ok": bool(ok), "max_abs_err": err,
-        "ms": cuda_ms(kern, label=f"{name} kernel"),
+        "ms": cuda_ms(timed, label=f"{name} kernel"),
         "plain_ms": cuda_ms(plain, reps=3, inner=3, label=f"{name} plain",
                             waits=name.startswith("cavity")),
         "library_ms": (cuda_ms(library, label=f"{name} library")
@@ -513,6 +585,9 @@ def summarize(cs):
     }
     if cs[0]["split_floor_ms"] is not None:
         out["split_floor_ms"] = sum(c["split_floor_ms"] for c in cs)
+    if "ms_l2" in cs[0]:
+        out["ms_l2"] = sum(c["ms_l2"] for c in cs)
+        out["cold"] = all(c["cold"] for c in cs)
     return out
 
 
@@ -1082,26 +1157,36 @@ def main() -> int:
                 if empty:
                     failures.append(f"{path} {name}: calls {empty} hold a "
                                     f"slot whose rings are all zero")
-            t_hold = time.perf_counter()
-            cs = [measure_case(name, a, k, modules) for a, k in captured[name]]
-            t_hold = time.perf_counter() - t_hold
-            cases[f"{path}/{name}"] = cs
-            bad = [i for i, c in enumerate(cs) if not c["ok"]]
-            if bad:
-                failures.append(f"{path} {name}: kernel disagrees with its "
-                                f"plain version on cases {bad}")
-            s = summary[(path, name)] = summarize(cs)
-            tc = (f", float32 bound {s['bound_f32_ms']:.4f}, 3-pass floor "
-                  f"{s['split_floor_ms']:.4f}" if "split_floor_ms" in s else "")
-            print(f"kernel {name} [{path}]: {'ok' if not bad else 'FAIL'} on "
-                  f"{len(cs)} inputs (held and timed in {t_hold:.1f} s), "
-                  f"max_abs_err {s['max_abs_err']:.3g}; per "
-                  f"ensemble step {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
-                  f"library {s['library_ms']}, bound {s['bound_ms']:.4f} ms by "
-                  f"{s['bound_by']}{tc})")
+            hold(path, name, captured[name])
         return captured
 
-    hold_cases("clip", capture(modules, lambda: infer(plans, x0)), per_clip)
+    def hold(path, name, calls):
+        """Hold one kernel against its plain version on ``calls`` (a list
+        of (args, kwargs)), time both and record the per-step sums."""
+        t_hold = time.perf_counter()
+        cs = [measure_case(name, a, k, modules) for a, k in calls]
+        t_hold = time.perf_counter() - t_hold
+        cases[f"{path}/{name}"] = cs
+        bad = [i for i, c in enumerate(cs) if not c["ok"]]
+        if bad:
+            failures.append(f"{path} {name}: kernel disagrees with its "
+                            f"plain version on cases {bad}")
+        s = summary[(path, name)] = summarize(cs)
+        tc = (f", float32 bound {s['bound_f32_ms']:.4f}, 3-pass floor "
+              f"{s['split_floor_ms']:.4f}" if "split_floor_ms" in s else "")
+        if "ms_l2" in s:
+            where = ("rotating copies past the L2" if s["cold"]
+                     else "copies that fit the L2")
+            tc += f"; timed on {where}, {s['ms_l2']:.4f} on one set of inputs"
+        print(f"kernel {name} [{path}]: {'ok' if not bad else 'FAIL'} on "
+              f"{len(cs)} inputs (held and timed in {t_hold:.1f} s), "
+              f"max_abs_err {s['max_abs_err']:.3g}; per "
+              f"ensemble step {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
+              f"library {s['library_ms']}, bound {s['bound_ms']:.4f} ms by "
+              f"{s['bound_by']}{tc})")
+
+    clip_calls = hold_cases("clip", capture(modules, lambda: infer(plans, x0)),
+                            per_clip)
     # stream ticks at S slots, STREAM_WARM raw frames into the clip (past
     # the first-logit delay and the last block's first full window, so
     # every kept tap reads data), on the frozen statistics of this batch;
@@ -1121,8 +1206,20 @@ def main() -> int:
         warm8, _ = stream_step(plans, warm8, x0[:S8, r])
     for S in STREAM_SLOTS:
         states = tuple(first_slots(s_, S) for s_ in warm8)
-        hold_cases(f"stream S={S}", capture(modules, lambda: stream_step(
-            plans, states, x0[:S, STREAM_WARM])), per_tick)
+        tick_calls = hold_cases(f"stream S={S}", capture(
+            modules, lambda: stream_step(plans, states, x0[:S, STREAM_WARM])),
+            per_tick)
+    # the RFC entry points the paths above do not take: encode without res
+    # (on the clip step's t) and the step form with a mixed keep (the S = 8
+    # tick's inputs, every other slot keeping its old leaves, which the
+    # lockstep tick never does)
+    hold("clip no res", "rfc_encode", [
+        ((a[0], None, None, None, None), {})
+        for a, _ in clip_calls["rfc_encode"]])
+    mixed = torch.arange(S8, device=dev) % 2 == 0
+    hold(f"stream S={S8} mixed keep", "rfc_encode", [
+        ((a[0], a[1], a[2], mixed, a[4]), {})
+        for a, _ in tick_calls["rfc_encode"]])
 
     # ntu50: the two-person NTU scene as one 50-joint skeleton (persons
     # not folded into the batch), same weights as ntu25 but B_k's width
@@ -1175,11 +1272,11 @@ def main() -> int:
 
     # RFC off the main path: a width that is not a whole number of banks
     xr = torch.randn(2400 * 25, 38, generator=gen).to(dev)
-    vals, hot = ops.rfc_encode(xr)
-    pv, ph = rp.rfc_encode_plain(torch.nn.functional.pad(xr, (0, 10)))
-    rt = ops.rfc_decode(vals, hot)
+    vals, bits = ops.rfc_encode(xr)
+    pv, pb = rp.rfc_encode_plain(torch.nn.functional.pad(xr, (0, 10)))
+    rt = ops.rfc_decode(vals, bits)
     torch.cuda.synchronize()
-    rfc_pad_ok = (torch.equal(vals, pv[:, :38]) and torch.equal(hot, ph[:, :38])
+    rfc_pad_ok = (torch.equal(vals, pv[:, :38]) and torch.equal(bits, pb)
                   and torch.equal(rt, torch.relu(xr)))
     print(f"kernel rfc C=38 (padded to 48): {'ok' if rfc_pad_ok else 'FAIL'}")
     if not rfc_pad_ok:
@@ -1582,7 +1679,9 @@ def main() -> int:
                         f"ntu50 dense stream S={S8}",
                         *(f"{t} dense {p}" for t, _ in DENSE_SKELETONS
                           for p in ("clip", f"stream S={S8}"))],
-        "rfc_encode": [f"stream S={S8}"], "rfc_decode": [f"stream S={S8}"],
+        "rfc_encode": [f"stream S={S8}", "clip no res",
+                       f"stream S={S8} mixed keep"],
+        "rfc_decode": [f"stream S={S8}"],
         "graph_sconv_csr": [f"ntu50 csr stream S={S8}",
                             f"ntu50 csr eps=0 stream S={S8}"],
         "windowed_similarity": ["ck stream S=1", "ck stream S=3",

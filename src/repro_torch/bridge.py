@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.core.agcn.engine import StreamState
+from repro_torch.kernels.rfc_pack import bits_from_hot, hot_from_bits
 
 _STATE_FIELDS = tuple(f.name for f in dataclasses.fields(StreamState))
 
@@ -45,27 +46,41 @@ def params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     return _to_torch(tree, resolve_device(device))
 
 
+def _map_rfc(tree: dict, fn) -> dict:
+    """``tree`` with each boundary of its ``rfc`` carry (a list of dicts,
+    where present) mapped through ``fn``."""
+    if tree.get("rfc") is None:
+        return tree
+    return {**tree, "rfc": [fn(r) for r in tree["rfc"]]}
+
+
 def stream_state_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     """A stream state with numpy leaves -> the port's, on ``device``
     (default CUDA).  ``tree`` is an object with the ``StreamState`` fields
     as attributes (a JAX ``StreamState`` mapped to numpy) or a dict of
     them, which becomes a ``StreamState``; a snapshot capture or snapshot
-    ring (a dict without ``bn_stats``) stays a dict."""
+    ring (a dict without ``bn_stats``) stays a dict.  The JAX RFC carry's
+    float ``hot`` mask becomes the port's int16 ``bits``; other dtypes are
+    unchanged."""
     dev = resolve_device(device)
     if not isinstance(tree, dict):
         tree = {f: getattr(tree, f) for f in _STATE_FIELDS}
-    elif "bn_stats" not in tree:
-        return _to_torch(tree, dev)
-    return StreamState(**_to_torch(tree, dev))
+    out = _map_rfc(_to_torch(tree, dev), lambda r: {
+        "vals": r["vals"], "bits": bits_from_hot(r["hot"])})
+    return out if "bn_stats" not in tree else StreamState(**out)
 
 
 def stream_state_to_numpy(state: Any) -> dict:
     """The port's ``StreamState``, snapshot capture or snapshot ring -> a
     dict of numpy leaves with the same field names (``StreamState(**d)``
-    rebuilds the JAX one), dtypes unchanged."""
+    rebuilds the JAX one): the RFC carry's ``bits`` go back to the JAX
+    float ``hot`` mask of the values' width, other dtypes are unchanged."""
     if isinstance(state, StreamState):
         state = {f: getattr(state, f) for f in _STATE_FIELDS}
-    return _to_numpy(state)
+    return _to_numpy(_map_rfc(state, lambda r: {
+        "vals": r["vals"],
+        "hot": hot_from_bits(r["bits"], r["vals"].dtype)[
+            ..., :r["vals"].shape[-1]]}))
 
 
 _CACHE_KEYS = {"k", "v", "pos"}

@@ -47,6 +47,7 @@ from repro_torch.core.agcn.graph import (GraphTopology, dense_to_csr,
 from repro_torch.core.pruning.plan import PrunePlan
 from repro_torch.core.quant import quantize_q88
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.rfc_pack import BANK as RFC_BANK
 
 BACKENDS = ("reference", "cuda")
 
@@ -78,8 +79,8 @@ class PlanStatic:
 
     backend: str
     input_skip: int
-    use_rfc: bool            # RFC round trip between blocks
-    rfc_bank: int
+    use_rfc: bool            # RFC round trip between blocks (banks of
+                             # kernels.rfc_pack.BANK channels)
     tkernel: int
     joints: int
     in_channels: int
@@ -203,8 +204,11 @@ class Backend(Protocol):
         oldest frame is at ``head`` (N,): -> (N,V,Cout)."""
         ...
 
-    def transfer(self, h: torch.Tensor, ps: PlanStatic) -> torch.Tensor:
-        """Inter-block activation transfer (identity / RFC round trip)."""
+    def epilogue(self, t: torch.Tensor, res: torch.Tensor,
+                 encode: bool) -> torch.Tensor:
+        """A block's last step, ``relu(t + res)``; ``encode`` marks a block
+        whose output crosses to the next one in the RFC format, where a
+        backend that has the format round-trips it."""
         ...
 
 
@@ -278,9 +282,10 @@ class ReferenceBackend:
             out = _scatter_filters(out, ba["kept_filters"], bs.cout)
         return out
 
-    def transfer(self, h, ps):
-        """Identity — reference activations cross blocks uncompressed."""
-        return h
+    def epilogue(self, t, res, encode):
+        """``relu(t + res)``: reference activations cross blocks
+        uncompressed."""
+        return torch.relu(t + res)
 
 
 class CudaBackend:
@@ -323,12 +328,13 @@ class CudaBackend:
         return ops.cavity_tconv_step_ring(ring, head, ba["wp"], ba["taps"],
                                           ba["slot_col"], ba["tb_col"])
 
-    def transfer(self, h, ps):
-        """RFC encode/decode round trip (lossless on post-ReLU values)."""
-        if not ps.use_rfc:
-            return h
-        vals, hot = ops.rfc_encode(h, bank=ps.rfc_bank)
-        return ops.rfc_decode(vals, hot, bank=ps.rfc_bank)
+    def epilogue(self, t, res, encode):
+        """``relu(t + res)``, or with ``encode`` the RFC round trip of it:
+        the add and the ReLU run inside the encode kernel; the decode is
+        bit-equal to ``relu(t + res)``."""
+        if not encode:
+            return torch.relu(t + res)
+        return ops.rfc_decode(*ops.rfc_encode(t, res))
 
 
 def get_backend(name: str) -> Backend:
@@ -504,9 +510,12 @@ def build_execution_plan(
                   else cfg.input_skip)
     if use_rfc is None:
         use_rfc = backend == "cuda"
+    if use_rfc and cfg.rfc_bank != RFC_BANK:
+        raise ValueError(f"the RFC format packs banks of {RFC_BANK} "
+                         f"channels, not rfc_bank={cfg.rfc_bank}")
     static = PlanStatic(
         backend=backend, input_skip=int(input_skip), use_rfc=bool(use_rfc),
-        rfc_bank=int(cfg.rfc_bank), tkernel=int(cfg.gcn_tkernel), joints=V,
+        tkernel=int(cfg.gcn_tkernel), joints=V,
         in_channels=int(cfg.gcn_in_channels),
         stream_pool=int(cfg.gcn_stream_pool), blocks=tuple(blocks_s),
         topology=topo.name, valid_joints=vj)
@@ -556,7 +565,7 @@ def _stem(arrays, x, input_skip: int, bn=_bn_live) -> torch.Tensor:
 
 
 def _run_block(h, ba, bs, backend: Backend, bn=_bn_live, tag: str = "",
-               vj: int = 0):
+               vj: int = 0, encode: bool = False):
     ck = None
     if bs.use_ck:
         # the windowed C_k at every frame index: the trailing-K recurrence
@@ -576,22 +585,21 @@ def _run_block(h, ba, bs, backend: Backend, bn=_bn_live, tag: str = "",
                     tag + "bn_short")
     else:
         res = h if bs.stride == 1 else h[:, ::bs.stride]
-    return torch.relu(t + res)
+    return backend.epilogue(t, res, encode)
 
 
 def _blocks(plan: ExecutionPlan, x: torch.Tensor, bn):
-    """Yield each block's post-ReLU output (before the inter-block
-    transfer that feeds the next block)."""
-    backend = get_backend(plan.static.backend)
-    h = _stem(plan.arrays, x, plan.static.input_skip, bn)
-    nblocks = len(plan.static.blocks)
-    for b, (ba, bs) in enumerate(zip(plan.arrays["blocks"],
-                                     plan.static.blocks)):
+    """Yield each block's post-ReLU output, the activation the next block
+    reads (on a ``use_rfc`` plan its RFC round trip, bit-equal to it)."""
+    ps = plan.static
+    backend = get_backend(ps.backend)
+    h = _stem(plan.arrays, x, ps.input_skip, bn)
+    nblocks = len(ps.blocks)
+    for b, (ba, bs) in enumerate(zip(plan.arrays["blocks"], ps.blocks)):
         h = _run_block(h, ba, bs, backend, bn, tag=f"b{b}/",
-                       vj=plan.static.valid_joints)
+                       vj=ps.valid_joints,
+                       encode=ps.use_rfc and b < nblocks - 1)
         yield h
-        if b < nblocks - 1:
-            h = backend.transfer(h, plan.static)
 
 
 def block_outputs(plan: ExecutionPlan, x: torch.Tensor) -> List[torch.Tensor]:
@@ -655,7 +663,8 @@ class StreamState:
     counts raw frames per slot; ``pool_*`` hold the running logit pool;
     ``bn_stats`` the frozen calibration (shared by all slots); ``rfc`` the
     per-slot RFC-encoded inter-block activations of the last emitted frame
-    (``cuda`` plans)."""
+    (``cuda`` plans): vals (S, V, cout) float32 and bits
+    (S, V, ceil(cout/16)) int16, the format of ``kernels.rfc_pack``."""
 
     t_raw: torch.Tensor
     blocks: List[Dict[str, torch.Tensor]]
@@ -769,7 +778,8 @@ def init_stream_state(
     rfc = None
     if ps.use_rfc:
         rfc = [{"vals": zeros(batch, V, bs.cout),
-                "hot": zeros(batch, V, bs.cout)} for bs in ps.blocks[:-1]]
+                "bits": zeros(batch, V, -(-bs.cout // RFC_BANK),
+                              dt=torch.int16)} for bs in ps.blocks[:-1]]
     c_last = ps.blocks[-1].cout
     return StreamState(
         t_raw=zeros(batch, dt=torch.int32), blocks=blocks,
@@ -987,10 +997,10 @@ def step_frame(
     S = frame.shape[0]
     ks = torch.arange(K, device=frame.device)
     vj = ps.valid_joints or ps.joints
-    live = None                        # a slab-padded plan's joint mask
+    live_j = live = None               # a slab-padded plan's joint mask
     if vj < ps.joints:
-        live = (torch.arange(ps.joints, device=frame.device) < vj)[None, :,
-                                                                   None]
+        live_j = torch.arange(ps.joints, device=frame.device) < vj
+        live = live_j[None, :, None]
 
     def mask_joints(a: torch.Tensor) -> torch.Tensor:
         return a if live is None else torch.where(live, a, 0.0)
@@ -1066,18 +1076,20 @@ def step_frame(
                      ba["bn_short"])
         else:
             res = h_c
-        out = mask_joints(torch.relu(out + res))
         out_valid = torch.gather(vring, 1, center)[:, 0]
-
-        # --- inter-block transfer: the RFC format, frame by frame ----------
+        if b < nblocks - 1 and ps.use_rfc:
+            # --- the epilogue in the RFC format, frame by frame -----------
+            # one kernel: add, ReLU, joint mask, encode, and the old leaves
+            # kept for slots that do not emit; a non-emitting slot's decoded
+            # row is its last emitted frame, which nothing downstream reads
+            # (the next block writes its rings only where has_input = emit)
+            vals, bits = ops.rfc_encode(out, res, live=live_j, keep=emit,
+                                        old=state.rfc[b])
+            new_rfc.append({"vals": vals, "bits": bits})
+            out = ops.rfc_decode(vals, bits)
+        else:
+            out = mask_joints(torch.relu(out + res))
         if b < nblocks - 1:
-            if ps.use_rfc:
-                vals, hot = ops.rfc_encode(out, bank=ps.rfc_bank)
-                old = state.rfc[b]
-                keep = emit[:, None, None]
-                new_rfc.append({"vals": torch.where(keep, vals, old["vals"]),
-                                "hot": torch.where(keep, hot, old["hot"])})
-                out = ops.rfc_decode(vals, hot, bank=ps.rfc_bank)
             h_in = out
         has_input = emit
         in_valid = out_valid

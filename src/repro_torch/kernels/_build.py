@@ -47,10 +47,11 @@ _SIGNATURES = {
     # ring, head (int32), wp, taps, slot_col (int32), bias, out, S, K, V, C,
     # L, n_keep, Fg, cout, wm, parts, stream
     "cavity_tconv_step_f32": (*(_P,) * 7, *(_I,) * 10, _P),
-    # x, values, hot, n, stream
-    "rfc_encode_f32": (_P, _P, _P, _L, _P),
-    # values, hot, out, n, stream
-    "rfc_decode_f32": (_P, _P, _P, _L, _P),
+    # t, res, live, keep, old_vals, old_bits, vals, bits (each but t and
+    # the outputs may be null), rows, C, V, slot_rows, stream
+    "rfc_encode_f32": (*(_P,) * 8, _L, _I, _I, _L, _P),
+    # vals, bits, out, rows, C, stream
+    "rfc_decode_f32": (_P, _P, _P, _L, _I, _P),
     # ring_th, ring_ph, out, S, K, V, Ce, valid, stream
     "window_sim_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, k, v, valid (int32), out, B, S, Hkv, G, D, splits, warps, stages,

@@ -7,7 +7,7 @@ function, which dispatches on the input's device.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,25 +33,35 @@ def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
 # RFC
 # ---------------------------------------------------------------------------
 
-def rfc_encode(x: torch.Tensor, bank: int = 16):
-    """Encode activations of any (..., C) shape; returns (values, hot).
-    C is zero-padded to a whole number of banks for the kernel."""
-    shape = x.shape
-    flat = _pad_to(x.reshape(-1, shape[-1]), 1, bank).contiguous()
-    vals, hot = _rfc.rfc_encode_cuda(flat, bank=bank)
-    return (vals[:, : shape[-1]].reshape(shape),
-            hot[:, : shape[-1]].reshape(shape))
+def rfc_encode(t: torch.Tensor, res: Optional[torch.Tensor] = None, *,
+               live: Optional[torch.Tensor] = None,
+               keep: Optional[torch.Tensor] = None,
+               old: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block epilogue ``relu(t + res)`` and the RFC encode in one
+    kernel, for any (..., C) shape; returns (values (..., C), bits
+    (..., ceil(C/16)) int16).  ``live`` (V,) zeroes the joints of the
+    second-to-last axis it marks False; with ``keep`` (S,) over the leading
+    axis, slots marked False keep ``old``'s ``{"vals", "bits"}``.  C is
+    zero-padded to a whole number of banks for the kernel (the padding is
+    cold, so the values' cut is lossless)."""
+    C = t.shape[-1]
+    if C % _rfc.BANK:
+        t = _pad_to(t, t.dim() - 1, _rfc.BANK)
+        res = None if res is None else _pad_to(res, res.dim() - 1, _rfc.BANK)
+        if old is not None:
+            old = {"vals": _pad_to(old["vals"], t.dim() - 1, _rfc.BANK),
+                   "bits": old["bits"]}
+    vals, bits = _rfc.rfc_encode_cuda(t, res, live, keep, old)
+    return vals[..., :C], bits
 
 
-def rfc_decode(values: torch.Tensor, hot: torch.Tensor,
-               bank: int = 16) -> torch.Tensor:
+def rfc_decode(values: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`rfc_encode`, any (..., C) shape; lossless on
     post-ReLU activations."""
-    shape = values.shape
-    v = _pad_to(values.reshape(-1, shape[-1]), 1, bank).contiguous()
-    h = _pad_to(hot.reshape(-1, shape[-1]), 1, bank).contiguous()
-    out = _rfc.rfc_decode_cuda(v, h, bank=bank)
-    return out[:, : shape[-1]].reshape(shape)
+    C = values.shape[-1]
+    v = _pad_to(values, values.dim() - 1, _rfc.BANK)
+    return _rfc.rfc_decode_cuda(v, bits)[..., :C]
 
 
 # ---------------------------------------------------------------------------

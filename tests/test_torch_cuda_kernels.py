@@ -61,6 +61,64 @@ STEP_CASES = [(25, 16, 16, "cav-70-1"), (75, 8, 38, "cav-70-1"),
 # (rows, C): C not a multiple of 16 in the ops cases
 RFC_SHAPES = [(8, 16), (32, 64), (100, 48), (7, 160), (9, 38), (5, 3)]
 
+# the fused epilogue and encode: name -> (shape of t, res ("same", a
+# "strided" view h[:, ::2] of an odd-length h, which the wrapper copies,
+# or None), live joints (or
+# None), a mixed keep over the leading axis, the values: "randn", "cold"
+# (every bank empty), "hot" (every bank full) or "signed_zero" (±0.0 with
+# a few values)).  Odd row counts and rows x C off a multiple of 128 are
+# among them.
+RFC_CASES = {
+    "no_res": ((100, 48), None, None, False, "randn"),
+    "res": ((8, 25, 256), "same", None, False, "randn"),
+    "res_strided": ((2, 9, 25, 64), "strided", None, False, "randn"),
+    "live": ((3, 25, 48), "same", 20, False, "randn"),
+    "keep_mixed": ((5, 25, 16), "same", None, True, "randn"),
+    "keep_live": ((8, 50, 64), "same", 25, True, "randn"),
+    "cold_banks": ((33, 48), "same", None, False, "cold"),
+    "hot_banks": ((7, 256), None, None, False, "hot"),
+    "signed_zero": ((9, 3, 16), "same", None, True, "signed_zero"),
+    "odd_rows": ((7, 1, 16), "same", None, False, "randn"),
+}
+
+
+def _rfc_values(seed, shape, kind):
+    if kind == "cold":
+        return -np.abs(_rand(seed, *shape)) - 0.5
+    if kind == "hot":
+        return np.abs(_rand(seed, *shape)) + 0.5
+    x = _rand(seed, *shape)
+    if kind == "signed_zero":
+        x = np.where(np.abs(x) < 1.0, np.float32(-0.0), x)
+        x[..., ::3] = 0.0
+    return x
+
+
+def _rfc_inputs(name, device):
+    """The arguments (t, res, live, keep, old) of one ``RFC_CASES`` case
+    on ``device``, made with numpy from a seed; a strided ``res`` is a view
+    into a tensor on the device."""
+    from repro_torch.kernels.rfc_pack import rfc_encode_plain
+    shape, res_kind, n_live, keep, kind = RFC_CASES[name]
+    seed = len(name) + sum(shape)
+    t = torch.from_numpy(_rfc_values(seed, shape, kind)).to(device)
+    res = None
+    if res_kind == "same":
+        res = torch.from_numpy(_rfc_values(seed + 1, shape, kind)).to(device)
+    elif res_kind == "strided":
+        h = (shape[0], 2 * shape[1] - 1) + shape[2:]
+        res = torch.from_numpy(_rfc_values(seed + 1, h, kind)).to(device)
+        res = res[:, ::2]
+    live = None
+    if n_live is not None:
+        live = torch.arange(shape[-2], device=device) < n_live
+    old = keep_m = None
+    if keep:
+        keep_m = torch.arange(shape[0], device=device) % 2 == 0
+        old = dict(zip(("vals", "bits"), rfc_encode_plain(torch.from_numpy(
+            _rand(seed + 2, *shape)).to(device))))
+    return t, res, live, keep_m, old
+
 # (R, V, Cin, Cout, topology, csr_eps): the clip and stream-tick shapes of
 # an ntu50 plan, D = the skeleton's degree (eps 1e-5) and D = V (eps 0)
 CSR_CASES = [(32, 50, 16, 32, "ntu50", 1e-5), (8, 50, 256, 256, "ntu50", 1e-5),
@@ -212,10 +270,62 @@ def test_cavity_tconv_step_ring_kernel_matches_plain(cuda, S, V, C, F, cout,
 @pytest.mark.parametrize("rows,cols", [r for r in RFC_SHAPES if r[1] % 16 == 0])
 def test_rfc_kernels_match_plain_exactly(cuda, rows, cols):
     x = torch.from_numpy(_rand(rows, rows, cols)).to(cuda)
-    v, h = rp.rfc_encode_cuda(x)
-    v2, h2 = rp.rfc_encode_plain(x)
-    assert torch.equal(v, v2) and torch.equal(h, h2)
-    assert torch.equal(rp.rfc_decode_cuda(v, h), rp.rfc_decode_plain(v, h))
+    v, b = rp.rfc_encode_cuda(x)
+    v2, b2 = rp.rfc_encode_plain(x)
+    assert torch.equal(v, v2) and torch.equal(b, b2)
+    assert torch.equal(rp.rfc_decode_cuda(v, b), rp.rfc_decode_plain(v, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(RFC_CASES))
+def test_rfc_epilogue_kernels_match_plain_exactly(cuda, name):
+    """The fused epilogue and encode, then the decode, bit-equal to their
+    plain versions (the values' bits too, so -0.0 and +0.0 differ), one
+    launch each, and bit-equal again on a repeated call."""
+    args = _rfc_inputs(name, cuda)
+    _build.reset_launch_counts()
+    v, b = rp.rfc_encode_cuda(*args)
+    out = rp.rfc_decode_cuda(v, b)
+    assert _build.LAUNCHES["rfc_encode"] == _build.LAUNCHES["rfc_decode"] == 1
+    v2, b2 = rp.rfc_encode_plain(*args)
+    assert torch.equal(v.view(torch.int32), v2.view(torch.int32))
+    assert torch.equal(b, b2)
+    assert torch.equal(out.view(torch.int32),
+                       rp.rfc_decode_plain(v2, b2).view(torch.int32))
+    v3, b3 = rp.rfc_encode_cuda(*args)
+    assert torch.equal(v3.view(torch.int32), v.view(torch.int32))
+    assert torch.equal(b3, b)
+    assert torch.equal(rp.rfc_decode_cuda(v, b).view(torch.int32),
+                       out.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_rfc_encode_copies_what_it_cannot_read_in_place(cuda):
+    """A non-contiguous t and res and contiguous views off a 16-byte
+    boundary are copied by the wrapper; the answer is the plain
+    version's."""
+    h = torch.from_numpy(_rand(3, 2, 9, 6, 5, 32)).to(cuda)
+    t = h[:, :8:2, ::2, :, :16]               # non-contiguous, C = 16
+    res = h[:, 1::2, 1::2, :, 16:]
+    assert not t.is_contiguous() and not res.is_contiguous()
+    v, b = rp.rfc_encode_cuda(t, res)
+    v2, b2 = rp.rfc_encode_plain(t, res)
+    assert torch.equal(v, v2) and torch.equal(b, b2)
+    # contiguous views that start one float off a 16-byte boundary
+    flat = torch.from_numpy(_rand(4, 2 * t.numel() + 1)).to(cuda)
+    t_off = flat[1:1 + t.numel()].view(t.shape)
+    res_off = flat[1 + t.numel():].view(t.shape)
+    v, b = rp.rfc_encode_cuda(t_off, res_off)
+    v2, b2 = rp.rfc_encode_plain(t_off, res_off)
+    assert torch.equal(v, v2) and torch.equal(b, b2)
+    assert torch.equal(rp.rfc_decode_cuda(flat[1:1 + v.numel()].view(
+        v.shape), b), rp.rfc_decode_plain(flat[1:1 + v.numel()].view(
+            v.shape), b))
+    with pytest.raises(ValueError, match="C % 16"):
+        rp.rfc_encode_cuda(torch.zeros(4, 20, device=cuda))
+    with pytest.raises(ValueError, match="keep needs"):
+        rp.rfc_encode_cuda(t.contiguous(), keep=torch.ones(
+            2, dtype=torch.bool, device=cuda))
 
 
 @pytest.mark.cuda

@@ -6,8 +6,10 @@ against the JAX reference engine's einsum (atol=rtol=1e-5: both sides sum
 in float32, in different orders), graph_sconv and RFC also against the Pallas
 kernels in interpret mode (1e-4 for graph_sconv, whose interpret-mode
 error against its own oracle reaches 2.3e-5; RFC is data movement and
-must match exactly), and flash_decode against the Pallas kernel in
-interpret mode and its oracle (3e-5, the JAX package's own bound), also
+must match exactly, its fused epilogue and packed bits included, also
+through a torch emulation of the CUDA kernels' lane math), and
+flash_decode against the Pallas kernel in interpret mode and its oracle
+(3e-5, the JAX package's own bound), also
 through a torch emulation of the CUDA kernel's split-and-merge at forced
 plans, beside checks of ``decode_plan``'s picks.  The
 CUDA kernels against their plain versions run only on a card, from the
@@ -28,10 +30,10 @@ from repro_torch.kernels import graph_sconv as gs
 from repro_torch.kernels import ref
 from repro_torch.kernels import rfc_pack as rp
 from repro_torch.kernels import window_sim as ws
-from test_torch_cuda_kernels import (FD_SHAPES, FD_SPLIT_CASES, RFC_SHAPES,
-                                     SCONV_SHAPES, STEP_CASES, TCONV_CASES,
-                                     _fd_forced, _fd_inputs, _rand,
-                                     _sconv_inputs)
+from test_torch_cuda_kernels import (FD_SHAPES, FD_SPLIT_CASES, RFC_CASES,
+                                     RFC_SHAPES, SCONV_SHAPES, STEP_CASES,
+                                     TCONV_CASES, _fd_forced, _fd_inputs,
+                                     _rand, _rfc_inputs, _sconv_inputs)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -141,29 +143,90 @@ def test_cavity_tconv_step_reads_only_kept_taps():
 
 # ------------------------------------------------------------------------ RFC
 
+def _hot(bits, cols):
+    """The JAX float hot mask of the port's bank words, cut to ``cols``."""
+    return rp.hot_from_bits(bits)[..., :cols].numpy()
+
+
 @pytest.mark.parametrize("rows,cols", RFC_SHAPES)
 def test_rfc_encode_decode_match_jax(rows, cols):
     x = _rand(rows + cols, rows, cols)
     x[x > 1.0] = 0.0                              # some all-cold banks too
     tx = torch.from_numpy(x)
-    v_ops, h_ops = ops.rfc_encode(tx)
+    v_ops, b_ops = ops.rfc_encode(tx)
+    assert b_ops.dtype == torch.int16 and b_ops.shape == (rows,
+                                                          -(-cols // 16))
     v_pal, h_pal = jops.rfc_encode(jnp.asarray(x))
     np.testing.assert_array_equal(v_ops.numpy(), np.asarray(v_pal))
-    np.testing.assert_array_equal(h_ops.numpy(), np.asarray(h_pal))
-    dec = ops.rfc_decode(v_ops, h_ops)
+    np.testing.assert_array_equal(_hot(b_ops, cols), np.asarray(h_pal))
+    dec = ops.rfc_decode(v_ops, b_ops)
     np.testing.assert_array_equal(
         dec.numpy(), np.asarray(jops.rfc_decode(v_pal, h_pal)))
     if cols % 16 == 0:
         v_ref, h_ref = jref.rfc_encode_ref(x)
-        for enc in (rp.rfc_encode_plain(tx), rp.rfc_encode_cuda(tx),
-                    ref.rfc_encode_ref(tx)):
-            np.testing.assert_allclose(enc[0].numpy(), np.asarray(v_ref), **TOL)
-            np.testing.assert_array_equal(enc[1].numpy(), np.asarray(h_ref))
+        for v, b in (rp.rfc_encode_plain(tx), rp.rfc_encode_cuda(tx)):
+            np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+            np.testing.assert_array_equal(_hot(b, cols), np.asarray(h_ref))
+        v, h = ref.rfc_encode_ref(tx)
+        np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+        assert torch.equal(rp.bits_from_hot(h), b_ops)
         want = np.asarray(jref.rfc_decode_ref(v_ref, h_ref))
-        for dec in (rp.rfc_decode_plain(v_ops, h_ops),
-                    rp.rfc_decode_cuda(v_ops, h_ops),
-                    ref.rfc_decode_ref(v_ops, h_ops)):
-            np.testing.assert_allclose(dec.numpy(), want, **TOL)
+        for dec in (rp.rfc_decode_plain(v_ops, b_ops),
+                    rp.rfc_decode_cuda(v_ops, b_ops),
+                    ref.rfc_decode_ref(v_ops, rp.hot_from_bits(b_ops))):
+            np.testing.assert_array_equal(dec.numpy(), want)
+
+
+def _jax_epilogue_encode(t, res, live, keep, old):
+    """The JAX side of the fused epilogue: relu(t + res), masked joints
+    zeroed, through the Pallas encode in interpret mode (``jops`` pads C);
+    slots outside ``keep`` take the old values and mask."""
+    x = np.maximum(t + (0 if res is None else res), 0).astype(np.float32)
+    if live is not None:
+        x = np.where(live[:, None], x, np.float32(0))
+    v, h = (np.array(a) for a in jops.rfc_encode(jnp.asarray(x)))
+    if keep is not None:
+        k = keep.reshape((-1,) + (1,) * (t.ndim - 1))
+        v = np.where(k, v, old["vals"].numpy())
+        h = np.where(k, h, _hot(old["bits"], t.shape[-1]))
+    return v, h
+
+
+@pytest.mark.parametrize("name", list(RFC_CASES))
+def test_rfc_epilogue_encode_matches_jax(name):
+    """``ops.rfc_encode(t, res, live=, keep=, old=)`` against JAX's
+    ReLU and Pallas encode (interpret mode) and, with the float mask, its
+    ``ref`` oracle: values bit-equal, the bits the JAX mask packed; the
+    decode equals relu(t + res) masked, bit for bit."""
+    t, res, live, keep, old = _rfc_inputs(name, "cpu")
+    cols = t.shape[-1]
+    vals, bits = ops.rfc_encode(t, res, live=live, keep=keep, old=old)
+    np_args = (t.numpy(), None if res is None else res.numpy(),
+               None if live is None else live.numpy(),
+               None if keep is None else keep.numpy(), old)
+    v_pal, h_pal = _jax_epilogue_encode(*np_args)
+    assert torch.equal(vals, torch.from_numpy(v_pal))
+    assert torch.equal(bits, rp.bits_from_hot(torch.from_numpy(h_pal)))
+    if keep is None:
+        x = np.maximum(np_args[0] + (0 if res is None else np_args[1]), 0)
+        if live is not None:
+            x = np.where(np_args[2][:, None], x, np.float32(0))
+        v_ref, h_ref = jref.rfc_encode_ref(x.reshape(-1, cols))
+        np.testing.assert_array_equal(vals.numpy().reshape(-1, cols),
+                                      np.asarray(v_ref))
+        np.testing.assert_array_equal(_hot(bits, cols).reshape(-1, cols),
+                                      np.asarray(h_ref))
+        want = torch.relu(t if res is None else t + res)
+        if live is not None:
+            want = torch.where(live[:, None], want, 0.0)
+        assert torch.equal(ops.rfc_decode(vals, bits), want)
+    else:
+        rows = keep.reshape((-1,) + (1,) * (t.dim() - 1))
+        assert torch.equal(torch.where(rows, 0, bits),
+                           torch.where(rows, 0, old["bits"]))
+    np.testing.assert_array_equal(
+        ops.rfc_decode(vals, bits).numpy(),
+        np.asarray(jops.rfc_decode(jnp.asarray(v_pal), jnp.asarray(h_pal))))
 
 
 @pytest.mark.parametrize("shape", [(100, 48), (2, 5, 64), (3, 7, 25, 38)])
@@ -177,6 +240,116 @@ def test_rfc_roundtrip_equals_relu_bit_for_bit(shape):
 def test_rfc_wrapper_rejects_partial_banks():
     with pytest.raises(ValueError, match="not divisible"):
         rp.rfc_encode_cuda(torch.zeros(4, 20))
+
+
+def test_rfc_bits_and_hot_mask_convert_both_ways():
+    """Bit j of a bank's int16 word is its channel j (bit 15 makes the
+    word negative), and the two conversions invert each other."""
+    hot = torch.zeros(3, 32)
+    hot[0, 0] = hot[1, 15] = hot[2, 16] = hot[2, 31] = 1.0
+    bits = rp.bits_from_hot(hot)
+    assert bits.dtype == torch.int16
+    assert bits.tolist() == [[1, 0], [-32768, 0], [0, 1 + 32768 - 65536]]
+    assert torch.equal(rp.hot_from_bits(bits), hot)
+    rand = torch.from_numpy(_rand(4, 6, 5, 64) > 0).float()
+    assert torch.equal(rp.hot_from_bits(rp.bits_from_hot(rand)), rand)
+
+
+# -- a torch emulation of csrc/rfc_pack.cu's lane math (no card needed) -------
+
+def _popc_below(word, j):
+    """popc(word & ((1 << j) - 1)) for (...,) words and (16,) channels."""
+    bits = (word[..., None] >> torch.arange(16)) & 1          # (..., 16)
+    below = torch.arange(16)[None, :] < j[:, None]            # (16 j, 16)
+    return (bits[..., None, :] * below).sum(-1)               # (..., 16 j)
+
+
+def _emulate_encode(t, res, live, keep, old):
+    """The encode kernel's arithmetic on (..., C), one quad a lane: a
+    lane's nibble shifted into
+    its bank's word (the two xor shuffles OR four nibbles), each hot
+    channel to stage slot popc(word below it), each lane zeroing its slots
+    at or past popc(word); the stage starts as NaN, as shared memory holds
+    whatever it held."""
+    C = t.shape[-1]
+    rows = t.numel() // C
+    r = torch.arange(rows)
+    x = t.reshape(rows, C).clone()
+    if res is not None:
+        x = x + res.reshape(rows, C)
+    if live is not None:
+        x = torch.where(live[r % t.shape[-2]][:, None], x, 0.0)
+    x = torch.clamp_min(x, 0.0)
+    q = x.reshape(rows, C // 16, 4, 4)                        # bank, lane, k
+    nib = ((q > 0).to(torch.int64) << torch.arange(4)).sum(-1)
+    word = (nib << (4 * torch.arange(4))).sum(-1)             # the OR
+    j = torch.arange(16)
+    hot = ((word[..., None] >> j) & 1).bool()                 # (rows, nb, 16)
+    slot = _popc_below(word, j)
+    n_hot = hot.sum(-1, keepdim=True)
+    stage = torch.full((rows, C // 16, 16 + 1), float("nan"))
+    stage.scatter_(-1, torch.where(hot, slot, 16), x.reshape(rows, -1, 16))
+    stage[..., :16] = torch.where(j >= n_hot, 0.0, stage[..., :16])
+    vals = stage[..., :16].reshape(t.shape)
+    bits = rp.bits_from_hot(hot.reshape(rows, C).float()).reshape(
+        t.shape[:-1] + (C // 16,))
+    if keep is not None:
+        k = keep[r // (rows // t.shape[0])]
+        vals = torch.where(k[:, None], vals.reshape(rows, C),
+                           old["vals"].reshape(rows, C)).reshape(t.shape)
+        bits = torch.where(k[:, None], bits.reshape(rows, -1),
+                           old["bits"].reshape(rows, -1)).reshape(bits.shape)
+    return vals, bits
+
+
+def _emulate_decode(vals, bits):
+    """The decode kernel's arithmetic: channel j of a bank reads stage
+    slot popc(word below j) where bit j is set, else 0."""
+    C = vals.shape[-1]
+    v = vals.reshape(-1, C // 16, 16)
+    word = bits.reshape(-1, C // 16).to(torch.int64) & 0xFFFF
+    j = torch.arange(16)
+    hot = ((word[..., None] >> j) & 1).bool()
+    got = torch.gather(v, -1, _popc_below(word, j).clamp_max(15))
+    return torch.where(hot, got, 0.0).reshape(vals.shape)
+
+
+@pytest.mark.parametrize("name", list(RFC_CASES))
+def test_rfc_lane_math_emulation_matches_plain(name):
+    """The kernels' index math, emulated in torch on the CPU, against the
+    plain versions, bit for bit: every stage slot written (no NaN left)."""
+    args = _rfc_inputs(name, "cpu")
+    vals, bits = _emulate_encode(*args)
+    assert not torch.isnan(vals).any()
+    v2, b2 = rp.rfc_encode_plain(*args)
+    assert torch.equal(vals.view(torch.int32), v2.view(torch.int32))
+    assert torch.equal(bits, b2)
+    assert torch.equal(_emulate_decode(vals, bits).view(torch.int32),
+                       rp.rfc_decode_plain(v2, b2).view(torch.int32))
+
+
+@pytest.mark.parametrize("view", ["contiguous", "h[:, ::2] even T",
+                                  "h[:, ::2] odd T", "h[1:, 1:]",
+                                  "four strides", "off 16 bytes"])
+def test_rfc_aligned_copies_only_what_the_kernel_cannot_read(view):
+    """``_aligned`` hands a contiguous, 16-byte-aligned input through as it
+    is and copies any other view into storage of its own, equal to it."""
+    if view == "four strides":
+        h = torch.from_numpy(_rand(9, 2, 9, 6, 5, 32))
+        res = h[:, 1::2, 1::2, :, 16:]
+    elif view == "off 16 bytes":              # contiguous, one float in
+        h = torch.from_numpy(_rand(9, 2 * 8 * 5 * 32 + 1))
+        res = h[1:].view(2, 8, 5, 32)
+    else:
+        h = torch.from_numpy(_rand(9, 2, 9 if "odd" in view else 8, 5, 32))
+        res = {"contiguous": h, "h[:, ::2] even T": h[:, ::2],
+               "h[:, ::2] odd T": h[:, ::2], "h[1:, 1:]": h[1:, 1:]}[view]
+    got = rp._aligned(res)
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    assert torch.equal(got, res)
+    # h[1:, 1:] of a (2, ...) h is contiguous and starts on a row of 128 B
+    kept = view in ("contiguous", "h[1:, 1:]")
+    assert (got.data_ptr() == res.data_ptr()) == kept
 
 
 # ---------------------------------------------------------------- flash_decode

@@ -279,6 +279,45 @@ def test_bridge_roundtrip_is_exact(jax_mid_slab):
         np.testing.assert_array_equal(a, b)
 
 
+def test_bridge_packs_the_jax_rfc_mask_into_bits(jax_mid_slab):
+    """A JAX-layout RFC carry (float ``hot`` mask) goes in, int16 ``bits``
+    come out (bit j of a bank's word for its channel j), and the same
+    ``hot`` comes back, in a state and in a snapshot ring."""
+    from repro.kernels import ref as jref
+    want = jax.tree.map(np.asarray, jax_mid_slab)
+    tree = {f: getattr(want, f) for f in
+            ("t_raw", "blocks", "pool_ring", "pool_sum", "pool_t",
+             "bn_stats", "rfc")}
+    rng = np.random.default_rng(3)
+    rfc = []
+    for cout in (8, 32):                      # a partial and two whole banks
+        x = rng.standard_normal((3 * V, cout)).astype(np.float32)
+        x[:, ::5] = 0.0
+        xp = np.pad(x, ((0, 0), (0, -cout % 16)))
+        v, h = (np.asarray(a)[:, :cout] for a in jref.rfc_encode_ref(xp))
+        rfc.append({"vals": v.reshape(3, V, cout),
+                    "hot": h.reshape(3, V, cout)})
+    tree["rfc"] = rfc
+    state = stream_state_from_numpy(tree, "cpu")
+    for got, r in zip(state.rfc, rfc):
+        assert set(got) == {"vals", "bits"} and got["bits"].dtype == torch.int16
+        hot = torch.from_numpy(np.pad(r["hot"], ((0, 0), (0, 0),
+                                                 (0, -r["hot"].shape[-1] % 16))))
+        bank = hot.reshape(3, V, -1, 16)
+        word = (bank.long() << torch.arange(16)).sum(-1)
+        assert torch.equal(got["bits"].long() & 0xFFFF, word)
+    back = stream_state_to_numpy(state)
+    for b, r in zip(back["rfc"], rfc):
+        np.testing.assert_array_equal(b["hot"], r["hot"])
+        assert b["hot"].dtype == r["hot"].dtype
+        np.testing.assert_array_equal(b["vals"], r["vals"])
+    ring = engine.snapshot_slots(state, np.array([2, 0]))
+    ring_back = stream_state_to_numpy(stream_state_from_numpy(
+        stream_state_to_numpy(ring), "cpu"))
+    for b, r in zip(ring_back["rfc"], rfc):
+        np.testing.assert_array_equal(b["hot"], r["hot"][[2, 0]])
+
+
 # ----------------------------------------------- the serving tick vs JAX
 
 def _port_slab(jslab, tplan):
@@ -381,6 +420,9 @@ def test_fused_tick_matches_jax_event_script(jparams, tparams, prune_plans,
         want = jax.tree.map(np.asarray, js)
         assert (ts.rfc is not None) == (backend == "cuda")
         assert want.rfc is None     # the reference slab carries no RFC
+        if ts.rfc is not None:      # the int16 bits through ring and slab
+            assert all(r["bits"].dtype == torch.int16
+                       for r in ts.rfc + tr["rfc"])
         got = stream_state_to_numpy(ts)
         got.pop("rfc")
         _assert_tree_close(got, {f: getattr(want, f) for f in

@@ -26,6 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.agcn import engine, model
 from repro_torch.core.pruning.plan import build_prune_plan
 from repro_torch.kernels import ops
+from repro_torch.kernels import rfc_pack as rp
 from repro_torch.train.steps import make_gcn_infer_step, make_gcn_stream_step
 
 CFG = get_config("agcn-2s", reduced=True)
@@ -235,9 +236,9 @@ def test_sliding_window_pool(jparams, tparams, x, window):
 def test_rfc_state_holds_encoded_interlayer_activations(tparams, x,
                                                         prune_plans):
     """``cuda`` streams keep the RFC-encoded activations of each boundary's
-    last emitted frame: a valid encoding (hot is 0/1, one value per hot
-    lane, front-packed non-negative values), equal to the re-encoding of
-    its own decode."""
+    last emitted frame: a valid encoding (int16 bank words whose popcount
+    is the number of non-zero values, front-packed non-negative values),
+    equal to the re-encoding of its own decode."""
     plan = engine.build_execution_plan(tparams[0], CFG, prune_plans[0],
                                        backend="cuda")
     assert plan.static.use_rfc
@@ -246,13 +247,15 @@ def test_rfc_state_holds_encoded_interlayer_activations(tparams, x,
     state, _ = _stream_torch(plan, x)
     assert len(state.rfc) == len(plan.static.blocks) - 1
     for boundary, bs in zip(state.rfc, plan.static.blocks):
-        vals, hot = boundary["vals"], boundary["hot"]
+        vals, bits = boundary["vals"], boundary["bits"]
         assert vals.shape == (N, 25, bs.cout)
-        assert set(torch.unique(hot).tolist()) <= {0.0, 1.0}
+        assert bits.dtype == torch.int16
+        assert bits.shape == (N, 25, -(-bs.cout // rp.BANK))
+        hot = rp.hot_from_bits(bits)
         assert int((vals != 0).sum()) == int(hot.sum()) > 0
         assert bool((vals >= 0).all())
-        v2, h2 = ops.rfc_encode(ops.rfc_decode(vals, hot))
-        assert torch.equal(v2, vals) and torch.equal(h2, hot)
+        v2, b2 = ops.rfc_encode(ops.rfc_decode(vals, bits))
+        assert torch.equal(v2, vals) and torch.equal(b2, bits)
 
 
 # -------------------------------------------------------- preconditions
