@@ -94,11 +94,17 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                ``reference``, post-drain logits against clip-mode C_k
                logits and ``cuda`` against ``reference`` (atol=rtol=1e-3,
                top-1 100%), 20 windowed_similarity launches per ensemble
-               step; the same stream on plans padded to 50 joints against
-               the narrow one at every step (atol=rtol=1e-4).  Ticks 200
-               frames in are held at S = 1, 3 and 8 of the ``cuda`` stream
-               (windowed_similarity, every column live) and at S = 8 of the
-               padded one (25 live); a windowed_similarity input with an
+               step (its step form: the C_k ring writes and the graph in
+               one launch); the same stream on plans padded to 50 joints
+               against the narrow one at every step (atol=rtol=1e-4).
+               Ticks 200 frames in are held at S = 1, 3 and 8 of the
+               ``cuda`` stream (every column live) and at S = 8 of the
+               padded one (25 live): the step form as the path calls it
+               (new rings bit-equal, graph within 1e-4) and the bare form
+               on the same calls' new rings, each beside a four-call
+               PyTorch composite (``sum``, ``baddbmm``, ``masked_fill``,
+               ``softmax``; ``composite_ms``, no library call computes
+               this function); a windowed_similarity input with an
                all-zero slot fails.
  10. profile — two steps each of the clip, stream, slab, ntu50 CSR clip
                and C_k stream paths under ``torch.profiler``: the device's
@@ -339,7 +345,8 @@ def capture(modules, run):
                (rp, "rfc_encode_cuda", "rfc_encode"),
                (rp, "rfc_decode_cuda", "rfc_decode"),
                (gs, "graph_sconv_csr_cuda", "graph_sconv_csr"),
-               (ws, "windowed_similarity_cuda", "windowed_similarity")]
+               (ws, "windowed_similarity_cuda", "windowed_similarity"),
+               (ws, "windowed_similarity_step_cuda", "windowed_similarity")]
     captured = {name: [] for _, _, name in targets}
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
 
@@ -394,7 +401,8 @@ def measure_case(name, args, kwargs, modules):
     import torch.nn.functional as F
     gs, ct, rp, ws = modules
     from repro_torch.kernels import flash_decode as fd
-    library, as_kernel, extra = None, None, {}
+    library, as_kernel, composite, extra = None, None, None, {}
+    exact = len(args) if name.startswith("rfc") else 0   # bit-equal outputs
     if name == "graph_sconv":
         x, g, w = args
         kern = lambda: gs.graph_sconv_cuda(x, g, w)
@@ -469,13 +477,40 @@ def measure_case(name, args, kwargs, modules):
                       + R * V * Cout)
         flops = 2 * R * (nnz * Cin + K * V * Cin * Cout)
     elif name == "windowed_similarity":
-        th, ph, valid = args
-        kern = lambda: ws.windowed_similarity_cuda(th, ph, valid)
-        plain = lambda: ws.windowed_similarity_plain(th, ph, valid)
+        th, ph, valid = args[0], args[1], args[-1]
         S, K, V, Ce = th.shape
-        nbytes = 4 * (th.numel() + ph.numel() + S * V * V)
-        # window sums, the dot products, then scale, max, exp, sum, divide
-        flops = 2 * S * K * V * Ce + 2 * S * V * V * Ce + 5 * S * V * V
+        if len(args) == 8:      # the step form, as the C_k stream calls it
+            kern = lambda: ws.windowed_similarity_step_cuda(*args)
+            plain = lambda: ws.windowed_similarity_step_plain(*args)
+            new_th, new_ph, _ = plain()
+            exact = 2                       # the new rings: bit-equal
+            has, inv = args[5], args[6]
+            n_has, n_e = int(has.sum()), int((has & inv).sum())
+            # the ring rows not overwritten, the embeddings written, the
+            # flags; the new rings and the graph
+            nbytes = (4 * 2 * V * Ce * ((S * K - n_has) + n_e) + 6 * S
+                      + 4 * (th.numel() + ph.numel() + S * V * V))
+            extra["form"] = "step"
+        else:
+            kern = lambda: ws.windowed_similarity_cuda(th, ph, valid)
+            plain = lambda: ws.windowed_similarity_plain(th, ph, valid)
+            new_th, new_ph = th, ph
+            nbytes = 4 * (th.numel() + ph.numel() + S * V * V)
+            extra["form"] = "bare"
+        # window sums, the live columns' dots, then scale, max, exp, sum,
+        # divide
+        flops = 2 * S * K * V * Ce + 2 * S * V * valid * Ce + 5 * S * V * V
+        # the yardstick: four PyTorch calls on the (new) rings, stacked
+        # here outside the timing (no one call computes this function)
+        rings = torch.stack((new_th, new_ph))
+        dead = torch.arange(V, device=th.device) >= valid
+        buf = torch.empty(S, V, V, device=th.device)
+
+        def composite():
+            win = rings.sum(2)
+            lg = torch.baddbmm(buf, win[0], win[1].transpose(1, 2), beta=0.0,
+                               alpha=1.0 / Ce ** 0.5)
+            return torch.softmax(lg.masked_fill(dead, -1e30), dim=-1)
     elif name == "flash_decode":
         q, k, v, valid = args
         kern = lambda: fd.flash_decode(q, k, v, valid)
@@ -534,14 +569,15 @@ def measure_case(name, args, kwargs, modules):
     want = want if isinstance(want, tuple) else (want,)
     err = max(float((a - b).abs().max()) if a.numel() else 0.0
               for a, b in zip(got, want))
-    if name.startswith("rfc"):
-        ok = all(torch.equal(a, b) for a, b in zip(got, want))
-    else:
-        ok = all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
-                 for a, b in zip(got, want))
+    ok = all(torch.equal(a, b) if i < exact else
+             torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+             for i, (a, b) in enumerate(zip(got, want)))
     if library is not None:
         ref = as_kernel() if as_kernel is not None else library()
         ok = ok and torch.allclose(got[0], ref, atol=1e-4, rtol=1e-4)
+    if composite is not None:
+        ok = ok and torch.allclose(got[-1], composite(), atol=1e-4,
+                                   rtol=1e-4)
     tc = name in TENSOR_CORE_KERNELS
     b_ms, t_bytes, t_ops = bound_ms(nbytes, flops,
                                     TF32_FLOP_PER_S if tc else F32_FLOP_PER_S)
@@ -559,6 +595,9 @@ def measure_case(name, args, kwargs, modules):
                             waits=name.startswith("cavity")),
         "library_ms": (cuda_ms(library, label=f"{name} library")
                        if library is not None else None),
+        # a yardstick of several PyTorch calls, not a library kernel
+        "composite_ms": (cuda_ms(composite, label=f"{name} composite")
+                         if composite is not None else None),
         "bound_ms": b_ms, "bytes_ms": t_bytes, "ops_ms": t_ops,
         # the float32 CUDA-core bound and, on the tensor cores, the 3-pass
         # split's own floor (three TF32 products per product)
@@ -585,6 +624,9 @@ def summarize(cs):
     }
     if cs[0]["split_floor_ms"] is not None:
         out["split_floor_ms"] = sum(c["split_floor_ms"] for c in cs)
+    if cs[0]["composite_ms"] is not None:
+        out["composite_ms"] = sum(c["composite_ms"] for c in cs)
+        out["form"] = cs[0]["form"]
     if "ms_l2" in cs[0]:
         out["ms_l2"] = sum(c["ms_l2"] for c in cs)
         out["cold"] = all(c["cold"] for c in cs)
@@ -1158,6 +1200,11 @@ def main() -> int:
                     failures.append(f"{path} {name}: calls {empty} hold a "
                                     f"slot whose rings are all zero")
             hold(path, name, captured[name])
+            if name == "windowed_similarity":
+                # the bare form on the same calls' new rings
+                hold(f"{path} bare", name, [
+                    ((*ws.windowed_similarity_step_plain(*a)[:2], a[-1]), {})
+                    for a, _ in captured[name]])
         return captured
 
     def hold(path, name, calls):
@@ -1178,6 +1225,9 @@ def main() -> int:
             where = ("rotating copies past the L2" if s["cold"]
                      else "copies that fit the L2")
             tc += f"; timed on {where}, {s['ms_l2']:.4f} on one set of inputs"
+        if "composite_ms" in s:
+            tc += (f"; {s['form']} form, composite of 4 PyTorch calls "
+                   f"{s['composite_ms']:.4f}")
         print(f"kernel {name} [{path}]: {'ok' if not bad else 'FAIL'} on "
               f"{len(cs)} inputs (held and timed in {t_hold:.1f} s), "
               f"max_abs_err {s['max_abs_err']:.3g}; per "
@@ -1625,7 +1675,7 @@ def main() -> int:
     got = hold_cases(f"ck padded stream S={S8}", capture(
         modules, lambda: stream_step(ck_pad, warm_pad, xsp[:, STREAM_WARM])),
         per_ck_tick, {"windowed_similarity"})
-    if {a[2] for a, _ in got["windowed_similarity"]} != {x0.shape[2]}:
+    if {a[-1] for a, _ in got["windowed_similarity"]} != {x0.shape[2]}:
         failures.append("windowed_similarity: the padded plan's calls do "
                         "not mask the columns past its 25 joints")
     pad_diff = max(float((a - b).abs().max())
@@ -1684,8 +1734,10 @@ def main() -> int:
         "rfc_decode": [f"stream S={S8}"],
         "graph_sconv_csr": [f"ntu50 csr stream S={S8}",
                             f"ntu50 csr eps=0 stream S={S8}"],
-        "windowed_similarity": ["ck stream S=1", "ck stream S=3",
-                                f"ck padded stream S={S8}"],
+        "windowed_similarity": [
+            *(f"ck stream S={S}{f}" for S in STREAM_SLOTS
+              for f in ("", " bare") if (S, f) != (S8, "")),
+            f"ck padded stream S={S8}", f"ck padded stream S={S8} bare"],
         "flash_decode": ["lm early decode step", "lm first decode step",
                          *(c[0] for c in FD_CASES)]}
     kernels = []

@@ -985,8 +985,8 @@ def step_frame(
     only, so a session's logits equal its run on a narrow plan.  ``use_ck``
     blocks write the frame's θ/φ embeddings into their rings (zeros for an
     invalid frame) and build C_k from the window before the spatial conv:
-    the ``windowed_similarity`` kernel on ``cuda``,
-    ``adaptive.windowed_ck`` on ``reference``."""
+    on ``cuda`` the step form of the ``windowed_similarity`` kernel does
+    both, on ``reference`` the ring writes and ``adaptive.windowed_ck``."""
     ps = plan.static
     backend = get_backend(ps.backend)
     bn = _BNFrozen(state.bn_stats if bn_stats is None
@@ -1024,19 +1024,21 @@ def step_frame(
         ck = None
         if bs.use_ck:
             xg = _gather_in(h_in, ba)
+            e_th = torch.einsum("nvc,ce->nve", xg, ba["theta"].to(h_in.dtype))
+            e_ph = torch.einsum("nvc,ce->nve", xg, ba["phi"].to(h_in.dtype))
+            vjs = 0 if live is None else vj
             # invalid (flush) frames write zero embeddings: they trail every
             # valid frame, so valid windows match clip mode
-            e_th = torch.where(in_valid[:, None, None], torch.einsum(
-                "nvc,ce->nve", xg, ba["theta"].to(h_in.dtype)), 0.0)
-            e_ph = torch.where(in_valid[:, None, None], torch.einsum(
-                "nvc,ce->nve", xg, ba["phi"].to(h_in.dtype)), 0.0)
-            nb["ck_th"] = _ring_write(sb["ck_th"], write, e_th)
-            nb["ck_ph"] = _ring_write(sb["ck_ph"], write, e_ph)
-            vjs = 0 if live is None else vj
             if ps.backend == "cuda":
-                ck = ops.windowed_similarity(nb["ck_th"], nb["ck_ph"],
-                                             valid_joints=vjs)
+                # one kernel: both ring writes, the window sums, the graph
+                nb["ck_th"], nb["ck_ph"], ck = ops.windowed_similarity_step(
+                    sb["ck_th"], sb["ck_ph"], e_th, e_ph, t, has_input,
+                    in_valid, valid_joints=vjs)
             else:
+                e_th = torch.where(in_valid[:, None, None], e_th, 0.0)
+                e_ph = torch.where(in_valid[:, None, None], e_ph, 0.0)
+                nb["ck_th"] = _ring_write(sb["ck_th"], write, e_th)
+                nb["ck_ph"] = _ring_write(sb["ck_ph"], write, e_ph)
                 ck = adaptive.windowed_ck(nb["ck_th"].sum(1),
                                           nb["ck_ph"].sum(1),
                                           valid_joints=vjs)

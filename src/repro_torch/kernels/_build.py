@@ -52,8 +52,10 @@ _SIGNATURES = {
     "rfc_encode_f32": (*(_P,) * 8, _L, _I, _I, _L, _P),
     # vals, bits, out, rows, C, stream
     "rfc_decode_f32": (_P, _P, _P, _L, _I, _P),
-    # ring_th, ring_ph, out, S, K, V, Ce, valid, stream
-    "window_sim_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # ring_th, ring_ph, e_th, e_ph, t (int32), has_input, in_valid (bool),
+    # new_th, new_ph (the seven null in the bare form), out, S, K, V, Ce,
+    # valid, rows, threads, stream
+    "window_sim_f32": (*(_P,) * 10, *(_I,) * 7, _P),
     # q, k, v, valid (int32), out, B, S, Hkv, G, D, splits, warps, stages,
     # vec, stream
     "flash_decode_f32": (*(_P,) * 5, *(_I,) * 9, _P),
@@ -145,6 +147,18 @@ def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed with cudaError {err}")
     LAUNCHES[kernel] += 1
+
+
+_SMS: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of CUDA ``device`` (read once per device)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:

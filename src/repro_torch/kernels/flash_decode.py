@@ -17,7 +17,7 @@ int or a one-element int32 tensor on the card -> (B, Hkv, G, D).
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -119,17 +119,6 @@ def decode_plan(B: int, S: int, Hkv: int, G: int, D: int,
     return make_plan(B, S, Hkv, G, D, splits, warps, 2)
 
 
-_SMS: Dict[int, int] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
-
-
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  valid: Union[int, torch.Tensor],
                  plan: Optional[DecodePlan] = None) -> torch.Tensor:
@@ -161,7 +150,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel():
         S = k.shape[1]
         if plan is None:
-            plan = decode_plan(B, S, Hkv, G, D, _sm_count(q.device))
+            plan = decode_plan(B, S, Hkv, G, D, _build.sm_count(q.device))
         # 16-byte staging needs 16-byte rows and pointers; else 4-byte
         vec = int(D % 4 == 0 and k.data_ptr() % 16 == 0
                   and v.data_ptr() % 16 == 0)

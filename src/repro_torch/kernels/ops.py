@@ -200,6 +200,27 @@ def windowed_similarity(
                                         ring_ph.contiguous(), int(valid))
 
 
+def windowed_similarity_step(
+    ring_th: torch.Tensor,    # (S, K, V, Ce) per-slot θ-embedding ring
+    ring_ph: torch.Tensor,    # (S, K, V, Ce) per-slot φ-embedding ring
+    e_th: torch.Tensor,       # (S, V, Ce) this frame's θ embeddings
+    e_ph: torch.Tensor,       # (S, V, Ce) this frame's φ embeddings
+    t: torch.Tensor,          # (S,) int32 block clock: the row is t % K
+    has_input: torch.Tensor,  # (S,) bool: the slot writes its row
+    in_valid: torch.Tensor,   # (S,) bool: the row gets e, else zeros
+    valid_joints: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The streaming C_k step in one kernel: (new ring_th, new ring_ph,
+    graph).  The rings are written out of place (the inputs keep their
+    rows) and the graph is :func:`windowed_similarity` of the new rings."""
+    V = ring_th.shape[2]
+    valid = valid_joints if 0 < valid_joints < V else V
+    return _ws.windowed_similarity_step_cuda(
+        ring_th.contiguous(), ring_ph.contiguous(), e_th.contiguous(),
+        e_ph.contiguous(), t.contiguous(), has_input.contiguous(),
+        in_valid.contiguous(), int(valid))
+
+
 # ---------------------------------------------------------------------------
 # Fused graph + spatial conv
 # ---------------------------------------------------------------------------

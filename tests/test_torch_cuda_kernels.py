@@ -346,21 +346,121 @@ def test_graph_sconv_csr_kernel_matches_plain(cuda, R, V, Ci, Co, name, eps):
         gs.graph_sconv_csr_cuda(x, idx.long(), val, w)
 
 
+# (S, K, V, Ce, valid): agcn-2s's widths at V = 25, V = 50 with 25 live
+# (a padded plan), hand21 and body_hand46, S up to 32, K = 9 (the kernel's
+# unrolled ring) and 3 (its generic walk), widths off a multiple of 4
+# (scalar entries)
+WS_KERNEL_CASES = [
+    (1, 9, 25, 4, 25), (3, 9, 25, 16, 25), (8, 9, 25, 32, 20),
+    (8, 9, 25, 64, 25), (32, 9, 25, 16, 25), (8, 9, 50, 64, 25),
+    (32, 9, 50, 32, 25), (8, 9, 21, 64, 21), (3, 9, 46, 32, 46),
+    (2, 3, 7, 4, 5), (3, 3, 25, 64, 25), (2, 9, 9, 6, 9), (2, 3, 21, 6, 15)]
+
+# (has_input, in_valid) per slot, cycled: a live frame, a flush frame, an
+# input-skip frame, a skip with in_valid set (the ring is kept)
+WS_SLOT_FLAGS = [(True, True), (True, False), (False, False), (False, True)]
+
+
+def _ws_rings(S, K, V, Ce, zero, device):
+    """Two (S, K, V, Ce) rings at the model's scale; ``zero``: "all" (a
+    fresh slab: uniform rows), "slot" (slot 0 all zero) or "none"."""
+    th, ph = (_rand(s, S, K, V, Ce, scale=0.3) for s in (1, 2))
+    if zero == "all":
+        th[:], ph[:] = 0.0, 0.0
+    elif zero == "slot":
+        th[0], ph[0] = 0.0, 0.0
+    return tuple(torch.from_numpy(a).to(device) for a in (th, ph))
+
+
+def _ws_step_inputs(S, K, V, Ce, device):
+    """Embeddings, clocks past K and mixed slot flags of a step."""
+    rng = np.random.default_rng(S + K + V)
+    e_th, e_ph = (torch.from_numpy(_rand(s, S, V, Ce, scale=0.3)).to(device)
+                  for s in (3, 4))
+    t = torch.from_numpy(rng.integers(0, 3 * K, S).astype(np.int32)).to(device)
+    flags = [WS_SLOT_FLAGS[s % len(WS_SLOT_FLAGS)] for s in range(S)]
+    has, inv = (torch.tensor([f[i] for f in flags], device=device)
+                for i in (0, 1))
+    return e_th, e_ph, t, has, inv
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("zero", [False, True])
-@pytest.mark.parametrize("S,K,V,Ce,valid", [
-    (1, 9, 25, 4, 25), (3, 9, 25, 16, 25), (8, 9, 50, 64, 25),
-    (8, 9, 25, 32, 20), (2, 3, 7, 4, 5)])
+@pytest.mark.parametrize("zero", ["none", "slot", "all"])
+@pytest.mark.parametrize("S,K,V,Ce,valid", WS_KERNEL_CASES)
 def test_windowed_similarity_kernel_matches_plain(cuda, S, K, V, Ce, valid,
                                                   zero):
-    scale = 0.0 if zero else 0.3
-    th, ph = (torch.from_numpy(_rand(s, S, K, V, Ce) * scale).to(cuda)
-              for s in (1, 2))
+    th, ph = _ws_rings(S, K, V, Ce, zero, cuda)
     _build.reset_launch_counts()
     got = ws.windowed_similarity_cuda(th, ph, valid)
     assert _build.LAUNCHES["windowed_similarity"] == 1
     torch.testing.assert_close(got, ws.windowed_similarity_plain(th, ph, valid),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero", ["none", "slot"])
+@pytest.mark.parametrize("S,K,V,Ce,valid", WS_KERNEL_CASES)
+def test_windowed_similarity_step_kernel_matches_plain(cuda, S, K, V, Ce,
+                                                       valid, zero):
+    th, ph = _ws_rings(S, K, V, Ce, zero, cuda)
+    step = _ws_step_inputs(S, K, V, Ce, cuda)
+    old = (th.clone(), ph.clone())
+    want = ws.windowed_similarity_step_plain(th, ph, *step, valid)
+    _build.reset_launch_counts()
+    got = ws.windowed_similarity_step_cuda(th, ph, *step, valid)
+    assert _build.LAUNCHES["windowed_similarity"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], atol=1e-4, rtol=1e-4)
+    assert torch.equal(th, old[0]) and torch.equal(ph, old[1])
+    with pytest.raises(TypeError, match="int32"):
+        ws.windowed_similarity_step_cuda(th, ph, step[0], step[1],
+                                         step[2].long(), *step[3:], valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Ce", [4, 16, 32, 64])
+def test_windowed_similarity_padded_plan_matches_narrow(cuda, Ce):
+    """Rings padded from 25 to 50 joints with zeros, 25 live columns (a
+    padded plan): both forms give the narrow rings' graph rows and new
+    ring rows bit for bit."""
+    th, ph = _ws_rings(8, 9, 25, Ce, "none", cuda)
+    step = _ws_step_inputs(8, 9, 25, Ce, cuda)
+    pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 25))
+    step_p = (pad(step[0]), pad(step[1]), *step[2:])
+    narrow = ws.windowed_similarity_step_cuda(th, ph, *step, 25)
+    padded = ws.windowed_similarity_step_cuda(pad(th), pad(ph), *step_p, 25)
+    assert torch.equal(padded[2][:, :25, :25], narrow[2])
+    assert torch.equal(padded[0][:, :, :25], narrow[0])
+    assert torch.equal(padded[1][:, :, :25], narrow[1])
+    assert not padded[2][:, :, 25:].any()
+    assert torch.equal(ws.windowed_similarity_cuda(pad(th), pad(ph), 25)[
+        :, :25, :25], ws.windowed_similarity_cuda(th, ph, 25))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,K,V,Ce,valid", [(8, 9, 25, 64, 25),
+                                            (8, 9, 50, 16, 25),
+                                            (3, 3, 21, 6, 21)])
+def test_windowed_similarity_every_plan_matches_plain(cuda, S, K, V, Ce,
+                                                      valid):
+    """Plans the planner does not pick (a row a block, rows past the
+    warps, several load rounds) in both forms."""
+    th, ph = _ws_rings(S, K, V, Ce, "none", cuda)
+    step = _ws_step_inputs(S, K, V, Ce, cuda)
+    want = ws.windowed_similarity_plain(th, ph, valid)
+    want_step = ws.windowed_similarity_step_plain(th, ph, *step, valid)
+    for rows in (1, 4, 7, V):
+        for threads in (32, 128, 512):
+            p = ws.make_sim_plan(S, K, V, Ce, rows, threads)
+            torch.testing.assert_close(
+                ws.windowed_similarity_cuda(th, ph, valid, plan=p), want,
+                atol=1e-4, rtol=1e-4)
+            got = ws.windowed_similarity_step_cuda(th, ph, *step, valid,
+                                                   plan=p)
+            assert torch.equal(got[0], want_step[0])
+            assert torch.equal(got[1], want_step[1])
+            torch.testing.assert_close(got[2], want_step[2], atol=1e-4,
+                                       rtol=1e-4)
 
 
 @pytest.mark.cuda

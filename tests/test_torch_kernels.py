@@ -516,6 +516,11 @@ def test_cpu_dispatch_counts_no_launches():
                             torch.ones(3, 25, 2), torch.ones(3, 3, 8))
     ws.windowed_similarity_cuda(torch.ones(2, 9, 25, 4),
                                 torch.ones(2, 9, 25, 4), 20)
+    ws.windowed_similarity_step_cuda(
+        torch.ones(2, 9, 25, 4), torch.ones(2, 9, 25, 4),
+        torch.ones(2, 25, 4), torch.ones(2, 25, 4),
+        torch.zeros(2, dtype=torch.int32), torch.ones(2, dtype=torch.bool),
+        torch.ones(2, dtype=torch.bool), 20)
     fd.flash_decode(torch.ones(2, 1, 3, 20), torch.ones(2, 8, 1, 20),
                     torch.ones(2, 8, 1, 20), 3)
     assert {"cavity_tconv_step", "graph_sconv_csr", "windowed_similarity",

@@ -2,7 +2,8 @@
 """Same-call timings, on one NVIDIA GPU, of the port's redesigned streaming,
 sparse spatial and decode-attention kernels over their plan choices.
 
-    python3 tools/torch_kernel_plans.py [--only step|csr|flash_decode]
+    python3 tools/torch_kernel_plans.py
+        [--only step|csr|flash_decode|windowed_similarity]
 
 - ``cavity_tconv_step`` (ring form) at S = 1, 3, 8 slots of 25 and 50
   joints and C = F = 64, 128, 256 (agcn-2s's widths, cav-70-1): every
@@ -11,6 +12,15 @@ sparse spatial and decode-attention kernels over their plan choices.
 - ``graph_sconv_csr`` at the ntu50 clip (R = 1200, 600, 300 rows) and
   S = 8 stream shapes, D = the skeleton's degree and D = V, beside the
   dense ``graph_sconv`` and the 3-operand einsum on the densified graph.
+- ``flash_decode`` at the served smollm-360m steps, a long context and
+  h2o-danube's ring: every (splits, warps, stages) plan, beside masked
+  SDPA.
+- ``windowed_similarity`` at S = 1, 3, 8 slots of 25 joints and of 50
+  with 25 live (a padded plan), Ce = 4, 16, 32, 64, K = 9: both forms
+  (the step form with every slot writing its ring row) over every
+  (rows, threads) plan, beside the plan ``sim_plan`` picks and the
+  four-call PyTorch composite (``sum``, ``baddbmm``, ``masked_fill``,
+  ``softmax``).
 
 Times are microseconds per launch by ``chip_smoke.cuda_ms`` (CUDA events
 behind a spin kernel longer than the host's queueing); every kernel output
@@ -36,6 +46,7 @@ from repro_torch.kernels import cavity_tconv as ct  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import graph_sconv as gs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import window_sim as ws  # noqa: E402
 
 
 def step_cases(dev, gen):
@@ -156,9 +167,66 @@ def decode_cases(dev, gen):
         del q, k, v
 
 
+def sim_cases(dev, gen):
+    print("windowed_similarity: us per launch, bare / step form, by plan "
+          "(rows, threads)")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (V, valid), S, Ce in itertools.product(((25, 25), (50, 25)),
+                                               (1, 3, 8), (4, 16, 32, 64)):
+        th, ph = (torch.randn(S, 9, V, Ce, generator=gen, device=dev) * 0.3
+                  for _ in range(2))
+        e_th, e_ph = (torch.randn(S, V, Ce, generator=gen, device=dev) * 0.3
+                      for _ in range(2))
+        step = (e_th, e_ph, torch.arange(S, dtype=torch.int32, device=dev),
+                torch.ones(S, dtype=torch.bool, device=dev),
+                torch.ones(S, dtype=torch.bool, device=dev))
+        want = ws.windowed_similarity_plain(th, ph, valid)
+        want_step = ws.windowed_similarity_step_plain(th, ph, *step, valid)
+        win = torch.stack((th, ph))
+        dead = torch.arange(V, device=dev) >= valid
+        buf = torch.empty(S, V, V, device=dev)
+
+        def composite():
+            w = win.sum(2)
+            lg = torch.baddbmm(buf, w[0], w[1].transpose(1, 2), beta=0.0,
+                               alpha=1.0 / Ce ** 0.5)
+            return torch.softmax(lg.masked_fill(dead, -1e30), dim=-1)
+        ok_c = torch.allclose(composite(), want, atol=1e-4, rtol=1e-4)
+        t_c = cs.cuda_ms(composite)
+        rows = []
+        for r, threads in itertools.product(sorted({1, 2, 4, 7, 8, 13, V}),
+                                            ws.THREADS):
+            p = ws.make_sim_plan(S, 9, V, Ce, r, threads)
+            got = ws.windowed_similarity_step_cuda(th, ph, *step, valid,
+                                                   plan=p)
+            ok = (torch.allclose(ws.windowed_similarity_cuda(
+                th, ph, valid, plan=p), want, atol=1e-4, rtol=1e-4)
+                and torch.equal(got[0], want_step[0])
+                and torch.equal(got[1], want_step[1])
+                and torch.allclose(got[2], want_step[2], atol=1e-4,
+                                   rtol=1e-4))
+            tb = cs.cuda_ms(lambda: ws.windowed_similarity_cuda(
+                th, ph, valid, plan=p))
+            ts = cs.cuda_ms(lambda: ws.windowed_similarity_step_cuda(
+                th, ph, *step, valid, plan=p))
+            rows.append((ts, tb, r, threads, ok))
+        rows.sort()
+        pick = ws.sim_plan(S, 9, V, Ce, sms)
+        tb = cs.cuda_ms(lambda: ws.windowed_similarity_cuda(th, ph, valid))
+        ts = cs.cuda_ms(lambda: ws.windowed_similarity_step_cuda(
+            th, ph, *step, valid))
+        print(f"S={S} V={V} valid={valid} Ce={Ce}: picked {pick.rows}/"
+              f"{pick.threads} {tb * 1e3:.2f} / {ts * 1e3:.2f}; composite "
+              f"{t_c * 1e3:.2f}{'' if ok_c else ' DISAGREES'}; " + "; ".join(
+                  f"{r}/{n} {b * 1e3:.2f} / {a * 1e3:.2f}"
+                  + ("" if ok else " DISAGREES")
+                  for a, b, r, n, ok in rows))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
-    ap.add_argument("--only", choices=("step", "csr", "flash_decode"))
+    ap.add_argument("--only", choices=("step", "csr", "flash_decode",
+                                       "windowed_similarity"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -170,7 +238,8 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     for name, sweep in (("step", step_cases), ("csr", csr_cases),
-                        ("flash_decode", decode_cases)):
+                        ("flash_decode", decode_cases),
+                        ("windowed_similarity", sim_cases)):
         if args.only in (None, name):
             sweep(dev, gen)
     return 0
