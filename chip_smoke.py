@@ -106,12 +106,42 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                ``softmax``; ``composite_ms``, no library call computes
                this function); a windowed_similarity input with an
                all-zero slot fails.
- 10. profile — two steps each of the clip, stream, slab, ntu50 CSR clip
+ 10. sessions — ``repro_torch.serving.GcnService`` through its public API
+               (``replay``, ``open_session``/``submit``/``close``/``poll``),
+               with port weights from seed 0:
+               (a) the golden replays on ``cuda`` at the reduced config
+               (the golden tests' prune plan: [1.0, 0.5, 0.5, 0.5] kept,
+               cav-70-1, input skip 2, Q8.8): ``tests/data/traces/
+               smoke.json`` through the three ``fifo`` cells of
+               ``golden_smoke.json`` and both cells of
+               ``golden_saliency.json``, then, while the first ones took
+               under 30 s, the four ``preempt``/``deadline`` cells; each
+               must equal its golden cell exactly (outcome digest, ticks,
+               sessions, preemptions, restores, deadline misses, sheds,
+               saliency counts, tier walk, final capacity, per-priority
+               tick percentiles), with graph_sconv, cavity_tconv_step,
+               rfc_encode and rfc_decode launched per step as a
+               one-stream tick does; (b) full agcn-2s on ``cuda`` and
+               ``reference``: a ``TraceGenerator`` trace of 16 sessions
+               (mean 48 frames, 16 to 96, 30% high priority, seed 7)
+               under ``qos="preempt"``, tiers (4, 8), ``policy="demand"``;
+               the two outcome digests equal, every finished session's
+               logits within atol=rtol=1e-3, top-1 100%, at least one
+               preemption and one migration, and the ``cuda`` launches
+               exactly one tick's per step plus one calibration clip pass;
+               prints sessions/s, frames/s, tick p50 and mean (host clock
+               inside ``tick``), ms a tick over the run, dispatches,
+               forced readbacks and launches per tick; (c) a two-skeleton
+               service (ntu25 padded to 50, ntu50, 4 slots) fed frame by
+               frame with starved (held) ticks, then closed: every
+               session done, ``cuda`` against ``reference`` within
+               atol=rtol=1e-3.  Prints the phase's time.
+ 11. profile — two steps each of the clip, stream, slab, ntu50 CSR clip
                and C_k stream paths under ``torch.profiler``: the device's
                busy share of the wall time and device time by kernel name
                (reported, not checked; the profiler's own cost inflates the
                wall time).
- 11. lm      — dense LM decode serving at the full width of smollm-360m
+ 12. lm      — dense LM decode serving at the full width of smollm-360m
                (32 layers, d_model 960, 15/5 heads, vocab 49 152; random
                weights from seed 0): ``generate`` (batch 4, a 496-token
                prompt fed token by token, then 16 greedy tokens: 511 serve
@@ -191,6 +221,10 @@ STREAM_WARM = 200                  # raw frames before a held stream tick
 SLAB_SLOTS, SESSIONS, SESSION_FRAMES, EVENTS, RING_ROWS = 8, 12, 64, 4, 4
 TOPO_CLIPS = 32                    # ntu50 sequences in the topology phase
 MIXED_SESSIONS, MIXED_FRAMES, MIXED_EVERY = 10, 48, 4
+SESSIONS_N, SESSIONS_TIERS = 16, (4, 8)    # the full-width sessions trace
+SESSIONS_GOLDEN_S = 30.0           # golden cells past the first five run
+                                   # while the first ones took less
+MIXED_SVC_FRAMES = 24              # frames per session of the mixed service
 VMAX = 50                          # slab width of the mixed and padded runs
 DENSE_SKELETONS = (("hand21", 21), ("body_hand46", 46))
 CSR_EPS = 1e-5                     # above B_k's 1e-6 init: D = degree
@@ -901,7 +935,7 @@ def record_decode(steps, num_layers):
 
 
 def lm_phase(dev, failures, cases, summary, check_launches, modules):
-    """Phase 11: ``generate`` at full smollm-360m width on both backends,
+    """Phase 12: ``generate`` at full smollm-360m width on both backends,
     the teacher-forced and prefill agreement checks, flash_decode's launch
     count, cases and times, a sync-free step and a profiled step."""
     import numpy as np
@@ -1059,6 +1093,236 @@ def lm_phase(dev, failures, cases, summary, check_launches, modules):
         cache["pos"].fill_(p0)
         fstep(params, cache, {"tokens": batch["tokens"], "pos": at})
     profile_steps("lm decode step", decode_step)
+
+
+def golden_mismatch(out, want) -> list:
+    """The counters of a replay row that differ from a golden cell (the
+    ones the golden tests check), as 'name got/want' strings."""
+    from repro_torch.serving import outcome_digest
+    pairs = [("outcome_digest", outcome_digest(out["outcomes"]),
+              want["outcome_digest"]),
+             ("migrations", out["resize_events"], want["migrations"])]
+    pairs += [(k, out[k], want[k]) for k in (
+        "ticks", "sessions", "preemptions", "restores", "deadline_missed",
+        "capacity_final", "sessions_rejected", "sessions_degraded",
+        "shed_windows", "frames_scored", "frames_skipped") if k in want]
+    for p, d in want["per_priority"].items():
+        got = out["latency_ms_by_priority"].get(p, {})
+        pairs += [(f"priority {p} {k}", got.get(k), v) for k, v in d.items()]
+    return [f"{k} {g}/{w}" for k, g, w in pairs if g != w]
+
+
+def sessions_phase(dev, failures, check_launches, per_clip, per_tick):
+    """Phase 10: ``GcnService`` through the public API — the golden trace
+    replays on ``cuda`` at the reduced config, a generated trace at full
+    width on ``cuda`` against ``reference``, and a two-skeleton service on
+    both backends."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.agcn import engine
+    from repro_torch.core.agcn.model import init_params
+    from repro_torch.core.pruning.plan import build_prune_plan
+    from repro_torch.serving import (GcnService, SloConfig, Trace,
+                                     TrafficConfig, generate_trace,
+                                     outcome_digest, replay)
+
+    t_phase = time.perf_counter()
+    traces = ROOT / "tests" / "data" / "traces"
+    golden = json.loads((traces / "golden_smoke.json").read_text())
+    sal = json.loads((traces / "golden_saliency.json").read_text())
+    smoke = Trace.load(str(traces / "smoke.json"))
+    if smoke.digest() != golden["trace_digest"]:
+        failures.append("sessions: smoke.json does not have the golden "
+                        "trace digest")
+
+    # ---- (a) the golden replays on cuda, with the port's own weights ------
+    rcfg = get_config(ARCH, reduced=True)
+    rp = init_params(rcfg, seed=SEED, device=dev)
+    pp = build_prune_plan([b["Wk"].cpu().numpy() for b in rp["blocks"]],
+                          rcfg.gcn_channels, [1.0, 0.5, 0.5, 0.5],
+                          "cav-70-1", input_skip=2)
+    rplan = engine.build_execution_plan(rp, rcfg, pp, quant=True,
+                                        backend="cuda")
+    xr = torch.randn((2, rcfg.gcn_frames, rcfg.gcn_joints,
+                      rcfg.gcn_in_channels),
+                     generator=torch.Generator().manual_seed(SEED + 1))
+    rbn = engine.collect_bn_stats(rplan, xr.to(dev))
+    nb = len(rcfg.gcn_channels)          # one stream: no ensemble
+    per_tick_r = dict.fromkeys(per_tick, 0)
+    per_tick_r.update(graph_sconv=nb, cavity_tconv_step=nb,
+                      rfc_encode=nb - 1, rfc_decode=nb - 1)
+    cells = [(golden, "fifo/demand"), (golden, "fifo/slo"),
+             (golden, "fifo/slo-degrade"), (sal, "fifo/demand"),
+             (sal, "preempt/demand"), (golden, "preempt/demand"),
+             (golden, "preempt/slo"), (golden, "deadline/demand"),
+             (golden, "deadline/slo")]
+    t0 = time.perf_counter()
+    total, steps = collections.Counter(), 0
+    done = []
+    for i, (src, cell) in enumerate(cells):
+        if i >= 5 and time.perf_counter() - t0 > SESSIONS_GOLDEN_S:
+            break                        # the optional cells past the budget
+        qos, policy = cell.split("/")
+        pol = "slo" if policy.startswith("slo") else "demand"
+        slo = (SloConfig(**{**golden["slo"], "shed_mode": "degrade"
+                            if policy == "slo-degrade" else "reject"})
+               if pol == "slo" else None)
+        gated = src is sal
+        out, counts = counted(lambda: replay(
+            rcfg, smoke, backend="cuda", qos=qos, policy=pol,
+            capacity_tiers=tuple(src["tiers"]), slo_config=slo,
+            plans=(rplan,), bn_stats=(rbn,), record_outcomes=True,
+            saliency_thresh=src["saliency_thresh"] if gated else 0.0,
+            device=dev))
+        total.update(counts)
+        # the warm-up steps the plain step and the fused tick once per tier
+        want_n = out["device_dispatches"] + 2 * len(src["tiers"])
+        steps += want_n
+        bad = golden_mismatch(out, src["cells"][cell])
+        label = f"{cell}{' saliency' if gated else ''}"
+        for name, n in per_tick_r.items():
+            if counts[name] != n * want_n:
+                bad.append(f"{name} launches {counts[name]}/{n * want_n}")
+        if bad:
+            failures.append(f"sessions golden {label}: {bad}")
+        done.append(label)
+        print(f"sessions: golden {label} on cuda (reduced {ARCH}, port "
+              f"weights): {'ok' if not bad else 'FAIL'}, digest "
+              f"{outcome_digest(out['outcomes'])[:12]}, {out['ticks']} "
+              f"ticks, {out['sessions']} sessions, preemptions "
+              f"{out['preemptions']}, capacity {out['capacity_final']}, "
+              f"{out['readbacks']} readbacks")
+    check_launches("sessions golden", dict(total), per_tick_r, steps)
+    print(f"sessions: {len(done)} golden cells of {len(cells)} in "
+          f"{time.perf_counter() - t0:.1f} s; launches {dict(total)} in "
+          f"{steps} steps (warm-up included)")
+
+    # ---- (b) full width: a generated trace, cuda against reference --------
+    cfg = get_config(ARCH)
+    trace = generate_trace(TrafficConfig(
+        n_sessions=SESSIONS_N, mean_frames=48, min_frames=16, max_frames=96,
+        high_priority_ratio=0.3, seed=7), name="chip-sessions")
+    rows = {}
+    for backend in ("cuda", "reference"):
+        t0 = time.perf_counter()
+        out, counts = counted(lambda: replay(
+            cfg, trace, backend=backend, qos="preempt", policy="demand",
+            capacity_tiers=SESSIONS_TIERS, record_outcomes=True, seed=SEED,
+            device=dev))
+        wall = time.perf_counter() - t0
+        rows[backend] = out
+        # construction calibrates both streams (one clip pass each) and
+        # warms the plain step and the fused tick once per tier
+        warm = 2 * len(SESSIONS_TIERS)
+        if backend == "cuda":
+            per_tick_got = check_launches(
+                "sessions", counts, per_tick, out["device_dispatches"] + warm,
+                base=per_clip)
+        t = out["ticks"]
+        print(f"sessions: backend={backend} full {ARCH}, {SESSIONS_N} "
+              f"sessions (trace {trace.digest()}), preempt, tiers "
+              f"{SESSIONS_TIERS}: {out['sessions'] / out['wall_s']:.3f} "
+              f"sessions/s, {out['frames_per_s']:.2f} frames/s, {t} ticks, "
+              f"tick p50 {out['tick_ms_p50']:.3f} ms mean "
+              f"{out['tick_ms_mean']:.3f} ms (host clock inside tick, no "
+              f"synchronise), {out['wall_s'] / t * 1e3:.3f} ms a tick over "
+              f"the run (host {out['wall_host_s'] / t * 1e3:.3f}, of it "
+              f"issuing the upload and steps "
+              f"{out['wall_dispatch_s'] / t * 1e3:.3f} and the scheduler "
+              f"{(out['wall_host_s'] - out['wall_dispatch_s']) / t * 1e3:.3f}"
+              f"; forced readback waits "
+              f"{out['wall_device_s'] / t * 1e3:.3f}); "
+              f"{out['device_dispatches']} device_dispatches, "
+              f"{out['readbacks']} forced readbacks, preemptions "
+              f"{out['preemptions']}, migrations {out['resize_events']}, "
+              f"occupancy {out['occupancy'] * 100:.1f}%; {wall:.1f} s with "
+              f"construction")
+    print(f"sessions: launches per tick by name (cuda) "
+          f"{ {k: v for k, v in per_tick_got.items() if v} }")
+    c, r = rows["cuda"], rows["reference"]
+    dc, dr = outcome_digest(c["outcomes"]), outcome_digest(r["outcomes"])
+    lc = {x.sid: x.logits for x in c["records"]}
+    lr = {x.sid: x.logits for x in r["records"]}
+    diff = max((float(np.abs(lc[k] - lr[k]).max()) for k in lc if k in lr),
+               default=float("inf"))
+    top1 = float(np.mean([lc[k].argmax() == lr[k].argmax() for k in lc
+                          if k in lr])) if lc else 0.0
+    bad = []
+    if dc != dr:
+        bad.append(f"outcome digests differ ({dc[:12]} vs {dr[:12]})")
+    if sorted(lc) != sorted(lr) or len(lc) != SESSIONS_N:
+        bad.append(f"finished {sorted(lc)} vs {sorted(lr)}")
+    if not all(np.isfinite(v).all() and np.allclose(v, lr[k], atol=1e-3,
+                                                    rtol=1e-3)
+               for k, v in lc.items() if k in lr) or top1 != 1.0:
+        bad.append(f"logits differ by {diff:.3g}, top-1 {top1}")
+    if not c["preemptions"] or not c["resize_events"]:
+        bad.append("the trace made no preemption or no migration")
+    if bad:
+        failures.append(f"sessions full width: {bad}")
+    print(f"sessions: full width cuda vs reference: digests "
+          f"{'equal' if dc == dr else 'DIFFER'} ({dc[:12]}), {len(lc)} "
+          f"finished sessions, max |logit difference| {diff:.3g}, top-1 "
+          f"agreement {top1 * 100:.1f}%")
+
+    # ---- (c) two skeletons in one service, cuda against reference ---------
+    rng = np.random.default_rng(SEED + 2)
+    script = [(topo, rng.standard_normal((MIXED_SVC_FRAMES, v, 3)).astype(
+        np.float32)) for topo, v in (("ntu25", 25), ("ntu50", 50),
+                                     ("ntu50", 50), ("ntu25", 25))]
+    got = {}
+    for backend in ("cuda", "reference"):
+        t0 = time.perf_counter()
+
+        def drive():
+            svc = GcnService(cfg, backend=backend,
+                             topologies=("ntu25", "ntu50"),
+                             capacity_tiers=(len(script),), seed=SEED,
+                             device=dev)
+            hs = [svc.open_session(topology=t) for t, _ in script]
+            fed = [0] * len(hs)
+            t = 0
+            while min(fed) < MIXED_SVC_FRAMES:
+                # frames arrive 0, 1 or 2 at a time: a session whose buffer
+                # runs dry is held
+                for k, (h, (_, clip)) in enumerate(zip(hs, script)):
+                    for _ in range((1, 0, 2, 1)[(t + k) % 4]):
+                        if fed[k] < MIXED_SVC_FRAMES:
+                            svc.submit(h, clip[fed[k]])
+                            fed[k] += 1
+                svc.tick()
+                t += 1
+            for h in hs:
+                svc.close(h)
+            svc.run_until_idle()
+            return svc, [svc.poll(h) for h in hs]
+
+        (svc, sts), counts = counted(drive)
+        if backend == "cuda":
+            # calibration: one clip pass per skeleton; warm-up: the primary
+            # step, the other group's step and the fused tick
+            check_launches("sessions mixed", counts, per_tick,
+                           svc.device_dispatches + 3,
+                           base={k: 2 * v for k, v in per_clip.items()})
+        if any(s.state != "done" for s in sts):
+            failures.append(f"sessions mixed {backend}: states "
+                            f"{[s.state for s in sts]}")
+        got[backend] = [s.logits for s in sts]
+        m = svc.metrics(keep_records=0)
+        print(f"sessions: mixed ntu25+ntu50 backend={backend}: "
+              f"{len(sts)} sessions in {m['ticks']} ticks, "
+              f"{m['device_dispatches']} dispatches, tick p50 "
+              f"{m['tick_ms_p50']:.3f} ms, {time.perf_counter() - t0:.1f} s "
+              f"with construction")
+    d = max(float(np.abs(a - b).max())
+            for a, b in zip(got["cuda"], got["reference"]))
+    if not all(np.allclose(a, b, atol=1e-3, rtol=1e-3)
+               for a, b in zip(got["cuda"], got["reference"])):
+        failures.append(f"sessions mixed: cuda vs reference logits differ "
+                        f"by {d:.3g}")
+    print(f"sessions: mixed cuda vs reference, every session {d:.3g}")
+    print(f"sessions: phase time {time.perf_counter() - t_phase:.1f} s")
 
 
 def card_tests(failures) -> None:
@@ -1335,14 +1599,20 @@ def main() -> int:
     phase_done("kernels")
     launches, per_step = {}, {}
 
-    def check_launches(path, counts, expect, steps):
+    def check_launches(path, counts, expect, steps, base=None):
+        """Check ``counts`` against ``expect`` per step over ``steps``
+        steps plus ``base`` launches outside them (a service's
+        calibration); returns the launches per step."""
+        base = base or {}
         launches[path] = counts
-        per_step[path] = {k: v / steps for k, v in counts.items()}
+        per_step[path] = {k: (v - base.get(k, 0)) / steps
+                          for k, v in counts.items()}
         for name in counts:          # kernels missing from expect: none
-            n = expect.get(name, 0)
-            if counts[name] != n * steps:
+            n = expect.get(name, 0) * steps + base.get(name, 0)
+            if counts[name] != n:
                 failures.append(f"{path} {name}: {counts[name]} launches in "
-                                f"{steps} steps, expected {n * steps}")
+                                f"{steps} steps, expected {n}")
+        return per_step[path]
 
     # ---- 4. the main path: clip serving ------------------------------------
     res, counts = counted(lambda: serve_gcn(
@@ -1691,7 +1961,11 @@ def main() -> int:
 
     phase_done("ck")
 
-    # ---- 10. profile ----------------------------------------------------------
+    # ---- 10. sessions: GcnService ---------------------------------------------
+    sessions_phase(dev, failures, check_launches, per_clip, per_tick)
+    phase_done("sessions")
+
+    # ---- 11. profile ----------------------------------------------------------
     profile_steps("clip", lambda: infer(plans, x0))
     profile_steps(f"stream S={S8}", lambda: stream_step(
         plans, warm8, x0[:S8, STREAM_WARM]))
@@ -1703,7 +1977,7 @@ def main() -> int:
 
     phase_done("profile")
 
-    # ---- 11. LM decode serving: smollm-360m at full width ---------------------
+    # ---- 12. LM decode serving: smollm-360m at full width ---------------------
     lm_phase(dev, failures, cases, summary, check_launches, modules)
     phase_done("lm")
 

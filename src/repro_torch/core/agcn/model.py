@@ -101,6 +101,30 @@ def forward(
     return engine.execute(exec_plan, x)
 
 
+def init_stream(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    x_calib: torch.Tensor,                # (N, T, V, C) representative clip
+    plan: Optional[PrunePlan] = None,
+    quant: bool = False,
+    backend: Optional[str] = None,
+    exec_plan=None,
+):
+    """State init for per-frame continual inference: ``(exec_plan,
+    StreamState)``.  ``x_calib`` fixes the stream's batch size and
+    calibrates the frozen batch-norm statistics with which
+    ``engine.step_frame`` reproduces the clip engine after the drain.  A
+    prebuilt ``exec_plan`` skips plan compilation; otherwise one is
+    compiled as in :func:`forward`."""
+    from repro_torch.core.agcn import engine
+    ep = exec_plan
+    if ep is None:
+        ep = engine.build_execution_plan(
+            params, cfg, plan, quant=quant,
+            backend=backend or cfg.gcn_backend)
+    return ep, engine.init_stream_state(ep, x_calib.shape[0], x_calib=x_calib)
+
+
 def bone_stream(x: torch.Tensor) -> torch.Tensor:
     """Second stream of 2s-AGCN: bone vectors = joint − parent joint on the
     NTU-25 skeleton (the root's stays zero)."""

@@ -7,6 +7,12 @@ decoding.
     PYTHONPATH=src python -m repro_torch.launch.serve stream --arch agcn-2s \\
         [--reduced] [--batch N] [--backend cuda|reference|both] \\
         [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve sessions \\
+        --arch agcn-2s [--reduced] [--slots S] [--n-sessions N] \\
+        [--qos fifo|preempt|deadline] [--capacity-tiers 2,4,8] \\
+        [--trace FILE] [--policy demand|slo] [--topology NAME] [--ck] \\
+        [--saliency-thresh X] [--backend cuda|reference|both] \\
+        [--device cuda|cpu] [--bench PATH]
     PYTHONPATH=src python -m repro_torch.launch.serve lm --arch smollm-360m \\
         [--reduced] [--batch N] [--prompt-len N] [--gen N] \\
         [--backend cuda|reference|both] [--device cuda|cpu]
@@ -20,13 +26,18 @@ agreement with the clip engine.  ``lm`` serves a dense decoder LM with
 random weights: a seeded random prompt fed token by token through the
 KV-cache decode step, then greedy decoding, and prints tokens/s and the
 per-step latency.  ``--backend both`` adds the cross-backend top-1 (token)
-agreement.  The ``sessions`` mode is not ported yet (ROADMAP.md Queue 1).
+agreement.  ``sessions`` serves many independent sessions through
+``repro_torch.serving.GcnService`` (generated Poisson or bursty load, or a
+recorded trace with ``--trace``), prints the service's metrics and merges
+its rows into ``--bench`` (default ``BENCH_torch_sessions.json`` in the
+current directory).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -238,17 +249,139 @@ def generate(arch: str, *, reduced: bool = True, batch: int = 4,
     return out
 
 
+def serve_gcn_sessions(arch: str, *, reduced: bool = True, slots: int = 4,
+                       n_sessions: int = 0, rate: float = 0.0, seed: int = 0,
+                       backends: Sequence[str] = ("cuda",),
+                       qos: str = "fifo", preempt_ratio: float = 0.25,
+                       deadline_slack: int = 25,
+                       capacity_tiers: Optional[Sequence[int]] = None,
+                       load: str = "poisson", policy: str = "demand",
+                       slo_config=None, trace: str = "", topology: str = "",
+                       use_ck: bool = False, saliency_thresh: float = 0.0,
+                       device: DeviceLike = None,
+                       bench: Optional[str] = None) -> List[Dict]:
+    """Multi-session stream serving through
+    :class:`repro_torch.serving.GcnService`, one service per backend (the
+    two-stream ensemble), as the JAX package's ``serve_gcn_sessions``
+    without ``mesh`` and ``replicas``.
+
+    ``qos`` picks the scheduler policy, ``capacity_tiers`` (e.g. ``(2, 4,
+    8)``) makes the service elastic (``slots`` alone is a fixed-capacity
+    run), ``load`` the arrival process (``poisson`` | ``burst``).
+    ``trace`` replays a recorded :class:`~repro_torch.serving.Trace` file
+    instead of generating load, so runs that differ only in ``policy``
+    (``demand`` | ``slo``, knobs in ``slo_config``) compare the
+    controllers on identical traffic.  ``topology`` serves a registered
+    skeleton, ``use_ck`` the windowed C_k graph, ``saliency_thresh`` > 0
+    gates uninformative frames.  Returns the services' metrics rows and
+    merges them into ``bench`` (default ``BENCH_torch_sessions.json``)."""
+    from repro_torch.serving import (DEFAULT_BENCH_PATH, Trace, replay,
+                                     run_sessions, write_bench)
+
+    cfg = get_config(arch, reduced=reduced)
+    if cfg.family != "gcn":
+        raise ValueError(f"{arch} is not a gcn-family arch")
+    if use_ck and not cfg.use_ck:
+        cfg = dataclasses.replace(cfg, use_ck=True)
+    tiers = tuple(capacity_tiers or (slots,))
+    if trace:
+        if topology:
+            raise ValueError("--topology is not available with --trace: a "
+                             "recorded trace pins its clip bytes to the "
+                             "skeleton it was captured with")
+        rec = Trace.load(trace)
+        results = [
+            replay(cfg, rec, backend=backend, qos=qos, policy=policy,
+                   capacity_tiers=tiers, slo_config=slo_config,
+                   deadline_slack=deadline_slack, seed=seed,
+                   saliency_thresh=saliency_thresh, device=device)
+            for backend in backends]
+    else:
+        n = n_sessions or 3 * slots
+        # mean inter-arrival ~ clip_len / slots: offered load ~ capacity
+        mean_gap = rate if rate > 0 else max(2.0, cfg.gcn_frames / slots)
+        results = [
+            run_sessions(cfg, slots=slots, n_sessions=n,
+                         mean_interarrival=mean_gap, backend=backend,
+                         seed=seed, qos=qos, preempt_ratio=preempt_ratio,
+                         deadline_slack=deadline_slack,
+                         capacity_tiers=capacity_tiers, load=load,
+                         policy=policy, slo_config=slo_config,
+                         topology=topology or None, use_ck=use_ck,
+                         saliency_thresh=saliency_thresh, device=device)
+            for backend in backends]
+    write_bench(results, bench or DEFAULT_BENCH_PATH)
+    return results
+
+
+def _print_sessions(results: List[Dict], bench: str) -> None:
+    for r in results:
+        cap = (f" capacity={r['capacity']}" if r["capacity"] != "fixed"
+               else "")
+        pol = (f" policy={r['policy']}" if r["policy"] != "demand" else "")
+        pol += f" trace={r['trace']}" if r.get("trace") else ""
+        if r.get("ck"):
+            pol += " ck"
+        if r.get("saliency"):
+            pol += (f" saliency={r['saliency']} "
+                    f"(skip {r['skip_rate'] * 100:.0f}%)")
+        print(f"backend={r['backend']} [sessions{pol} qos={r['qos']}{cap} "
+              f"load={r['load']} device={r['device']}]: {r['sessions']} "
+              f"sessions over {r['slots']} slots in {r['ticks']} ticks, "
+              f"{r['frames_per_s']:.1f} frames/s, "
+              f"{r['sessions'] / r['wall_s'] if r['wall_s'] else 0.0:.2f} "
+              f"sessions/s, tick p50 {r['tick_ms_p50']:.2f} ms mean "
+              f"{r['tick_ms_mean']:.2f} ms, occupancy "
+              f"{r['occupancy'] * 100:.0f}% time-weighted "
+              f"({r['occupancy_busy'] * 100:.0f}% busy), session latency "
+              f"p50 {r['latency_ms_p50']:.0f} ms p99 "
+              f"{r['latency_ms_p99']:.0f} ms, first logit after "
+              f"{r['first_logit_frames']} frames, queue wait "
+              f"{r['queue_wait_ticks_mean']:.1f} ticks, "
+              f"{r['device_dispatches']} dispatches, {r['readbacks']} "
+              f"readbacks")
+        for p, pl in sorted(r["latency_ms_by_priority"].items()):
+            print(f"  priority {p}: n={pl['n']} p50={pl['p50_ms']:.0f}ms "
+                  f"p99={pl['p99_ms']:.0f}ms (arrival->finish "
+                  f"p50={pl['e2e_p50_ticks']:.0f} "
+                  f"p99={pl['e2e_p99_ticks']:.0f} ticks, first-logit "
+                  f"p99={pl['first_logit_p99_ticks']:.0f} ticks)")
+        if r["policy"] == "slo":
+            print(f"  slo: target p99 {r['slo_target_p99_ticks']} ticks, "
+                  f"shed_mode={r['shed_mode']} "
+                  f"rejected={r['sessions_rejected']} "
+                  f"degraded={r['sessions_degraded']} "
+                  f"({r['shed_windows']} shed windows)")
+        if r["qos"] == "preempt":
+            print(f"  preemptions={r['preemptions']} "
+                  f"restores={r['restores']}")
+        if r["qos"] == "deadline":
+            print(f"  deadline missed={r['deadline_missed']} "
+                  f"(miss rate {r['deadline_miss_rate'] * 100:.0f}%)")
+        if r["capacity"] != "fixed":
+            print(f"  elastic: {r['migrations_grow']} grows / "
+                  f"{r['migrations_shrink']} shrinks, migration "
+                  f"{r['migration_ms_mean']:.1f} ms mean, final capacity "
+                  f"{r['capacity_final']}, tier ticks {r['tier_ticks']}")
+    print(f"# merged into {bench}")
+
+
 def build_parser() -> argparse.ArgumentParser:
-    """The CLI: ``serve clip|stream|lm [flags]``."""
+    """The CLI: ``serve clip|stream|sessions|lm [flags]``."""
+    from repro_torch.serving import (CONTROL_POLICIES, DEFAULT_BENCH_PATH,
+                                     QOS_POLICIES, SHED_MODES)
+
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     sub = ap.add_subparsers(dest="mode", required=True)
     clip = sub.add_parser("clip", help="gcn: batched two-stream clip "
                                        "inference")
     stream = sub.add_parser("stream", help="gcn: per-frame two-stream "
                                            "continual inference")
+    sessions = sub.add_parser("sessions", help="gcn: multi-session traffic "
+                                               "through GcnService")
     lm = sub.add_parser("lm", help="dense LM: token-by-token prefill and "
                                    "greedy KV-cache decoding")
-    for p in (clip, stream, lm):
+    for p in (clip, stream, sessions, lm):
         p.add_argument("--arch", required=True)
         p.add_argument("--reduced", action="store_true")
         p.add_argument("--batch", type=int, default=0,
@@ -261,6 +394,64 @@ def build_parser() -> argparse.ArgumentParser:
                        help="cpu runs the kernels' plain versions")
     clip.add_argument("--clips", type=int, default=64,
                       help="total clips to drain per backend")
+    p = sessions
+    p.add_argument("--slots", type=int, default=4,
+                   help="slot capacity of a fixed run; also sets the load "
+                        "defaults (--n-sessions 3 x slots, --rate "
+                        "clip_len / slots)")
+    p.add_argument("--n-sessions", type=int, default=0,
+                   help="total sessions to serve (default 3 x slots)")
+    p.add_argument("--rate", type=float, default=0.0,
+                   help="mean inter-arrival ticks (0 -> clip_len / slots)")
+    p.add_argument("--qos", default="fifo", choices=QOS_POLICIES,
+                   help="scheduler policy: fifo run-to-completion, preempt "
+                        "(priority snapshot-eviction), deadline (expiry "
+                        "drops)")
+    p.add_argument("--preempt-ratio", type=float, default=0.25,
+                   help="fraction of high-priority sessions in the "
+                        "generated load (under every policy)")
+    p.add_argument("--deadline-slack", type=int, default=25,
+                   help="ticks past each session's minimal service time "
+                        "before its deadline")
+    p.add_argument("--capacity-tiers", default="",
+                   help="comma-separated slot tiers, e.g. 2,4,8: elastic "
+                        "capacity (one slab per tier, hysteresis "
+                        "grow/shrink, snapshot/restore migration)")
+    p.add_argument("--load", default="poisson", choices=("poisson", "burst"),
+                   help="arrival process: steady poisson or bursty peaks "
+                        "and lulls")
+    p.add_argument("--trace", default="",
+                   help="replay a recorded Trace JSON file instead of "
+                        "generating load")
+    p.add_argument("--policy", default="demand", choices=CONTROL_POLICIES,
+                   help="capacity control: demand (grow on busy + queued) "
+                        "or slo (grow on measured p99 first-logit latency, "
+                        "shed low-priority opens at the top tier)")
+    p.add_argument("--slo-target", type=int, default=0,
+                   help="SLO bound: p99 arrival -> first-logit ticks (0 -> "
+                        "SloConfig default; with --policy slo)")
+    p.add_argument("--slo-window", type=int, default=0,
+                   help="the SLO controller's latency window (0 -> "
+                        "SloConfig default)")
+    p.add_argument("--slo-shed-mode", default="", choices=("", *SHED_MODES),
+                   help="what shedding does to low-priority opens "
+                        "(default: SloConfig default)")
+    p.add_argument("--topology", default="",
+                   help="registered skeleton to serve (ntu25, ntu50, "
+                        "hand21, body_hand46; default ntu25)")
+    p.add_argument("--ck", action="store_true",
+                   help="serve with the windowed data-dependent C_k graph")
+    p.add_argument("--saliency-thresh", type=float, default=0.0,
+                   help="> 0 skips uninformative frames per session below "
+                        "this attention-ratio threshold (0 = off)")
+    p.add_argument("--bench", default=DEFAULT_BENCH_PATH,
+                   help="the JSON file the rows merge into")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="not ported: the sharded slab is ROADMAP.md Queue 1 "
+                        "item 4")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="not ported: the replica router is ROADMAP.md "
+                        "Queue 1 item 4")
     lm.add_argument("--prompt-len", type=int, default=16)
     lm.add_argument("--gen", type=int, default=32)
     return ap
@@ -268,9 +459,38 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     """CLI entry."""
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     cfg = get_config(args.arch, reduced=args.reduced)
     backends = engine.BACKENDS if args.backend == "both" else (args.backend,)
+    if args.mode == "sessions":
+        if args.mesh > 1 or args.replicas > 1:
+            ap.error("--mesh and --replicas are not ported yet: sharding "
+                     "and the replica router are ROADMAP.md Queue 1 item 4")
+        slo_config = None
+        if args.policy == "slo":
+            from repro_torch.serving import SloConfig
+            overrides = {}
+            if args.slo_target:
+                overrides["target_p99_ticks"] = args.slo_target
+            if args.slo_window:
+                overrides["window"] = args.slo_window
+            if args.slo_shed_mode:
+                overrides["shed_mode"] = args.slo_shed_mode
+            slo_config = SloConfig(**overrides)
+        tiers = (tuple(int(t) for t in args.capacity_tiers.split(","))
+                 if args.capacity_tiers else None)
+        results = serve_gcn_sessions(
+            args.arch, reduced=args.reduced, slots=args.slots,
+            n_sessions=args.n_sessions, rate=args.rate, backends=backends,
+            qos=args.qos, preempt_ratio=args.preempt_ratio,
+            deadline_slack=args.deadline_slack, capacity_tiers=tiers,
+            load=args.load, policy=args.policy, slo_config=slo_config,
+            trace=args.trace, topology=args.topology, use_ck=args.ck,
+            saliency_thresh=args.saliency_thresh, device=args.device,
+            bench=args.bench)
+        _print_sessions(results, args.bench)
+        return
     batch = cfg.serve_batch(args.mode, args.batch)
     if args.mode == "lm":
         res = {name: generate(args.arch, reduced=args.reduced, batch=batch,

@@ -111,6 +111,59 @@ def test_lm_decode_path_runs_without_jax():
     assert out.stdout.strip() == "[]"
 
 
+# the serving host layer, GcnService and the sessions CLI run on the CPU in
+# an interpreter where jax and repro cannot be imported: a golden replay
+# cell reproduces its digest, and the CLI replays the smoke trace
+_RUN_SERVING = r"""
+import json, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import torch
+import repro_torch.serving as serving
+from repro_torch.configs import get_config
+from repro_torch.core.agcn import engine, model
+from repro_torch.core.pruning.plan import build_prune_plan
+from repro_torch.launch import serve
+root, bench = sys.argv[1], sys.argv[2]
+cfg = get_config("agcn-2s", reduced=True)
+golden = json.load(open(root + "/tests/data/traces/golden_smoke.json"))
+trace = serving.Trace.load(root + "/tests/data/traces/smoke.json")
+p = model.init_params(cfg, seed=0, device="cpu")
+pp = build_prune_plan([b["Wk"].numpy() for b in p["blocks"]],
+                      cfg.gcn_channels, [1.0, 0.5, 0.5, 0.5], "cav-70-1",
+                      input_skip=2)
+plan = engine.build_execution_plan(p, cfg, pp, quant=True, backend="cuda")
+bn = engine.collect_bn_stats(plan, torch.randn(2, cfg.gcn_frames, 25, 3))
+out = serving.replay(cfg, trace, qos="fifo", capacity_tiers=(2, 4),
+                     plans=(plan,), bn_stats=(bn,), record_outcomes=True,
+                     device="cpu")
+assert (serving.outcome_digest(out["outcomes"])
+        == golden["cells"]["fifo/demand"]["outcome_digest"])
+serve.main(["sessions", "--arch", "agcn-2s", "--reduced", "--device", "cpu",
+            "--backend", "reference", "--trace",
+            root + "/tests/data/traces/smoke.json", "--bench", bench])
+assert json.load(open(bench))[0]["sessions"] == 14
+if not torch.cuda.is_available():
+    try:
+        serving.GcnService(cfg)
+        raise SystemExit("GcnService(device=None) ran without CUDA")
+    except RuntimeError as e:
+        assert "CUDA is not available" in str(e)
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m in ("jax", "repro") or m.startswith(("jax.", "repro."))))
+print(bad)
+"""
+
+
+def test_serving_and_sessions_cli_run_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _RUN_SERVING, str(ROOT),
+                          str(tmp_path / "bench.json")], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 # the card's kernel tests are collected where there is no JAX: the module
 # imports in an interpreter where jax and repro cannot be imported
 _IMPORT_CARD_TESTS = r"""
@@ -152,6 +205,7 @@ def test_entry_points_default_to_cuda():
     from repro_torch.configs import get_config
     from repro_torch.core.agcn.model import init_params
     from repro_torch.launch.serve import serve_gcn, serve_gcn_stream
+    from repro_torch.serving import run_sessions
 
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without CUDA")
@@ -164,4 +218,6 @@ def test_entry_points_default_to_cuda():
         init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_numpy({"w": [1.0]})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_sessions(cfg, slots=1, n_sessions=1)
     assert init_params(cfg, device="cpu")["fc_w"].device.type == "cpu"
