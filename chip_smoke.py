@@ -165,6 +165,31 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                each ``kernel flash_decode`` line names the launch's plan
                (splits, warps, stages), its µs per launch and its share of
                the bound.
+ 13. train   — the offline path: ``launch.train.train_loop`` on full
+               agcn-2s (ntu25, T = 300 with input skip 2, dense graph)
+               for 30 steps of 16 clips = 32 sequences (lr 3e-3, warmup
+               3, seed 0; checkpoints at steps 10, 20, 30 under
+               ``build/chip_smoke_train/``): finite losses, the last 5
+               steps' mean below the first 5's, step p50 and mean,
+               sequences/s and peak memory beside nvidia-smi's line, and
+               no kernel launch (the loss runs the ``reference``
+               backend); the step-10 checkpoint restored into fresh trees
+               bit-equal to the state the loop held, and resumed (the
+               step-11 loss within 1e-4 of the uninterrupted run's); one
+               reduced ``make_train_step`` step on the card against the
+               CPU from the same params and batch (loss 1e-4, gradients
+               1e-4 of each leaf's max |g| plus 1e-6, params 1e-5 where
+               the CPU's |g| > 1e-6); ``mlp_relu2_rfc`` at (4096, 1024) x
+               (1024, 4096) on the hand-written RFC pair (one encode, one
+               decode) against the plain autograd (1e-4 of each tensor's
+               max), with its modelled and held bytes; C3's storage and
+               Table III categories of the trained model at full width
+               from the bits the ``cuda`` clip path writes between blocks
+               (``engine.rfc_boundaries``: 10 graph_sconv and
+               cavity_tconv, 9 of each RFC kernel) against the
+               ``reference`` path's mask (1e-3), the E(D) report per
+               block, the Drop-1/2/3 x cav compression table equal to
+               ``COMPRESSION_TABLE``; one full-width train step profiled.
 
 Prints the kernels JSON line, the nvidia-smi line and, last, the result
 line.  Any failed phase exits non-zero.  Per-case kernel numbers go to
@@ -239,6 +264,25 @@ LM_EARLY = 16                      # an early serve step: valid = 17
 FD_CASES = [("long context", 8, 32768, 5, 3, 64, 30000),
             ("danube ring", 4, 4096, 8, 4, 80, 4096),
             ("small odd", 2, 48, 1, 3, 20, 1)]
+
+
+# the train phase: full agcn-2s, 16 clips (32 sequences) a step, 30 steps
+TRAIN_CLIPS, TRAIN_STEPS, TRAIN_CKPT_AT = 16, 30, 10
+RFC_CKPT_SHAPE = (4096, 1024, 4096)        # x (M, d) · wi (d, f) · wo (f, d)
+# Drop-1/2/3 × cavity: (compression ratio, graph-skip efficiency) of
+# benchmarks/torch_paper.py:compression_table, numbers the CPU tests hold
+# equal to the JAX pruning_bench's (tests/test_torch_accounting.py)
+COMPRESSION_TABLE = {
+    "drop1/cav-50-1": (3.430477579292745, 0.5792207792207793),
+    "drop1/cav-70-1": (4.759635811836115, 0.5792207792207793),
+    "drop1/cav-75-1": (5.3428344310697256, 0.5792207792207793),
+    "drop2/cav-50-1": (3.897365805168986, 0.6562770562770563),
+    "drop2/cav-70-1": (5.469541966984422, 0.6562770562770563),
+    "drop2/cav-75-1": (6.172789294148518, 0.6562770562770563),
+    "drop3/cav-50-1": (4.418576258452291, 0.7238095238095238),
+    "drop3/cav-70-1": (6.274873299546546, 0.7238095238095238),
+    "drop3/cav-75-1": (7.116775071849947, 0.7238095238095238),
+}
 
 
 T_START = time.perf_counter()
@@ -1093,6 +1137,274 @@ def lm_phase(dev, failures, cases, summary, check_launches, modules):
         cache["pos"].fill_(p0)
         fstep(params, cache, {"tokens": batch["tokens"], "pos": at})
     profile_steps("lm decode step", decode_step)
+
+
+def _max_rel(got, want) -> float:
+    """max |got − want| over max |want| (0 when want is all zero)."""
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / scale if scale else 0.0
+
+
+def train_phase(dev, failures, cases, check_launches):
+    """Phase 13: the offline path — ``launch.train.train_loop`` at full
+    agcn-2s width, a checkpoint restored bit-equal and resumed, one train
+    step on the card against the CPU, the RFC-checkpointed MLP on the
+    hand-written RFC pair, and C3's storage, the E(D) report and the
+    compression table at full width."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.checkpoint import store
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.tree import tree_leaves, tree_map, tree_paths
+    from repro_torch.configs import get_config
+    from repro_torch.core.agcn import engine
+    from repro_torch.core.agcn.model import feature_sparsity_per_block
+    from repro_torch.core.rfc import checkpoint as rck
+    from repro_torch.core.rfc.format import (expected_sparsity_categories,
+                                             storage_cost)
+    from repro_torch.data.pipeline import DataConfig, make_batches
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import (loss_and_grads, make_loss_fn,
+                                         make_train_step)
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import torch_paper
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    cfg = get_config(ARCH)
+    base = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(base, ignore_errors=True)
+    host = lambda t: t.detach().cpu().clone()
+    record = cases["train"] = {"device": smi}
+
+    # ---- (a) full-width training through train_loop ----------------------
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=3,
+                       total_steps=TRAIN_STEPS, seed=SEED,
+                       checkpoint_every=TRAIN_CKPT_AT,
+                       checkpoint_dir=str(base / "run"))
+    step_ms, at_ckpt = [], {}
+
+    def on_step(step, params, opt, metrics, ms):
+        step_ms.append(ms)
+        if step + 1 == TRAIN_CKPT_AT:      # the state the checkpoint holds
+            at_ckpt["params"] = tree_map(host, params)
+            at_ckpt["opt"] = tree_map(host, opt)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)  # earlier phases' tensors
+    (params, losses), counts = counted(lambda: train_loop(
+        ARCH, tcfg, reduced=False, batch=TRAIN_CLIPS, device=dev,
+        resume=False, log_every=10, on_step=on_step))
+    check_launches("train", counts, {}, TRAIN_STEPS)   # reference backend
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    seqs = TRAIN_CLIPS * cfg.gcn_persons
+    p50 = statistics.median(step_ms)
+    mean = statistics.fmean(step_ms[1:])
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    record.update(step_ms=step_ms, losses=losses, peak_bytes=peak,
+                  held_before_bytes=before)
+    print(f"train: full {ARCH} ({len(cfg.gcn_channels)} blocks, T = "
+          f"{cfg.gcn_frames}, input skip {cfg.input_skip}, dense graph), "
+          f"{TRAIN_CLIPS} clips = {seqs} sequences a step, {TRAIN_STEPS} "
+          f"steps of train_loop: step p50 {p50:.3f} ms, mean of steps 2-"
+          f"{TRAIN_STEPS} {mean:.3f} ms (first {step_ms[0]:.3f} ms; host "
+          f"clock from the batch to the loss read, synchronised), "
+          f"{seqs / (p50 / 1e3):.2f} sequences/s at p50, peak memory "
+          f"{peak / 2**30:.3f} GiB (max_memory_allocated less the "
+          f"{before / 2**30:.3f} GiB held before the run); {smi}")
+    print(f"train: loss first {losses[0]:.4f}, last {losses[-1]:.4f}; mean "
+          f"of the first 5 {first5:.4f}, of the last 5 {last5:.4f}")
+    if not np.isfinite(losses).all():
+        failures.append(f"train: a loss is not finite: {losses}")
+    if not last5 < first5:
+        failures.append(f"train: the last 5 steps' mean loss {last5:.4f} is "
+                        f"not below the first 5's {first5:.4f}")
+
+    # ---- (b) restore bit-equal, resume ---------------------------------
+    fresh = registry.init_params(cfg, seed=SEED + 1, device=dev)
+    got_p = store.restore(tcfg.checkpoint_dir, TRAIN_CKPT_AT, fresh)
+    got_o = store.restore(str(base / "run" / "opt"), TRAIN_CKPT_AT,
+                          adamw.init(fresh))
+    bad = [n for (n, a), b in zip(
+        tree_paths(got_p) + tree_paths(got_o),
+        tree_leaves(at_ckpt["params"]) + tree_leaves(at_ckpt["opt"]))
+        if a.device.type != dev.type or not torch.equal(a.cpu(), b)]
+    print(f"train: step {TRAIN_CKPT_AT} restored into fresh trees: "
+          f"{len(tree_leaves(got_p))} param and "
+          f"{len(tree_leaves(got_o))} optimizer leaves, "
+          f"{'bit-equal' if not bad else f'{len(bad)} differ'}")
+    if bad:
+        failures.append(f"train: restored leaves differ from the state "
+                        f"saved at step {TRAIN_CKPT_AT}: {bad[:5]}")
+    resume = base / "resume"
+    for sub in ("", "opt"):
+        shutil.copytree(base / "run" / sub / f"step_{TRAIN_CKPT_AT}",
+                        resume / sub / f"step_{TRAIN_CKPT_AT}")
+    _, again = train_loop(ARCH, dataclasses.replace(
+        tcfg, total_steps=TRAIN_CKPT_AT + 1, checkpoint_every=0,
+        checkpoint_dir=str(resume)), reduced=False, batch=TRAIN_CLIPS,
+        device=dev, resume=True, log_every=10)
+    diff = abs(again[0] - losses[TRAIN_CKPT_AT]) if len(again) == 1 else 1e9
+    print(f"train: resumed at step {TRAIN_CKPT_AT}: step "
+          f"{TRAIN_CKPT_AT + 1} loss {again[0]:.6f} against "
+          f"{losses[TRAIN_CKPT_AT]:.6f} uninterrupted (|diff| {diff:.3g}, "
+          f"bound 1e-4; cuDNN's weight gradients use atomics, so later "
+          f"steps are not bit-equal)")
+    if diff > 1e-4:
+        failures.append(f"train: the resumed step's loss is {diff:.3g} from "
+                        f"the uninterrupted run's")
+
+    # ---- (c) one train step on the card against the CPU ------------------
+    rcfg = get_config(ARCH, reduced=True)
+    p_cpu = registry.init_params(rcfg, seed=SEED, device="cpu")
+    p_dev = params_from_numpy(tree_map(lambda t: t.numpy(), p_cpu),
+                              device=dev)
+    raw = next(make_batches(rcfg, DataConfig(global_batch=8, seq_len=0,
+                                             seed=SEED)))
+    b_cpu = {k: torch.as_tensor(v) for k, v in raw.items()}
+    b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+    loss_fn = make_loss_fn(rcfg)
+    lc, _, gc = loss_and_grads(loss_fn, p_cpu, b_cpu)
+    ld, _, gd = loss_and_grads(loss_fn, p_dev, b_dev)
+    # gradients within 1e-4 x the leaf's max |g|, plus 1e-6: the temporal
+    # conv's bias feeds a BatchNorm that removes it, so its exact gradient
+    # is 0 and both devices compute rounding noise of ~1e-7
+    g_bad = [n for (n, a), b in zip(tree_paths(gd), tree_leaves(gc))
+             if float((a.cpu() - b).abs().max())
+             > 1e-4 * float(b.abs().max()) + 1e-6]
+    g_worst = max(_max_rel(a.cpu(), b) for a, b in zip(
+        tree_leaves(gd), tree_leaves(gc)) if float(b.abs().max()) > 1e-5)
+    rt = TrainConfig(learning_rate=3e-3, warmup_steps=3, total_steps=30)
+    pc, _, mc = make_train_step(rcfg, rt)(p_cpu, adamw.init(p_cpu), b_cpu)
+    pd, _, md = make_train_step(rcfg, rt)(p_dev, adamw.init(p_dev), b_dev)
+    # AdamW's first update is g/(|g| + 1e-8): near that eps a rounding
+    # difference moves a parameter by up to lr, so the params are held
+    # where the CPU's |g| > 1e-6
+    p_diff = max(float((a.cpu() - b).abs()[g.abs() > 1e-6].amax())
+                 for a, b, g in zip(tree_leaves(pd), tree_leaves(pc),
+                                    tree_leaves(gc)) if (g.abs() > 1e-6).any())
+    l_diff = max(abs(float(ld) - float(lc)),
+                 abs(float(md["loss"]) - float(mc["loss"])))
+    print(f"train: one make_train_step step at the reduced config from the "
+          f"same params and batch, card against CPU: loss |diff| "
+          f"{l_diff:.3g} (bound 1e-4), gradients at worst {g_worst:.3g} of "
+          f"the leaf's max |g| (bound 1e-4, plus 1e-6 absolute; "
+          f"{len(g_bad)} leaves over), params after the step {p_diff:.3g} "
+          f"where |g| > 1e-6 (bound 1e-5)")
+    if l_diff > 1e-4 or g_bad or p_diff > 1e-5:
+        failures.append(f"train: card against CPU: loss {l_diff:.3g}, "
+                        f"gradient leaves over {g_bad[:5]}, params "
+                        f"{p_diff:.3g}")
+
+    # ---- (d) the RFC-checkpointed MLP on the hand-written RFC pair --------
+    M, D, Fh = RFC_CKPT_SHAPE
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn((M, D), generator=gen)
+    wi = torch.randn((D, Fh), generator=gen) / D ** 0.5
+    wo = torch.randn((Fh, D), generator=gen) / Fh ** 0.5
+    gy = torch.randn((M, D), generator=gen)
+    x, wi, wo, gy = (t.to(dev) for t in (x, wi, wo, gy))
+    a = [t.clone().requires_grad_(True) for t in (x, wi, wo)]
+    b = [t.clone().requires_grad_(True) for t in (x, wi, wo)]
+
+    def rfc_pass():
+        y = rck.mlp_relu2_rfc(*a)
+        y.backward(gy)
+        return y
+
+    y, counts = counted(rfc_pass)
+    check_launches("train rfc checkpoint", counts,
+                   {"rfc_encode": 1, "rfc_decode": 1}, 1)
+    yb = torch.relu(b[0] @ b[1]).square() @ b[2]
+    yb.backward(gy)
+    errs = [_max_rel(p.detach(), q.detach()) for p, q in
+            ((y, yb), (a[0].grad, b[0].grad), (a[1].grad, b[1].grad),
+             (a[2].grad, b[2].grad))]
+    with torch.no_grad():
+        h = torch.relu(x @ wi).square()
+    dense_b, rfc_b = rck.checkpoint_bytes(h)
+    held = rck.held_bytes(h)
+    print(f"train: mlp_relu2_rfc at ({M}, {D}) x ({D}, {Fh}) x ({Fh}, {D}), "
+          f"float32, TF32 off, against the plain autograd of "
+          f"relu(x·wi)²·wo: output {errs[0]:.3g}, dx {errs[1]:.3g}, dwi "
+          f"{errs[2]:.3g}, dwo {errs[3]:.3g} of each tensor's max |value| "
+          f"(bound 1e-4); h {float((h == 0).float().mean()) * 100:.2f}% "
+          f"zeros; modelled bytes dense {dense_b} rfc {rfc_b} "
+          f"({(1 - rfc_b / dense_b) * 100:.2f}% less), held by the graph "
+          f"{held} (values + bits, {held / dense_b:.4f}x dense)")
+    record["rfc_checkpoint"] = {"errs": errs, "dense": dense_b, "rfc": rfc_b,
+                                "held": held}
+    if max(errs) > 1e-4:
+        failures.append(f"train: mlp_relu2_rfc disagrees with the plain "
+                        f"autograd: {errs}")
+
+    # ---- (e) accounting at full width on the trained params ---------------
+    xa = torch.as_tensor(next(make_batches(cfg, DataConfig(
+        global_batch=BATCH, seq_len=0, seed=SEED)))["x"], device=dev)
+    spars = feature_sparsity_per_block(params, xa, cfg)
+    ref_plan = engine.build_execution_plan(params, cfg, None,
+                                           backend="reference")
+    cuda_plan = engine.build_execution_plan(params, cfg, None,
+                                            backend="cuda")
+    with torch.inference_mode():
+        outs = engine.block_outputs(ref_plan, xa)
+        leaves, counts = counted(lambda: engine.rfc_boundaries(cuda_plan,
+                                                               xa))
+    nb = len(cfg.gcn_channels)
+    check_launches("train accounting", counts, {
+        "graph_sconv": nb, "cavity_tconv": nb, "rfc_encode": nb - 1,
+        "rfc_decode": nb - 1}, 1)
+    acc_worst = 0.0
+    rows = []
+    for blk, ((vals, bits), hout) in enumerate(zip(leaves, outs)):
+        hot = (hout > 0).reshape(*hout.shape[:-1], -1, 16)
+        cm, cb = storage_cost(hot), storage_cost(bits)
+        qm = expected_sparsity_categories(hot)
+        qb = expected_sparsity_categories(bits)
+        d = max([abs(cm[k] - cb[k]) for k in (
+            "sparsity", "rfc_vs_dense_reduction", "csc_vs_dense_reduction")]
+            + [abs(u - v) for u, v in zip(qm, qb)]
+            + [abs(cm["sparsity"] - spars[blk])])
+        acc_worst = max(acc_worst, d)
+        rows.append({"block": blk, "mask": cm, "bits": cb,
+                     "categories_bits": qb})
+        print(f"train: block {blk} (C = {vals.shape[-1]}) sparsity "
+              f"{spars[blk] * 100:.3f}% (reference probe), from the card's "
+              f"bits {cb['sparsity'] * 100:.3f}%; RFC saves "
+              f"{cb['rfc_vs_dense_reduction'] * 100:.3f}% [mask "
+              f"{cm['rfc_vs_dense_reduction'] * 100:.3f}%], CSC "
+              f"{cb['csc_vs_dense_reduction'] * 100:.3f}%; I/II/III/IV "
+              + "/".join(f"{v * 100:.2f}%" for v in qb))
+    record["accounting"] = {"sparsity": spars, "boundaries": rows}
+    print(f"train: storage and categories from the card's bits against the "
+          f"reference path's mask: worst |diff| {acc_worst:.3g} (bound 1e-3;"
+          f" a ReLU zero can flip by rounding); last block (not encoded) "
+          f"sparsity {spars[-1] * 100:.3f}%")
+    if acc_worst > 1e-3:
+        failures.append(f"train: storage from the card's bits is "
+                        f"{acc_worst:.3g} from the reference mask's")
+    sched = torch_paper.dyn_sched(torch_paper.Setup(reduced=False), spars)
+    record["dyn_sched"] = sched
+    table = {f"{s}/{c}": (d["compression_ratio"], d["graph_skip_efficiency"])
+             for s, c, d in torch_paper.compression_table()}
+    print(f"train: Drop-1/2/3 x cav compression table "
+          f"{'equals' if table == COMPRESSION_TABLE else 'DIFFERS from'} the "
+          f"CPU's ({len(table)} cells)")
+    if table != COMPRESSION_TABLE:
+        failures.append(f"train: compression table differs: {table}")
+
+    # ---- one full-width train step under the profiler --------------------
+    step_fn = make_train_step(cfg, tcfg)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in next(make_batches(
+        cfg, DataConfig(global_batch=TRAIN_CLIPS, seq_len=0,
+                        seed=SEED))).items()}
+    opt = adamw.init(params)
+    profile_steps("train step", lambda: step_fn(params, opt, tb))
+    print(f"train: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def golden_mismatch(out, want) -> list:
@@ -1980,6 +2292,10 @@ def main() -> int:
     # ---- 12. LM decode serving: smollm-360m at full width ---------------------
     lm_phase(dev, failures, cases, summary, check_launches, modules)
     phase_done("lm")
+
+    # ---- 13. the offline path: training, checkpoints, accounting --------------
+    train_phase(dev, failures, cases, check_launches)
+    phase_done("train")
 
     print(f"clock: spin {spin_cycles_per_ms():.0f} cycles/ms; timings with "
           f"host time included (the plain versions that read taps on the "

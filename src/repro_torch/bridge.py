@@ -1,7 +1,8 @@
 """Trees across frameworks, as numpy arrays: the JAX ``init_params`` tree
 becomes the port's parameter tree (the LM's (num_groups, group, ...)
 stacked leaves keep their nesting), a JAX ``StreamState`` or snapshot ring
-becomes the port's (and back), and so does an LM KV cache.  ``jax.random``
+becomes the port's (and back), and so do an LM KV cache and an AdamW
+``OptState``.  ``jax.random``
 cannot be reproduced with torch, so the parity tests move weights,
 mid-stream slabs and mid-sequence caches this way."""
 from __future__ import annotations
@@ -100,3 +101,20 @@ def kv_cache_to_numpy(cache: dict) -> dict:
     """The port's KV cache -> a dict of numpy leaves (what the reference's
     ``serve_fn`` takes after ``jnp.asarray``)."""
     return _to_numpy(cache)
+
+
+def opt_state_from_numpy(state: Any, device: DeviceLike = None):
+    """An AdamW state with numpy leaves (a JAX ``OptState`` mapped to
+    numpy, or any object with ``step``, ``m`` and ``v``) -> the port's
+    ``OptState`` on ``device`` (default CUDA), dtypes unchanged."""
+    from repro_torch.optim.adamw import OptState
+    dev = resolve_device(device)
+    return OptState(step=_to_torch(state.step, dev),
+                    m=_to_torch(state.m, dev), v=_to_torch(state.v, dev))
+
+
+def opt_state_to_numpy(state: Any) -> dict:
+    """The port's ``OptState`` -> {"step", "m", "v"} of numpy leaves
+    (``OptState(**d)`` rebuilds the JAX one)."""
+    return {"step": _to_numpy(state.step), "m": _to_numpy(state.m),
+            "v": _to_numpy(state.v)}

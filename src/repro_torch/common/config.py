@@ -1,7 +1,9 @@
 """Model configuration for the port (the gcn and dense-decoder fields of
 ``repro.common.config.ModelConfig``).
 
-Frozen dataclass, so a config can key caches and be shared freely.  The
+Frozen dataclass, so a config can key caches and be shared freely.
+:class:`TrainConfig` holds the optimizer, schedule, microbatching and
+checkpoint settings of ``repro.common.config.TrainConfig``.  The
 skeleton-GCN family and the dense decoder LM family are ported; the other
 LM families' fields (MoE, SSM, hybrid, audio, VLM) join with their slice
 (ROADMAP.md, Queue 1 item 13).  The LM fields default to 0 or off, so a
@@ -10,6 +12,8 @@ gcn config leaves them alone.
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Tuple
 
 
@@ -98,3 +102,25 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training settings, with the JAX package's fields and defaults.  The
+    default checkpoint directory is ``repro_ckpt`` in the temporary
+    directory (``/tmp/repro_ckpt`` where ``TMPDIR`` is unset, as in JAX)."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    microbatches: int = 1
+    seed: int = 0
+    checkpoint_every: int = 100
+    checkpoint_dir: str = os.path.join(tempfile.gettempdir(), "repro_ckpt")
+    dtype: str = "bfloat16"
+    grad_compression: str = "none"   # none | bf16: gradients cast to bf16
+                                     # before the update (moments stay f32)

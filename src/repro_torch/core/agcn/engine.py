@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.tree import tree_map
 from repro_torch.core.agcn import adaptive
 from repro_torch.core.agcn.graph import (GraphTopology, dense_to_csr,
                                          get_topology)
@@ -588,11 +589,13 @@ def _run_block(h, ba, bs, backend: Backend, bn=_bn_live, tag: str = "",
     return backend.epilogue(t, res, encode)
 
 
-def _blocks(plan: ExecutionPlan, x: torch.Tensor, bn):
+def _blocks(plan: ExecutionPlan, x: torch.Tensor, bn,
+            backend: Optional[Backend] = None):
     """Yield each block's post-ReLU output, the activation the next block
-    reads (on a ``use_rfc`` plan its RFC round trip, bit-equal to it)."""
+    reads (on a ``use_rfc`` plan its RFC round trip, bit-equal to it).
+    ``backend`` defaults to the plan's own."""
     ps = plan.static
-    backend = get_backend(ps.backend)
+    backend = backend or get_backend(ps.backend)
     h = _stem(plan.arrays, x, ps.input_skip, bn)
     nblocks = len(ps.blocks)
     for b, (ba, bs) in enumerate(zip(plan.arrays["blocks"], ps.blocks)):
@@ -605,6 +608,35 @@ def _blocks(plan: ExecutionPlan, x: torch.Tensor, bn):
 def block_outputs(plan: ExecutionPlan, x: torch.Tensor) -> List[torch.Tensor]:
     """Per-block post-ReLU activations (drives the sparsity probe)."""
     return list(_blocks(plan, x, _bn_live))
+
+
+class _RecordingCuda(CudaBackend):
+    """The ``cuda`` backend, keeping the (values, bits) each encoding
+    epilogue writes."""
+
+    def __init__(self):
+        self.leaves: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+    def epilogue(self, t, res, encode):
+        if not encode:
+            return torch.relu(t + res)
+        vals, bits = ops.rfc_encode(t, res)
+        self.leaves.append((vals, bits))
+        return ops.rfc_decode(vals, bits)
+
+
+def rfc_boundaries(plan: ExecutionPlan, x: torch.Tensor
+                   ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The RFC leaves (values, bits) a ``cuda`` plan with ``use_rfc``
+    writes between blocks on clip batch ``x``: one pair per block but the
+    last, exactly as ``execute`` writes them (same kernels, same
+    launches), for counting C3's storage on the card's own bits."""
+    if plan.static.backend != "cuda" or not plan.static.use_rfc:
+        raise ValueError("rfc_boundaries needs a cuda plan with use_rfc")
+    rec = _RecordingCuda()
+    for _ in _blocks(plan, x, _bn_live, rec):
+        pass
+    return rec.leaves
 
 
 def _forward(plan: ExecutionPlan, x: torch.Tensor, bn) -> torch.Tensor:
@@ -673,20 +705,6 @@ class StreamState:
     pool_t: torch.Tensor
     bn_stats: Dict[str, Dict[str, torch.Tensor]]
     rfc: Optional[List[Dict[str, torch.Tensor]]]
-
-
-def _tree_map(fn, tree, *rest):
-    """Map ``fn`` over the tensor leaves of nested dicts and lists (None
-    leaves stay None); ``rest`` are trees of the same structure."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v, *(r[i] for r in rest))
-                for i, v in enumerate(tree)]
-    return fn(tree, *rest)
 
 
 def _slot_tree(state: StreamState) -> Dict[str, Any]:
@@ -805,7 +823,7 @@ def _select_slots(keep_old, old: StreamState, new: StreamState
     """Per-slot select: slots where ``keep_old`` is True keep ``old``'s
     leaves, the others take ``new``'s (``step_frames``'s hold)."""
     keep = _slot_mask(keep_old, new.t_raw.shape[0], new.t_raw.device)
-    return _with_slot_tree(new, _tree_map(
+    return _with_slot_tree(new, tree_map(
         lambda n, o: torch.where(_bcast(keep, n), o, n),
         _slot_tree(new), _slot_tree(old)))
 
@@ -814,7 +832,7 @@ def reset_slots(state: StreamState, free) -> StreamState:
     """Zero every per-slot leaf of the slots where the (S,) mask ``free``
     is True (an admission).  The shared BN statistics stay."""
     free = _slot_mask(free, state.t_raw.shape[0], state.t_raw.device)
-    return _with_slot_tree(state, _tree_map(
+    return _with_slot_tree(state, tree_map(
         lambda v: torch.where(_bcast(free, v), torch.zeros_like(v), v),
         _slot_tree(state)))
 
@@ -833,7 +851,7 @@ def snapshot_slots(state: StreamState, idx) -> Dict[str, Any]:
         rows = leaf.index_select(0, idx.reshape(-1))
         return rows.reshape(idx.shape + leaf.shape[1:])
 
-    return _tree_map(g, _slot_tree(state))
+    return tree_map(g, _slot_tree(state))
 
 
 def restore_slots(state: StreamState, idx, snap: Dict[str, Any]
@@ -847,7 +865,7 @@ def restore_slots(state: StreamState, idx, snap: Dict[str, Any]
         sv = torch.as_tensor(sv, dtype=leaf.dtype, device=leaf.device)
         return leaf.index_copy(0, idx, sv.reshape(idx.shape + leaf.shape[1:]))
 
-    return _with_slot_tree(state, _tree_map(s, _slot_tree(state), snap))
+    return _with_slot_tree(state, tree_map(s, _slot_tree(state), snap))
 
 
 # Slot or ring index of a padded no-op event in the fixed-shape event
@@ -872,7 +890,7 @@ def init_snapshot_ring(slab: StreamState, capacity: int) -> Dict[str, Any]:
     slot's :func:`snapshot_slots` capture (independent of the slab's S)."""
     idx = torch.zeros(int(capacity), dtype=torch.int64,
                       device=slab.t_raw.device)
-    return _tree_map(torch.zeros_like, snapshot_slots(slab, idx))
+    return tree_map(torch.zeros_like, snapshot_slots(slab, idx))
 
 
 def snapshot_to_ring(slab: StreamState, ring: Dict[str, Any],
@@ -885,7 +903,7 @@ def snapshot_to_ring(slab: StreamState, ring: Dict[str, Any],
     S = slab.t_raw.shape[0]
     rows = snapshot_slots(slab, order[:, 0].clamp(0, S - 1))
     dst = order[:, 1]
-    return _tree_map(lambda r, x: _put_rows(r, dst, x), ring, rows)
+    return tree_map(lambda r, x: _put_rows(r, dst, x), ring, rows)
 
 
 def restore_from_ring(slab: StreamState, ring: Dict[str, Any],
@@ -896,7 +914,7 @@ def restore_from_ring(slab: StreamState, ring: Dict[str, Any],
     order = _index(order, slab.t_raw.device)
     R = ring["t_raw"].shape[0]
     slot, src = order[:, 0], order[:, 1].clamp(0, R - 1)
-    return _with_slot_tree(slab, _tree_map(
+    return _with_slot_tree(slab, tree_map(
         lambda leaf, rl: _put_rows(leaf, slot, rl.index_select(0, src)),
         _slot_tree(slab), ring))
 

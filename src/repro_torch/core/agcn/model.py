@@ -13,13 +13,14 @@ parameters.  With ``cfg.use_ck`` each block also has the θ/φ embeddings
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.tree import tree_map
 from repro_torch.core.agcn.graph import NTU_EDGES
 from repro_torch.core.pruning.plan import PrunePlan
 
@@ -70,15 +71,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "fc_w": _conv_init(gen, (cin, cfg.gcn_num_classes), cin),
         "fc_b": torch.zeros(cfg.gcn_num_classes),
     }
-    return _to_device(params, dev)
-
-
-def _to_device(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree_map(lambda t: t.to(dev), params)
 
 
 def forward(
@@ -148,3 +141,17 @@ def two_stream_logits(params_joint, params_bone, x, cfg, plan=None,
     lb = forward(params_bone, bone_stream(x), cfg, plan, quant,
                  backend=backend)
     return 0.5 * (lj + lb)
+
+
+@torch.no_grad()
+def feature_sparsity_per_block(params, x: torch.Tensor, cfg: ModelConfig,
+                               plan: Optional[PrunePlan] = None
+                               ) -> List[float]:
+    """Post-ReLU sparsity (share of exact zeros) of each block's output on
+    clip batch ``x``, through a ``reference`` plan on the params' device,
+    as JAX does: drives RFC mini-bank sizing and the Drop-* channel
+    schedules (paper Fig. 9, Table III)."""
+    from repro_torch.core.agcn import engine
+    ep = engine.build_execution_plan(params, cfg, plan, backend="reference")
+    return [int((h == 0).sum()) / h.numel()
+            for h in engine.block_outputs(ep, x)]

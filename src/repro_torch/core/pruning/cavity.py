@@ -49,3 +49,19 @@ def tile_pattern(mask: np.ndarray, num_filters: int) -> np.ndarray:
     loop = mask.shape[0]
     reps = int(np.ceil(num_filters / loop))
     return np.tile(mask, (reps, 1))[:num_filters]
+
+
+def balance_stats(mask: np.ndarray) -> dict:
+    """The balance of a (loop, K) pattern (paper Fig. 10): kept fraction,
+    per-tap-position and per-kernel keep counts, and whether every
+    position is kept within one of every other."""
+    col = mask.sum(axis=0)
+    row = mask.sum(axis=1)
+    return {
+        "keep_frac": float(mask.mean()),
+        "per_position_min": int(col.min()),
+        "per_position_max": int(col.max()),
+        "per_kernel_min": int(row.min()),
+        "per_kernel_max": int(row.max()),
+        "balanced": bool(col.max() - col.min() <= 1),
+    }

@@ -4,16 +4,21 @@ fine temporal pruning (C2), numpy on the host; the same decisions as
 
 The plan is static: it names the spatial-conv input channels each block
 keeps, the temporal filters it keeps (= the next block's kept inputs,
-Fig. 2), and the cavity tap mask of those filters.
+Fig. 2), and the cavity tap mask of those filters.  The accounting —
+compression ratio, graph-skip efficiency (paper §VI: 3.0–8.4×, 73.20%),
+the Drop-* keep schedules from feature sparsity, the unstructured
+baseline and the cavity balance report — is the JAX package's, number for
+number.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.pruning.cavity import cavity_pattern, tile_pattern
+from repro_torch.core.pruning.cavity import (balance_stats, cavity_pattern,
+                                             tile_pattern)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +40,31 @@ class PrunePlan:
     blocks: Tuple[BlockPrunePlan, ...]
     cavity_name: str
     input_skip: int = 1
+
+    def summary(self, channels: Sequence[int], in_channels: int,
+                kv: int = 3, tkernel: int = 9, joints: int = 25) -> Dict:
+        """Compression and skip accounting (paper Fig. 8, §VI): parameters
+        of the spatial 1×1 convs (kv × kept inputs × cout) and temporal
+        convs (kept taps × cout) before and after pruning, and the share
+        of graph-matmul work (∝ input channels entering G·f) skipped."""
+        dense_params = kept_params = 0
+        dense_graph = kept_graph = 0
+        cin = in_channels
+        for b, plan in enumerate(self.blocks):
+            cout = channels[b]
+            dense_params += kv * cin * cout + cout * cout * tkernel
+            kept_params += (kv * len(plan.kept_in) * cout
+                            + int(plan.tap_mask.sum()) * cout)
+            dense_graph += cin * joints * joints
+            kept_graph += len(plan.kept_in) * joints * joints
+            cin = cout
+        return {
+            "compression_ratio": dense_params / max(1, kept_params),
+            "graph_skip_efficiency": 1.0 - kept_graph / max(1, dense_graph),
+            "param_reduction": 1.0 - kept_params / max(1, dense_params),
+            "dense_params": dense_params,
+            "kept_params": kept_params,
+        }
 
 
 def select_channels_by_magnitude(w: np.ndarray, keep_frac: float) -> Tuple[int, ...]:
@@ -101,3 +131,29 @@ def plan_from_config(cfg) -> Optional[PrunePlan]:
         cin = cout
     return _plan(kept_ins, channels, pat, cins, cfg.cavity_pattern,
                  cfg.input_skip)
+
+
+def drop_scheme(sparsities: Sequence[float], shift: float = 0.0) -> List[float]:
+    """Channel keep fractions from observed feature sparsity (paper Fig. 9):
+    each block drops about its sparsity, Drop-2/3 ``shift`` more; clamped
+    to [0.05, 1]."""
+    return [max(0.05, min(1.0, 1.0 - (s + shift))) for s in sparsities]
+
+
+def unstructured_prune(w: np.ndarray, frac: float) -> np.ndarray:
+    """The paper's baseline (Fig. 8): zero the ``frac`` smallest-magnitude
+    weights (ties at the threshold go too)."""
+    flat = np.abs(w).ravel()
+    k = int(len(flat) * frac)
+    if k == 0:
+        return w.copy()
+    thresh = np.partition(flat, k - 1)[k - 1]
+    out = w.copy()
+    out[np.abs(out) <= thresh] = 0.0
+    return out
+
+
+def cavity_report(name: str, tkernel: int = 9) -> Dict:
+    """:func:`~repro_torch.core.pruning.cavity.balance_stats` of a named
+    cavity pattern (paper Fig. 10)."""
+    return balance_stats(cavity_pattern(name, kernel=tkernel))

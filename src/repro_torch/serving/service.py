@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device, synchronize
+from repro_torch.common.tree import tree_map
 from repro_torch.serving.capacity import CapacityConfig, CapacityManager
 from repro_torch.serving.saliency import SaliencyConfig, SaliencyGate
 from repro_torch.serving.scheduler import (QOS_POLICIES, AdmissionQueue,
@@ -891,7 +892,7 @@ class GcnService:
         session stops existing here; bystander slots are untouched.
         Finished or missed sessions cannot be exported."""
         engine = self._engine
-        to_host = lambda tree: engine._tree_map(       # noqa: E731
+        to_host = lambda tree: tree_map(       # noqa: E731
             lambda t: t.cpu().numpy(), tree)
         req = self._req(h)
         sid = h.sid
@@ -919,7 +920,7 @@ class GcnService:
                 if self.fused:
                     row = self.sched.ring_release(sid)
                     snaps = tuple(
-                        engine._tree_map(lambda leaf: leaf[row].cpu().numpy(),
+                        tree_map(lambda leaf: leaf[row].cpu().numpy(),
                                          ring)
                         for ring in self._rings)
                 else:
@@ -951,12 +952,12 @@ class GcnService:
             if self.fused:
                 row = self.sched.ring_adopt(sid)
                 self._rings = tuple(
-                    engine._tree_map(lambda r, sv: _set_row(r, row, sv),
+                    tree_map(lambda r, sv: _set_row(r, row, sv),
                                      ring, sn)
                     for ring, sn in zip(self._rings, snaps))
             else:
                 self._snaps[sid] = tuple(
-                    engine._tree_map(lambda sv: torch.as_tensor(
+                    tree_map(lambda sv: torch.as_tensor(
                         np.asarray(sv), device=self.device), sn)
                     for sn in snaps)
         self.sched.queue.push(item)

@@ -1,1 +1,1 @@
-"""Step-function factories."""
+"""Step-function factories: training and inference steps."""

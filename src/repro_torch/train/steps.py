@@ -1,15 +1,93 @@
-"""Inference steps.  GCN steps over prebuilt ExecutionPlans: the clip
-step, the per-frame stream step, the session-slab step and the fused
+"""Step functions.  Training: the loss, its gradients and the AdamW train
+step with microbatch accumulation (``make_loss_fn``, ``loss_and_grads``,
+``make_train_step``).  GCN inference over prebuilt ExecutionPlans: the
+clip step, the per-frame stream step, the session-slab step and the fused
 serving tick, each the two-stream (joint + bone) ensemble.  LM steps: the
-greedy KV-cache decode step and the prefill forward.  Port of the
-inference part of ``repro.train.steps``."""
+greedy KV-cache decode step and the prefill forward.  Port of
+``repro.train.steps``."""
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import ModelConfig, TrainConfig
+from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
+
+
+def make_loss_fn(cfg: ModelConfig) -> Callable:
+    """``loss(params, batch) -> (loss, metrics)``: the family's training
+    loss (``registry.loss_fn``)."""
+    from repro_torch.models import registry
+
+    def loss(params, batch):
+        return registry.loss_fn(params, batch, cfg)
+    return loss
+
+
+def loss_and_grads(loss_fn: Callable, params, batch
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
+    """(loss, metrics, grads) of ``loss_fn(params, batch)``, with grads in
+    ``params``' structure and dtypes (zeros for a leaf the loss does not
+    reach, as JAX's ``value_and_grad`` gives); the loss and metrics are
+    detached."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_unflatten(params, grads))
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    loss_fn: Optional[Callable] = None) -> Callable:
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
+    forward and backward, gradients averaged over ``tcfg.microbatches``
+    equal slices of the batch (each slice's loss on its own, so BatchNorm
+    takes each slice's statistics, as JAX's scan does), cast to bf16 when
+    ``tcfg.grad_compression == "bf16"``, then ``adamw.update``.  Returns
+    new trees; the inputs are not changed.
+
+    ``loss_fn`` (default :func:`make_loss_fn`) may be any ``(params,
+    batch) -> (loss, metrics)`` — the pruning bench's prune-aware losses.
+    JAX's ``grad_shardings`` (the ZeRO-2 reduce-scatter of gradients over
+    a data-parallel mesh) is not taken: it joins with distribution
+    (ROADMAP.md, Queue 1 item 4)."""
+    from repro_torch.optim import adamw
+
+    loss_fn = loss_fn or make_loss_fn(cfg)
+    nmb = max(1, tcfg.microbatches)
+
+    def train_step(params, opt_state, batch):
+        if nmb == 1:
+            loss, metrics, grads = loss_and_grads(loss_fn, params, batch)
+        else:
+            gacc = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            n = next(iter(batch.values())).shape[0]
+            if n % nmb:
+                raise ValueError(f"a batch of {n} does not split into "
+                                 f"{nmb} microbatches")
+            per, loss = n // nmb, 0.0
+            for i in range(nmb):
+                mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+                li, _, g = loss_and_grads(loss_fn, params, mb)
+                gacc = tree_map(torch.add, gacc, g)
+                loss = loss + li
+            grads = tree_map(lambda g: g / nmb, gacc)
+            loss = loss / nmb
+            metrics = {"loss": loss}
+        if tcfg.grad_compression == "bf16":
+            grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
+        params, opt_state, opt_metrics = adamw.update(
+            params, grads, opt_state, tcfg)
+        metrics = dict(metrics)
+        metrics.update(opt_metrics)
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def _gcn_bone_fn(plans) -> Callable:

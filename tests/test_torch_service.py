@@ -22,6 +22,7 @@ from repro.core.agcn import model as jmodel
 from repro.core.pruning.plan import build_prune_plan as jax_build_prune_plan
 from repro.serving import GcnService as JaxService
 from repro_torch.bridge import params_from_numpy
+from repro_torch.common.tree import tree_leaves
 from repro_torch.configs import get_config
 from repro_torch.core.agcn import engine, model
 from repro_torch.core.pruning.plan import build_prune_plan
@@ -264,10 +265,8 @@ def test_elastic_migration_parity(plans, backend):
                                    err_msg=f"session {i}")
     for slabs in svc._tier_slabs.values():
         for slab in slabs:
-            leaves = engine._tree_map(lambda t: t, engine.snapshot_slots(
+            flat = tree_leaves(engine.snapshot_slots(
                 slab, torch.arange(slab.t_raw.shape[0])))
-            flat = []
-            engine._tree_map(lambda t: flat.append(t), leaves)
             assert all(not t.any() for t in flat)
 
 

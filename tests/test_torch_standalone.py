@@ -164,6 +164,69 @@ def test_serving_and_sessions_cli_run_without_jax(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+# the offline path runs on the CPU in an interpreter where jax and repro
+# cannot be imported: one reduced train step, the accounting modules, the
+# RFC-checkpointed MLP, a checkpoint round trip, and the table subcommands
+# of benchmarks/torch_paper.py
+_RUN_TRAIN = r"""
+import json, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.checkpoint import store
+from repro_torch.common import tree
+from repro_torch.common.config import TrainConfig
+from repro_torch.configs import get_config
+from repro_torch.core.agcn import engine, model
+from repro_torch.core.rfc import checkpoint, format
+from repro_torch.core.sched import expectation
+from repro_torch.data.pipeline import DataConfig, make_batches
+from repro_torch.fault import monitor
+from repro_torch.launch import train
+from repro_torch.models import registry
+from repro_torch.optim import adamw
+from repro_torch.train.steps import make_train_step
+from benchmarks import torch_paper
+cfg = get_config("agcn-2s", reduced=True)
+p = registry.init_params(cfg, seed=0, device="cpu")
+b = {k: torch.as_tensor(v) for k, v in
+     next(make_batches(cfg, DataConfig(4, 0))).items()}
+p2, o2, m = make_train_step(cfg, TrainConfig(microbatches=2))(
+    p, adamw.init(p), b)
+assert torch.isfinite(m["loss"]) and int(o2.step) == 1
+assert tree.param_count(p2) == tree.param_count(p)
+store.save(sys.argv[2], 1, o2)
+back = store.restore(sys.argv[2], 1, adamw.init(p))
+assert all(torch.equal(a, c) for a, c in zip(tree.tree_leaves(back),
+                                             tree.tree_leaves(o2)))
+x = torch.randn(6, 8, requires_grad=True)
+checkpoint.mlp_relu2_rfc(x, torch.randn(8, 32), torch.randn(32, 4)).sum(
+    ).backward()
+assert x.grad is not None
+s = model.feature_sparsity_per_block(p, b["x"], cfg)
+assert expectation.scheduling_report(6, s[0])["dsps"] >= 1
+torch_paper.main(["compression", "cavity", "rfc_storage", "dyn_sched",
+                  "--reduced", "--device", "cpu", "--out", sys.argv[3]])
+rows = {r["name"] for r in json.load(open(sys.argv[3]))}
+assert {"pruning/drop1/cav-70-1", "cavity/cav-70-2", "rfc/storage",
+        "dyn_sched/total"} <= rows, rows
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m in ("jax", "repro") or m.startswith(("jax.", "repro."))))
+print(bad)
+"""
+
+
+def test_train_path_and_paper_benches_run_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _RUN_TRAIN, str(ROOT),
+                          str(tmp_path / "ckpt"), str(tmp_path / "b.json")],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 # the card's kernel tests are collected where there is no JAX: the module
 # imports in an interpreter where jax and repro cannot be imported
 _IMPORT_CARD_TESTS = r"""
@@ -195,7 +258,7 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT) for p in PKG.rglob("*.py")]
-    + [Path("chip_smoke.py")]), ids=str)
+    + [Path("chip_smoke.py"), Path("benchmarks/torch_paper.py")]), ids=str)
 def test_source_names_no_jax_or_repro_import(path):
     assert not _FORBIDDEN.findall((ROOT / path).read_text())
 
@@ -205,6 +268,8 @@ def test_entry_points_default_to_cuda():
     from repro_torch.configs import get_config
     from repro_torch.core.agcn.model import init_params
     from repro_torch.launch.serve import serve_gcn, serve_gcn_stream
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.launch.train import train_loop
     from repro_torch.serving import run_sessions
 
     if torch.cuda.is_available():
@@ -220,4 +285,15 @@ def test_entry_points_default_to_cuda():
         params_from_numpy({"w": [1.0]})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_sessions(cfg, slots=1, n_sessions=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_loop("agcn-2s", TrainConfig(total_steps=1), resume=False)
+    import importlib
+    sys.path.insert(0, str(ROOT))
+    try:
+        torch_paper = importlib.import_module("benchmarks.torch_paper")
+    finally:
+        sys.path.remove(str(ROOT))
+    for cmd in ("rfc_storage", "accuracy", "agcn_ablation"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            torch_paper.main([cmd, "--reduced"])
     assert init_params(cfg, device="cpu")["fc_w"].device.type == "cpu"
