@@ -136,12 +136,32 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                frame with starved (held) ticks, then closed: every
                session done, ``cuda`` against ``reference`` within
                atol=rtol=1e-3.  Prints the phase's time.
- 11. profile — two steps each of the clip, stream, slab, ntu50 CSR clip
+ 11. distributed — the distributed serving tier at full agcn-2s on
+               ``cuda``: (a) the sessions phase's 16-session trace through
+               ``GcnService(mesh=make_batch_mesh(4, device=<this card>))``
+               (4 logical shards of the (4, 8) tiers) against that phase's
+               unsharded run: the outcome log equal, every session's logits
+               within atol=rtol=1e-3, one shard step per shard a tick
+               (launches per tick four times the unsharded tick's, plus
+               one calibration clip pass), tick p50 both ways and
+               ``collective_ms_per_tick`` (``collective_cost_ms``: CUDA
+               events), and one sharded fused tick (a snapshot on shard 1
+               and its restore on shard 2 of one ring row) under
+               ``set_sync_debug_mode("error")``; (b) the same against a
+               mesh over two cards when more than one is visible (else a
+               line says it was not run); (c) a 2-replica
+               ``ReplicaRouter``: a 48-frame session moved from replica 0's
+               slot to replica 1 at tick 20 within atol=rtol=1e-3 of its
+               run alone, the bystander's max difference to its run
+               without the move (0 required), the launches of the routed
+               run, and the ``run_routed_sessions`` row (2 replicas x 4
+               slots, 8 sessions: sessions/s, frames/s, rebalances).
+ 12. profile — two steps each of the clip, stream, slab, ntu50 CSR clip
                and C_k stream paths under ``torch.profiler``: the device's
                busy share of the wall time and device time by kernel name
                (reported, not checked; the profiler's own cost inflates the
                wall time).
- 12. lm      — dense LM decode serving at the full width of smollm-360m
+ 13. lm      — dense LM decode serving at the full width of smollm-360m
                (32 layers, d_model 960, 15/5 heads, vocab 49 152; random
                weights from seed 0): ``generate`` (batch 4, a 496-token
                prompt fed token by token, then 16 greedy tokens: 511 serve
@@ -165,7 +185,7 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                each ``kernel flash_decode`` line names the launch's plan
                (splits, warps, stages), its µs per launch and its share of
                the bound.
- 13. train   — the offline path: ``launch.train.train_loop`` on full
+ 14. train   — the offline path: ``launch.train.train_loop`` on full
                agcn-2s (ntu25, T = 300 with input skip 2, dense graph)
                for 30 steps of 16 clips = 32 sequences (lr 3e-3, warmup
                3, seed 0; checkpoints at steps 10, 20, 30 under
@@ -250,6 +270,8 @@ SESSIONS_N, SESSIONS_TIERS = 16, (4, 8)    # the full-width sessions trace
 SESSIONS_GOLDEN_S = 30.0           # golden cells past the first five run
                                    # while the first ones took less
 MIXED_SVC_FRAMES = 24              # frames per session of the mixed service
+MESH_SHARDS = 4                    # logical shards of the sharded service
+ROUTER_FRAMES, ROUTER_MOVE_AT = 48, 20     # the migrated clip, its move tick
 VMAX = 50                          # slab width of the mixed and padded runs
 DENSE_SKELETONS = (("hand21", 21), ("body_hand46", 46))
 CSR_EPS = 1e-5                     # above B_k's 1e-6 init: D = degree
@@ -979,7 +1001,7 @@ def record_decode(steps, num_layers):
 
 
 def lm_phase(dev, failures, cases, summary, check_launches, modules):
-    """Phase 12: ``generate`` at full smollm-360m width on both backends,
+    """Phase 13: ``generate`` at full smollm-360m width on both backends,
     the teacher-forced and prefill agreement checks, flash_decode's launch
     count, cases and times, a sync-free step and a profiled step."""
     import numpy as np
@@ -1146,7 +1168,7 @@ def _max_rel(got, want) -> float:
 
 
 def train_phase(dev, failures, cases, check_launches):
-    """Phase 13: the offline path — ``launch.train.train_loop`` at full
+    """Phase 14: the offline path — ``launch.train.train_loop`` at full
     agcn-2s width, a checkpoint restored bit-equal and resumed, one train
     step on the card against the CPU, the RFC-checkpointed MLP on the
     hand-written RFC pair, and C3's storage, the E(D) report and the
@@ -1577,6 +1599,7 @@ def sessions_phase(dev, failures, check_launches, per_clip, per_tick):
           f"{'equal' if dc == dr else 'DIFFER'} ({dc[:12]}), {len(lc)} "
           f"finished sessions, max |logit difference| {diff:.3g}, top-1 "
           f"agreement {top1 * 100:.1f}%")
+    full_width = (trace, c)
 
     # ---- (c) two skeletons in one service, cuda against reference ---------
     rng = np.random.default_rng(SEED + 2)
@@ -1635,6 +1658,219 @@ def sessions_phase(dev, failures, check_launches, per_clip, per_tick):
                         f"by {d:.3g}")
     print(f"sessions: mixed cuda vs reference, every session {d:.3g}")
     print(f"sessions: phase time {time.perf_counter() - t_phase:.1f} s")
+    return full_width
+
+
+def serve_trace(svc, trace):
+    """``serving.replay``'s loop over a service built by the caller (replay
+    builds its own, with no mesh); returns ``svc.metrics()``."""
+    from collections import deque
+    from repro_torch.serving import trace_requests
+    reqs = deque(sorted(trace_requests(trace, svc.cfg.gcn_joints,
+                                       svc.cfg.gcn_in_channels),
+                        key=lambda r: (r.arrival, r.sid)))
+    while reqs or not svc.idle():
+        while reqs and reqs[0].arrival <= svc.now:
+            r = reqs.popleft()
+            svc.submit_clip(svc.open_session(
+                priority=r.priority, deadline=r.deadline,
+                arrival=r.arrival), r.clip)
+        if svc.idle():
+            svc.advance_clock(reqs[0].arrival)
+        else:
+            svc.tick()
+    return svc.metrics()
+
+
+def distributed_phase(dev, failures, check_launches, per_clip, per_tick,
+                      full_width):
+    """Phase 11: the distributed serving tier at full width on ``cuda`` —
+    the sessions phase's trace through a 4-shard ``GcnService(mesh=...)``
+    on this card against its unsharded run, a mesh over distinct cards
+    when more than one is visible, and a 2-replica ``ReplicaRouter``."""
+    import numpy as np
+    import torch
+    from repro_torch.common.device import canonical_device
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (ReplicaRouter, collective_cost_ms,
+                                         make_batch_mesh, run_routed_sessions)
+    from repro_torch.serving import GcnService, outcome_digest
+    from repro_torch.serving.scheduler import (max_events_for,
+                                               pad_event_orders)
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    trace, base = full_width
+    want_digest = outcome_digest(base["outcomes"])
+    want = {r.sid: r.logits for r in base["records"]}
+
+    def sharded(mesh, label):
+        """The trace through a service split over ``mesh``, checked
+        against the unsharded run; returns (service, row)."""
+        t0 = time.perf_counter()
+        svc = GcnService(cfg, backend="cuda", qos="preempt",
+                         capacity_tiers=SESSIONS_TIERS, record_outcomes=True,
+                         seed=SEED, mesh=mesh, device=mesh.devices[0])
+        m = serve_trace(svc, trace)
+        got = {r.sid: r.logits for r in m["records"]}
+        d = max((float(np.abs(got[k] - want[k]).max()) for k in got
+                 if k in want), default=float("inf"))
+        bad = []
+        if outcome_digest(svc.outcomes) != want_digest:
+            bad.append("outcome log differs from the unsharded run's")
+        if sorted(got) != sorted(want) or not all(
+                np.isfinite(v).all() and np.allclose(v, want[k], atol=1e-3,
+                                                     rtol=1e-3)
+                for k, v in got.items()):
+            bad.append(f"logits differ by {d:.3g}")
+        if bad:
+            failures.append(f"distributed {label}: {bad}")
+        print(f"distributed: {label}: {m['sessions']} sessions, digest "
+              f"{'equal' if not bad else 'DIFFERS'} "
+              f"({outcome_digest(svc.outcomes)[:12]}), max |logit "
+              f"difference| to the unsharded run {d:.3g}, "
+              f"{time.perf_counter() - t0:.1f} s with construction")
+        return svc, m
+
+    # ---- (a) 4 logical shards on this card ---------------------------------
+    n = MESH_SHARDS
+    mesh = make_batch_mesh(n, device=canonical_device(dev))
+    (svc, m), counts = counted(lambda: sharded(mesh, f"{n} shards on one "
+                                                     f"card"))
+    run = sum(m["tier_ticks"].values())
+    warm = 2 * len(SESSIONS_TIERS)
+    if m["device_dispatches"] != n * run:
+        failures.append(f"distributed: {m['device_dispatches']} shard steps "
+                        f"in {run} ticks, expected {n * run}")
+    got_tick = check_launches("distributed", counts,
+                              {k: n * v for k, v in per_tick.items()},
+                              run + warm, base=per_clip)
+    coll = collective_cost_ms(svc)
+    t = m["ticks"]
+    for label, r in (("unsharded", base), (f"{n} shards", m)):
+        print(f"distributed: {label}: tick p50 {r['tick_ms_p50']:.3f} ms "
+              f"mean {r['tick_ms_mean']:.3f} ms, "
+              f"{r['sessions'] / r['wall_s']:.3f} sessions/s, "
+              f"{r['frames_per_s']:.2f} frames/s, "
+              f"{r['device_dispatches']} dispatches")
+    print(f"distributed: {n} shards: collective_ms_per_tick {coll:.3f} "
+          f"(CUDA events: {n} shard steps minus one whole-slab step; one "
+          f"card, so the cost of splitting, no interconnect); "
+          f"{m['wall_dispatch_s'] / t * 1e3:.3f} ms a tick issuing the "
+          f"uploads and steps; launches per tick "
+          f"{ {k: v for k, v in got_tick.items() if v} }")
+    # one sharded fused tick, its inputs on the card: a snapshot on shard 1
+    # and a restore on shard 2 of one ring row (every slot held, so the
+    # restored row stays as it came), no host sync
+    w = svc.capacity // n
+    E = max_events_for(svc.capacity)
+    V, C = svc.vmax, cfg.gcn_in_channels
+    up = svc._upload_shards([[
+        np.zeros((w, V, C), np.float32), np.zeros((w,), bool),
+        np.zeros((w,), bool), np.ones((w,), bool),
+        pad_event_orders([(0, 0)] if j == 1 else [], E),
+        pad_event_orders([(0, 0)] if j == 2 else [], E)] for j in range(n)])
+    ins = [(f, v, r, h, []) for f, v, r, h, _, _ in up]
+    snap = [so if j == 1 else None for j, (*_, so, _) in enumerate(up)]
+    rest = [ro if j == 2 else None for j, (*_, ro) in enumerate(up)]
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        slabs, _, _ = svc._fused_tick(svc.slabs, ins, snap, rest, svc._rings)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        src = tree_leaves(svc._engine.snapshot_slots(svc.slabs[1][0], 0))
+        moved = all(torch.equal(a, b) for a, b in zip(tree_leaves(
+            svc._engine.snapshot_slots(slabs[2][0], 0)), src))
+        print(f"distributed: one sharded fused tick under "
+              f"set_sync_debug_mode('error'): no host sync; shard 1's row "
+              f"0 (live leaves: {sum(bool(x.any()) for x in src)} of "
+              f"{len(src)}) moved to shard 2's row 0: {moved}")
+        if not moved:
+            failures.append("distributed: a snapshot on shard 1 and its "
+                            "restore on shard 2 in one tick did not move "
+                            "the row")
+    except RuntimeError as e:
+        torch.cuda.set_sync_debug_mode("default")
+        failures.append(f"distributed: the sharded fused tick syncs with "
+                        f"the host: {e}")
+
+    # ---- (b) a mesh over distinct cards -----------------------------------
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        sharded(make_batch_mesh(2), "2 cards")
+    else:
+        print(f"distributed: a mesh over distinct cards needs 2 visible, "
+              f"{cards} visible: not run")
+
+    # ---- (c) two replicas behind the router -------------------------------
+    rng = np.random.default_rng(SEED + 3)
+    clip_a, clip_b = rng.standard_normal(
+        (2, ROUTER_FRAMES, cfg.gcn_joints, cfg.gcn_in_channels)).astype(
+        np.float32)
+    first = None
+
+    def routed(migrate):
+        nonlocal first
+        kw = ({} if first is None else
+              dict(plans=first.plans, bn_stats=first.bn_stats))
+        router = ReplicaRouter.build(cfg, replicas=2, backend="cuda",
+                                     capacity_tiers=(2,), seed=SEED,
+                                     device=dev, **kw)
+        first = first or router.services[0]
+        ha = router.open_session(replica=0)
+        router.submit_clip(ha, clip_a)
+        hb = router.open_session(replica=0)
+        router.submit_clip(hb, clip_b)
+        for _ in range(ROUTER_MOVE_AT):
+            router.tick()
+        if migrate:
+            router.migrate_session(ha, 1)
+        router.run_until_idle()
+        return (router, router.replica_of(ha), router.poll(ha).logits,
+                router.poll(hb).logits)
+
+    (router, moved_to, got_a, by), counts = counted(lambda: routed(True))
+    check_launches("routed", counts, per_tick,
+                   sum(sum(s.tier_ticks.values()) + 2
+                       for s in router.services), base=per_clip)
+    by0 = routed(False)[3]
+    alone = GcnService(cfg, backend="cuda", plans=first.plans,
+                       bn_stats=first.bn_stats, capacity_tiers=(1,),
+                       device=dev)
+    h = alone.open_session()
+    alone.submit_clip(h, clip_a)
+    alone.run_until_idle()
+    want_a = alone.poll(h).logits
+    da = float(np.abs(got_a - want_a).max())
+    db = float(np.abs(by - by0).max())
+    if (not np.allclose(got_a, want_a, atol=1e-3, rtol=1e-3) or db != 0.0
+            or moved_to != 1):
+        failures.append(f"distributed router: migrated session (now on "
+                        f"replica {moved_to}) {da:.3g} from its run alone, "
+                        f"bystander {db:.3g} from its run without the "
+                        f"migration")
+    print(f"distributed: router, 2 replicas, full {ARCH} on cuda: a session "
+          f"moved from replica 0's slot to replica 1 at tick "
+          f"{ROUTER_MOVE_AT} of its {ROUTER_FRAMES} frames ends "
+          f"{da:.3g} from its run alone; the bystander's max |difference| "
+          f"to its run without the move {db:.3g}; rebalances "
+          f"{router.rebalances}")
+    t0 = time.perf_counter()
+    row = run_routed_sessions(cfg, replicas=2, slots=4, n_sessions=8,
+                              lengths=(ROUTER_FRAMES, 2 * ROUTER_FRAMES),
+                              qos="preempt", seed=SEED, rebalance_every=8,
+                              device=dev)
+    if row["sessions"] != 8:
+        failures.append(f"distributed: run_routed_sessions finished "
+                        f"{row['sessions']} of 8 sessions")
+    print(f"distributed: run_routed_sessions, 2 replicas x 4 slots, 8 "
+          f"sessions: {row['sessions'] / row['wall_s']:.3f} sessions/s, "
+          f"{row['frames_per_s']:.2f} frames/s, {row['ticks']} ticks, "
+          f"rebalances {row['rebalances']}, preemptions "
+          f"{row['preemptions']}, {time.perf_counter() - t0:.1f} s")
+    print(f"distributed: phase time {time.perf_counter() - t_phase:.1f} s")
 
 
 def card_tests(failures) -> None:
@@ -2274,10 +2510,16 @@ def main() -> int:
     phase_done("ck")
 
     # ---- 10. sessions: GcnService ---------------------------------------------
-    sessions_phase(dev, failures, check_launches, per_clip, per_tick)
+    full_width = sessions_phase(dev, failures, check_launches, per_clip,
+                                per_tick)
     phase_done("sessions")
 
-    # ---- 11. profile ----------------------------------------------------------
+    # ---- 11. distributed: the sharded slab and the replica router --------------
+    distributed_phase(dev, failures, check_launches, per_clip, per_tick,
+                      full_width)
+    phase_done("distributed")
+
+    # ---- 12. profile ----------------------------------------------------------
     profile_steps("clip", lambda: infer(plans, x0))
     profile_steps(f"stream S={S8}", lambda: stream_step(
         plans, warm8, x0[:S8, STREAM_WARM]))
@@ -2289,11 +2531,11 @@ def main() -> int:
 
     phase_done("profile")
 
-    # ---- 12. LM decode serving: smollm-360m at full width ---------------------
+    # ---- 13. LM decode serving: smollm-360m at full width ---------------------
     lm_phase(dev, failures, cases, summary, check_launches, modules)
     phase_done("lm")
 
-    # ---- 13. the offline path: training, checkpoints, accounting --------------
+    # ---- 14. the offline path: training, checkpoints, accounting --------------
     train_phase(dev, failures, cases, check_launches)
     phase_done("train")
 

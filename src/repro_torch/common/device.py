@@ -26,3 +26,12 @@ def synchronize(device: Optional[torch.device]) -> None:
     """Wait for queued work on ``device`` (no-op on the CPU)."""
     if device is not None and torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def canonical_device(device: DeviceLike = None) -> torch.device:
+    """:func:`resolve_device` with the CUDA index made explicit (``cuda``
+    -> ``cuda:<current>``), so two names of one card compare equal."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

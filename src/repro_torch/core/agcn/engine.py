@@ -898,24 +898,31 @@ def snapshot_to_ring(slab: StreamState, ring: Dict[str, Any],
     """For each (slot, row) pair of the (E, 2) ``order``, copy the slab's
     slot into ring row ``row``.  Rows padded with :data:`SNAP_SENTINEL`
     are no-ops (their gather is clamped, their write dropped).  Returns
-    the new ring; the slab is only read."""
+    the new ring; the slab is only read.  The ring may lie on another
+    device than the slab (a sharded slab's ring on the mesh's first
+    device): the gathered rows are copied across, device to device."""
     order = _index(order, slab.t_raw.device)
     S = slab.t_raw.shape[0]
     rows = snapshot_slots(slab, order[:, 0].clamp(0, S - 1))
-    dst = order[:, 1]
-    return tree_map(lambda r, x: _put_rows(r, dst, x), ring, rows)
+    dev = ring["t_raw"].device
+    dst = order[:, 1].to(dev)
+    return tree_map(lambda r, x: _put_rows(r, dst, x.to(dev)), ring, rows)
 
 
 def restore_from_ring(slab: StreamState, ring: Dict[str, Any],
                       order) -> StreamState:
     """For each (slot, row) pair of the (E, 2) ``order``, copy ring row
     ``row`` into slab slot ``slot``; sentinel rows touch no slot.  The
-    inverse of :func:`snapshot_to_ring`.  Returns the new slab."""
+    inverse of :func:`snapshot_to_ring` (the ring may lie on another
+    device than the slab, as there).  Returns the new slab."""
     order = _index(order, slab.t_raw.device)
     R = ring["t_raw"].shape[0]
-    slot, src = order[:, 0], order[:, 1].clamp(0, R - 1)
+    dev = slab.t_raw.device
+    slot = order[:, 0]
+    src = order[:, 1].clamp(0, R - 1).to(ring["t_raw"].device)
     return _with_slot_tree(slab, tree_map(
-        lambda leaf, rl: _put_rows(leaf, slot, rl.index_select(0, src)),
+        lambda leaf, rl: _put_rows(leaf, slot, rl.index_select(0, src)
+                                   .to(dev)),
         _slot_tree(slab), ring))
 
 

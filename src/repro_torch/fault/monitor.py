@@ -8,7 +8,7 @@
   * Both are pure-python state machines over injected timestamps, testable
     without a cluster; ``launch/train.py`` wires them to wall-clock time
     (one host: the port has no multi-host training yet, ROADMAP.md Queue 1
-    item 4).
+    item 4b, the training half of distribution).
 """
 from __future__ import annotations
 

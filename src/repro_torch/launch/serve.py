@@ -11,8 +11,8 @@ decoding.
         --arch agcn-2s [--reduced] [--slots S] [--n-sessions N] \\
         [--qos fifo|preempt|deadline] [--capacity-tiers 2,4,8] \\
         [--trace FILE] [--policy demand|slo] [--topology NAME] [--ck] \\
-        [--saliency-thresh X] [--backend cuda|reference|both] \\
-        [--device cuda|cpu] [--bench PATH]
+        [--saliency-thresh X] [--mesh N] [--replicas R] \\
+        [--backend cuda|reference|both] [--device cuda|cpu] [--bench PATH]
     PYTHONPATH=src python -m repro_torch.launch.serve lm --arch smollm-360m \\
         [--reduced] [--batch N] [--prompt-len N] [--gen N] \\
         [--backend cuda|reference|both] [--device cuda|cpu]
@@ -30,7 +30,10 @@ agreement.  ``sessions`` serves many independent sessions through
 ``repro_torch.serving.GcnService`` (generated Poisson or bursty load, or a
 recorded trace with ``--trace``), prints the service's metrics and merges
 its rows into ``--bench`` (default ``BENCH_torch_sessions.json`` in the
-current directory).
+current directory).  ``--mesh N`` splits the session slab over N shards
+(N cards, or N logical shards on the CPU with ``--device cpu``) and
+``--replicas R`` also serves the load through R service replicas behind
+the replica router (``repro_torch.distributed``), one process either way.
 """
 from __future__ import annotations
 
@@ -258,12 +261,12 @@ def serve_gcn_sessions(arch: str, *, reduced: bool = True, slots: int = 4,
                        load: str = "poisson", policy: str = "demand",
                        slo_config=None, trace: str = "", topology: str = "",
                        use_ck: bool = False, saliency_thresh: float = 0.0,
+                       mesh: int = 0, replicas: int = 1,
                        device: DeviceLike = None,
                        bench: Optional[str] = None) -> List[Dict]:
     """Multi-session stream serving through
     :class:`repro_torch.serving.GcnService`, one service per backend (the
-    two-stream ensemble), as the JAX package's ``serve_gcn_sessions``
-    without ``mesh`` and ``replicas``.
+    two-stream ensemble), as the JAX package's ``serve_gcn_sessions``.
 
     ``qos`` picks the scheduler policy, ``capacity_tiers`` (e.g. ``(2, 4,
     8)``) makes the service elastic (``slots`` alone is a fixed-capacity
@@ -273,8 +276,16 @@ def serve_gcn_sessions(arch: str, *, reduced: bool = True, slots: int = 4,
     (``demand`` | ``slo``, knobs in ``slo_config``) compare the
     controllers on identical traffic.  ``topology`` serves a registered
     skeleton, ``use_ck`` the windowed C_k graph, ``saliency_thresh`` > 0
-    gates uninformative frames.  Returns the services' metrics rows and
-    merges them into ``bench`` (default ``BENCH_torch_sessions.json``)."""
+    gates uninformative frames.  ``mesh`` > 1 splits the slab over a
+    ``mesh``-shard batch mesh built on ``device`` (N cards when ``device``
+    is None or ``"cuda"``, N logical shards on ``"cpu"``; the row gains
+    ``mesh`` and ``collective_ms_per_tick``); ``replicas`` > 1 also serves
+    the generated load through a :class:`~repro_torch.distributed.router.
+    ReplicaRouter` and appends its merged row (``replicas`` and
+    ``rebalances``) after each backend's.  Neither is taken with
+    ``trace`` (the JAX CLI ignores them there; this one refuses).
+    Returns the metrics rows and merges them into ``bench`` (default
+    ``BENCH_torch_sessions.json``)."""
     from repro_torch.serving import (DEFAULT_BENCH_PATH, Trace, replay,
                                      run_sessions, write_bench)
 
@@ -289,6 +300,9 @@ def serve_gcn_sessions(arch: str, *, reduced: bool = True, slots: int = 4,
             raise ValueError("--topology is not available with --trace: a "
                              "recorded trace pins its clip bytes to the "
                              "skeleton it was captured with")
+        if mesh > 1 or replicas > 1:
+            raise ValueError("--mesh and --replicas serve generated load; "
+                             "replay takes no mesh or router")
         rec = Trace.load(trace)
         results = [
             replay(cfg, rec, backend=backend, qos=qos, policy=policy,
@@ -297,19 +311,31 @@ def serve_gcn_sessions(arch: str, *, reduced: bool = True, slots: int = 4,
                    saliency_thresh=saliency_thresh, device=device)
             for backend in backends]
     else:
+        if replicas > 1 and topology:
+            raise ValueError("--topology is not threaded through the "
+                             "replica router — drop --replicas")
         n = n_sessions or 3 * slots
         # mean inter-arrival ~ clip_len / slots: offered load ~ capacity
         mean_gap = rate if rate > 0 else max(2.0, cfg.gcn_frames / slots)
-        results = [
-            run_sessions(cfg, slots=slots, n_sessions=n,
-                         mean_interarrival=mean_gap, backend=backend,
-                         seed=seed, qos=qos, preempt_ratio=preempt_ratio,
-                         deadline_slack=deadline_slack,
-                         capacity_tiers=capacity_tiers, load=load,
-                         policy=policy, slo_config=slo_config,
-                         topology=topology or None, use_ck=use_ck,
-                         saliency_thresh=saliency_thresh, device=device)
-            for backend in backends]
+        results = []
+        for backend in backends:
+            results.append(run_sessions(
+                cfg, slots=slots, n_sessions=n, mean_interarrival=mean_gap,
+                backend=backend, seed=seed, qos=qos,
+                preempt_ratio=preempt_ratio, deadline_slack=deadline_slack,
+                capacity_tiers=capacity_tiers, load=load, policy=policy,
+                slo_config=slo_config, topology=topology or None,
+                use_ck=use_ck, saliency_thresh=saliency_thresh, mesh=mesh,
+                device=device))
+            if replicas > 1:
+                from repro_torch.distributed import run_routed_sessions
+                results.append(run_routed_sessions(
+                    cfg, replicas=replicas, slots=slots, n_sessions=n,
+                    mean_interarrival=mean_gap, backend=backend, seed=seed,
+                    qos=qos, preempt_ratio=preempt_ratio,
+                    deadline_slack=deadline_slack,
+                    capacity_tiers=capacity_tiers, load=load,
+                    device=device))
     write_bench(results, bench or DEFAULT_BENCH_PATH)
     return results
 
@@ -318,7 +344,24 @@ def _print_sessions(results: List[Dict], bench: str) -> None:
     for r in results:
         cap = (f" capacity={r['capacity']}" if r["capacity"] != "fixed"
                else "")
-        pol = (f" policy={r['policy']}" if r["policy"] != "demand" else "")
+        if r.get("replicas", 1) > 1:
+            # the merged router row: totals and percentiles (per-replica
+            # detail rides under "per_replica" in the bench row)
+            print(f"backend={r['backend']} [sessions routed "
+                  f"replicas={r['replicas']} qos={r['qos']}{cap} "
+                  f"load={r['load']} device={r['device']}]: "
+                  f"{r['sessions']} sessions over "
+                  f"{r['replicas']}x{r['slots']} slots in {r['ticks']} "
+                  f"ticks, {r['frames_per_s']:.1f} frames/s, "
+                  f"{r['sessions'] / r['wall_s'] if r['wall_s'] else 0.0:.2f}"
+                  f" sessions/s, occupancy {r['occupancy'] * 100:.0f}%, "
+                  f"session latency p50 {r['latency_ms_p50']:.0f} ms p99 "
+                  f"{r['latency_ms_p99']:.0f} ms")
+            print(f"  replicas={r['replicas']} "
+                  f"rebalances={r['rebalances']}")
+            continue
+        pol = f" mesh={r['mesh']}" if r.get("mesh", 1) > 1 else ""
+        pol += (f" policy={r['policy']}" if r["policy"] != "demand" else "")
         pol += f" trace={r['trace']}" if r.get("trace") else ""
         if r.get("ck"):
             pol += " ck"
@@ -363,6 +406,9 @@ def _print_sessions(results: List[Dict], bench: str) -> None:
                   f"{r['migrations_shrink']} shrinks, migration "
                   f"{r['migration_ms_mean']:.1f} ms mean, final capacity "
                   f"{r['capacity_final']}, tier ticks {r['tier_ticks']}")
+        if r.get("mesh", 1) > 1:
+            print(f"  sharded: {r['mesh']} devices, collective cost "
+                  f"{r['collective_ms_per_tick']:.2f} ms/tick")
     print(f"# merged into {bench}")
 
 
@@ -447,11 +493,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bench", default=DEFAULT_BENCH_PATH,
                    help="the JSON file the rows merge into")
     p.add_argument("--mesh", type=int, default=0,
-                   help="not ported: the sharded slab is ROADMAP.md Queue 1 "
-                        "item 4")
+                   help="split the session slab over an N-shard 1-D mesh "
+                        "(0/1: one device; N cards, or N logical shards "
+                        "with --device cpu); every tier must be a "
+                        "multiple of N")
     p.add_argument("--replicas", type=int, default=1,
-                   help="not ported: the replica router is ROADMAP.md "
-                        "Queue 1 item 4")
+                   help="also serve the load through R service replicas "
+                        "behind the replica router (adds the routed row)")
     lm.add_argument("--prompt-len", type=int, default=16)
     lm.add_argument("--gen", type=int, default=32)
     return ap
@@ -464,9 +512,6 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch, reduced=args.reduced)
     backends = engine.BACKENDS if args.backend == "both" else (args.backend,)
     if args.mode == "sessions":
-        if args.mesh > 1 or args.replicas > 1:
-            ap.error("--mesh and --replicas are not ported yet: sharding "
-                     "and the replica router are ROADMAP.md Queue 1 item 4")
         slo_config = None
         if args.policy == "slo":
             from repro_torch.serving import SloConfig
@@ -487,8 +532,8 @@ def main(argv=None) -> None:
             deadline_slack=args.deadline_slack, capacity_tiers=tiers,
             load=args.load, policy=args.policy, slo_config=slo_config,
             trace=args.trace, topology=args.topology, use_ck=args.ck,
-            saliency_thresh=args.saliency_thresh, device=args.device,
-            bench=args.bench)
+            saliency_thresh=args.saliency_thresh, mesh=args.mesh,
+            replicas=args.replicas, device=args.device, bench=args.bench)
         _print_sessions(results, args.bench)
         return
     batch = cfg.serve_batch(args.mode, args.batch)

@@ -2,7 +2,8 @@
 monitors, on one process and one device.  Port of ``repro.launch.train``
 for the gcn family (2s-AGCN); dense-LM training joins with the rest of the
 LM zoo (ROADMAP.md, Queue 1 item 6) and multi-device training with
-distribution (item 4), so there is no mesh argument.
+the training half of distribution (item 4b), so there is no mesh
+argument.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch agcn-2s \\
         [--reduced] --steps 30 --batch 16 [--device cuda|cpu]

@@ -38,6 +38,17 @@ every active session migrates across slabs: gather the occupied rows,
 scatter them into the pristine target tier, remap the scheduler's slot
 table.  A session migrated across tiers gives the logits of the
 uninterrupted fixed-capacity session.
+
+**Mesh sharding** (``mesh=``, :mod:`repro_torch.distributed.serving`):
+the slot axis of every slab is split into contiguous shards of S/n slots,
+one :class:`~repro_torch.core.agcn.engine.StreamState` per shard on its
+mesh device, and the one host scheduler keeps global slot indices.  A
+tick splits its host arrays by shard before the upload and runs the
+existing slab step once per shard; the copies XLA inserts in the JAX
+service are explicit device-to-device copies here (snapshot-ring rows,
+tier-migration rows, the logits gathered when they are read).  The
+snapshot ring lives on the mesh's first device.  Without a mesh the
+service is the one-shard case of the same code.
 """
 from __future__ import annotations
 
@@ -49,7 +60,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.device import DeviceLike, resolve_device, synchronize
+from repro_torch.common.device import (DeviceLike, canonical_device,
+                                       resolve_device, synchronize)
 from repro_torch.common.tree import tree_map
 from repro_torch.serving.capacity import CapacityConfig, CapacityManager
 from repro_torch.serving.saliency import SaliencyConfig, SaliencyGate
@@ -106,6 +118,12 @@ def _state_copy(slab):
     return dataclasses.replace(slab, **engine.snapshot_slots(slab, idx))
 
 
+def _plan_to(plan, device: torch.device):
+    """An ExecutionPlan with its arrays copied to ``device``."""
+    return dataclasses.replace(plan, arrays=tree_map(
+        lambda a: a.to(device), plan.arrays))
+
+
 def _set_row(leaf: torch.Tensor, row: int, value) -> torch.Tensor:
     """``leaf`` with row ``row`` replaced by ``value``, out of place."""
     out = leaf.clone()
@@ -124,12 +142,13 @@ class GcnService:
     (``qos="preempt"``), deadline eviction (``qos="deadline"``) and
     elastic tier migration all happen between steps on the host.
 
-    Parameters (as the JAX package's ``GcnService``, without ``mesh``):
+    Parameters (as the JAX package's ``GcnService``):
       cfg              — a gcn-family ``ModelConfig``.
       backend          — engine backend (``cuda`` | ``reference``).
       device           — where plans, slabs and steps live; None means
                          CUDA (raises without a card), ``"cpu"`` runs the
-                         kernels' plain versions.
+                         kernels' plain versions.  Under a ``mesh`` it is
+                         the mesh's first device (None takes that one).
       qos              — scheduler policy (``fifo`` | ``preempt`` |
                          ``deadline``).
       capacity_tiers   — slot capacities; one entry = fixed capacity,
@@ -182,6 +201,16 @@ class GcnService:
                          slots outside the group held.
       sconv, csr_eps   — spatial-conv selection for
                          ``engine.build_execution_plan``.
+      mesh             — optional 1-D slot mesh
+                         (:func:`repro_torch.distributed.serving.
+                         make_batch_mesh`): every slab is split along its
+                         slot axis into one shard of S/n slots per mesh
+                         device, plans and BN statistics are copied once
+                         to each distinct device, the snapshot ring stays
+                         on the first device (which is the service's
+                         device), and a tick runs one slab step per shard.
+                         Every capacity tier must be a multiple of the
+                         mesh size.  None (default): one shard.
       retain_records   — bound on per-session host bookkeeping.
       saliency_thresh  — > 0 runs a
                          :class:`~repro_torch.serving.saliency.SaliencyGate`
@@ -203,14 +232,14 @@ class GcnService:
                  snap_capacity: Optional[int] = None,
                  topologies: Sequence[str] = ("ntu25",),
                  sconv: str = "auto", csr_eps: float = 0.0,
+                 mesh: Optional[Any] = None,
                  retain_records: int = 1024,
                  saliency_thresh: float = 0.0,
                  device: DeviceLike = None):
         from repro_torch.core.agcn import engine
         from repro_torch.core.agcn.graph import get_topology
         from repro_torch.core.agcn.model import bone_stream_parents
-        from repro_torch.train.steps import (make_gcn_fused_tick,
-                                             make_gcn_slab_step)
+        from repro_torch.train.steps import make_gcn_slab_step
 
         if qos not in QOS_POLICIES:
             raise ValueError(f"unknown QoS policy {qos!r}")
@@ -223,7 +252,29 @@ class GcnService:
         if retain_records < 1:
             raise ValueError(
                 f"retain_records must be >= 1, got {retain_records}")
-        self.device = dev = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if len(mesh.axis_names) != 1:
+                raise ValueError(
+                    f"GcnService expects a 1-D slot mesh, got axes "
+                    f"{mesh.axis_names}")
+            bad = [t for t in tiers if t % mesh.size]
+            if bad:
+                raise ValueError(
+                    f"capacity tiers {bad} are not multiples of the mesh "
+                    f"size {mesh.size}: the mesh size must divide every "
+                    "tier, the slot axis is split evenly across the mesh")
+            if (device is not None
+                    and canonical_device(device) != mesh.devices[0]):
+                raise ValueError(
+                    f"the service's device {device} is not the mesh's "
+                    f"first device {mesh.devices[0]}")
+            self.device = dev = canonical_device(mesh.devices[0])
+            self._shard_devs = list(mesh.devices)
+        else:
+            self.device = dev = resolve_device(device)
+            self._shard_devs = [dev]
+        self._n = len(self._shard_devs)
         self.cfg = cfg
         self.backend = backend
         self.qos = qos
@@ -303,16 +354,29 @@ class GcnService:
                 engine._pad_data_bn_stats(s, p.static)
                 for s, p in zip(st, plans_t))
         self.bn_stats = self._topo_stats[self.primary]
+        # one copy of every topology's plans and BN statistics per distinct
+        # mesh device (device -> (plans by topology, stats by topology))
+        self._placed = {dev: (self._topo_plans, self._topo_stats)}
+        for d in self._shard_devs:
+            if d not in self._placed:
+                self._placed[d] = (
+                    {t: tuple(_plan_to(p, d) for p in ps)
+                     for t, ps in self._topo_plans.items()},
+                    tree_map(lambda x: x.to(d), self._topo_stats))
 
-        # --- one pristine slab per capacity tier --------------------------
-        # nothing writes into a slab in place (steps, restores and
-        # migrations return new ones), so the live slab may start as the
+        # --- one pristine slab per capacity tier, split into shards -------
+        # _tier_slabs[S][j] is shard j's per-stream tuple of S/n-slot
+        # slabs.  Nothing writes into a slab in place (steps, restores and
+        # migrations return new ones), so the live shards may start as the
         # tier's own and every tier stays all zero
         self._tier_slabs = {
-            S: tuple(engine.init_session_slab(p, S, bn_stats=bs)
-                     for p, bs in zip(self.plans, self.bn_stats))
+            S: tuple(tuple(engine.init_session_slab(p, S // self._n,
+                                                    bn_stats=bs)
+                           for p, bs in zip(self._plans_at(j),
+                                            self._stats_at(j)))
+                     for j in range(self._n))
             for S in tiers}
-        self.slabs = self._tier_slabs[tiers[0]]
+        self.slabs = list(self._tier_slabs[tiers[0]])
 
         # --- scheduler + capacity manager ---------------------------------
         self.fused = bool(fused)
@@ -352,17 +416,19 @@ class GcnService:
         self.n_rejected = 0                 # lifetime rejected-open count
 
         # --- device entry points (plain callables, functional) ------------
+        # _step is the one-shard slab step; _fused_tick, _migrate_fn and
+        # the legacy _snap_fn/_rest_fn below address shards themselves
         self._step = make_gcn_slab_step(cfg)
-        self._fused_tick = make_gcn_fused_tick(cfg)
         self._snap_fn = engine.snapshot_slots
         self._rest_fn = engine.restore_slots
-        # per-stream snapshot rings (fused path): rows are slot-shaped, so
-        # one ring serves every tier and rides through migrations
+        # per-stream snapshot rings (fused path), on the first shard's
+        # device: rows are slot-shaped, so one ring serves every tier and
+        # every shard and rides through migrations
         self._rings: Optional[Tuple] = None
         if self.fused:
             self._rings = tuple(
                 engine.init_snapshot_ring(s, self.snap_capacity)
-                for s in self._tier_slabs[tiers[0]])
+                for s in self._tier_slabs[tiers[0]][0])
 
         # --- session bookkeeping -------------------------------------------
         self._next_sid = 0
@@ -407,12 +473,25 @@ class GcnService:
         if self.record_outcomes:
             self._missed_tick.append(req.sid)
 
-    def _upload(self, *arrays: np.ndarray) -> Tuple[torch.Tensor, ...]:
-        """Host arrays (float32, int32, bool) as tensors on the device.  On
-        the card they travel in one asynchronous copy from one pinned
-        buffer (the caching host allocator keeps the buffer until the copy
-        has run), so a tick's inputs cost one transfer and no host wait."""
-        if self.device.type != "cuda":
+    def _plans_at(self, j: int, topology: Optional[str] = None) -> Tuple:
+        """The per-stream plans of ``topology`` (default the primary) on
+        shard ``j``'s device."""
+        return self._placed[self._shard_devs[j]][0][topology or self.primary]
+
+    def _stats_at(self, j: int, topology: Optional[str] = None) -> Tuple:
+        """The per-stream BN statistics of ``topology`` on shard ``j``'s
+        device."""
+        return self._placed[self._shard_devs[j]][1][topology or self.primary]
+
+    def _upload(self, *arrays: np.ndarray, device: Optional[torch.device]
+                = None) -> Tuple[torch.Tensor, ...]:
+        """Host arrays (float32, int32, bool) as tensors on ``device``
+        (default the service's).  On the card they travel in one
+        asynchronous copy from one pinned buffer (the caching host
+        allocator keeps the buffer until the copy has run), so a tick's
+        inputs cost one transfer and no host wait."""
+        device = device or self.device
+        if device.type != "cuda":
             return tuple(torch.from_numpy(np.ascontiguousarray(a))
                          for a in arrays)
         offs, n = [], 0
@@ -424,50 +503,145 @@ class GcnService:
         for a, o in zip(arrays, offs):
             buf[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
                 np.uint8)
-        dev = host.to(self.device, non_blocking=True)
+        dev = host.to(device, non_blocking=True)
         return tuple(dev[o:o + a.nbytes].view(_TORCH_DTYPES[a.dtype])
                      .view(a.shape) for a, o in zip(arrays, offs))
 
+    def _upload_shards(self, per_shard: Sequence[Sequence[np.ndarray]]
+                       ) -> List[List[torch.Tensor]]:
+        """Each shard's host arrays on its device: one :meth:`_upload` per
+        distinct mesh device, carrying the arrays of every shard there."""
+        out: List[List[torch.Tensor]] = [[] for _ in per_shard]
+        for d in dict.fromkeys(self._shard_devs):
+            js = [j for j, dj in enumerate(self._shard_devs) if dj == d]
+            flat = iter(self._upload(
+                *(a for j in js for a in per_shard[j]), device=d))
+            for j in js:
+                out[j] = [next(flat) for _ in per_shard[j]]
+        return out
+
+    def _shard_orders(self, order: np.ndarray) -> List[Optional[np.ndarray]]:
+        """A tick's (E, 2) global (slot, ring row) event order split by
+        shard on the host: each shard's events with local slot indices,
+        padded to E with ``SNAP_SENTINEL``, or None where the shard has
+        none."""
+        w = self.capacity // self._n
+        real = order[order[:, 0] != self._engine.SNAP_SENTINEL]
+        out: List[Optional[np.ndarray]] = []
+        for j in range(self._n):
+            mine = real[(real[:, 0] >= j * w) & (real[:, 0] < (j + 1) * w)]
+            out.append(pad_event_orders(
+                [(int(s) - j * w, int(r)) for s, r in mine], len(order))
+                if len(mine) else None)
+        return out
+
+    def _sync(self) -> None:
+        """Wait for queued work on every mesh device."""
+        for d in dict.fromkeys(self._shard_devs):
+            synchronize(d)
+
     def _warm(self) -> None:
-        """Run the tick path of every tier once before traffic (the plain
-        step, each other skeleton group's step, the fused tick on copies
-        of the tier slab and a throwaway ring, the legacy preempt pair)
-        and every ordered tier pair's migration, so kernel builds and first
-        allocations do not land inside a tick."""
+        """Run the tick path of every tier once before traffic (each
+        shard's plain step, each other skeleton group's step, the fused
+        tick on copies of the tier slab and a throwaway ring, the legacy
+        preempt pair) and every ordered tier pair's migration, so kernel
+        builds and first allocations do not land inside a tick."""
         engine = self._engine
         V, C = self.vmax, self.cfg.gcn_in_channels
-        for S, slabs in self._tier_slabs.items():
-            zf, zb = self._upload(np.zeros((S, V, C), np.float32),
-                                  np.zeros((S,), bool))
-            self._step(self.plans, slabs, zf, zb, zb, zb)
-            for t in self.topologies[1:]:
-                self._step(self._topo_plans[t], slabs, zf, zb, zb, zb,
-                           stats=self._topo_stats[t])
+        for S, shards in self._tier_slabs.items():
+            w = S // self._n
+            zs = self._upload_shards(
+                [[np.zeros((w, V, C), np.float32), np.zeros((w,), bool),
+                  pad_event_orders([], max_events_for(S))]
+                 for _ in range(self._n)])
+            for j, (zf, zb, _) in enumerate(zs):
+                self._step(self._plans_at(j), shards[j], zf, zb, zb, zb)
+                for t in self.topologies[1:]:
+                    self._step(self._plans_at(j, t), shards[j], zf, zb, zb,
+                               zb, stats=self._stats_at(j, t))
             if self.fused:
-                wslabs = tuple(_state_copy(s) for s in slabs)
+                wslabs = [tuple(_state_copy(s) for s in sh) for sh in shards]
                 wrings = tuple(engine.init_snapshot_ring(
-                    s, self.snap_capacity) for s in slabs)
-                zo, = self._upload(pad_event_orders([], max_events_for(S)))
-                self._fused_tick(self.plans, wslabs, zf, zb, zb, zb, zo, zo,
-                                 wrings)
+                    s, self.snap_capacity) for s in shards[0])
+                self._fused_tick(
+                    wslabs, [(zf, zb, zb, zb, []) for zf, zb, _ in zs],
+                    [zo for _, _, zo in zs], [zo for _, _, zo in zs], wrings)
             elif self.qos == "preempt":
-                snaps = tuple(self._snap_fn(s, 0) for s in slabs)
-                tuple(self._rest_fn(s, 0, x) for s, x in zip(slabs, snaps))
+                for sh in shards:
+                    snaps = tuple(self._snap_fn(s, 0) for s in sh)
+                    tuple(self._rest_fn(s, 0, x) for s, x in zip(sh, snaps))
         for a in self.tiers:
             for b in self.tiers:
                 if a != b:
-                    idx = torch.arange(min(a, b), device=self.device)
-                    tuple(self._migrate_fn(sa, sb, idx, idx)
-                          for sa, sb in zip(self._tier_slabs[a],
-                                            self._tier_slabs[b]))
-        synchronize(self.device)
+                    self._migrate_fn(self._tier_slabs[a], self._tier_slabs[b],
+                                     list(range(min(a, b))))
+        self._sync()
 
-    def _migrate_fn(self, src, dst, old_idx, new_idx):
-        """Rows ``old_idx`` of slab ``src`` scattered into rows ``new_idx``
-        of slab ``dst``; returns the new slab."""
+    def _fused_tick(self, slabs, ins, snap, rest, rings):
+        """The sharded fused tick over shard list ``slabs``: every shard's
+        snapshots land in the ring, then every shard's restores read it (a
+        snapshot on one shard and its restore on another in one tick move
+        the session), then :meth:`_step_shards`.  ``snap``/``rest`` hold
+        each shard's local (E, 2) order on its device, or None (no event
+        there).  With one shard it is ``engine.fused_tick`` per stream.
+        Functional: returns ``(slabs, logits per shard, rings)``."""
         engine = self._engine
-        return engine.restore_slots(dst, new_idx,
-                                    engine.snapshot_slots(src, old_idx))
+        slabs, rings = list(slabs), list(rings)
+        for sh, o in zip(slabs, snap):
+            if o is not None:
+                rings = [engine.snapshot_to_ring(s, r, o)
+                         for s, r in zip(sh, rings)]
+        for j, o in enumerate(rest):
+            if o is not None:
+                slabs[j] = tuple(engine.restore_from_ring(s, r, o)
+                                 for s, r in zip(slabs[j], rings))
+        slabs, logits = self._step_shards(slabs, ins)
+        return slabs, logits, tuple(rings)
+
+    def _step_shards(self, slabs, ins):
+        """One slab step per shard: ``ins[j]`` is shard j's (frames, valid,
+        reset, hold, groups) on its device, ``groups`` each non-primary
+        skeleton group's (name, valid, reset, hold) masks, stepped after
+        the primary with that topology's plans and BN statistics over the
+        shard, everything outside the group held.  Returns ``(slabs,
+        logits per shard)``: a shard's logits are its last step's, which
+        cover every slot (held rows report their running prediction, and
+        the fc head is the same for every topology's plans)."""
+        slabs, logits = list(slabs), []
+        for j, (frames, valid, reset, hold, groups) in enumerate(ins):
+            slabs[j], lg = self._step(self._plans_at(j), slabs[j], frames,
+                                      valid, reset, hold)
+            for t, gv, gr, gh in groups:
+                slabs[j], lg = self._step(
+                    self._plans_at(j, t), slabs[j], frames, gv, gr, gh,
+                    stats=self._stats_at(j, t))
+            logits.append(lg)
+        return slabs, logits
+
+    def _migrate_fn(self, src, dst, old_rows: Sequence[int]):
+        """Global rows ``old_rows`` of the shard list ``src`` scattered into
+        global rows ``0 .. len(old_rows) - 1`` of the shard list ``dst``
+        (tiers of different widths): one gather and one scatter per
+        (source shard, target shard) pair that moves rows, the rows copied
+        across devices where the pair's devices differ.  Returns the new
+        shard list; target shards that take no row stay as they were."""
+        engine = self._engine
+        wo, wn = src[0][0].t_raw.shape[0], dst[0][0].t_raw.shape[0]
+        moves: Dict[Tuple[int, int], Tuple[List[int], List[int]]] = {}
+        for r, o in enumerate(old_rows):
+            sl, dl = moves.setdefault((o // wo, r // wn), ([], []))
+            sl.append(o % wo)
+            dl.append(r % wn)
+        out = list(dst)
+        for (js, jd), (sl, dl) in moves.items():
+            si = torch.as_tensor(sl, dtype=torch.int64,
+                                 device=self._shard_devs[js])
+            di = torch.as_tensor(dl, dtype=torch.int64,
+                                 device=self._shard_devs[jd])
+            out[jd] = tuple(
+                engine.restore_slots(d, di, engine.snapshot_slots(s, si))
+                for s, d in zip(src[js], out[jd]))
+        return out
 
     # -- plan-derived timing --------------------------------------------------
 
@@ -669,12 +843,16 @@ class GcnService:
     def _force_logits(self) -> Optional[np.ndarray]:
         """Copy the pending tick's logits to the host (once): the one
         device-to-host copy of a tick, made only when a session finishes,
-        ``poll(wait=True)`` or ``metrics`` needs it.  Its wait is timed
-        into ``wall_device_s``."""
+        ``poll(wait=True)`` or ``metrics`` needs it.  A sharded tick's
+        per-shard logits are first gathered to the mesh's first device.
+        Its wait is timed into ``wall_device_s``."""
         if (self._last_logits is not None
                 and not isinstance(self._last_logits, np.ndarray)):
             t0 = time.monotonic()
-            self._last_logits = self._last_logits.cpu().numpy()
+            parts = self._last_logits
+            full = (parts[0] if len(parts) == 1 else
+                    torch.cat([p.to(self.device) for p in parts]))
+            self._last_logits = full.cpu().numpy()
             self.wall_device_s += time.monotonic() - t0
             self.readbacks += 1
         return self._last_logits
@@ -694,21 +872,6 @@ class GcnService:
         out += [(t, masks[t]) for t in self.topologies[1:]
                 if masks[t].any()]
         return out
-
-    def _step_groups(self, frames, groups, logits):
-        """Step each non-primary skeleton group: one step per group with
-        that topology's plans and BN statistics over the shared slab,
-        everything outside the group held.  ``groups`` holds (name, valid,
-        reset, hold) with the masks on the device.  Returns the last
-        step's logits, which cover the whole slab (held rows report their
-        running prediction, and the fc head is the same for every
-        topology's plans)."""
-        for t, valid, reset, hold in groups:
-            self.slabs, logits = self._step(
-                self._topo_plans[t], self.slabs, frames, valid, reset, hold,
-                stats=self._topo_stats[t])
-            self.device_dispatches += 1
-        return logits
 
     @torch.inference_mode()
     def tick(self) -> List[SessionRecord]:
@@ -775,25 +938,37 @@ class GcnService:
             for _, m in groups[1:]:
                 host += [tp.valid & m, tp.reset & m, tp.hold | ~m]
         events = bool(tp.snapshot or tp.restore)
-        orders = ([tp.snap_order, tp.rest_order]
-                  if self.fused and events else [])
         t_dispatch = time.monotonic()
-        frames, valid, reset, hold, *rest = self._upload(
-            tp.frames, valid, reset, hold, *orders, *host)
-        if orders:
-            snap_order, rest_order, *rest = rest
-        group_masks = [(t, *rest[3 * i: 3 * i + 3])
-                       for i, (t, _) in enumerate((groups or [])[1:])]
+        # the host arrays split by shard (slots [j w, (j + 1) w) are shard
+        # j's), uploaded to each shard's device; the fused path's event
+        # orders are split on the host too, so the tick reads nothing back
+        w = self.capacity // self._n
+        per_shard = [[a[j * w:(j + 1) * w]
+                      for a in (tp.frames, valid, reset, hold, *host)]
+                     for j in range(self._n)]
+        snap, rest = [None] * self._n, [None] * self._n
+        if self.fused and events:
+            snap = self._shard_orders(tp.snap_order)
+            rest = self._shard_orders(tp.rest_order)
+            for arrs, so, ro in zip(per_shard, snap, rest):
+                arrs += [o for o in (so, ro) if o is not None]
+        names = [t for t, _ in (groups or [])[1:]]
+        ins = []
+        for j, (frames, valid, reset, hold, *more) in enumerate(
+                self._upload_shards(per_shard)):
+            gm, orders = more[:len(host)], iter(more[len(host):])
+            ins.append((frames, valid, reset, hold,
+                        [(t, *gm[3 * i: 3 * i + 3])
+                         for i, t in enumerate(names)]))
+            snap[j] = None if snap[j] is None else next(orders)
+            rest[j] = None if rest[j] is None else next(orders)
+        self.device_dispatches += self._n * (1 + len(host) // 3)
         if self.fused:
             if events:
                 self.slabs, logits, self._rings = self._fused_tick(
-                    self.plans, self.slabs, frames, valid, reset, hold,
-                    snap_order, rest_order, self._rings)
+                    self.slabs, ins, snap, rest, self._rings)
             else:
-                self.slabs, logits = self._step(
-                    self.plans, self.slabs, frames, valid, reset, hold)
-            self.device_dispatches += 1
-            logits = self._step_groups(frames, group_masks, logits)
+                self.slabs, logits = self._step_shards(self.slabs, ins)
             self.wall_dispatch_s += time.monotonic() - t_dispatch
             self._last_logits = logits          # on the device until forced
             # a session finishing this tick needs its logits row now
@@ -803,18 +978,18 @@ class GcnService:
                 self._force_logits()
         else:
             for s, sid in tp.snapshot:      # capture before restore/step
-                self._snaps[sid] = tuple(self._snap_fn(slab, s)
-                                         for slab in self.slabs)
-                self.device_dispatches += len(self.slabs)
+                j, k = divmod(s, w)
+                self._snaps[sid] = tuple(self._snap_fn(slab, k)
+                                         for slab in self.slabs[j])
+                self.device_dispatches += len(self.plans)
             for s, sid in tp.restore:
+                j, k = divmod(s, w)
                 snaps = self._snaps.pop(sid)
-                self.slabs = tuple(self._rest_fn(slab, s, sn)
-                                   for slab, sn in zip(self.slabs, snaps))
-                self.device_dispatches += len(self.slabs)
-            self.slabs, logits = self._step(
-                self.plans, self.slabs, frames, valid, reset, hold)
-            self.device_dispatches += 1
-            logits = self._step_groups(frames, group_masks, logits)
+                self.slabs[j] = tuple(self._rest_fn(slab, k, sn)
+                                      for slab, sn in zip(self.slabs[j],
+                                                          snaps))
+                self.device_dispatches += len(self.plans)
+            self.slabs, logits = self._step_shards(self.slabs, ins)
             self.wall_dispatch_s += time.monotonic() - t_dispatch
             self._last_logits = logits
             self._force_logits()                 # legacy: synchronous tick
@@ -867,13 +1042,9 @@ class GcnService:
         mapping = self.sched.resize(new_S)
         free = [s for s in range(S_old) if s not in mapping]
         k = min(S_old, new_S)
-        old_idx = torch.as_tensor((occupied + free)[:k], dtype=torch.int64,
-                                  device=self.device)
-        new_idx = torch.arange(k, device=self.device)
-        self.slabs = tuple(
-            self._migrate_fn(slab, nsl, old_idx, new_idx)
-            for slab, nsl in zip(self.slabs, self._tier_slabs[new_S]))
-        synchronize(self.device)
+        self.slabs = self._migrate_fn(self.slabs, self._tier_slabs[new_S],
+                                      (occupied + free)[:k])
+        self._sync()
         # _last_logits is not remapped: _migrate runs only inside tick()
         # (or on an idle service), which overwrites it before a poll
         ctrl = self.capman if self.capman is not None else self.slo
@@ -891,7 +1062,6 @@ class GcnService:
         ``engine.snapshot_slots``; None when it was never admitted).  The
         session stops existing here; bystander slots are untouched.
         Finished or missed sessions cannot be exported."""
-        engine = self._engine
         to_host = lambda tree: tree_map(       # noqa: E731
             lambda t: t.cpu().numpy(), tree)
         req = self._req(h)
@@ -903,10 +1073,12 @@ class GcnService:
         snaps: Optional[Tuple] = None
         for s, slot in enumerate(self.sched.slots):
             if slot is not None and slot.req is req:
-                # active: its live state is slab row s; the slot is freed
-                # (the admission reset zeroes the stale row before reuse)
-                snaps = tuple(to_host(self._snap_fn(slab, s))
-                              for slab in self.slabs)
+                # active: its live state is row s of the slab, row k of
+                # shard j; the slot is freed (the admission reset zeroes
+                # the stale row before reuse)
+                j, k = divmod(s, self.capacity // self._n)
+                snaps = tuple(to_host(self._snap_fn(slab, k))
+                              for slab in self.slabs[j])
                 self.sched.slots[s] = None
                 item = slot
                 break
@@ -936,7 +1108,6 @@ class GcnService:
         package carrying device snapshots first writes them into a
         snapshot-ring row (fused) or the held snapshots (legacy), so the
         next admission restores it like a local preemption resume."""
-        engine = self._engine
         item = package["item"]
         snaps = package["snaps"]
         req = item if isinstance(item, SessionRequest) else item.req
@@ -1017,7 +1188,7 @@ class GcnService:
             "backend": self.backend,
             "device": self.device.type,
             "slots": self.tiers[0],
-            "mesh": 1,
+            "mesh": self.mesh.size if self.mesh is not None else 1,
             "topologies": ",".join(self.topologies),
             "joints": self.vmax,
             "qos": self.qos,
@@ -1122,29 +1293,39 @@ def run_sessions(
     rng: Optional[np.random.Generator] = None,
     use_ck: bool = False,
     saliency_thresh: float = 0.0,
+    mesh: int = 0,
     device: DeviceLike = None,
 ) -> Dict:
     """Serve ``n_sessions`` generated skeleton sessions through a
     :class:`GcnService` with the two-stream (joint + bone) ensemble: each
     arrival becomes ``open_session`` + ``submit_clip`` and idle stretches
     fast-forward the service clock.  The arguments are the JAX
-    package's ``run_sessions`` (without ``mesh``) plus ``device``:
-    ``capacity_tiers`` makes the service elastic, ``load`` picks the
-    arrival process (``"poisson"`` | ``"burst"``), ``preempt_ratio`` the
-    high-priority mix under every policy, ``deadline_slack`` the deadline
-    past each session's minimal service time under ``qos="deadline"``,
-    ``topology`` the served skeleton, ``use_ck`` the windowed C_k graph and
-    ``saliency_thresh`` the saliency gate.  Returns
+    package's ``run_sessions`` plus ``device``: ``capacity_tiers`` makes
+    the service elastic, ``load`` picks the arrival process
+    (``"poisson"`` | ``"burst"``), ``preempt_ratio`` the high-priority mix
+    under every policy, ``deadline_slack`` the deadline past each
+    session's minimal service time under ``qos="deadline"``, ``topology``
+    the served skeleton, ``use_ck`` the windowed C_k graph and
+    ``saliency_thresh`` the saliency gate.  ``mesh`` > 1 splits the slab
+    over a ``mesh``-shard batch mesh built on ``device``
+    (:func:`repro_torch.distributed.serving.make_batch_mesh`: ``None`` or
+    ``"cuda"`` takes that many cards and raises when fewer are visible,
+    ``"cpu"`` or ``"cuda:0"`` gives logical shards on that device), and
+    the row gains ``collective_ms_per_tick``.  Returns
     :meth:`GcnService.metrics` with ``load`` added."""
     from repro_torch.data.pipeline import DataConfig, skeleton_batches
 
+    mesh_obj = None
+    if mesh and mesh > 1:
+        from repro_torch.distributed.serving import make_batch_mesh
+        mesh_obj = make_batch_mesh(mesh, device=device)
     tiers = tuple(capacity_tiers) if capacity_tiers else (slots,)
     if use_ck and not cfg.use_ck:
         cfg = dataclasses.replace(cfg, use_ck=True)
     svc = GcnService(cfg, backend=backend, qos=qos, capacity_tiers=tiers,
                      policy=policy, slo_config=slo_config,
                      topologies=(topology,) if topology else ("ntu25",),
-                     quant=quant, seed=seed, fused=fused,
+                     quant=quant, seed=seed, fused=fused, mesh=mesh_obj,
                      saliency_thresh=saliency_thresh, device=device)
 
     if lengths is None:
@@ -1198,4 +1379,7 @@ def run_sessions(
 
     out = svc.metrics()
     out["load"] = load
+    if mesh_obj is not None:
+        from repro_torch.distributed.serving import collective_cost_ms
+        out["collective_ms_per_tick"] = collective_cost_ms(svc)
     return out

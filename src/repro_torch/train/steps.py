@@ -53,8 +53,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     ``loss_fn`` (default :func:`make_loss_fn`) may be any ``(params,
     batch) -> (loss, metrics)`` — the pruning bench's prune-aware losses.
     JAX's ``grad_shardings`` (the ZeRO-2 reduce-scatter of gradients over
-    a data-parallel mesh) is not taken: it joins with distribution
-    (ROADMAP.md, Queue 1 item 4)."""
+    a data-parallel mesh) is not taken: it joins with the training half of
+    distribution (ROADMAP.md, Queue 1 item 4b)."""
     from repro_torch.optim import adamw
 
     loss_fn = loss_fn or make_loss_fn(cfg)

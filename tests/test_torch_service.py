@@ -263,8 +263,8 @@ def test_elastic_migration_parity(plans, backend):
     for i, clip in enumerate(clips):
         np.testing.assert_allclose(got[i], _alone(plan, bn, clip), **TOL,
                                    err_msg=f"session {i}")
-    for slabs in svc._tier_slabs.values():
-        for slab in slabs:
+    for shards in svc._tier_slabs.values():
+        for slab in (s for slabs in shards for s in slabs):
             flat = tree_leaves(engine.snapshot_slots(
                 slab, torch.arange(slab.t_raw.shape[0])))
             assert all(not t.any() for t in flat)
@@ -475,7 +475,8 @@ def test_run_sessions_end_to_end():
 def test_serve_sessions_cli(tmp_path, capsys):
     """``serve sessions --reduced --device cpu --trace smoke.json`` replays
     the trace on the card's default backend (its plain versions here) and
-    merges its row, keyed by device, into the bench file."""
+    merges its row, keyed by device, into the bench file; ``--replicas``
+    with ``--topology`` is refused, as in the JAX CLI."""
     bench = tmp_path / "BENCH_torch_sessions.json"
     serve.main(["sessions", "--arch", "agcn-2s", "--reduced", "--device",
                 "cpu", "--trace", str(TRACES / "smoke.json"),
@@ -486,7 +487,7 @@ def test_serve_sessions_cli(tmp_path, capsys):
     assert len(rows) == 1 and rows[0]["device"] == "cpu"
     assert rows[0]["backend"] == "cuda" and rows[0]["sessions"] == 14
     assert rows[0]["load"] == "trace" and "records" not in rows[0]
-    with pytest.raises(SystemExit):
+    with pytest.raises(ValueError, match="replica router"):
         serve.main(["sessions", "--arch", "agcn-2s", "--reduced",
-                    "--device", "cpu", "--replicas", "2"])
-    assert "Queue 1 item 4" in capsys.readouterr().err
+                    "--device", "cpu", "--replicas", "2", "--topology",
+                    "ntu50"])

@@ -164,6 +164,69 @@ def test_serving_and_sessions_cli_run_without_jax(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+# the distributed serving tier runs on the CPU in an interpreter where jax
+# and repro cannot be imported: a 2-shard service replays a golden cell to
+# its digest, a 2-replica router serves a generated load, and the mesh
+# asks for cards that are not there
+_RUN_DISTRIBUTED = r"""
+import json, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import torch
+import repro_torch.distributed as dist
+import repro_torch.serving as serving
+from repro_torch.configs import get_config
+from repro_torch.core.agcn import engine, model
+from repro_torch.core.pruning.plan import build_prune_plan
+root = sys.argv[1]
+cfg = get_config("agcn-2s", reduced=True)
+golden = json.load(open(root + "/tests/data/traces/golden_smoke.json"))
+trace = serving.Trace.load(root + "/tests/data/traces/smoke.json")
+p = model.init_params(cfg, seed=0, device="cpu")
+pp = build_prune_plan([b["Wk"].numpy() for b in p["blocks"]],
+                      cfg.gcn_channels, [1.0, 0.5, 0.5, 0.5], "cav-70-1",
+                      input_skip=2)
+plan = engine.build_execution_plan(p, cfg, pp, quant=True, backend="cuda")
+bn = engine.collect_bn_stats(plan, torch.randn(2, cfg.gcn_frames, 25, 3))
+svc = serving.GcnService(cfg, plans=(plan,), bn_stats=(bn,),
+                         capacity_tiers=(2, 4), record_outcomes=True,
+                         mesh=dist.make_batch_mesh(2, device="cpu"),
+                         device="cpu")
+for r in serving.trace_requests(trace, 25, 3):
+    while svc.now < r.arrival:
+        if svc.idle():
+            svc.advance_clock(r.arrival)
+        else:
+            svc.tick()
+    svc.submit_clip(svc.open_session(priority=r.priority,
+                                     arrival=r.arrival), r.clip)
+svc.run_until_idle()
+assert (serving.outcome_digest(svc.outcomes)
+        == golden["cells"]["fifo/demand"]["outcome_digest"])
+row = dist.run_routed_sessions(cfg, replicas=2, slots=2, n_sessions=4,
+                               lengths=(6,), mean_interarrival=2.0,
+                               device="cpu")
+assert row["sessions"] == 4 and row["replicas"] == 2
+if not torch.cuda.is_available():
+    try:
+        dist.make_batch_mesh(2)
+        raise SystemExit("a 2-card mesh was built without CUDA")
+    except RuntimeError as e:
+        assert "device_count" in str(e)
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m in ("jax", "repro") or m.startswith(("jax.", "repro."))))
+print(bad)
+"""
+
+
+def test_distributed_serving_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _RUN_DISTRIBUTED, str(ROOT)],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 # the offline path runs on the CPU in an interpreter where jax and repro
 # cannot be imported: one reduced train step, the accounting modules, the
 # RFC-checkpointed MLP, a checkpoint round trip, and the table subcommands
