@@ -210,6 +210,44 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                ``reference`` path's mask (1e-3), the E(D) report per
                block, the Drop-1/2/3 x cav compression table equal to
                ``COMPRESSION_TABLE``; one full-width train step profiled.
+ 15. dist_train — ``launch.train.train_loop`` on the card: granite-moe
+               at full width with the depth cut to 12 layers (batch 4 x
+               512, 4 steps; 16 bytes a parameter for weights, gradients
+               and two moments), then smollm-360m at full width (batch 8
+               x 512 tokens, 6 steps): step p50, tokens/s, peak memory,
+               the memory held after each step, finite losses, no kernel
+               launch; before the smollm run, the same loop under
+               ``torchrun --nproc-per-node 1`` on NCCL with a (1, 1) mesh
+               and DTensor parameters (``--mesh 1,1``), its losses within
+               1e-5 of the loop without a process group (bit-equality
+               reported; every collective is skipped at axis size 1, so
+               this holds the DTensor path, not an NCCL collective); one
+               smollm train step profiled; the tests' 4-rank gloo run
+               on the CPU (``tests/torch_dist_workers.py smoke``, 1e-5);
+               a 2-card NCCL run only when two cards are
+               visible.  Subprocesses run in a process group of their
+               own, killed at their deadline.
+ 16. moe_vlm — the MoE and VLM decoder families at full width, random
+               weights from seed 0, float32 caches: ``generate`` (batch 4,
+               prompt fed token by token, then greedy tokens) of
+               granite-moe-3b-a800m at full width and depth (prompt 64 +
+               16) and of qwen3-moe-30b-a3b at full width with the depth
+               cut to 16 of its 48 layers (prompt 32 + 16; 48 float32
+               layers are about 122 GB), each on ``cuda`` and
+               ``reference`` with the lm phase's checks (launch counts,
+               teacher-forced logits 1e-3, greedy flips at a top-2
+               margin <= 1e-3, the prompt's cache-free logits at a
+               capacity that drops no token against the cached decode,
+               1e-3), decode-step p50 and tokens/s, flash_decode held on
+               the first decode step's and the last step's inputs (G 3,
+               D 64 and G 8, D 128); one granite decode step profiled;
+               llava-next-mistral-7b at full width: the prefill of 2 880
+               image embeddings + 32 text tokens written to the cache
+               against the cache-free forward (1e-3), one ``cuda`` decode
+               step after it against the cache-free forward of the longer
+               sequence (1e-3; flash_decode held on its inputs, B 1,
+               valid 2 913), then a text decode as JAX serves it (batch
+               4, prompt 32 + 16, G 4, D 128).
 
 Prints the kernels JSON line, the nvidia-smi line and, last, the result
 line.  Any failed phase exits non-zero.  Per-case kernel numbers go to
@@ -286,6 +324,18 @@ LM_EARLY = 16                      # an early serve step: valid = 17
 FD_CASES = [("long context", 8, 32768, 5, 3, 64, 30000),
             ("danube ring", 4, 4096, 8, 4, 80, 4096),
             ("small odd", 2, 48, 1, 3, 20, 1)]
+
+# the moe_vlm phase: decode at full width (qwen3 cut in depth: 48 float32
+# layers are ~122 GB), llava's image prefill, then a text decode
+MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_GEN = "granite-moe-3b-a800m", 4, 64, 16
+QWEN_ARCH, QWEN_LAYERS, QWEN_PROMPT, QWEN_GEN = "qwen3-moe-30b-a3b", 16, 32, 16
+VLM_ARCH, VLM_BATCH, VLM_PROMPT, VLM_GEN = "llava-next-mistral-7b", 4, 32, 16
+VLM_PREFILL_TEXT = 32              # text tokens after the 2 880 image tokens
+# the dist_train phase: (arch, layers or 0 for all, batch, seq, steps)
+DIST_TRAIN = (("granite-moe-3b-a800m", 12, 4, 512, 4),
+              ("smollm-360m", 0, 8, 512, 6))
+DIST_NCCL = "smollm-360m"           # the entry run again under torchrun
+DIST_LR = 3e-4
 
 
 # the train phase: full agcn-2s, 16 clips (32 sequences) a step, 30 steps
@@ -1000,6 +1050,94 @@ def record_decode(steps, num_layers):
     return restore, got
 
 
+def hold_flash_decode(path, calls, cases, summary, failures, modules):
+    """Hold flash_decode against its plain version on recorded calls and
+    time them; one ``kernel flash_decode`` line."""
+    cs = [measure_case("flash_decode", a, k, modules) for a, k in calls]
+    cases[f"{path}/flash_decode"] = cs
+    bad = [i for i, c in enumerate(cs) if not c["ok"]]
+    if bad:
+        failures.append(f"{path} flash_decode: kernel disagrees with its "
+                        f"plain version on cases {bad}")
+    sm = summary[(path, "flash_decode")] = summarize(cs)
+    print(f"kernel flash_decode [{path}]: {'ok' if not bad else 'FAIL'} "
+          f"on {len(cs)} inputs {cs[0]['shape']}, valid "
+          f"{int(calls[0][0][3].item())}, splits/warps/stages "
+          f"{'/'.join(map(str, cs[0]['plan']))}, max_abs_err "
+          f"{sm['max_abs_err']:.3g}; {sm['ms']:.4f} ms, "
+          f"{sm['ms'] / len(cs) * 1e3:.2f} us a launch, "
+          f"{sm['bound_ms'] / sm['ms'] * 100:.1f}% of the bound (plain "
+          f"{sm['plain_ms']:.4f}, sdpa {sm['library_ms']:.4f}, bound "
+          f"{sm['bound_ms']:.4f} ms by {sm['bound_by']})")
+
+
+def teacher_forced(label, cfg, params, res, ref, prompt, failures, dev):
+    """The ``reference`` backend teacher-forced on the ``cuda`` run's
+    tokens: per-step logits within atol=rtol=1e-3, and a greedy token the
+    reference would not pick only at its top-2 margin <= 1e-3.  While the
+    free-running reference picked the tokens it was fed, its own logits
+    serve; after a divergence it is run again on the cuda tokens.
+    Returns (worst |diff|, the flips, the free-running token agreement,
+    the cuda tokens on the device)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry
+    from repro_torch.train.steps import make_serve_step
+    toks = res["tokens"]
+    B, n = toks.shape
+    steps = n - 1
+    agree = float(np.mean(toks[:, prompt:] == ref["tokens"][:, prompt:]))
+    tt = torch.from_numpy(toks).to(dev)
+    if (ref["tokens"] == toks).all():
+        forced = ref["logits"]
+    else:
+        step = make_serve_step(cfg, "reference")
+        cache = registry.init_cache(cfg, B, n, device=dev)
+        forced = torch.stack([step(params, cache, {
+            "tokens": tt[:, t:t + 1],
+            "pos": torch.full((), t, dtype=torch.int32, device=dev)})[2]
+            for t in range(steps)])
+    worst = float((res["logits"] - forced).abs().max())
+    close = torch.isclose(res["logits"], forced, atol=1e-3, rtol=1e-3)
+    if not bool(close.all()):
+        bad = torch.nonzero(~close.flatten(1).all(1)).flatten().tolist()
+        failures.append(f"{label}: logits of steps {bad[:10]} differ from "
+                        f"the teacher-forced reference (max {worst:.3g})")
+    top2 = forced[prompt - 1:].topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    differ = (forced[prompt - 1:].argmax(-1)
+              != tt[:, prompt:].T).cpu().numpy()
+    flips = [(prompt - 1 + t, b, float(margin[t, b]))
+             for t, b in zip(*np.nonzero(differ))]
+    hard = [f for f in flips if f[2] > 1e-3]
+    if hard:
+        failures.append(f"{label}: greedy tokens differ from the "
+                        f"reference's where its top-2 margin exceeds 1e-3: "
+                        f"{hard}")
+    return worst, flips, agree, tt
+
+
+def prefill_check(label, cfg, params, res, tt, prompt, failures):
+    """The prompt's logits from the cache-free forward (the prefill path)
+    against the cached decode's, within atol=rtol=1e-3, and a finite
+    prefill loss; returns (max |diff|, loss)."""
+    import torch
+    from repro_torch.models import decoder
+    from repro_torch.train.steps import make_prefill_step
+    with torch.inference_mode():
+        full, _, _ = decoder.forward(params, tt[:, :prompt], cfg)
+        metrics = make_prefill_step(cfg)(params, {
+            "tokens": tt[:, :prompt], "labels": tt[:, :prompt]})
+    cached = res["logits"][:prompt].transpose(0, 1)
+    pre = float((full - cached).abs().max())
+    if not torch.allclose(full, cached, atol=1e-3, rtol=1e-3) or not bool(
+            torch.isfinite(metrics["loss"])):
+        failures.append(f"{label}: cache-free prompt logits differ from the "
+                        f"cached decode by {pre:.3g} (prefill loss "
+                        f"{float(metrics['loss'])})")
+    return pre, float(metrics["loss"])
+
+
 def lm_phase(dev, failures, cases, summary, check_launches, modules):
     """Phase 13: ``generate`` at full smollm-360m width on both backends,
     the teacher-forced and prefill agreement checks, flash_decode's launch
@@ -1008,8 +1146,8 @@ def lm_phase(dev, failures, cases, summary, check_launches, modules):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
-    from repro_torch.models import decoder, registry
-    from repro_torch.train.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import registry
+    from repro_torch.train.steps import make_serve_step
 
     cfg = get_config(LM_ARCH)
     steps = LM_PROMPT + LM_GEN - 1
@@ -1018,22 +1156,7 @@ def lm_phase(dev, failures, cases, summary, check_launches, modules):
     params = registry.init_params(cfg, seed=SEED, device=dev)
 
     def hold(path, calls):
-        cs = [measure_case("flash_decode", a, k, modules) for a, k in calls]
-        cases[f"{path}/flash_decode"] = cs
-        bad = [i for i, c in enumerate(cs) if not c["ok"]]
-        if bad:
-            failures.append(f"{path} flash_decode: kernel disagrees with its "
-                            f"plain version on cases {bad}")
-        sm = summary[(path, "flash_decode")] = summarize(cs)
-        print(f"kernel flash_decode [{path}]: {'ok' if not bad else 'FAIL'} "
-              f"on {len(cs)} inputs {cs[0]['shape']}, valid "
-              f"{int(calls[0][0][3].item())}, splits/warps/stages "
-              f"{'/'.join(map(str, cs[0]['plan']))}, max_abs_err "
-              f"{sm['max_abs_err']:.3g}; {sm['ms']:.4f} ms, "
-              f"{sm['ms'] / len(cs) * 1e3:.2f} us a launch, "
-              f"{sm['bound_ms'] / sm['ms'] * 100:.1f}% of the bound (plain "
-              f"{sm['plain_ms']:.4f}, sdpa {sm['library_ms']:.4f}, bound "
-              f"{sm['bound_ms']:.4f} ms by {sm['bound_by']})")
+        hold_flash_decode(path, calls, cases, summary, failures, modules)
 
     restore, got = record_decode((early, first, last), cfg.num_layers)
     try:
@@ -1060,60 +1183,17 @@ def lm_phase(dev, failures, cases, summary, check_launches, modules):
     if toks.shape != (LM_BATCH, LM_PROMPT + LM_GEN) or not np.isfinite(
             res["logits"].cpu().numpy()).all():
         failures.append(f"lm: tokens {toks.shape} or logits not finite")
-    agree = float(np.mean(toks[:, LM_PROMPT:] == ref["tokens"][:, LM_PROMPT:]))
-
-    # the reference backend teacher-forced on the cuda run's tokens: while
-    # the free-running reference picks the same tokens it was fed exactly
-    # those, so its own logits serve; after a divergence it is run again
-    # on the cuda tokens
-    tt = torch.from_numpy(toks).to(dev)
-    if (ref["tokens"] == toks).all():
-        forced = ref["logits"]
-    else:
-        step = make_serve_step(cfg, "reference")
-        cache = registry.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN,
-                                    device=dev)
-        forced = torch.stack([step(params, cache, {
-            "tokens": tt[:, t:t + 1],
-            "pos": torch.full((), t, dtype=torch.int32, device=dev)})[2]
-            for t in range(steps)])
+    worst, flips, agree, tt = teacher_forced("lm", cfg, params, res, ref,
+                                             LM_PROMPT, failures, dev)
     del ref["logits"]
-    worst = float((res["logits"] - forced).abs().max())
-    close = torch.isclose(res["logits"], forced, atol=1e-3, rtol=1e-3)
-    if not bool(close.all()):
-        bad = torch.nonzero(~close.flatten(1).all(1)).flatten().tolist()
-        failures.append(f"lm: logits of steps {bad[:10]} differ from the "
-                        f"teacher-forced reference (max {worst:.3g})")
-    # greedy tokens: a cuda choice the reference would not make is only
-    # allowed where the reference's top-2 margin is <= 1e-3
-    top2 = forced[LM_PROMPT - 1:].topk(2, dim=-1).values
-    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
-    differ = (forced[LM_PROMPT - 1:].argmax(-1)
-              != tt[:, LM_PROMPT:].T).cpu().numpy()
-    flips = [(LM_PROMPT - 1 + t, b, float(margin[t, b]))
-             for t, b in zip(*np.nonzero(differ))]
-    hard = [f for f in flips if f[2] > 1e-3]
-    if hard:
-        failures.append(f"lm: greedy tokens differ from the reference's "
-                        f"where its top-2 margin exceeds 1e-3: {hard}")
-    # the prompt's logits from the cache-free forward (the prefill path)
-    with torch.inference_mode():
-        full, _ = decoder.forward(params, tt[:, :LM_PROMPT], cfg)
-        metrics = make_prefill_step(cfg)(params, {
-            "tokens": tt[:, :LM_PROMPT], "labels": tt[:, :LM_PROMPT]})
-    cached = res["logits"][:LM_PROMPT].transpose(0, 1)
-    pre = float((full - cached).abs().max())
-    if not torch.allclose(full, cached, atol=1e-3, rtol=1e-3) or not bool(
-            torch.isfinite(metrics["loss"])):
-        failures.append(f"lm: cache-free prompt logits differ from the "
-                        f"cached decode by {pre:.3g} (prefill loss "
-                        f"{float(metrics['loss'])})")
+    pre, ploss = prefill_check("lm", cfg, params, res, tt, LM_PROMPT,
+                               failures)
     print(f"lm: teacher-forced reference vs cuda logits over {steps} steps "
           f"{worst:.3g}; greedy flips {flips} (allowed at top-2 margin <= "
           f"1e-3); generated-token agreement of the free-running backends "
           f"{agree * 100:.1f}%; cache-free prefill vs cached decode over the "
           f"{LM_PROMPT}-token prompt {pre:.3g}, prefill loss "
-          f"{float(metrics['loss']):.4f}; flash_decode launches {launched} "
+          f"{ploss:.4f}; flash_decode launches {launched} "
           f"in {steps} cuda steps ({cfg.num_layers} per step expected), "
           f"{sum(counts.values())} kernel launches on reference")
 
@@ -1427,6 +1507,403 @@ def train_phase(dev, failures, cases, check_launches):
     opt = adamw.init(params)
     profile_steps("train step", lambda: step_fn(params, opt, tb))
     print(f"train: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def decode_run(label, arch, cfg, B, P, G, dev, failures, cases, summary,
+               check_launches, modules, params=None):
+    """``generate`` of ``cfg`` at batch B, a P-token prompt fed token by
+    token and G greedy tokens on ``cuda`` and ``reference``: the launch
+    counts, the teacher-forced and prefill checks, flash_decode held on
+    the first decode step's and the last step's inputs, and the decode
+    step's p50 and tokens/s.  MoE prompts are held against the cache-free
+    forward at a capacity that drops no token (a one-token decode step
+    never drops: its capacity is at least 1 and its k choices differ).
+    ``params`` default to ``registry.init_params`` of ``cfg`` from SEED.
+    Returns the params."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import registry
+    t0 = time.perf_counter()
+    if params is None:
+        params = registry.init_params(cfg, seed=SEED, device=dev)
+    steps = P + G - 1
+    first, last = P, steps - 1
+    run = dict(reduced=False, batch=B, prompt_len=P, gen=G, seed=SEED,
+               device=dev, params=params, keep_logits=True, cfg=cfg)
+    restore, got = record_decode((first, last), cfg.num_layers)
+    try:
+        res, counts = counted(lambda: generate(arch, backend="cuda", **run))
+    finally:
+        restore()
+    check_launches(label, counts, {"flash_decode": cfg.num_layers}, steps)
+    launched = counts["flash_decode"]
+    ref, counts = counted(lambda: generate(arch, backend="reference", **run))
+    check_launches(f"{label} reference", counts, {}, steps)
+    for name, r in (("cuda", res), ("reference", ref)):
+        print(f"{label}: backend={name} {r['tokens_per_s']:.2f} tokens/s, "
+              f"decode step p50 {r['latency_ms_p50']:.3f} ms mean "
+              f"{r['latency_ms_mean']:.3f} ms ({B} sequences x {r['steps']} "
+              f"steps, prompt {P} fed token by token + {G} generated, "
+              f"float32 cache)")
+    if res["tokens"].shape != (B, P + G) or not bool(
+            torch.isfinite(res["logits"]).all()):
+        failures.append(f"{label}: tokens {res['tokens'].shape} or logits "
+                        f"not finite")
+    worst, flips, agree, tt = teacher_forced(label, cfg, params, res, ref, P,
+                                             failures, dev)
+    del ref
+    pcfg = cfg
+    if cfg.family == "moe":
+        pcfg = dataclasses.replace(cfg, moe_capacity_factor=(
+            cfg.padded_experts / cfg.experts_per_token))
+    pre, ploss = prefill_check(label, pcfg, params, res, tt, P, failures)
+    print(f"{label}: teacher-forced reference vs cuda logits over {steps} "
+          f"steps {worst:.3g} (bound 1e-3); greedy flips {flips}; "
+          f"free-running token agreement {agree * 100:.1f}%; cache-free "
+          f"prefill{' (no-drop capacity)' if pcfg is not cfg else ''} vs "
+          f"cached decode over the prompt {pre:.3g}, prefill loss "
+          f"{ploss:.4f}; flash_decode launches {launched} in {steps} steps "
+          f"({cfg.num_layers} per step expected); "
+          f"{time.perf_counter() - t0:.1f} s")
+    hold_flash_decode(f"{label} first decode step", got[first], cases,
+                      summary, failures, modules)
+    hold_flash_decode(f"{label} last step", got[last], cases, summary,
+                      failures, modules)
+    del res, got
+    return params
+
+
+def moe_vlm_phase(dev, failures, cases, summary, check_launches, modules):
+    """Phase 16: the MoE and VLM decoder families at full width.
+    granite-moe-3b-a800m at full width and depth and qwen3-moe-30b-a3b at
+    full width cut to QWEN_LAYERS layers, each through ``decode_run``;
+    llava-next-mistral-7b at full width: the prefill forward with 2 880
+    image embeddings before the text, cached against the cache-free
+    forward (1e-3), one ``cuda`` decode step after it against the
+    cache-free forward of the longer sequence (1e-3) with flash_decode
+    held on its inputs, then a text decode as JAX serves it
+    (``decode_run``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder, registry
+    from repro_torch.train.steps import make_serve_step
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(MOE_ARCH)
+    params = decode_run("moe granite", MOE_ARCH, cfg, MOE_BATCH, MOE_PROMPT,
+                        MOE_GEN, dev, failures, cases, summary,
+                        check_launches, modules)
+    n = sum(p.numel() for p in _leaves(params))
+    print(f"moe granite: full {MOE_ARCH} ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_experts} experts padded to "
+          f"{cfg.padded_experts}, top {cfg.experts_per_token}, expert d_ff "
+          f"{cfg.moe_d_ff}): {n / 1e9:.3f} B float32 parameters; {smi}")
+    # one decode step near the end of the cache, profiled
+    step = make_serve_step(cfg, "cuda")
+    cache = registry.init_cache(cfg, MOE_BATCH, MOE_PROMPT + MOE_GEN,
+                                device=dev)
+    p0 = MOE_PROMPT + MOE_GEN - 8
+    at = torch.full((), p0, dtype=torch.int32, device=dev)
+    tok = torch.zeros((MOE_BATCH, 1), dtype=torch.int32, device=dev)
+
+    def moe_step():
+        cache["pos"].fill_(p0)
+        step(params, cache, {"tokens": tok, "pos": at})
+    profile_steps("moe decode step", moe_step)
+    del params, cache
+    torch.cuda.empty_cache()
+
+    full = get_config(QWEN_ARCH)
+    cut = dataclasses.replace(full, num_layers=QWEN_LAYERS)
+    params = decode_run("moe qwen3", QWEN_ARCH, cut, MOE_BATCH, QWEN_PROMPT,
+                        QWEN_GEN, dev, failures, cases, summary,
+                        check_launches, modules)
+    n = sum(p.numel() for p in _leaves(params))
+    print(f"moe qwen3: {QWEN_ARCH} at full width (d_model {cut.d_model}, "
+          f"{cut.num_heads}/{cut.num_kv_heads} heads of {cut.head_dim}, "
+          f"{cut.num_experts} experts, top {cut.experts_per_token}, expert "
+          f"d_ff {cut.moe_d_ff}), depth cut to {QWEN_LAYERS} of "
+          f"{full.num_layers} layers: {n / 1e9:.3f} B float32 parameters")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config(VLM_ARCH)
+    params = registry.init_params(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    img = torch.randn((1, cfg.num_image_tokens, cfg.d_model), generator=gen,
+                      device=dev)
+    text = torch.randint(0, cfg.vocab_size, (1, VLM_PREFILL_TEXT),
+                         generator=gen, device=dev, dtype=torch.int32)
+    S = cfg.num_image_tokens + VLM_PREFILL_TEXT
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        free, _, _ = decoder.forward(params, text, cfg, image_embeds=img)
+        cache = registry.init_cache(cfg, 1, S + 1, device=dev)
+        (cached, cache, _), counts = counted(lambda: decoder.forward(
+            params, text, cfg, image_embeds=img, caches=cache,
+            positions=torch.arange(S, device=dev), backend="cuda"))
+        check_launches("vlm prefill", counts, {}, 1)   # plain attention
+        pre = float((free - cached).abs().max())
+        nxt = free[:, -1].argmax(-1).to(torch.int32)[:, None]
+        del cached
+        restore, got = record_decode((0,), cfg.num_layers)
+        try:
+            (logits, _), counts = counted(lambda: registry.serve_fn(
+                params, {"tokens": nxt, "pos": torch.full(
+                    (), S, dtype=torch.int32, device=dev)}, cache, cfg,
+                "cuda"))
+        finally:
+            restore()
+        check_launches("vlm image decode step", counts,
+                       {"flash_decode": cfg.num_layers}, 1)
+        longer, _, _ = decoder.forward(params, torch.cat([text, nxt], 1),
+                                       cfg, image_embeds=img)
+        step_d = float((logits[:, -1] - longer[:, -1]).abs().max())
+    torch.cuda.synchronize()
+    print(f"vlm: full {VLM_ARCH} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {sum(p.numel() for p in _leaves(params)) / 1e9:.3f}"
+          f" B float32 parameters): prefill of {cfg.num_image_tokens} image "
+          f"embeddings + {VLM_PREFILL_TEXT} text tokens written to the cache "
+          f"against the cache-free forward {pre:.3g} (bound 1e-3); one cuda "
+          f"decode step at valid {S + 1} against the cache-free forward of "
+          f"the longer sequence {step_d:.3g} (bound 1e-3); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not pre <= 1e-3 or not step_d <= 1e-3 or not bool(
+            torch.isfinite(free).all()):
+        failures.append(f"vlm: image prefill {pre:.3g} or decode step "
+                        f"{step_d:.3g} off the cache-free forward")
+    hold_flash_decode("vlm image decode step", got[0], cases, summary,
+                      failures, modules)
+    del free, longer, cache, logits, got
+    decode_run("vlm llava", VLM_ARCH, cfg, VLM_BATCH, VLM_PROMPT, VLM_GEN,
+               dev, failures, cases, summary, check_launches, modules,
+               params=params)
+    del params
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated(dev)
+    cases["moe_vlm"] = {"device": smi, "peak_bytes": peak}
+    print(f"moe_vlm: peak memory {peak / 2**30:.3f} GiB; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def _leaves(tree):
+    from repro_torch.common.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def run_group(cmd, timeout, env=None):
+    """``cmd`` in a process group of its own, its output captured; the
+    whole group is killed at ``timeout`` seconds.  Returns (exit code,
+    stdout, stderr); 124 on a timeout."""
+    import os
+    import signal
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+        return proc.returncode, out, err
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        return 124, out, err
+
+
+def dist_train_phase(dev, failures, cases, check_launches):
+    """Phase 15: LM training and data parallelism.  ``train_loop`` in
+    this process for each DIST_TRAIN entry (granite-moe at full width
+    with the depth cut to fit beside its optimizer state, 16 bytes a
+    parameter; smollm-360m at full width and depth): step p50, tokens/s,
+    peak memory and the memory held after each step, finite losses and
+    no kernel launch (LM training runs the plain attention).  Before the
+    DIST_NCCL entry the same loop runs under ``torchrun
+    --nproc-per-node 1`` on NCCL with a (1, 1) mesh and DTensor
+    parameters, in a process of its own; its losses must be within 1e-5
+    of the loop without a process group (bit-equality is reported).  At
+    axis size 1 the step skips every collective, so this run holds the
+    DTensor path on the card; no NCCL collective runs with one card.  One
+    smollm train step profiled; the 4-rank gloo run of the tests
+    (``tests/torch_dist_workers.py smoke``: reduced smollm at data = 4
+    against one process, 1e-5); a 2-card NCCL run only when two cards
+    are visible."""
+    import gc
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batches
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    base = ROOT / "build" / "chip_smoke_dist"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    record = cases["dist_train"] = {"device": smi}
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+
+    def torchrun_cmd(cards, arch, B, S, steps, out_json):
+        """``launch.train`` of ``arch`` on ``cards`` NCCL ranks, a
+        (cards, 1) mesh."""
+        return [sys.executable, "-m", "torch.distributed.run",
+                "--standalone", "--nproc-per-node", str(cards), "-m",
+                "repro_torch.launch.train", "--arch", arch, "--steps",
+                str(steps), "--batch", str(B), "--seq", str(S), "--lr",
+                str(DIST_LR), "--mesh", f"{cards},1", "--ckpt-dir",
+                str(base / f"ckpt_{cards}x1"), "--out", str(out_json)]
+
+    def torchrun_1x1(arch, B, S, steps):
+        """The loop under torchrun on NCCL: one rank, a (1, 1) mesh, in a
+        process of its own; returns its JSON (None on a failure)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"dist_train: this process holds "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated, "
+              f"{torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB reserved "
+              f"before the torchrun child")
+        out_json = base / "nccl_1x1.json"
+        t0 = time.perf_counter()
+        rc, out, err = run_group(torchrun_cmd(1, arch, B, S, steps, out_json),
+                                 timeout=600, env=env)
+        nccl = None
+        if rc != 0 or not out_json.exists():
+            print(out[-3000:], err[-3000:], sep="\n")
+            failures.append(f"dist_train: torchrun (1, 1) on NCCL exited "
+                            f"{rc}")
+        else:
+            nccl = record["nccl_1x1"] = json.loads(out_json.read_text())
+            print(f"dist_train: {arch} under torchrun --nproc-per-node 1 on "
+                  f"NCCL, mesh (1, 1), DTensor parameters: losses "
+                  f"{[round(x, 6) for x in nccl['losses']]}, step p50 "
+                  f"{statistics.median(nccl['step_ms'][1:]):.3f} ms, peak "
+                  f"{nccl['peak_bytes'] / 2**30:.3f} GiB; "
+                  f"{time.perf_counter() - t0:.1f} s with the process start")
+        return nccl
+
+    nccl = None
+    for arch, layers, B, S, steps in DIST_TRAIN:
+        if arch == DIST_NCCL:
+            nccl = torchrun_1x1(arch, B, S, steps)
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers) if layers else full
+        # the CLI's TrainConfig for these flags (lr, steps, warmup, seed 0)
+        tcfg = TrainConfig(learning_rate=DIST_LR, total_steps=steps,
+                           warmup_steps=max(1, steps // 10),
+                           checkpoint_every=0,
+                           checkpoint_dir=str(base / "none"))
+        step_ms, held = [], []
+
+        def on_step(*a):
+            step_ms.append(a[-1])
+            held.append(torch.cuda.memory_allocated(dev) / 2**30)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        try:
+            (params, losses), counts = counted(lambda: train_loop(
+                arch, tcfg, reduced=False, batch=B, seq=S, device=dev,
+                resume=False, log_every=steps, cfg=cfg, on_step=on_step))
+        except torch.OutOfMemoryError as e:
+            failures.append(f"dist_train {arch}: out of memory with "
+                            f"{before / 2**30:.3f} GiB held before, GiB "
+                            f"allocated after each step {held}: "
+                            f"{str(e)[:160]}")
+            print(f"dist_train: {failures[-1]}")
+            continue
+        check_launches(f"dist_train {arch}", counts, {}, steps)
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        n = sum(p.numel() for p in _leaves(params))
+        p50 = statistics.median(step_ms[1:])
+        record[arch] = {"losses": losses, "step_ms": step_ms,
+                        "peak_bytes": peak, "params": n, "layers":
+                        cfg.num_layers}
+        cut = (f", depth cut to {cfg.num_layers} of {full.num_layers} "
+               f"layers" if layers else "")
+        print(f"dist_train: {arch} at full width{cut} ({n / 1e9:.3f} B "
+              f"float32 parameters, AdamW), batch {B} x seq {S}, {steps} "
+              f"steps of train_loop: step p50 {p50:.3f} ms over steps 2-"
+              f"{steps} (first {step_ms[0]:.3f} ms; host clock from the "
+              f"batch to the loss read), {B * S / (p50 / 1e3):.1f} tokens/s "
+              f"at p50, peak memory {peak / 2**30:.3f} GiB "
+              f"(max_memory_allocated less the {before / 2**30:.3f} GiB held "
+              f"before; GiB allocated after each step "
+              f"{[round(x, 3) for x in held]}); losses "
+              f"{[round(x, 4) for x in losses]}; {smi}")
+        if not np.isfinite(losses).all():
+            failures.append(f"dist_train {arch}: a loss is not finite: "
+                            f"{losses}")
+        if arch == DIST_NCCL:
+            if nccl is not None:
+                gap = max(abs(a - b) for a, b in zip(nccl["losses"], losses))
+                same = nccl["losses"] == losses
+                print(f"dist_train: the (1, 1)-mesh torchrun losses against "
+                      f"the loop without a process group: max |diff| "
+                      f"{gap:.3g} ({'bit-equal' if same else 'not bit-equal'}"
+                      f"; bound 1e-5)")
+                if len(nccl["losses"]) != steps or gap > 1e-5:
+                    failures.append(f"dist_train: the (1, 1)-mesh run's "
+                                    f"losses are {gap:.3g} from the loop "
+                                    f"without a process group")
+            b = {k: torch.as_tensor(v, device=dev) for k, v in next(
+                make_batches(cfg, DataConfig(B, S, seed=SEED))).items()}
+            step_fn = make_train_step(cfg, tcfg)
+            opt = adamw.init(params)
+            profile_steps(f"train step {arch}", lambda: step_fn(
+                params, opt, b), steps=1)
+            del b, opt, step_fn
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"dist_train: {torch.cuda.memory_allocated(dev) / 2**30:.3f} "
+              f"GiB allocated after the {arch} run")
+
+    # the 4-rank gloo run of the tests, on this machine's CPU
+    t0 = time.perf_counter()
+    rc, out, err = run_group([sys.executable, str(ROOT / "tests" /
+                                                  "torch_dist_workers.py"),
+                              "smoke", "--ranks", "4", "--steps", "3"],
+                             timeout=400, env=env)
+    try:
+        smoke = json.loads(out.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        smoke = None
+    if rc != 0 or smoke is None:
+        print(out[-3000:], err[-3000:], sep="\n")
+        failures.append(f"dist_train: the 4-rank gloo run exited {rc}")
+    else:
+        record["gloo_4"] = smoke
+        print(f"dist_train: reduced smollm-360m on 4 gloo ranks (CPU, "
+              f"data = 4) against one process: loss gap "
+              f"{smoke['loss_gap']:.3g}, parameter gap "
+              f"{smoke['param_gap']:.3g} (bound 1e-5); "
+              f"{time.perf_counter() - t0:.1f} s")
+        if smoke["loss_gap"] > 1e-5 or smoke["param_gap"] > 1e-5:
+            failures.append(f"dist_train: 4 gloo ranks part from one "
+                            f"process: {smoke}")
+
+    if torch.cuda.device_count() >= 2:
+        arch, _, B, S, steps = next(e for e in DIST_TRAIN
+                                    if e[0] == DIST_NCCL)
+        rc, out, err = run_group(torchrun_cmd(
+            2, arch, B, S, steps, base / "nccl_2x1.json"), timeout=600,
+            env=env)
+        print(f"dist_train: 2 cards on NCCL, mesh (2, 1): exit {rc}; "
+              f"{out.strip().splitlines()[-1:] or ''}")
+        if rc != 0:
+            failures.append(f"dist_train: the 2-card NCCL run exited {rc}")
+    else:
+        print(f"dist_train: a 2-card NCCL run was not run "
+              f"({torch.cuda.device_count()} card visible)")
+    print(f"dist_train: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def golden_mismatch(out, want) -> list:
@@ -1896,6 +2373,10 @@ def card_tests(failures) -> None:
 
 
 def main() -> int:
+    import os
+    # segments that grow and shrink, so what a phase frees goes back to the
+    # card (the dist_train phase's torchrun child needs it)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2539,6 +3020,14 @@ def main() -> int:
     train_phase(dev, failures, cases, check_launches)
     phase_done("train")
 
+    # ---- 15. LM training and data parallelism ---------------------------------
+    dist_train_phase(dev, failures, cases, check_launches)
+    phase_done("dist_train")
+
+    # ---- 16. the MoE and VLM decoder families at full width -------------------
+    moe_vlm_phase(dev, failures, cases, summary, check_launches, modules)
+    phase_done("moe_vlm")
+
     print(f"clock: spin {spin_cycles_per_ms():.0f} cycles/ms; timings with "
           f"host time included (the plain versions that read taps on the "
           f"host, and any whose queueing outlasted three spins): "
@@ -2571,7 +3060,11 @@ def main() -> int:
               for f in ("", " bare") if (S, f) != (S8, "")),
             f"ck padded stream S={S8}", f"ck padded stream S={S8} bare"],
         "flash_decode": ["lm early decode step", "lm first decode step",
-                         *(c[0] for c in FD_CASES)]}
+                         *(c[0] for c in FD_CASES),
+                         *(f"{m} {w}" for m in ("moe granite", "moe qwen3",
+                                                "vlm llava")
+                           for w in ("first decode step", "last step")),
+                         "vlm image decode step"]}
     kernels = []
     for name in _build.KERNELS:
         path = main_case.get(name, "clip")

@@ -14,6 +14,13 @@ uint16 view with ``"bfloat16"`` in the manifest.  Writes go to a
 temporary directory renamed into place (atomic), and the oldest steps
 past ``keep`` are deleted.  ``save_async`` copies the tree to the host on
 the caller's thread and writes the files on a worker thread.
+
+Under ``torch.distributed`` a DTensor leaf is stored whole
+(``full_tensor()``, a collective every rank joins), and only rank 0
+writes; :func:`restore` lays each restored leaf out as the DTensor of
+``like`` it replaces (``distribute_tensor`` with its mesh and
+placements), so a checkpoint written under one mesh restores onto
+another.
 """
 from __future__ import annotations
 
@@ -27,7 +34,27 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.common.tree import tree_map, tree_paths, tree_unflatten
+from repro_torch.common.tree import (is_dtensor, tree_leaves, tree_map,
+                                     tree_paths, tree_unflatten)
+
+
+def _whole(x: Any) -> Any:
+    """A DTensor's full value (every rank must call this), else ``x``."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or any process outside a
+    process group."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()) or \
+        dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
 
 
 def _host_array(leaf: Any) -> tuple:
@@ -45,7 +72,19 @@ def _host_array(leaf: Any) -> tuple:
 
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
     """Write ``tree`` as step ``step`` under ``ckpt_dir``; returns the step
-    directory."""
+    directory.  In a process group every rank calls it: DTensor leaves are
+    gathered whole, rank 0 writes, and all ranks leave once it is
+    written."""
+    if any(is_dtensor(x) for x in tree_leaves(tree)):
+        tree = tree_map(_whole, tree)
+    final = pathlib.Path(ckpt_dir) / f"step_{step}"
+    if _writer():
+        _write(ckpt_dir, step, tree, keep)
+    _barrier()
+    return str(final)
+
+
+def _write(ckpt_dir: str, step: int, tree, keep: int) -> None:
     base = pathlib.Path(ckpt_dir)
     tmp = base / f".tmp_step_{step}"
     final = base / f"step_{step}"
@@ -69,19 +108,21 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
         shutil.rmtree(final)
     tmp.rename(final)                                   # atomic publish
     _gc(base, keep)
-    return str(final)
 
 
 def save_async(ckpt_dir: str, step: int, tree, *,
                keep: int = 3) -> threading.Thread:
     """:func:`save` on a worker thread.  The copy to the host happens here,
     on the caller's thread (it waits for the device to finish the step),
-    so the caller may change or free the device tensors at once."""
+    so the caller may change or free the device tensors at once.  DTensor
+    leaves are gathered whole here; the writer thread runs on rank 0 only
+    (other ranks get a thread that does nothing), and nothing waits for
+    it across ranks."""
     host_tree = tree_map(
-        lambda x: x.detach().to("cpu", copy=True)
+        lambda x: _whole(x).detach().to("cpu", copy=True)
         if isinstance(x, torch.Tensor) else np.array(x, copy=True), tree)
-    t = threading.Thread(target=save, args=(ckpt_dir, step, host_tree),
-                         kwargs={"keep": keep}, daemon=True)
+    t = threading.Thread(target=_write if _writer() else lambda *a: None,
+                         args=(ckpt_dir, step, host_tree, keep), daemon=True)
     t.start()
     return t
 
@@ -116,8 +157,10 @@ def _load(final: pathlib.Path, name: str, meta: dict, verify: bool
 def restore(ckpt_dir: str, step: int, like, *, verify: bool = True):
     """Step ``step`` of ``ckpt_dir`` in the structure of ``like``, each
     leaf a tensor on the device of ``like``'s leaf (the CPU for an array
-    leaf), with the stored values, shape and dtype.  Raises ValueError if
-    a leaf of ``like`` is missing and IOError on a checksum mismatch."""
+    leaf), with the stored values, shape and dtype; where ``like``'s leaf
+    is a DTensor, the restored leaf is distributed with its mesh and
+    placements.  Raises ValueError if a leaf of ``like`` is missing and
+    IOError on a checksum mismatch."""
     final = pathlib.Path(ckpt_dir) / f"step_{step}"
     manifest = json.loads((final / "manifest.json").read_text())
     paths = tree_paths(like)
@@ -127,6 +170,11 @@ def restore(ckpt_dir: str, step: int, like, *, verify: bool = True):
     out = []
     for name, leaf in paths:
         t = _load(final, name, manifest["leaves"][name], verify)
+        if is_dtensor(leaf):
+            from torch.distributed.tensor import distribute_tensor
+            out.append(distribute_tensor(t.to(leaf.device), leaf.device_mesh,
+                                         leaf.placements))
+            continue
         dev = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
         out.append(t.to(dev))
     return tree_unflatten(like, out)

@@ -1,12 +1,12 @@
-"""Model configuration for the port (the gcn and dense-decoder fields of
-``repro.common.config.ModelConfig``).
+"""Model configuration for the port (the gcn, dense-decoder, MoE and VLM
+fields of ``repro.common.config.ModelConfig``).
 
 Frozen dataclass, so a config can key caches and be shared freely.
 :class:`TrainConfig` holds the optimizer, schedule, microbatching and
 checkpoint settings of ``repro.common.config.TrainConfig``.  The
-skeleton-GCN family and the dense decoder LM family are ported; the other
-LM families' fields (MoE, SSM, hybrid, audio, VLM) join with their slice
-(ROADMAP.md, Queue 1 item 13).  The LM fields default to 0 or off, so a
+skeleton-GCN family and the dense, MoE and VLM decoder families are
+ported; the SSM, hybrid and audio families' fields join with their slice
+(ROADMAP.md, Queue 1 item 6).  The LM fields default to 0 or off, so a
 gcn config leaves them alone.
 """
 from __future__ import annotations
@@ -32,8 +32,10 @@ SERVE_BATCH_DEFAULTS = {
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """2s-AGCN architecture plus the paper's hybrid-pruning knobs, or a
-    dense decoder-only transformer (``family="dense"``: GQA, optional
-    sliding-window attention)."""
+    decoder-only transformer: ``family="dense"`` (GQA, optional
+    sliding-window attention), ``"moe"`` (the MLP replaced by a top-k
+    mixture of experts) or ``"vlm"`` (a text backbone that takes
+    projected patch embeddings before the text)."""
 
     name: str
     family: str
@@ -53,6 +55,15 @@ class ModelConfig:
     norm_eps: float = 1e-6
     act: str = "silu"                      # silu | gelu | relu2
     scan_group: int = 1                    # layers per stacked group
+
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    moe_capacity_factor: float = 1.25
+
+    # --- vlm ---
+    num_image_tokens: int = 0              # patch embeddings per sample (stub)
 
     # --- gcn (2s-AGCN) ---
     gcn_joints: int = 25
@@ -96,12 +107,52 @@ class ModelConfig:
         return _round_up(self.vocab_size, 256)
 
     @property
+    def padded_experts(self) -> int:
+        """Experts rounded up to a multiple of 16, so a 16-way model axis
+        divides them (the pads get −1e30 router logits and zero
+        weights)."""
+        if self.num_experts == 0:
+            return 0
+        return _round_up(self.num_experts, 16)
+
+    @property
     def q_dim(self) -> int:
         return self.num_heads * self.head_dim
 
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    def param_count_estimate(self) -> int:
+        """Analytic parameter count (for 6·N·D model FLOPs), as the
+        reference's for the gcn, dense, MoE and VLM families (real experts
+        only, the VLM's image projection left out)."""
+        if self.family == "gcn":
+            total = 0
+            cin = self.gcn_in_channels
+            for cout in self.gcn_channels:
+                total += self.gcn_kv * cin * cout          # spatial 1x1
+                total += cout * cout * self.gcn_tkernel    # temporal 9x1
+                total += self.gcn_kv * self.gcn_joints ** 2
+                cin = cout
+            return total + cin * self.gcn_num_classes
+        d, L = self.d_model, self.num_layers
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.family == "moe":
+            ffn = 3 * d * self.moe_d_ff * self.num_experts + d * self.num_experts
+        else:
+            ffn = (3 * d * self.d_ff if self.act in ("silu", "gelu")
+                   else 2 * d * self.d_ff)
+        return L * (attn + ffn) + self.padded_vocab * d
+
+    def active_param_count_estimate(self) -> int:
+        """Parameters a token meets (MoE: its top-k experts only)."""
+        if self.family != "moe":
+            return self.param_count_estimate()
+        d, L = self.d_model, self.num_layers
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        ffn = 3 * d * self.moe_d_ff * self.experts_per_token
+        return L * (attn + ffn) + self.padded_vocab * d
 
 
 @dataclasses.dataclass(frozen=True)

@@ -34,21 +34,23 @@ def _is_container(node: Any) -> bool:
     return isinstance(node, (dict, list, tuple))
 
 
+def _walk(node: Any, prefix: List[str], out: List[Tuple[str, Any]]) -> None:
+    if node is None:
+        return
+    if not _is_container(node):
+        out.append(("/".join(prefix), node))
+        return
+    for k, v in _children(node):
+        _walk(v, prefix + [k], out)
+
+
 def tree_paths(tree: Any) -> List[Tuple[str, Any]]:
     """``[(path, leaf)]`` with JAX's checkpoint leaf names: path elements
-    joined by ``/`` (``blocks/0/Wk``, ``.m/fc_w``)."""
+    joined by ``/`` (``blocks/0/Wk``, ``.m/fc_w``).  The walk is a module
+    function, not a closure: a self-referencing closure is a reference
+    cycle that kept every leaf alive until the cyclic collector ran."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, prefix):
-        if node is None:
-            return
-        if not _is_container(node):
-            out.append(("/".join(prefix), node))
-            return
-        for k, v in _children(node):
-            walk(v, prefix + [k])
-
-    walk(tree, [])
+    _walk(tree, [], out)
     return out
 
 
@@ -114,3 +116,11 @@ def cast_tree(tree: Any, dtype: torch.dtype) -> Any:
     """Floating-point leaves cast to ``dtype``; other leaves unchanged."""
     return tree_map(
         lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
+
+
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a ``torch.distributed`` DTensor."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)

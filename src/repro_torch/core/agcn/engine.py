@@ -47,6 +47,7 @@ from repro_torch.core.agcn.graph import (GraphTopology, dense_to_csr,
                                          get_topology)
 from repro_torch.core.pruning.plan import PrunePlan
 from repro_torch.core.quant import quantize_q88
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.rfc_pack import BANK as RFC_BANK
 
@@ -109,8 +110,16 @@ class ExecutionPlan:
 
 def _bn_stats(x: torch.Tensor, eps: float = 1e-5):
     """(mean, inv) over all-but-channel axes: the clip-mode batch stats.
-    Population variance, as ``jnp.var``."""
+    Population variance, as ``jnp.var``.  Under a data-parallel mesh each
+    rank holds an equal share of the rows, and both moments are taken over
+    every rank's rows (``sharding.batch_mean``), as GSPMD keeps JAX's
+    global."""
     dims = tuple(range(x.dim() - 1))
+    if sharding.batch_ranks() > 1:
+        mean = sharding.batch_mean(x.mean(dims, keepdim=True))
+        var = sharding.batch_mean((x - mean).square().mean(dims,
+                                                           keepdim=True))
+        return mean, torch.rsqrt(var + eps)
     mean = x.mean(dims, keepdim=True)
     var = x.var(dims, keepdim=True, correction=0)
     return mean, torch.rsqrt(var + eps)

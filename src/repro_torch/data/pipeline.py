@@ -38,8 +38,10 @@ def lm_batches(mcfg: ModelConfig, dcfg: DataConfig, start: int = 0
                ) -> Iterator[Dict[str, np.ndarray]]:
     """Endless {"tokens", "labels": (B, S) int32} batches of a Markov-chain
     token stream with a few strong modes per token (so a model's loss
-    falls).  The dense family's batches; the VLM and audio extras join
-    with those families (ROADMAP.md, Queue 1 item 6)."""
+    falls).  For the VLM family the text is ``seq_len − num_image_tokens``
+    long and "image_embeds" (B, num_image_tokens, d_model) float32 come
+    from the same stream; the audio extras join with that family
+    (ROADMAP.md, Queue 1 item 6)."""
     _, per = _host_slice(dcfg)
     vocab = mcfg.vocab_size
     rng = np.random.default_rng(dcfg.seed)
@@ -49,6 +51,8 @@ def lm_batches(mcfg: ModelConfig, dcfg: DataConfig, start: int = 0
         brng = np.random.default_rng(
             (dcfg.seed, step, dcfg.host_index, 0xD47A))
         s_text = dcfg.seq_len
+        if mcfg.family == "vlm":
+            s_text = dcfg.seq_len - mcfg.num_image_tokens
         toks = np.empty((per, s_text), np.int64)
         toks[:, 0] = brng.integers(0, vocab, size=per)
         choice = brng.integers(0, 4, size=(per, s_text))
@@ -57,7 +61,12 @@ def lm_batches(mcfg: ModelConfig, dcfg: DataConfig, start: int = 0
         for t in range(1, s_text):
             nxt = next_tok[toks[:, t - 1], choice[:, t]]
             toks[:, t] = np.where(noise[:, t], rand[:, t], nxt)
-        yield {"tokens": toks.astype(np.int32), "labels": toks.astype(np.int32)}
+        batch = {"tokens": toks.astype(np.int32),
+                 "labels": toks.astype(np.int32)}
+        if mcfg.family == "vlm":
+            batch["image_embeds"] = brng.standard_normal(
+                (per, mcfg.num_image_tokens, mcfg.d_model), np.float32)
+        yield batch
         step += 1
 
 

@@ -13,7 +13,14 @@
 Like the JAX tier it is single-controller: one process and one host
 scheduler address every device explicitly (no ``torch.distributed``
 ranks), and the collectives XLA inserts there are device-to-device
-copies here."""
+copies here.
+
+The training half runs over ``torch.distributed`` ranks instead:
+:mod:`~repro_torch.distributed.sharding` (the logical-axis rules,
+``constrain``, ``batch_mean``) and :mod:`~repro_torch.distributed.params`
+(the reference's parameter specs as DTensor placements) feed
+``train.steps.make_train_step``'s data-parallel step and
+``fault.elastic``."""
 from repro_torch.distributed.router import (ReplicaRouter, RouterHandle,
                                             run_routed_sessions)
 from repro_torch.distributed.serving import (BATCH_AXIS, BatchMesh,

@@ -6,9 +6,8 @@
     hosts whose step times exceed median + k·MAD, the standard mitigation
     trigger (re-shard away / preempt).
   * Both are pure-python state machines over injected timestamps, testable
-    without a cluster; ``launch/train.py`` wires them to wall-clock time
-    (one host: the port has no multi-host training yet, ROADMAP.md Queue 1
-    item 4b, the training half of distribution).
+    without a cluster; ``launch/train.py`` wires them to wall-clock time,
+    one entry per rank (each rank's step time gathered every step).
 """
 from __future__ import annotations
 
@@ -66,8 +65,7 @@ class StragglerDetector:
 class FaultPolicy:
     """What a trainer does when the monitors fire:
        dead host      -> restore the latest checkpoint on the survivors
-                         (the re-sharding plan, ``fault/elastic.py`` in
-                         JAX, joins with distribution)
+                         (the re-sharding plan: ``fault/elastic.py``)
        straggler      -> log and request a scheduler swap; training
                          continues, data-parallel work re-balanced by
                          shrinking that host's shard in the next epoch.

@@ -1,5 +1,5 @@
-"""Serving CLI for the port — 2s-AGCN two-stream inference and dense LM
-decoding.
+"""Serving CLI for the port — 2s-AGCN two-stream inference and decoder LM
+decoding (dense, MoE and VLM).
 
     PYTHONPATH=src python -m repro_torch.launch.serve clip --arch agcn-2s \\
         [--reduced] [--batch N] [--clips N] \\
@@ -13,7 +13,9 @@ decoding.
         [--trace FILE] [--policy demand|slo] [--topology NAME] [--ck] \\
         [--saliency-thresh X] [--mesh N] [--replicas R] \\
         [--backend cuda|reference|both] [--device cuda|cpu] [--bench PATH]
-    PYTHONPATH=src python -m repro_torch.launch.serve lm --arch smollm-360m \\
+    PYTHONPATH=src python -m repro_torch.launch.serve lm \\
+        --arch smollm-360m|h2o-danube-1.8b|granite-moe-3b-a800m|\\
+        qwen3-moe-30b-a3b|llava-next-mistral-7b \\
         [--reduced] [--batch N] [--prompt-len N] [--gen N] \\
         [--backend cuda|reference|both] [--device cuda|cpu]
 
@@ -22,8 +24,9 @@ plan (Q8.8 weights).  ``clip`` drains clip batches through the ensemble
 step and prints clips/s per backend.  ``stream`` feeds one clip batch
 frame by frame through the per-frame ensemble step, then the flush drain,
 and prints frames/s, the per-step latency and the post-drain top-1
-agreement with the clip engine.  ``lm`` serves a dense decoder LM with
-random weights: a seeded random prompt fed token by token through the
+agreement with the clip engine.  ``lm`` serves a decoder LM (dense, MoE,
+or the VLM's text backbone, which serves text alone as the reference's
+step does) with random weights: a seeded random prompt fed token by token through the
 KV-cache decode step, then greedy decoding, and prints tokens/s and the
 per-step latency.  ``--backend both`` adds the cross-backend top-1 (token)
 agreement.  ``sessions`` serves many independent sessions through
@@ -45,6 +48,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device, synchronize
 from repro_torch.configs import get_config
 from repro_torch.core.agcn import engine
@@ -196,8 +200,10 @@ def generate(arch: str, *, reduced: bool = True, batch: int = 4,
              prompt_len: int = 16, gen: int = 32, seed: int = 0,
              backend: str = "cuda", device: DeviceLike = None,
              params: Optional[Dict] = None,
-             keep_logits: bool = False) -> Dict:
-    """KV-cache decoding of a dense LM: a random prompt from
+             keep_logits: bool = False,
+             cfg: Optional[ModelConfig] = None) -> Dict:
+    """KV-cache decoding of a decoder LM (dense, MoE, or the VLM's text
+    alone): a random prompt from
     ``np.random.default_rng(seed)`` is fed token by token through the
     decode step (the prefill), then ``gen`` greedy tokens follow, as the
     reference's ``generate`` does.  Weights are ``params`` if given (e.g.
@@ -207,9 +213,10 @@ def generate(arch: str, *, reduced: bool = True, batch: int = 4,
     + gen) numpy, "tokens_per_s" (batch × steps / summed step time),
     "latency_ms_p50", "latency_ms_mean" (per step), "steps", and with
     ``keep_logits`` "logits" (steps, batch, padded_vocab) on the device:
-    step t's logits for position t + 1}."""
+    step t's logits for position t + 1}.  ``cfg``, when given, replaces
+    the registry's config of ``arch`` (a depth cut)."""
     dev = resolve_device(device)
-    cfg = get_config(arch, reduced=reduced)
+    cfg = cfg or get_config(arch, reduced=reduced)
     if cfg.family == "gcn":
         raise ValueError(f"{arch} is a gcn-family arch: use `serve clip|"
                          f"stream`, not `serve lm`")
@@ -425,7 +432,7 @@ def build_parser() -> argparse.ArgumentParser:
                                            "continual inference")
     sessions = sub.add_parser("sessions", help="gcn: multi-session traffic "
                                                "through GcnService")
-    lm = sub.add_parser("lm", help="dense LM: token-by-token prefill and "
+    lm = sub.add_parser("lm", help="decoder LM: token-by-token prefill and "
                                    "greedy KV-cache decoding")
     for p in (clip, stream, sessions, lm):
         p.add_argument("--arch", required=True)

@@ -1,7 +1,10 @@
-"""Decoder-only transformer, dense family (danube, smollm): GQA attention
-with optional sliding windows, gated MLP, RMSNorm, tied embeddings.  Port
-of the dense part of ``repro.models.decoder`` (MoE and VLM are not
-ported: ROADMAP.md, Queue 1 item 13).
+"""Decoder-only transformer: the dense family (danube, smollm), the MoE
+family (granite-moe, qwen3-moe: the MLP replaced by a top-k mixture of
+experts whose load-balance loss is summed over layers) and the VLM family
+(llava: projected patch embeddings put before the text embeddings).  GQA
+attention with optional sliding windows, gated MLP, RMSNorm, tied
+embeddings.  Port of ``repro.models.decoder``; gemma3's local:global
+stack is not ported (ROADMAP.md, Queue 1 item 6).
 
 Per-layer parameters and caches are stacked into (num_groups, group, ...)
 leaves as in the reference, so JAX trees carry across unchanged
@@ -9,6 +12,7 @@ leaves as in the reference, so JAX trees carry across unchanged
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -17,10 +21,15 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.tree import tree_map
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers.attention import attention_layer, attn_init
 from repro_torch.models.layers.common import (he_init, rmsnorm, rmsnorm_init,
                                               rope_tables)
 from repro_torch.models.layers.mlp import mlp, mlp_init
+from repro_torch.models.layers.moe import moe_ffn, moe_init
+
+FAMILIES = ("dense", "moe", "vlm")
 
 
 # ---------------------------------------------------------------------------
@@ -49,21 +58,15 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported (only "
-            f"'dense' is; see ROADMAP.md, Queue 1 item 13)")
+            f"{cfg.name}: the {cfg.family!r} family is not a decoder family "
+            f"the port has ({', '.join(FAMILIES)}; see ROADMAP.md, Queue 1 "
+            f"item 6)")
     if cfg.local_global_ratio > 0:
         raise NotImplementedError(
             f"{cfg.name}: the local:global stack (gemma3) is not ported "
-            f"(see ROADMAP.md, Queue 1 item 13)")
-
-
-def _stack(trees: List[Any]) -> Any:
-    """Stack matching trees of tensors leaf by leaf along a new axis 0."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+            f"(see ROADMAP.md, Queue 1 item 6)")
 
 
 def _index(tree: Any, gi: int, i: int) -> Any:
@@ -77,36 +80,59 @@ def _index(tree: Any, gi: int, i: int) -> Any:
 # init
 # ---------------------------------------------------------------------------
 
-def _layer_init(gen: torch.Generator, cfg: ModelConfig) -> Dict:
-    dev = gen.device
-    return {
+def _layer_init(gen: Optional[torch.Generator], cfg: ModelConfig,
+                dev: torch.device) -> Dict:
+    p = {
         "ln1": rmsnorm_init(cfg.d_model, dev),
         "ln2": rmsnorm_init(cfg.d_model, dev),
         "attn": attn_init(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                           cfg.head_dim),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_init(gen, cfg.d_model, cfg.moe_d_ff, cfg.num_experts,
+                            cfg.padded_experts)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 *, seed: int = 0, device: DeviceLike = None) -> Dict:
     """float32 parameter tree with the reference's nesting and shapes: "embed"
-    (padded_vocab, d), "layers" with (num_groups, group, ...) leaves,
-    "final_norm".  Numbers come from ``generator`` (else a generator on
-    ``device`` seeded with ``seed``), layer by layer, then the embedding;
-    they do not reproduce ``jax.random``'s (the bridge carries JAX's)."""
+    (padded_vocab, d), "layers" with (num_groups, group, ...) leaves (a
+    "moe" subtree in place of "mlp" for the MoE family), "final_norm", and
+    for the VLM family "img_proj" (d, d).  Numbers come from ``generator``
+    (else a generator on ``device`` seeded with ``seed``), layer by layer,
+    then the embedding and the image projection; they do not reproduce
+    ``jax.random``'s (the bridge carries JAX's).  ``device="meta"`` gives
+    the tree's shapes alone, drawing nothing (as ``jax.eval_shape``)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    gen = generator if generator is not None else torch.Generator(
-        device=dev).manual_seed(seed)
+    meta = dev.type == "meta"
+    gen = None if meta else generator if generator is not None else \
+        torch.Generator(device=dev).manual_seed(seed)
+    gdev = dev if gen is None else gen.device
     g, ng = scan_group_size(cfg), num_groups(cfg)
-    groups = [_stack([_layer_init(gen, cfg) for _ in range(g)])
-              for _ in range(ng)]
-    params = {
-        "embed": he_init(gen, (cfg.padded_vocab, cfg.d_model), cfg.d_model),
-        "layers": _stack(groups),
-        "final_norm": rmsnorm_init(cfg.d_model, gen.device),
-    }
+    with torch.device("meta") if meta else contextlib.nullcontext():
+        # each layer is drawn, then copied into its slot of the stacked
+        # leaves, so the tree is never held twice
+        layers = None
+        for gi in range(ng):
+            for i in range(g):
+                lp = _layer_init(gen, cfg, gdev)
+                if layers is None:
+                    layers = tree_map(lambda t: t.new_empty((ng, g, *t.shape)),
+                                      lp)
+                tree_map(lambda dst, src: dst[gi, i].copy_(src), layers, lp)
+        params = {
+            "embed": he_init(gen, (cfg.padded_vocab, cfg.d_model),
+                             cfg.d_model),
+            "layers": layers,
+            "final_norm": rmsnorm_init(cfg.d_model, gdev),
+        }
+        if cfg.family == "vlm":
+            params["img_proj"] = he_init(gen, (cfg.d_model, cfg.d_model),
+                                         cfg.d_model)
     return _to(params, dev)
 
 
@@ -121,17 +147,30 @@ def _to(tree: Any, dev: torch.device) -> Any:
 # ---------------------------------------------------------------------------
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+            image_embeds: Optional[torch.Tensor] = None,
             caches: Optional[Dict] = None,
             positions: Optional[torch.Tensor] = None,
-            backend: str = "cuda") -> Tuple[torch.Tensor, Optional[Dict]]:
-    """tokens (B, S) int -> (logits (B, S, padded_vocab), caches).  With
+            backend: str = "cuda", need_aux: bool = True
+            ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """tokens (B, S) int -> (logits (B, S_total, padded_vocab), caches,
+    aux), as the reference's.  ``aux`` is the MoE load-balance loss summed
+    over layers (a float32 zero for the other families).  For the VLM
+    family ``image_embeds`` (B, N_img, d), when given, are projected by
+    ``img_proj`` and put before the text, so S_total = N_img + S.  With
     ``caches`` (from :func:`init_cache`) each layer writes its k/v into
     them in place and advances its position; ``backend`` picks the decode
     attention (``"cuda"``: the ``flash_decode`` kernel for one-token
-    steps; ``"reference"``: the plain blockwise attention)."""
+    steps; ``"reference"``: the plain blockwise attention).  With
+    ``need_aux=False`` the MoE layers skip the aux loss (a serving step
+    discards it) and ``aux`` stays zero."""
     _check_family(cfg)
     kinds = layer_kinds(cfg)
     x = F.embedding(tokens, params["embed"]) * math.sqrt(cfg.d_model)
+    if cfg.family == "vlm" and image_embeds is not None:
+        img = image_embeds @ params["img_proj"]
+        x = torch.cat([img.to(x.dtype), x], dim=1)
+    x = constrain(x, "batch", "seq_shard", None)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta, x.device)
@@ -139,16 +178,28 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
         for i, kind in enumerate(kinds):
             lp = _index(params["layers"], gi, i)
             cache = _index(caches, gi, i) if caches is not None else None
+            attn_in = constrain(rmsnorm(x, lp["ln1"], cfg.norm_eps),
+                                "batch", None, None)
             h, _ = attention_layer(
-                lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), rope,
+                lp["attn"], attn_in, rope,
                 num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-                head_dim=cfg.head_dim, causal=True, window=_window(cfg, kind), cache=cache,
-                backend=backend)
+                head_dim=cfg.head_dim, causal=True, window=_window(cfg, kind),
+                cache=cache, backend=backend)
             x = x + h
-            x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
-                        cfg.act)
+            h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+            if cfg.family == "moe":
+                h2, a = moe_ffn(lp["moe"], h2, num_experts=cfg.num_experts,
+                                top_k=cfg.experts_per_token,
+                                capacity_factor=cfg.moe_capacity_factor,
+                                act=cfg.act, need_aux=need_aux)
+                if a is not None:
+                    aux = aux + a
+            else:
+                h2 = mlp(lp["mlp"], h2, cfg.act)
+            x = constrain(x + h2, "batch", "seq_shard", None)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["embed"].T, caches
+    logits = constrain(x @ params["embed"].T, "batch", None, "vocab")
+    return logits, caches, aux
 
 
 # ---------------------------------------------------------------------------

@@ -140,7 +140,7 @@ def attention_layer(p: Dict, x: torch.Tensor,
             raise NotImplementedError(
                 f"a {L}-slot cache under a {window}-token window needs a "
                 f"lower bound on the window (gemma3's local layers; see "
-                f"ROADMAP.md, Queue 1 item 13)")
+                f"ROADMAP.md, Queue 1 item 6)")
         ring = window > 0 and S == 1
         slot = pos % L if ring else pos
         # a device index: the write never reads the position on the host

@@ -9,10 +9,14 @@ import torch
 import torch.nn.functional as F
 
 
-def he_init(generator: torch.Generator, shape: Sequence[int],
+def he_init(generator: Optional[torch.Generator], shape: Sequence[int],
             fan_in: int) -> torch.Tensor:
     """float32 normal weights with variance 2 / fan_in, drawn from
-    ``generator`` on the generator's device."""
+    ``generator`` on the generator's device.  Without a generator, an
+    uninitialised tensor on the default device: the shape-only init under
+    ``torch.device("meta")``."""
+    if generator is None:
+        return torch.empty(tuple(shape), dtype=torch.float32)
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=generator.device)
     return w * math.sqrt(2.0 / max(1, fan_in))

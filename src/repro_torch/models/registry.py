@@ -7,11 +7,12 @@ port has:
     serve_fn(params, batch, cache, cfg, backend) -> (logits, cache)
     init_cache(cfg, batch, max_len, device=)     -> cache tree
 
-The gcn family (2s-AGCN, one stream) and the dense decoder family are
-ported; the others raise NotImplementedError (ROADMAP.md, Queue 1 item
-13).  Batch dicts: gcn {x (N, T, V, C), labels (N,)}; dense {tokens
-(B, S), labels (B, S)}, and for a decode step {tokens (B, 1), pos int32
-device scalar}.
+The gcn family (2s-AGCN, one stream) and the dense, MoE and VLM decoder
+families are ported; the others raise NotImplementedError (ROADMAP.md,
+Queue 1 item 6).  Batch dicts: gcn {x (N, T, V, C), labels (N,)};
+dense/moe {tokens (B, S), labels (B, S)}; vlm {tokens (B, S_text),
+image_embeds (B, N_img, d), labels (B, S_text)}; and for a decode step
+{tokens (B, 1), pos int32 device scalar}.
 """
 from __future__ import annotations
 
@@ -67,8 +68,10 @@ def loss_fn(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     backend, whatever ``cfg.gcn_backend`` says: the ``cuda`` backend's
     plan packs weights through numpy and carries no gradient.  Training
     runs the dense graph; ``inference=True`` applies the config's static
-    prune plan (the deployed model).  dense: the next-token loss of the
-    cache-free forward (the prefill path)."""
+    prune plan (the deployed model).  dense, moe and vlm: the next-token
+    loss of the cache-free forward (the prefill path) plus 0.01 × the MoE
+    load-balance loss, with metrics {"loss" (the cross-entropy), "aux"};
+    the VLM's logits are cut to the text positions."""
     if cfg.family == "gcn":
         from repro_torch.core.pruning.plan import plan_from_config
         plan = plan_from_config(cfg) if inference else None
@@ -76,16 +79,20 @@ def loss_fn(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         loss = _xent(logits, batch["labels"])
         acc = (logits.argmax(-1) == batch["labels"]).to(torch.float32).mean()
         return loss, {"loss": loss, "acc": acc}
-    logits, _ = decoder.forward(params, batch["tokens"], cfg)
+    logits, _, aux = decoder.forward(params, batch["tokens"], cfg,
+                                     image_embeds=batch.get("image_embeds"))
+    if cfg.family == "vlm":
+        logits = logits[:, -batch["tokens"].shape[1]:]      # text positions
     loss = _xent(logits[:, :-1], batch["labels"][:, 1:])
-    return loss, {"loss": loss}
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 def serve_fn(params: Dict, batch: Dict[str, torch.Tensor], cache: Dict,
              cfg: ModelConfig, backend: str = "cuda"
              ) -> Tuple[torch.Tensor, Dict]:
     """One decode step: batch = {tokens (B, S), pos int32 device scalar};
-    the cache is updated in place and returned.  A step of S > 1 tokens
+    the cache is updated in place and returned.  The VLM serves text
+    alone, as the reference's step does (no image embeddings).  A step of S > 1 tokens
     must fit in the cache's L slots (pos + S <= L): the reference clamps
     such a write's start, which this port does not reproduce, so it
     raises (the check reads pos on the host; one-token steps never do)."""
@@ -96,8 +103,10 @@ def serve_fn(params: Dict, batch: Dict[str, torch.Tensor], cache: Dict,
         raise ValueError(f"serve_fn: {S} tokens at position {int(pos)} do "
                          f"not fit in the cache's {L} slots")
     positions = pos + torch.arange(S, device=pos.device)
-    return decoder.forward(params, batch["tokens"], cfg, caches=cache,
-                           positions=positions, backend=backend)
+    logits, cache, _ = decoder.forward(params, batch["tokens"], cfg,
+                                       caches=cache, positions=positions,
+                                       backend=backend, need_aux=False)
+    return logits, cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -8,6 +8,11 @@ counter (``1 - β^t`` with t cast to float32), and the decoupled weight
 decay applies only to leaves with two or more dimensions.  Everything
 stays on the parameters' device: the learning rate is a 0-d tensor, so a
 step never waits for the host.
+
+Leaves may be DTensors (the data-parallel step's sharded parameters,
+gradients and moments, laid out alike): the update runs on each rank's
+shard, and :func:`global_norm` sums a sharded leaf's squares over the
+ranks that hold its shards, so clipping sees the whole gradient.
 """
 from __future__ import annotations
 
@@ -17,7 +22,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.common.config import TrainConfig
-from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.common.tree import (is_dtensor, tree_leaves, tree_map,
+                                     tree_unflatten)
 
 
 class OptState(NamedTuple):
@@ -26,13 +32,30 @@ class OptState(NamedTuple):
     v: Any
 
 
+def _local(x):
+    """A DTensor's shard on this rank, else ``x``."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _like(ref, local):
+    """``local`` as a DTensor laid out as ``ref`` when ``ref`` is one."""
+    if not is_dtensor(ref):
+        return local
+    return type(ref).from_local(local, ref.device_mesh, ref.placements,
+                                run_check=False, shape=ref.shape,
+                                stride=ref.stride())
+
+
 def init(params) -> OptState:
-    """Zero float32 moments of the parameters' shapes, step 0."""
+    """Zero float32 moments of the parameters' shapes (laid out as the
+    parameters where they are DTensors), step 0."""
     leaves = tree_leaves(params)
-    dev = leaves[0].device if leaves else None
+    dev = _local(leaves[0]).device if leaves else None
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        lp = _local(p)
+        return _like(p, torch.zeros(lp.shape, dtype=torch.float32,
+                                    device=lp.device))
 
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     m=tree_map(zeros, params), v=tree_map(zeros, params))
@@ -51,18 +74,32 @@ def schedule(step: torch.Tensor, tcfg: TrainConfig) -> torch.Tensor:
     return torch.where(step < tcfg.warmup_steps, warm, cos)
 
 
+def _square_sum(x) -> torch.Tensor:
+    """Σ x² in float32 over the whole leaf: a DTensor's shard sum added up
+    over the mesh dims that shard it."""
+    s = _local(x).float().square().sum()
+    if is_dtensor(x):
+        import torch.distributed as dist
+        for dim, pl in enumerate(x.placements):
+            if pl.is_shard() and x.device_mesh.size(dim) > 1:
+                dist.all_reduce(s, group=x.device_mesh.get_group(dim))
+    return s
+
+
 def global_norm(tree) -> torch.Tensor:
-    """The L2 norm over every leaf, in float32."""
+    """The L2 norm over every leaf, in float32 (over whole leaves where
+    they are DTensors)."""
     leaves = tree_leaves(tree)
-    return torch.sqrt(sum(x.float().square().sum() for x in leaves))
+    return torch.sqrt(sum(_square_sum(x) for x in leaves))
 
 
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled by min(1, max_norm / norm), norm); each leaf keeps
-    its dtype."""
+    its dtype (and its layout)."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+    return tree_map(lambda g: _like(g, (_local(g).float() * scale).to(
+        g.dtype)), grads), norm
 
 
 def update(params, grads, state: OptState, tcfg: TrainConfig
@@ -77,18 +114,22 @@ def update(params, grads, state: OptState, tcfg: TrainConfig
     bc1, bc2 = 1 - torch.pow(b1, tf), 1 - torch.pow(b2, tf)
 
     ps = tree_leaves(params)
-    g32 = [g.float() for g in tree_leaves(grads)]
-    m = torch._foreach_add(torch._foreach_mul(tree_leaves(state.m), b1),
-                           torch._foreach_mul(g32, 1 - b1))
-    v = torch._foreach_add(torch._foreach_mul(tree_leaves(state.v), b2),
-                           torch._foreach_mul(torch._foreach_mul(g32, g32),
-                                              1 - b2))
+    g32 = [_local(g).float() for g in tree_leaves(grads)]
+    ms, vs = tree_leaves(state.m), tree_leaves(state.v)
+    # new moments, each accumulated in place (no full-size temporaries)
+    m = torch._foreach_mul([_local(x) for x in ms], b1)
+    torch._foreach_add_(m, g32, alpha=1 - b1)
+    v = torch._foreach_mul([_local(x) for x in vs], b2)
+    torch._foreach_addcmul_(v, g32, g32, value=1 - b2)
     new_p = []
     for p, mi, vi in zip(ps, m, v):
+        lp = _local(p)
         step_ = (mi / bc1) / (torch.sqrt(vi / bc2) + 1e-8)
         if p.dim() >= 2:                                 # decoupled decay
-            step_ = step_ + tcfg.weight_decay * p.float()
-        new_p.append((p.float() - lr * step_).to(p.dtype))
+            step_ = step_ + tcfg.weight_decay * lp.float()
+        new_p.append(_like(p, (lp.float() - lr * step_).to(p.dtype)))
+    m = [_like(r, x) for r, x in zip(ms, m)]
+    v = [_like(r, x) for r, x in zip(vs, v)]
     new_state = OptState(step=t, m=tree_unflatten(state.m, m),
                          v=tree_unflatten(state.v, v))
     return (tree_unflatten(params, new_p), new_state,

@@ -1,10 +1,11 @@
 """Step functions.  Training: the loss, its gradients and the AdamW train
-step with microbatch accumulation (``make_loss_fn``, ``loss_and_grads``,
-``make_train_step``).  GCN inference over prebuilt ExecutionPlans: the
-clip step, the per-frame stream step, the session-slab step and the fused
-serving tick, each the two-stream (joint + bone) ensemble.  LM steps: the
-greedy KV-cache decode step and the prefill forward.  Port of
-``repro.train.steps``."""
+step with microbatch accumulation, in one process or data-parallel over
+``torch.distributed`` ranks (``make_loss_fn``, ``loss_and_grads``,
+``make_train_step``, ``sync_grads``, ``shard_batch``).  GCN inference
+over prebuilt ExecutionPlans: the clip step, the per-frame stream step,
+the session-slab step and the fused serving tick, each the two-stream
+(joint + bone) ensemble.  LM steps: the greedy KV-cache decode step and
+the prefill forward.  Port of ``repro.train.steps``."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -41,8 +42,64 @@ def loss_and_grads(loss_fn: Callable, params, batch
             tree_unflatten(params, grads))
 
 
+def _check_mesh(mesh) -> None:
+    from repro_torch.distributed.sharding import axis_size
+    if axis_size(mesh, "model") > 1:
+        raise NotImplementedError(
+            "a model axis above 1 is tensor or expert parallelism of the "
+            "decoder, which the port's train step does not do yet "
+            "(ROADMAP.md, Queue 1 item 7); use a (data, 1) mesh")
+
+
+def sync_grads(grads, shardings, compression: str = "none"):
+    """The data-parallel gradient sync of one train step: each rank's
+    gradients (full leaves, its rows' mean) -> the mean over the batch
+    axes' ranks, as DTensors laid out by ``shardings`` (a tree of
+    ``sharding.NamedSharding``, or anything with ``mesh`` and
+    ``placements``).  A leaf sharded over a batch axis gets a
+    reduce-scatter into its shard, every other leaf an all-reduce.  With
+    ``compression == "bf16"`` the payloads are bfloat16 (half the bytes;
+    the sum is rounded to bfloat16) and the result stays bfloat16, as the
+    reference's compressed sync hands AdamW bf16 gradients."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import (axis_names, axis_size,
+                                                  batch_axes)
+    rs = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+
+    def one(g, s):
+        mesh = s.mesh
+        names = axis_names(mesh)
+        if compression == "bf16":
+            g = g.to(torch.bfloat16)
+        n = 1
+        for a in batch_axes(mesh):
+            k = axis_size(mesh, a)
+            if k == 1:
+                continue
+            n *= k
+            pl = s.placements[names.index(a)]
+            group = mesh.get_group(a)
+            if pl.is_shard():
+                d = pl.dim
+                src = g.movedim(d, 0).contiguous()
+                out = src.new_empty((src.shape[0] // k, *src.shape[1:]))
+                rs(out, src, group=group)
+                g = out.movedim(0, d)
+            else:
+                g = g.clone(memory_format=torch.contiguous_format)
+                dist.all_reduce(g, group=group)     # the caller's grads stay
+        g = g / n if n > 1 else g
+        return DTensor.from_local(g.contiguous(), mesh, s.placements,
+                                  run_check=False)
+
+    return tree_map(one, grads, shardings)
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                    loss_fn: Optional[Callable] = None) -> Callable:
+                    grad_shardings=None, loss_fn: Optional[Callable] = None
+                    ) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     forward and backward, gradients averaged over ``tcfg.microbatches``
     equal slices of the batch (each slice's loss on its own, so BatchNorm
@@ -50,37 +107,66 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     ``tcfg.grad_compression == "bf16"``, then ``adamw.update``.  Returns
     new trees; the inputs are not changed.
 
+    ``grad_shardings`` (a tree of ``sharding.NamedSharding``, from
+    ``distributed.params.param_shardings``) makes it the data-parallel
+    step over the mesh's batch axes, JAX's meaning of the argument: the
+    parameters and the optimizer state are DTensors laid out so
+    (``distribute_params``), ``batch`` holds this rank's rows, and each
+    microbatch of a rank is its share of the global microbatch (the global
+    batch split as (microbatches, ranks, rows), ``shard_batch``).  The
+    step gathers the full parameters, runs the loss under
+    ``sharding.axis_rules`` (so BatchNorm statistics and the MoE
+    load-balance means span every rank), syncs the gradients
+    (:func:`sync_grads`: a reduce-scatter into the shard of a leaf sharded
+    over ``data``, an all-reduce mean elsewhere, on bf16 payloads with
+    compression), and AdamW updates each rank's shard; the metrics are
+    means over the ranks.  A model axis above 1 raises
+    NotImplementedError.
+
     ``loss_fn`` (default :func:`make_loss_fn`) may be any ``(params,
-    batch) -> (loss, metrics)`` — the pruning bench's prune-aware losses.
-    JAX's ``grad_shardings`` (the ZeRO-2 reduce-scatter of gradients over
-    a data-parallel mesh) is not taken: it joins with the training half of
-    distribution (ROADMAP.md, Queue 1 item 4b)."""
+    batch) -> (loss, metrics)`` — the pruning bench's prune-aware
+    losses."""
+    from repro_torch.distributed import sharding
     from repro_torch.optim import adamw
 
     loss_fn = loss_fn or make_loss_fn(cfg)
     nmb = max(1, tcfg.microbatches)
 
-    def train_step(params, opt_state, batch):
+    def local_grads(params, batch):
         if nmb == 1:
-            loss, metrics, grads = loss_and_grads(loss_fn, params, batch)
+            return loss_and_grads(loss_fn, params, batch)
+        gacc = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        n = next(iter(batch.values())).shape[0]
+        if n % nmb:
+            raise ValueError(f"a batch of {n} does not split into "
+                             f"{nmb} microbatches")
+        per, loss = n // nmb, 0.0
+        for i in range(nmb):
+            mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+            li, _, g = loss_and_grads(loss_fn, params, mb)
+            gacc = tree_map(torch.add, gacc, g)
+            loss = loss + li
+        return loss / nmb, {"loss": loss / nmb}, tree_map(
+            lambda g: g / nmb, gacc)
+
+    def train_step(params, opt_state, batch):
+        if grad_shardings is None:
+            loss, metrics, grads = local_grads(params, batch)
+            if tcfg.grad_compression == "bf16":
+                grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
         else:
-            gacc = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            n = next(iter(batch.values())).shape[0]
-            if n % nmb:
-                raise ValueError(f"a batch of {n} does not split into "
-                                 f"{nmb} microbatches")
-            per, loss = n // nmb, 0.0
-            for i in range(nmb):
-                mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-                li, _, g = loss_and_grads(loss_fn, params, mb)
-                gacc = tree_map(torch.add, gacc, g)
-                loss = loss + li
-            grads = tree_map(lambda g: g / nmb, gacc)
-            loss = loss / nmb
-            metrics = {"loss": loss}
-        if tcfg.grad_compression == "bf16":
-            grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
+            mesh = tree_leaves(grad_shardings)[0].mesh
+            _check_mesh(mesh)
+            full = tree_map(lambda p: p.full_tensor()
+                            if hasattr(p, "full_tensor") else p, params)
+            with sharding.axis_rules(mesh):
+                loss, metrics, grads = local_grads(full, batch)
+            del full
+            grads = sync_grads(grads, grad_shardings, tcfg.grad_compression)
+            with torch.no_grad(), sharding.axis_rules(mesh):
+                metrics = {k: sharding.batch_mean(v)
+                           for k, v in metrics.items()}
         params, opt_state, opt_metrics = adamw.update(
             params, grads, opt_state, tcfg)
         metrics = dict(metrics)
@@ -88,6 +174,24 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         return params, opt_state, metrics
 
     return train_step
+
+
+def shard_batch(batch: Dict[str, Any], rank: int, ranks: int,
+                microbatches: int = 1) -> Dict[str, Any]:
+    """Rank ``rank``'s rows of a global batch for the data-parallel step
+    over ``ranks`` batch ranks: the batch split as (microbatches, ranks,
+    rows), so the rows a rank holds in its microbatch i are the r-th share
+    of the global microbatch i (what JAX's one-device scan takes as
+    microbatch i)."""
+    def take(x):
+        n = x.shape[0]
+        if n % (microbatches * ranks):
+            raise ValueError(f"a batch of {n} does not split into "
+                             f"{microbatches} microbatches x {ranks} ranks")
+        per = n // (microbatches * ranks)
+        y = x.reshape(microbatches, ranks, per, *x.shape[1:])[:, rank]
+        return y.reshape(microbatches * per, *x.shape[1:])
+    return {k: take(v) for k, v in batch.items()}
 
 
 def _gcn_bone_fn(plans) -> Callable:

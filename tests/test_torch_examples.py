@@ -1,0 +1,51 @@
+"""The port's examples run on the CPU at reduced size, each in a fresh
+interpreter where jax and repro cannot be imported:
+``examples/torch_train_lm.py`` (train, checkpoint, resume) for a dense, an
+MoE and a VLM config, and ``examples/torch_elastic_restart.py`` (4 gloo
+ranks, a checkpoint, 2 survivors resharded onto a data = 2 mesh)."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_NO_JAX = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+script = sys.argv[1]
+sys.argv = sys.argv[1:]
+runpy.run_path(script, run_name="__main__")
+"""
+
+
+def _run(args, timeout):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-c", _NO_JAX, *args], env=env,
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=ROOT)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m",
+                                  "llava-next-mistral-7b"])
+def test_torch_train_lm_example(arch, tmp_path):
+    out = _run([str(ROOT / "examples" / "torch_train_lm.py"), "--arch", arch,
+                "--steps", "6", "--seq", "32", "--device", "cpu",
+                "--ckpt-dir", str(tmp_path / "ckpt")], timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "phase 1: loss" in out.stdout
+    assert "[resume] from step 6" in out.stdout
+    assert "phase 2 (resumed): 1 more steps" in out.stdout
+
+
+def test_torch_elastic_restart_example():
+    out = _run([str(ROOT / "examples" / "torch_elastic_restart.py"),
+                "--steps", "2"], timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "4 ranks, data = 4" in out.stdout
+    assert "dead ranks [2, 3]: new mesh data=2 model=1" in out.stdout
+    assert "2 ranks after the restore" in out.stdout
+    assert "(optimizer step 4)" in out.stdout

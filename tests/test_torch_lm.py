@@ -1,12 +1,15 @@
-"""Dense decoder LM path of the port on the CPU, held to the JAX package
-at the reduced configs: the layer primitives (1e-6: the same float32
+"""Decoder LM path of the port on the CPU (the dense, MoE and VLM
+families), held to the JAX package at the reduced configs: the layer primitives (1e-6: the same float32
 operations in the same order), the blockwise attention, the cache-free
 forward and its loss, the per-step serve logits and KV caches, the greedy
 tokens of ``generate`` (1e-4: 2-layer models, float32 sums in another
 order), and decoding resumed from a JAX cache.  JAX weights come across
 through the bridge; inputs come from numpy seeds.  h2o-danube's reduced
 config has a 16-slot window, so its runs of more than 16 steps wrap the
-SWA ring."""
+SWA ring.  The MoE configs' reduced capacity factor drops no token, so a
+one-token decode step routes as the cache-free forward does; the VLM's
+forward takes image embeddings before the text, and its decode serves
+text alone, as JAX's does."""
 import dataclasses
 
 import jax
@@ -31,11 +34,14 @@ from repro_torch.models import decoder, registry
 from repro_torch.models.layers import attention, common, mlp
 from repro_torch.train.steps import make_prefill_step, make_serve_step
 
-ARCHS = ["smollm-360m", "h2o-danube-1.8b"]
+ARCHS = ["smollm-360m", "h2o-danube-1.8b", "granite-moe-3b-a800m",
+         "qwen3-moe-30b-a3b", "llava-next-mistral-7b"]
 LAYER_TOL = dict(atol=1e-6, rtol=1e-6)
 TOL = dict(atol=1e-4, rtol=1e-4)
 # (prompt_len, gen) per arch: danube's 16-slot ring wraps
-RUN = {"smollm-360m": (5, 11), "h2o-danube-1.8b": (7, 15)}
+RUN = {"smollm-360m": (5, 11), "h2o-danube-1.8b": (7, 15),
+       "granite-moe-3b-a800m": (5, 7), "qwen3-moe-30b-a3b": (4, 6),
+       "llava-next-mistral-7b": (5, 7)}
 
 
 def _rand(seed, *shape):
@@ -69,8 +75,10 @@ def test_lm_config_fields_match_jax(arch, reduced):
     for f in dataclasses.fields(t):
         if f.name != "gcn_backend":
             assert getattr(t, f.name) == getattr(j, f.name), f.name
-    for prop in ("padded_vocab", "q_dim", "kv_dim"):
+    for prop in ("padded_vocab", "q_dim", "kv_dim", "padded_experts"):
         assert getattr(t, prop) == getattr(j, prop), prop
+    assert t.param_count_estimate() == j.param_count_estimate()
+    assert t.active_param_count_estimate() == j.active_param_count_estimate()
     assert t.serve_batch("lm") == j.serve_batch("lm") == 4
 
 
@@ -172,15 +180,31 @@ def test_forward_and_loss_match_jax(jparams, arch):
                                                                reduced=True)
     toks = _tokens(cfg, 2, 24)
     batch = {"tokens": toks, "labels": toks}
-    jlogits, _, _ = jdecoder.forward(jparams[arch], jnp.asarray(toks), jcfg)
-    jloss, _ = jregistry.loss_fn(jparams[arch], batch, jcfg, inference=True)
+    img = None
+    if cfg.family == "vlm":
+        img = _rand(9, 2, cfg.num_image_tokens, cfg.d_model)
+        batch["image_embeds"] = img
+    jlogits, _, jaux = jdecoder.forward(
+        jparams[arch], jnp.asarray(toks), jcfg,
+        image_embeds=None if img is None else jnp.asarray(img))
+    jloss, jm = jregistry.loss_fn(jparams[arch], batch, jcfg, inference=True)
     tp = _bridged(jparams[arch])
-    logits, caches = decoder.forward(tp, torch.from_numpy(toks), cfg)
-    assert caches is None and logits.shape == (2, 24, cfg.padded_vocab)
+    logits, caches, aux = decoder.forward(
+        tp, torch.from_numpy(toks), cfg,
+        image_embeds=None if img is None else torch.from_numpy(img))
+    n_img = cfg.num_image_tokens if img is not None else 0
+    assert caches is None and logits.shape == (2, n_img + 24,
+                                               cfg.padded_vocab)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), **TOL)
+    assert (float(aux) > 0) == (cfg.family == "moe")
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     metrics = make_prefill_step(cfg)(tp, tbatch)
-    np.testing.assert_allclose(float(metrics["loss"]), float(jloss), **TOL)
+    assert set(metrics) == set(jm) == {"loss", "aux"}
+    for k in jm:
+        np.testing.assert_allclose(float(metrics[k]), float(jm[k]), **TOL)
+    total, _ = registry.loss_fn(tp, tbatch, cfg)
+    np.testing.assert_allclose(float(total), float(jloss), **TOL)
 
 
 def _run_serve(jp, arch, backend, steps, start=None):
@@ -281,7 +305,7 @@ def test_cached_decode_matches_cache_free_forward(arch, backend):
                          seed=4, backend=backend, device="cpu", params=params,
                          keep_logits=True)
     toks = torch.from_numpy(res["tokens"])
-    full, _ = decoder.forward(params, toks[:, :-1], cfg)
+    full, _, _ = decoder.forward(params, toks[:, :-1], cfg)
     # a ring attends to the last `window` tokens, so does the forward's mask
     torch.testing.assert_close(res["logits"].transpose(0, 1), full, **TOL)
 
@@ -381,7 +405,7 @@ def test_serve_fn_refuses_a_multi_token_step_past_the_cache():
 
 def test_registry_raises_for_unported_families():
     cfg = dataclasses.replace(get_config("smollm-360m", reduced=True),
-                              family="moe")
+                              family="ssm")
     for fn in (lambda: registry.init_params(cfg, device="cpu"),
                lambda: registry.init_cache(cfg, 1, 4, device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -290,6 +290,67 @@ def test_train_path_and_paper_benches_run_without_jax(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+# the MoE and VLM decoders, LM training, the sharding rules and the elastic
+# planner run on the CPU in an interpreter where jax and repro cannot be
+# imported, and so does a 2-rank gloo data-parallel step of the MoE config
+_RUN_LM_TRAIN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch_dist_workers as W
+from repro_torch.common.config import TrainConfig
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import DataConfig, make_batches
+from repro_torch.distributed import params, sharding
+from repro_torch.fault import elastic
+from repro_torch.launch.serve import generate
+from repro_torch.launch.train import train_loop
+from repro_torch.models import registry
+from repro_torch.models.layers.moe import moe_ffn
+from repro_torch.optim import adamw
+from repro_torch.train.steps import make_train_step
+for arch in ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
+             "llava-next-mistral-7b"):
+    cfg = get_config(arch, reduced=True)
+    p = registry.init_params(cfg, seed=0, device="cpu")
+    b = {k: torch.as_tensor(v) for k, v in next(make_batches(
+        cfg, DataConfig(4, 16 + cfg.num_image_tokens))).items()}
+    p2, o2, m = make_train_step(cfg, TrainConfig(microbatches=2))(
+        p, adamw.init(p), b)
+    assert torch.isfinite(m["loss"]) and int(o2.step) == 1
+    toks = [generate(arch, batch=2, prompt_len=3, gen=4, backend=be,
+                     device="cpu", params=p)["tokens"]
+            for be in ("cuda", "reference")]
+    assert (toks[0] == toks[1]).all()
+    full = get_config(arch)
+    specs = params.param_specs(registry.init_params(full, device="meta"),
+                               W.FakeMesh({"data": 16, "model": 16}),
+                               expert_dim=full.padded_experts or None)
+    assert len(specs["layers"]["attn"]["wq"]) == 4
+_, losses = train_loop("granite-moe-3b-a800m", TrainConfig(
+    total_steps=2, checkpoint_every=0), batch=2, seq=16, device="cpu",
+    resume=False)
+assert len(losses) == 2
+assert elastic.plan_degraded_mesh(8, model=1, old_data=16).data == 8
+res = W.smoke(2, 2, sys.argv[2])
+assert res["loss_gap"] <= 1e-5 and res["param_gap"] <= 1e-5, res
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m in ("jax", "repro") or m.startswith(("jax.", "repro."))))
+print(bad)
+"""
+
+
+def test_lm_families_training_and_distribution_run_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _RUN_LM_TRAIN,
+                          str(ROOT / "tests"), str(tmp_path)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 # the card's kernel tests are collected where there is no JAX: the module
 # imports in an interpreter where jax and repro cannot be imported
 _IMPORT_CARD_TESTS = r"""
@@ -321,7 +382,10 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT) for p in PKG.rglob("*.py")]
-    + [Path("chip_smoke.py"), Path("benchmarks/torch_paper.py")]), ids=str)
+    + [Path("chip_smoke.py"), Path("benchmarks/torch_paper.py"),
+       Path("tests/torch_dist_workers.py"),
+       Path("examples/torch_train_lm.py"),
+       Path("examples/torch_elastic_restart.py")]), ids=str)
 def test_source_names_no_jax_or_repro_import(path):
     assert not _FORBIDDEN.findall((ROOT / path).read_text())
 

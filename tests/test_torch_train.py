@@ -489,5 +489,8 @@ def test_train_loop_trains_and_resumes(tmp_path):
 
 
 def test_train_loop_refuses_lm_family():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        train_loop("smollm-360m", TrainConfig(total_steps=1), device="cpu")
+    """The dense, MoE and VLM families train now
+    (``tests/test_torch_lm_train.py``); an LM family the port lacks (the
+    SSM family's xlstm) is refused by name."""
+    with pytest.raises(KeyError, match="ROADMAP"):
+        train_loop("xlstm-1.3b", TrainConfig(total_steps=1), device="cpu")
