@@ -249,6 +249,48 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                valid 2 913), then a text decode as JAX serves it (batch
                4, prompt 32 + 16, G 4, D 128).
 
+ 17. zoo     — the rest of the LM zoo at full width, random weights from
+               seed 0, float32 caches; each model's bytes reckoned before
+               it is drawn (4 a parameter to serve, 16 to train) and the
+               model freed before the next: ``generate`` (prompt 16 fed
+               token by token + 16 greedy tokens) of xlstm-1.3b (batch 4,
+               ``cuda``: no kernel on its path), zamba2-7b (batch 4,
+               ``cuda`` and ``reference``; flash_decode at Hkv 32, G 1,
+               D 112, one launch per use of the shared block), whisper-small
+               (batch 4, both backends; the memory drawn from the seed
+               after the prompt; flash_decode on the self-attention and on
+               the cross-attention at valid 1 500), gemma3-12b (batch 1,
+               both backends; D 256; its local layers' caches inside the
+               window) and internlm2-20b with the depth cut to 32 of its 48
+               layers (batch 4, ``cuda``; G 6): decode-step p50 and
+               tokens/s, flash_decode launches per step, every step's
+               logits against the cache-free forward on the generated
+               tokens (1e-3; for xlstm and zamba2 at full depth the float32
+               gap is printed, and held instead in float64 and at a cut
+               depth, below), flash_decode held on the first decode step's
+               and the last step's inputs.  xlstm and zamba2 at full depth
+               also: the cache-free forward run twice, bit-equal; the same
+               weights in float64, whose teacher-forced ``reference``
+               decode is held to the float64 cache-free forward (1e-6: the
+               recurrence against the chunked scan in exact arithmetic),
+               with each float32 path's distance from the float64 forward
+               printed; and at full width cut to 16 layers (where the
+               depth-gap tool compares JAX), the float32 ``cuda`` decode
+               against the cache-free forward at atol = rtol = 2e-2, JAX's
+               own bound for the two families.  Then gemma3's long case: a
+               1 100-token prefill in one step and 8 ``cuda`` steps whose
+               local layers run flash_decode with the 1 024-token window as
+               its lower bound (the last again, on a copy of the cache, under
+               set_sync_debug_mode('error')), the logits against the
+               cache-free forward (1e-3) and flash_decode held on the
+               windowed and the global calls; flash_decode held at
+               the zoo's shapes off the runs (``ZOO_FD_CASES``, beside
+               masked ``F.scaled_dot_product_attention``); then
+               ``train_loop`` for 3 steps of xlstm-1.3b (batch 2 x 128),
+               zamba2-7b with the depth cut to 25 of 81 layers (batch 2 x
+               256) and whisper-small (batch 2 x 128): step p50, tokens/s,
+               peak memory, finite losses, no kernel launch.
+
 Prints the kernels JSON line, the nvidia-smi line and, last, the result
 line.  Any failed phase exits non-zero.  Per-case kernel numbers go to
 ``build/chip_smoke_cases.json`` (git-ignored).
@@ -337,6 +379,34 @@ DIST_TRAIN = (("granite-moe-3b-a800m", 12, 4, 512, 4),
 DIST_NCCL = "smollm-360m"           # the entry run again under torchrun
 DIST_LR = 3e-4
 
+# the zoo phase: (arch, layers or 0 for all, batch, prompt, gen, backends,
+# bound on the cached decode against the cache-free forward, or None:
+# printed, and held in float64 and at ZOO_CUT_LAYERS instead); internlm2's
+# 48 float32 layers (77 GB) do not fit one card beside the CUDA context
+ZOO_SERVE = (("xlstm-1.3b", 0, 4, 16, 16, ("cuda",), None),
+             ("zamba2-7b", 0, 4, 16, 16, ("cuda", "reference"), None),
+             ("whisper-small", 0, 4, 16, 16, ("cuda", "reference"), 1e-3),
+             ("gemma3-12b", 0, 1, 16, 16, ("cuda", "reference"), 1e-3),
+             ("internlm2-20b", 32, 4, 16, 16, ("cuda",), 1e-3))
+GEMMA_LONG, GEMMA_STEPS = 1100, 8  # gemma3's long prefill, then its steps
+# the SSM and hybrid step recurrence against the chunked scan: in float64
+# at full depth (F64_BOUND, atol), and in float32 at full width cut to
+# ZOO_CUT_LAYERS at JAX's own bound for the two families (atol = rtol,
+# tests/test_models_smoke.py); at full depth float32 rounding alone moves
+# their logits past 2e-2, so that gap is printed
+F64_BOUND = 1e-6
+ZOO_CUT_LAYERS, ZOO_CUT_BOUND = 16, 2e-2
+# flash_decode at the zoo's shapes off the served runs: (label, B, S, Hkv,
+# G, D, valid, window)
+ZOO_FD_CASES = [("zoo zamba2 long", 4, 8192, 32, 1, 112, 8000, 0),
+                ("zoo whisper cross", 4, 1500, 12, 1, 64, 1500, 0),
+                ("zoo gemma3 local 32k", 1, 32768, 8, 2, 256, 30000, 1024),
+                ("zoo gemma3 global 32k", 1, 32768, 8, 2, 256, 30000, 0),
+                ("zoo internlm2 long", 4, 8192, 8, 6, 128, 8000, 0)]
+# (arch, layers or 0, batch, seq, steps): zamba2's 81 layers hold about
+# 92 GB of weights, gradients and moments, so its depth is cut
+ZOO_TRAIN = (("xlstm-1.3b", 0, 2, 128, 3), ("zamba2-7b", 25, 2, 256, 3),
+             ("whisper-small", 0, 2, 128, 3))
 
 # the train phase: full agcn-2s, 16 clips (32 sequences) a step, 30 steps
 TRAIN_CLIPS, TRAIN_STEPS, TRAIN_CKPT_AT = 16, 30, 10
@@ -663,23 +733,31 @@ def measure_case(name, args, kwargs, modules):
             return torch.softmax(lg.masked_fill(dead, -1e30), dim=-1)
     elif name == "flash_decode":
         q, k, v, valid = args
-        kern = lambda: fd.flash_decode(q, k, v, valid)
-        plain = lambda: fd.flash_decode_plain(q, k, v, valid)
+        window = kwargs.get("window", 0)
+        kern = lambda: fd.flash_decode(q, k, v, valid, window=window)
+        plain = lambda: fd.flash_decode_plain(q, k, v, valid, window)
         B, Hkv, G, D = q.shape
         S = k.shape[1]
-        live = (torch.arange(S, device=k.device) < valid).view(1, 1, 1, S)
+        slots = torch.arange(S, device=k.device)
+        live = slots < valid
+        if window:
+            live &= slots >= valid - window
+        live = live.view(1, 1, 1, S)
         qh = q.reshape(B, Hkv * G, 1, D)
         kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
         library = lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=live, enable_gqa=True).reshape(q.shape)
-        # the rows the softmax needs (the kernel reads no row past valid)
+        # the rows the softmax needs (the kernel reads no row past valid,
+        # nor below the window's bound)
         n = int(valid.item())
+        lo = max(0, n - window) if window else 0
         n = min(n, S) if n >= 1 else S
+        n = n - lo if lo < n else S
         nbytes = 4 * (2 * q.numel() + 2 * B * n * Hkv * D + 1)
         flops = B * Hkv * G * n * (4 * D + 5)
         p = fd.decode_plan(B, S, Hkv, G, D, torch.cuda.get_device_properties(
             q.device).multi_processor_count)
-        extra = {"plan": [p.splits, p.warps, p.stages]}
+        extra = {"plan": [p.splits, p.warps, p.stages], "window": window}
     elif name == "rfc_encode":
         t, res, live, keep, old = args
         call = lambda a: rp.rfc_encode_cuda(*a)
@@ -1025,23 +1103,23 @@ def run_mixed_script(slab_step, groups, slabs, sessions, flush, dev):
     return got, lat, dispatches, reused
 
 
-def record_decode(steps, num_layers):
+def record_decode(steps, per_step):
     """Wrap the decode attention's ``flash_decode`` (as the attention
     layer calls it) with a recorder of the calls of serve ``steps`` (call
-    i belongs to step i // num_layers): returns (restore(), {step: [(args,
-    {}), ...]}) with cloned inputs."""
+    i belongs to step i // per_step, the launches of one step): returns
+    (restore(), {step: [(args, kwargs), ...]}) with cloned inputs."""
     import torch
     from repro_torch.models.layers import attention
     orig, seen = attention.flash_decode, [0]
     got = {s: [] for s in steps}
 
-    def rec(*args):
-        step = seen[0] // num_layers
+    def rec(*args, **kwargs):
+        step = seen[0] // per_step
         seen[0] += 1
         if step in got:
             got[step].append((tuple(a.clone() if torch.is_tensor(a) else a
-                                    for a in args), {}))
-        return orig(*args)
+                                    for a in args), dict(kwargs)))
+        return orig(*args, **kwargs)
 
     attention.flash_decode = rec
 
@@ -1062,7 +1140,8 @@ def hold_flash_decode(path, calls, cases, summary, failures, modules):
     sm = summary[(path, "flash_decode")] = summarize(cs)
     print(f"kernel flash_decode [{path}]: {'ok' if not bad else 'FAIL'} "
           f"on {len(cs)} inputs {cs[0]['shape']}, valid "
-          f"{int(calls[0][0][3].item())}, splits/warps/stages "
+          f"{int(calls[0][0][3].item())}, window "
+          f"{sorted({c['window'] for c in cs})}, splits/warps/stages "
           f"{'/'.join(map(str, cs[0]['plan']))}, max_abs_err "
           f"{sm['max_abs_err']:.3g}; {sm['ms']:.4f} ms, "
           f"{sm['ms'] / len(cs) * 1e3:.2f} us a launch, "
@@ -1687,6 +1766,440 @@ def moe_vlm_phase(dev, failures, cases, summary, check_launches, modules):
     cases["moe_vlm"] = {"device": smi, "peak_bytes": peak}
     print(f"moe_vlm: peak memory {peak / 2**30:.3f} GiB; phase took "
           f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def _flash_decode_per_step(cfg) -> int:
+    """flash_decode launches a one-token ``cuda`` step of ``cfg`` makes:
+    one per attention layer (a decoder's layers; the hybrid's uses of its
+    shared block; the audio decoder's self- and cross-attention; none in
+    the SSM family)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import structure
+        return structure(cfg)[0]
+    if cfg.family == "audio":
+        return 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def _cache_free_logits(cfg, params, toks, memory):
+    """The cache-free forward's logits of ``toks`` (B, S): the decode's
+    teacher-forced reference (the audio decoder attends to ``memory``, as
+    the served steps did)."""
+    from repro_torch.models import decoder, encdec, hybrid, ssm_model
+    if cfg.family == "audio":
+        return encdec.decode(params, toks, memory, cfg)[0]
+    mod = {"ssm": ssm_model, "hybrid": hybrid}.get(cfg.family, decoder)
+    return mod.forward(params, toks, cfg)[0]
+
+
+def _to_float64_(tree):
+    """Every floating leaf of ``tree`` (nested dicts and lists) turned to
+    float64 in place, leaf by leaf, so the float32 copy of one leaf at a
+    time is all that is held twice."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, leaf in list(items):
+        if isinstance(leaf, (dict, list)):
+            _to_float64_(leaf)
+        elif leaf.is_floating_point():
+            tree[key] = leaf.double()
+
+
+def _exact_check(label, cfg, params, toks, free, cached, failures, cases,
+                 dev):
+    """The SSM and hybrid families at full depth, where float32 rounding
+    alone moves the cached decode further from the cache-free forward than
+    a fixed bound allows: the float32 cache-free forward of ``toks[:, :-1]``
+    run again and held bit-equal to ``free`` (the path is deterministic at
+    a fixed seed); then ``params`` turned to float64 in place and the
+    float64 teacher-forced ``reference`` decode of ``toks`` held to the
+    float64 cache-free forward within F64_BOUND (the step recurrence
+    against the chunked scan in exact arithmetic), each float32 path's
+    distance from the float64 forward printed.  Returns the note printed
+    beside the float32 gap."""
+    import math
+    import torch
+    with torch.inference_mode():
+        again = _cache_free_logits(cfg, params, toks[:, :-1], None)
+    same = bool(torch.equal(again, free))
+    del again
+    if not same:
+        failures.append(f"{label}: two float32 cache-free forwards on the "
+                        f"same weights and tokens differ")
+    _to_float64_(params)
+    with torch.inference_mode():
+        free64 = _cache_free_logits(cfg, params, toks[:, :-1], None)
+        dec64 = _forced(cfg, params, toks, None, "reference", dev,
+                        torch.float64).transpose(0, 1)
+    gap64 = float((dec64 - free64).abs().max())
+    off_free = float((free.double() - free64).abs().max())
+    off_dec = float((cached.double() - free64).abs().max())
+    cases.setdefault("zoo", {})[f"{label} float64"] = {
+        "rerun_bit_equal": same, "gap64": gap64,
+        "float32_forward_off": off_free, "float32_decode_off": off_dec}
+    if not math.isfinite(gap64) or gap64 > F64_BOUND:
+        failures.append(f"{label}: float64 cached decode off the float64 "
+                        f"cache-free forward by {gap64:.3g} (bound "
+                        f"{F64_BOUND})")
+    del free64, dec64
+    return (f"; float32 forward rerun bit-equal: {same}; in float64 the "
+            f"cached decode vs the cache-free forward {gap64:.3g} (bound "
+            f"{F64_BOUND}), and the float32 forward / cached decode off the "
+            f"float64 forward by {off_free:.3g} / {off_dec:.3g}")
+
+
+def zoo_depth_cut(arch, dev, failures, cases):
+    """``arch`` (xlstm-1.3b or zamba2-7b) at full width cut to
+    ZOO_CUT_LAYERS, random weights and tokens (batch 4, 32) from SEED:
+    every step of the float32 teacher-forced ``cuda`` decode against the
+    cache-free forward at atol = rtol = ZOO_CUT_BOUND."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=ZOO_CUT_LAYERS)
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (4, 32), generator=gen,
+                         device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        free = _cache_free_logits(cfg, params, toks[:, :-1], None)
+        cached = _forced(cfg, params, toks, None, "cuda", dev).transpose(0, 1)
+    gap = float((cached - free).abs().max())
+    if not bool(torch.isfinite(cached).all()) or not torch.allclose(
+            cached, free, atol=ZOO_CUT_BOUND, rtol=ZOO_CUT_BOUND):
+        failures.append(f"zoo {arch} cut: cached decode logits off the "
+                        f"cache-free forward by {gap:.3g} (atol = rtol = "
+                        f"{ZOO_CUT_BOUND})")
+    print(f"zoo {arch} cut: {ZOO_CUT_LAYERS} of {full.num_layers} layers, "
+          f"d_model {cfg.d_model}, 4 x 31 teacher-forced cuda steps; cached "
+          f"decode vs the cache-free forward {gap:.3g} (atol = rtol = "
+          f"{ZOO_CUT_BOUND}); {time.perf_counter() - t0:.1f} s")
+    cases.setdefault("zoo", {})[f"{arch} cut"] = {
+        "layers": ZOO_CUT_LAYERS, "gap": gap}
+    del params, free, cached
+
+
+def _reckon(label, cfg, per_param, failures, dev):
+    """Print the bytes ``cfg``'s float32 parameters need at ``per_param``
+    bytes each (4: serving; 16: training's weights, gradients and two
+    moments) beside the card's free memory; returns the parameter count,
+    or None (a failure) when they do not fit."""
+    import torch
+    from repro_torch.common.tree import param_count
+    from repro_torch.models import registry
+    n = param_count(registry.init_params(cfg, device="meta"))
+    free, total = torch.cuda.mem_get_info(dev)
+    need = per_param * n
+    print(f"{label}: {n / 1e9:.3f} B float32 parameters, {per_param} bytes "
+          f"each = {need / 2**30:.3f} GiB before activations; "
+          f"{free / 2**30:.3f} of {total / 2**30:.3f} GiB free")
+    if need > free:
+        failures.append(f"{label}: {need / 2**30:.3f} GiB do not fit in "
+                        f"{free / 2**30:.3f} GiB free")
+        return None
+    return n
+
+
+def zoo_serve(arch, layers, B, P, G, backends, bound, dev, failures, cases,
+              summary, check_launches, modules):
+    """``generate`` of ``arch`` at full width (depth cut to ``layers``
+    when given) on each of ``backends``: decode-step p50 and tokens/s, the
+    launch counts, every step's logits against the cache-free forward
+    within atol=rtol=``bound`` (the gap printed; with ``bound`` None the
+    gap is printed and ``_exact_check`` holds the path), the backends' logits
+    and tokens against each other, flash_decode held on the first decode
+    step's and the last step's inputs.  Returns (params, cfg)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, prompt_and_memory
+    from repro_torch.models import registry
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers) if layers else full
+    label = f"zoo {arch}"
+    if _reckon(label, cfg, 4, failures, dev) is None:
+        return None, cfg
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = registry.init_params(cfg, seed=SEED, device=dev)
+    steps = P + G - 1
+    first, last = P, steps - 1
+    per = _flash_decode_per_step(cfg)
+    run = dict(reduced=False, batch=B, prompt_len=P, gen=G, seed=SEED,
+               device=dev, params=params, keep_logits=True, cfg=cfg)
+    res = {}
+    got = {}
+    for backend in backends:
+        restore, rec = (record_decode((first, last), per)
+                        if backend == "cuda" and per else (lambda: None, {}))
+        try:
+            res[backend], counts = counted(lambda: generate(
+                arch, backend=backend, **run))
+        finally:
+            restore()
+        got.update(rec)
+        check_launches(f"{label} {backend}", counts,
+                       {"flash_decode": per} if backend == "cuda" else {},
+                       steps)
+        r = res[backend]
+        print(f"{label}: backend={backend} {r['tokens_per_s']:.2f} tokens/s, "
+              f"decode step p50 {r['latency_ms_p50']:.3f} ms mean "
+              f"{r['latency_ms_mean']:.3f} ms ({B} sequences x "
+              f"{r['steps']} steps, prompt {P} fed token by token + {G} "
+              f"generated, float32 cache), flash_decode launches "
+              f"{counts['flash_decode']} "
+              f"({per if backend == 'cuda' else 0} per step expected)")
+    out = res[backends[0]]
+    toks = torch.from_numpy(out["tokens"]).to(dev)
+    _, memory = prompt_and_memory(cfg, B, P, SEED)
+    if memory is not None:
+        memory = torch.from_numpy(memory).to(dev)
+    with torch.inference_mode():
+        free = _cache_free_logits(cfg, params, toks[:, :-1], memory)
+    gaps = {}
+    for backend, r in res.items():
+        if backend != backends[0]:      # teacher-forced on the same tokens
+            if not (r["tokens"] == out["tokens"]).all():
+                with torch.inference_mode():
+                    r = {"logits": _forced(cfg, params, toks, memory,
+                                           backend, dev)}
+        cached = r["logits"].transpose(0, 1)
+        gaps[backend] = float((cached - free).abs().max())
+        if not bool(torch.isfinite(cached).all()) or (
+                bound is not None and not torch.allclose(
+                    cached, free, atol=bound, rtol=bound)):
+            failures.append(f"{label} {backend}: cached decode logits off "
+                            f"the cache-free forward by {gaps[backend]:.3g} "
+                            f"(bound {bound})")
+    note = (f"bound {bound:.3g}" if bound is not None else
+            "float32, printed" + _exact_check(
+                label, cfg, params, toks, free,
+                res[backends[0]]["logits"].transpose(0, 1), failures, cases,
+                dev))
+    agree = ""
+    if len(res) > 1:
+        b0, b1 = backends
+        same = float((res[b0]["tokens"] == res[b1]["tokens"]).mean())
+        agree = f"; token agreement {b0}/{b1} {same * 100:.1f}%"
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"{label}: {cfg.num_layers} of {full.num_layers} layers, d_model "
+          f"{cfg.d_model}; cached decode vs the cache-free forward over "
+          f"{steps} steps: "
+          f"{', '.join(f'{b} {g:.3g}' for b, g in gaps.items())} "
+          f"({note}){agree}; peak {peak / 2**30:.3f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s")
+    cases.setdefault("zoo", {})[arch] = {
+        "layers": cfg.num_layers, "gap": gaps, "bound": bound,
+        "peak_bytes": peak,
+        **{f"{b}_tokens_per_s": r["tokens_per_s"] for b, r in res.items()},
+        **{f"{b}_step_ms_p50": r["latency_ms_p50"] for b, r in res.items()}}
+    for step, name in ((first, "first decode step"), (last, "last step")):
+        if got.get(step):
+            hold_flash_decode(f"{label} {name}", got[step], cases, summary,
+                              failures, modules)
+    del res, free, got
+    return params, cfg
+
+
+def _forced(cfg, params, toks, memory, backend, dev, dtype=None):
+    """Per-step logits (steps, B, V) of ``backend``'s serve step fed
+    ``toks`` (B, n) token by token (the cache in ``dtype``: float32, or
+    float64 for the SSM and hybrid families)."""
+    import torch
+    from repro_torch.models import registry
+    from repro_torch.train.steps import make_serve_step
+    B, n = toks.shape
+    step = make_serve_step(cfg, backend)
+    cache = registry.init_cache(cfg, B, n, device=dev,
+                                dtype=dtype or torch.float32)
+    extra = {} if memory is None else {"memory": memory}
+    return torch.stack([step(params, cache, {
+        "tokens": toks[:, t:t + 1],
+        "pos": torch.full((), t, dtype=torch.int32, device=dev),
+        **extra})[2] for t in range(n - 1)])
+
+
+def gemma_long(params, cfg, dev, failures, cases, summary, check_launches,
+               modules):
+    """gemma3's long case: a GEMMA_LONG-token prompt prefilled in one
+    multi-token step (plain attention, the local layers' window as a
+    mask), then GEMMA_STEPS one-token ``cuda`` steps whose local layers
+    run flash_decode with the window as its lower bound (the cache is
+    longer than the window); the prefill's last logits and each step's
+    against the cache-free forward of the whole sequence (1e-3), and
+    flash_decode held on the first step's inputs."""
+    import torch
+    from repro_torch.models import decoder, registry
+    from repro_torch.train.steps import make_serve_step
+    t0 = time.perf_counter()
+    n = GEMMA_LONG + GEMMA_STEPS
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                         device=dev, dtype=torch.int32)
+    cache = registry.init_cache(cfg, 1, n, device=dev)
+    with torch.inference_mode():
+        (pre, cache), counts = counted(lambda: registry.serve_fn(
+            params, {"tokens": toks[:, :GEMMA_LONG], "pos": torch.zeros(
+                (), dtype=torch.int32, device=dev)}, cache, cfg, "cuda"))
+    check_launches("zoo gemma3 long prefill", counts, {}, 1)
+    step = make_serve_step(cfg, "cuda")
+    restore, got = record_decode((0,), cfg.num_layers)
+    logits = [pre[:, -1]]
+    try:
+        def run():
+            for t in range(GEMMA_STEPS):
+                pos = GEMMA_LONG + t
+                logits.append(step(params, cache, {
+                    "tokens": toks[:, pos:pos + 1],
+                    "pos": torch.full((), pos, dtype=torch.int32,
+                                      device=dev)})[2])
+        _, counts = counted(run)
+    finally:
+        restore()
+    check_launches("zoo gemma3 long decode", counts,
+                   {"flash_decode": cfg.num_layers}, GEMMA_STEPS)
+    # the last windowed step again, on a copy of the cache set back one
+    # slot, may not sync with the host (the window's lower bound is read
+    # from valid on the card)
+    spare = {k: t.clone() for k, t in cache.items()}
+    spare["pos"].sub_(1)
+    pos = torch.full((), n - 1, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        step(params, spare, {"tokens": toks[:, n - 1:], "pos": pos})
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print("zoo gemma3 long: one windowed decode step under "
+              "set_sync_debug_mode('error'): no host sync")
+    except RuntimeError as e:
+        torch.cuda.set_sync_debug_mode("default")
+        failures.append(f"zoo gemma3 long: the windowed decode step syncs "
+                        f"with the host: {e}")
+    del spare
+    with torch.inference_mode():
+        free, _, _ = decoder.forward(params, toks, cfg)
+    want = free[:, GEMMA_LONG - 1:]
+    cached = torch.stack(logits, 1)
+    gap = float((cached - want).abs().max())
+    windows = sorted({c[1].get("window", 0) for c in got[0]})
+    print(f"zoo gemma3 long: prefill {GEMMA_LONG} tokens in one step, then "
+          f"{GEMMA_STEPS} cuda steps at valid {GEMMA_LONG + 1} to {n} "
+          f"(local layers' window {cfg.window_size}: flash_decode windows "
+          f"{windows}); logits against the cache-free forward {gap:.3g} "
+          f"(bound 1e-3); {time.perf_counter() - t0:.1f} s")
+    cases.setdefault("zoo", {})["gemma3 long"] = {"gap": gap}
+    if not bool(torch.isfinite(cached).all()) or not torch.allclose(
+            cached, want, atol=1e-3, rtol=1e-3) or windows != [
+            0, cfg.window_size]:
+        failures.append(f"zoo gemma3 long: logits off the cache-free forward "
+                        f"by {gap:.3g} or windows {windows}")
+    hold_flash_decode("zoo gemma3 long local", [
+        c for c in got[0] if c[1].get("window")], cases, summary, failures,
+        modules)
+    hold_flash_decode("zoo gemma3 long global", [
+        c for c in got[0] if not c[1].get("window")], cases, summary,
+        failures, modules)
+    del free, cache, pre, got, logits
+
+
+def zoo_train(arch, layers, B, S, steps, dev, failures, cases,
+              check_launches):
+    """``train_loop`` of ``arch`` at full width (depth cut to ``layers``
+    when given) for ``steps`` steps of B x S tokens: step p50, tokens/s,
+    peak memory, finite losses, no kernel launch."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers) if layers else full
+    label = f"zoo train {arch}"
+    if _reckon(label, cfg, 16, failures, dev) is None:
+        return
+    tcfg = TrainConfig(learning_rate=DIST_LR, total_steps=steps,
+                       warmup_steps=1, checkpoint_every=0,
+                       checkpoint_dir=str(ROOT / "build" / "chip_smoke_zoo"))
+    step_ms = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        (params, losses), counts = counted(lambda: train_loop(
+            arch, tcfg, reduced=False, batch=B, seq=S, device=dev,
+            resume=False, log_every=steps, cfg=cfg,
+            on_step=lambda *a: step_ms.append(a[-1])))
+    except torch.OutOfMemoryError as e:
+        failures.append(f"{label}: out of memory: {str(e)[:160]}")
+        print(f"zoo: {failures[-1]}")
+        return
+    check_launches(label, counts, {}, steps)
+    peak = torch.cuda.max_memory_allocated(dev)
+    p50 = statistics.median(step_ms[1:] or step_ms)
+    cut = (f", depth cut to {cfg.num_layers} of {full.num_layers} layers"
+           if layers else "")
+    print(f"{label}: full width{cut}, batch {B} x {S} tokens, {steps} "
+          f"steps: losses {[round(x, 4) for x in losses]}, step p50 "
+          f"{p50:.3f} ms (first {step_ms[0]:.1f} ms), "
+          f"{B * S / (p50 / 1e3):.1f} tokens/s, peak {peak / 2**30:.3f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s")
+    cases.setdefault("zoo", {})[f"train {arch}"] = {
+        "layers": cfg.num_layers, "losses": losses, "step_ms": step_ms,
+        "peak_bytes": peak}
+    if not np.isfinite(losses).all():
+        failures.append(f"{label}: losses {losses} not finite")
+    del params
+
+
+def zoo_phase(dev, failures, cases, summary, check_launches, modules):
+    """Phase 17: the SSM, hybrid and audio families and the dense archs
+    gemma3 (local:global) and internlm2 at full width, random weights
+    from SEED: ``zoo_serve`` for each ZOO_SERVE entry (gemma3 followed by
+    its long case, ``gemma_long``; an entry without a bound, xlstm and
+    zamba2, by ``zoo_depth_cut``), flash_decode held at the zoo's new
+    shapes off the served runs (ZOO_FD_CASES), then ``zoo_train`` for each
+    ZOO_TRAIN entry.  Each model is reckoned before it is drawn (4 bytes a
+    parameter to serve, 16 to train) and freed before the next."""
+    import gc
+    import torch
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    for arch, layers, B, P, G, backends, bound in ZOO_SERVE:
+        params, cfg = zoo_serve(arch, layers, B, P, G, backends, bound, dev,
+                                failures, cases, summary, check_launches,
+                                modules)
+        if params is not None and cfg.local_global_ratio:
+            gemma_long(params, cfg, dev, failures, cases, summary,
+                       check_launches, modules)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if bound is None:
+            zoo_depth_cut(arch, dev, failures, cases)
+            gc.collect()
+            torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for label, B, S, Hkv, G, D, valid, window in ZOO_FD_CASES:
+        q = torch.randn(B, Hkv, G, D, generator=gen, device=dev)
+        k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+                for _ in range(2))
+        hold_flash_decode(label, [((q, k, v, torch.full(
+            (1,), valid, dtype=torch.int32, device=dev)),
+            {"window": window})], cases, summary, failures, modules)
+        del q, k, v
+    torch.cuda.empty_cache()
+    for arch, layers, B, S, steps in ZOO_TRAIN:
+        zoo_train(arch, layers, B, S, steps, dev, failures, cases,
+                  check_launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+    cases.setdefault("zoo", {})["device"] = smi
+    print(f"zoo: {smi}; phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def _leaves(tree):
@@ -3028,6 +3541,10 @@ def main() -> int:
     moe_vlm_phase(dev, failures, cases, summary, check_launches, modules)
     phase_done("moe_vlm")
 
+    # ---- 17. the SSM, hybrid and audio families, gemma3 and internlm2 ------
+    zoo_phase(dev, failures, cases, summary, check_launches, modules)
+    phase_done("zoo")
+
     print(f"clock: spin {spin_cycles_per_ms():.0f} cycles/ms; timings with "
           f"host time included (the plain versions that read taps on the "
           f"host, and any whose queueing outlasted three spins): "
@@ -3064,7 +3581,12 @@ def main() -> int:
                          *(f"{m} {w}" for m in ("moe granite", "moe qwen3",
                                                 "vlm llava")
                            for w in ("first decode step", "last step")),
-                         "vlm image decode step"]}
+                         "vlm image decode step",
+                         *(f"zoo {z[0]} {w}" for z in ZOO_SERVE if z[0]
+                           != "xlstm-1.3b"
+                           for w in ("first decode step", "last step")),
+                         "zoo gemma3 long local", "zoo gemma3 long global",
+                         *(c[0] for c in ZOO_FD_CASES)]}
     kernels = []
     for name in _build.KERNELS:
         path = main_case.get(name, "clip")

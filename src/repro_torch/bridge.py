@@ -1,8 +1,8 @@
 """Trees across frameworks, as numpy arrays: the JAX ``init_params`` tree
-becomes the port's parameter tree (the LM's (num_groups, group, ...)
-stacked leaves keep their nesting), a JAX ``StreamState`` or snapshot ring
-becomes the port's (and back), and so do an LM KV cache and an AdamW
-``OptState``.  ``jax.random``
+becomes the port's parameter tree (every family's stacked leaves keep
+their nesting, and a ``None`` subtree, the hybrid's missing tail, stays
+``None``), a JAX ``StreamState`` or snapshot ring becomes the port's (and
+back), and so do an LM decode cache and an AdamW ``OptState``.  ``jax.random``
 cannot be reproduced with torch, so the parity tests move weights,
 mid-stream slabs and mid-sequence caches this way."""
 from __future__ import annotations
@@ -84,22 +84,20 @@ def stream_state_to_numpy(state: Any) -> dict:
             ..., :r["vals"].shape[-1]]}))
 
 
-_CACHE_KEYS = {"k", "v", "pos"}
-
-
 def kv_cache_from_numpy(tree: Any, device: DeviceLike = None) -> dict:
-    """A dense LM's KV cache {"k", "v": (ng, g, B, L, Hkv, D), "pos":
-    (ng, g) int32} with numpy leaves -> the port's, on ``device`` (default
-    CUDA), dtypes unchanged."""
-    if set(tree) != _CACHE_KEYS:
-        raise ValueError(f"a KV cache has keys {sorted(_CACHE_KEYS)}, got "
-                         f"{sorted(tree)}")
+    """An LM decode cache with numpy leaves -> the port's, on ``device``
+    (default CUDA), nesting and dtypes unchanged: a decoder's KV cache
+    {"k", "v": (ng, g, B, L, Hkv, D), "pos": (ng, g) int32}, an
+    encoder-decoder's (its leading axis the layers), or the SSM's and the
+    hybrid's nested recurrent states and KV caches."""
+    if not isinstance(tree, dict):
+        raise ValueError(f"an LM cache is a dict, got {type(tree).__name__}")
     return _to_torch(dict(tree), resolve_device(device))
 
 
 def kv_cache_to_numpy(cache: dict) -> dict:
-    """The port's KV cache -> a dict of numpy leaves (what the reference's
-    ``serve_fn`` takes after ``jnp.asarray``)."""
+    """The port's LM decode cache -> the same nesting of numpy leaves
+    (what the reference's ``serve_fn`` takes after ``jnp.asarray``)."""
     return _to_numpy(cache)
 
 

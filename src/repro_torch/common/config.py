@@ -1,13 +1,12 @@
-"""Model configuration for the port (the gcn, dense-decoder, MoE and VLM
-fields of ``repro.common.config.ModelConfig``).
+"""Model configuration for the port (the gcn, decoder, MoE, VLM, SSM,
+hybrid and audio fields of ``repro.common.config.ModelConfig``).
 
 Frozen dataclass, so a config can key caches and be shared freely.
 :class:`TrainConfig` holds the optimizer, schedule, microbatching and
-checkpoint settings of ``repro.common.config.TrainConfig``.  The
-skeleton-GCN family and the dense, MoE and VLM decoder families are
-ported; the SSM, hybrid and audio families' fields join with their slice
-(ROADMAP.md, Queue 1 item 6).  The LM fields default to 0 or off, so a
-gcn config leaves them alone.
+checkpoint settings of ``repro.common.config.TrainConfig``.  Every family
+of the reference is ported; the LM fields default to 0 or off (with the
+reference's defaults for the SSM and audio widths), so a gcn config
+leaves them alone.
 """
 from __future__ import annotations
 
@@ -32,10 +31,14 @@ SERVE_BATCH_DEFAULTS = {
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """2s-AGCN architecture plus the paper's hybrid-pruning knobs, or a
-    decoder-only transformer: ``family="dense"`` (GQA, optional
-    sliding-window attention), ``"moe"`` (the MLP replaced by a top-k
-    mixture of experts) or ``"vlm"`` (a text backbone that takes
-    projected patch embeddings before the text)."""
+    language model: ``family="dense"`` (a decoder-only transformer: GQA,
+    optional sliding-window or local:global attention), ``"moe"`` (the
+    MLP replaced by a top-k mixture of experts), ``"vlm"`` (a text
+    backbone that takes projected patch embeddings before the text),
+    ``"ssm"`` (xLSTM: mLSTM blocks with a periodic sLSTM block),
+    ``"hybrid"`` (Zamba2: a Mamba2 backbone with one shared attention
+    block) or ``"audio"`` (Whisper: an encoder-decoder over stub frame
+    embeddings)."""
 
     name: str
     family: str
@@ -49,8 +52,7 @@ class ModelConfig:
     vocab_size: int = 0
     head_dim: int = 0                      # 0 -> d_model // num_heads
     window_size: int = 0                   # >0 -> sliding-window attention
-    local_global_ratio: int = 0            # n local per 1 global (gemma3;
-                                           # the port refuses n > 0)
+    local_global_ratio: int = 0            # n local per 1 global (gemma3)
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     act: str = "silu"                      # silu | gelu | relu2
@@ -61,6 +63,17 @@ class ModelConfig:
     experts_per_token: int = 0
     moe_d_ff: int = 0
     moe_capacity_factor: float = 1.25
+
+    # --- SSM / hybrid ---
+    ssm_state: int = 0                     # mamba2 state dim per head
+    ssm_conv: int = 4                      # short conv width
+    slstm_every: int = 0                   # xlstm: 1 sLSTM per this many blocks
+    shared_attn_every: int = 0             # zamba2: shared attn block period
+    ssm_expand: int = 2
+
+    # --- encoder-decoder (audio) ---
+    encoder_layers: int = 0
+    encoder_frames: int = 1500             # whisper stub frontend output length
 
     # --- vlm ---
     num_image_tokens: int = 0              # patch embeddings per sample (stub)
@@ -125,8 +138,8 @@ class ModelConfig:
 
     def param_count_estimate(self) -> int:
         """Analytic parameter count (for 6·N·D model FLOPs), as the
-        reference's for the gcn, dense, MoE and VLM families (real experts
-        only, the VLM's image projection left out)."""
+        reference's (real experts only, the VLM's image projection left
+        out; the SSM and hybrid counts approximate their projections)."""
         if self.family == "gcn":
             total = 0
             cin = self.gcn_in_channels
@@ -140,10 +153,21 @@ class ModelConfig:
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
         if self.family == "moe":
             ffn = 3 * d * self.moe_d_ff * self.num_experts + d * self.num_experts
+        elif self.family == "ssm":
+            inner = self.ssm_expand * d
+            ffn = 0
+            attn = 2 * d * inner + inner * d + inner * d  # mLSTM projections
+        elif self.family == "hybrid":
+            inner = self.ssm_expand * d
+            ffn = d * self.d_ff * 3 // max(1, self.shared_attn_every)
+            attn = 2 * d * inner + inner * d
         else:
             ffn = (3 * d * self.d_ff if self.act in ("silu", "gelu")
                    else 2 * d * self.d_ff)
-        return L * (attn + ffn) + self.padded_vocab * d
+        enc = 0
+        if self.encoder_layers:
+            enc = self.encoder_layers * (attn + 2 * d * self.d_ff)
+        return L * (attn + ffn) + self.padded_vocab * d + enc
 
     def active_param_count_estimate(self) -> int:
         """Parameters a token meets (MoE: its top-k experts only)."""

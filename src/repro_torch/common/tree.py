@@ -76,6 +76,16 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_index(tree: Any, *idx: int) -> Any:
+    """The ``idx`` slice (a view) of every leaf of a stacked tree."""
+    return tree_map(lambda t: t[idx], tree)
+
+
+def tree_copy_(dst: Any, src: Any) -> None:
+    """Copy ``src``'s leaves into ``dst``'s (same structure) in place."""
+    tree_map(lambda d, s: d.copy_(s), dst, src)
+
+
 def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
     """``like``'s structure with its leaves replaced by ``leaves``, given
     in JAX's order (:func:`tree_leaves`)."""

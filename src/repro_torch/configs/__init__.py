@@ -1,22 +1,26 @@
 """Architecture registry: ``get_config(name, reduced=...)``.
 
-The paper's own model, ``agcn-2s``, the dense decoder LMs ``smollm-360m``
-and ``h2o-danube-1.8b``, the MoE LMs ``granite-moe-3b-a800m`` and
-``qwen3-moe-30b-a3b`` and the VLM ``llava-next-mistral-7b`` are ported;
-the rest of the LM zoo's configs follow with their slices (ROADMAP.md,
-Queue 1 item 6).
+The paper's own model, ``agcn-2s``, and the reference's whole LM zoo: the
+dense decoders ``h2o-danube-1.8b``, ``gemma3-12b`` (local:global),
+``internlm2-20b`` and ``smollm-360m``, the audio encoder-decoder
+``whisper-small``, the VLM ``llava-next-mistral-7b``, the MoE LMs
+``qwen3-moe-30b-a3b`` and ``granite-moe-3b-a800m``, the SSM
+``xlstm-1.3b`` and the hybrid ``zamba2-7b``, in the reference's order.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.configs import (agcn_2s, granite_moe_3b_a800m,
-                                h2o_danube_1_8b, llava_next_mistral_7b,
-                                qwen3_moe_30b_a3b, smollm_360m)
+from repro_torch.configs import (agcn_2s, gemma3_12b, granite_moe_3b_a800m,
+                                h2o_danube_1_8b, internlm2_20b,
+                                llava_next_mistral_7b, qwen3_moe_30b_a3b,
+                                smollm_360m, whisper_small, xlstm_1_3b,
+                                zamba2_7b)
 
-_MODULES = (agcn_2s, smollm_360m, h2o_danube_1_8b, granite_moe_3b_a800m,
-            qwen3_moe_30b_a3b, llava_next_mistral_7b)
+_MODULES = (h2o_danube_1_8b, gemma3_12b, internlm2_20b, smollm_360m,
+            whisper_small, llava_next_mistral_7b, qwen3_moe_30b_a3b,
+            granite_moe_3b_a800m, xlstm_1_3b, zamba2_7b, agcn_2s)
 CONFIGS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 REDUCED: Dict[str, ModelConfig] = {m.CONFIG.name: m.REDUCED for m in _MODULES}
 
@@ -31,6 +35,4 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     for k, v in table.items():
         if _norm(k) == _norm(name):
             return v
-    raise KeyError(
-        f"unknown arch {name!r}; the port has {sorted(table)} (the other "
-        f"architectures are still to be ported, see ROADMAP.md)")
+    raise KeyError(f"unknown arch {name!r}; have {sorted(table)}")

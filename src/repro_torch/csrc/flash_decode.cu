@@ -1,11 +1,19 @@
 // GQA decode attention for Hopper (sm_90a): one query token per
 // (batch b, kv head h, group member g) against a KV cache,
-//     out[b,h,g,:] = sum_{s<valid} softmax_s(q[b,h,g,:].k[b,s,h,:] / sqrt(D))
-//                    * v[b,s,h,:]
+//     out[b,h,g,:] = sum_{lo<=s<valid} softmax_s(q[b,h,g,:].k[b,s,h,:] /
+//                    sqrt(D)) * v[b,s,h,:]
 // with cache slots s >= valid given -1e30 before the max (as the TPU kernel
 // does; valid <= 0 masks every slot, so the result is the mean of V over
 // all S), float32 statistics and accumulators, and a final division by
-// max(l, 1e-20).
+// max(l, 1e-20).  lo is 0, or with a sliding window (window > 0, a
+// runtime argument) max(0, valid - window): the query at position
+// valid - 1 sees the last `window` slots, as the TPU model's
+// flash_attention masks qi - kj >= window (gemma3's local layers, whose
+// cache is longer than the window).  A window that leaves no slot masks
+// every slot, as valid <= 0 does.  D runs to 256: up to 128 the narrow
+// instantiations (NC <= 4, up to 4 query rows a block), above it the wide
+// ones (NC 5 to 8, up to 2 query rows, so a lane's registers for the
+// queries and accumulators stay those of the narrow path).
 //
 // Replaces src/repro/kernels/flash_decode.py:flash_decode_pallas (the TPU
 // kernel that streams 512-row KV blocks through VMEM with the running
@@ -79,7 +87,9 @@ namespace {
 constexpr int kRows = 16;            // rows of a warp's tile
 constexpr int kGroupRows = 4;        // rows of a tile per 8-lane group
 constexpr int kMaxGQ = 4;            // query rows per block
-constexpr int kMaxD = 128;
+constexpr int kWideGQ = 2;           // query rows per block at D > 128
+constexpr int kNarrowNC = 4;         // float4 chunks per lane at D <= 128
+constexpr int kMaxD = 256;
 constexpr int kMaxSplits = 16;       // above 8: a non-portable cluster size
 constexpr int kMaxWarps = 8;
 constexpr int kMaxStages = 6;
@@ -102,9 +112,9 @@ __host__ __device__ constexpr int ring_floats(int d4, int stages) {
   return stages * 2 * kRows * row_ld(d4);
 }
 
-// query rows per block: G itself up to 4, else G's chunks evened out
-int query_rows(int G) {
-  const int chunks = (G + kMaxGQ - 1) / kMaxGQ;
+// query rows per block: G itself up to `cap`, else G's chunks evened out
+int query_rows(int G, int cap) {
+  const int chunks = (G + cap - 1) / cap;
   return (G + chunks - 1) / chunks;
 }
 
@@ -160,7 +170,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
 flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const int* __restrict__ valid_ptr, float* __restrict__ out,
-                    int S, int Hkv, int G, int D, int stages, float qscale) {
+                    int S, int Hkv, int G, int D, int stages, float qscale,
+                    int window) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   cluster_arrive_relaxed();
@@ -206,9 +217,19 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       ring[(i / per) * ld + D + i % per] = 0.f;
 
   const int n = (valid >= 1 && valid < S) ? valid : S;
-  const bool masked = valid <= 0;
-  const int span = ((n + P - 1) / P + kRows - 1) / kRows * kRows;
-  const int r0 = min(n, part * span), r1 = min(n, r0 + span);
+  bool masked = valid <= 0;
+  // the first live row: 0, or the window's lower bound (read on the card)
+  int lo = 0;
+  if (window > 0) {
+    lo = max(0, valid - window);
+    if (lo >= n) {   // no live slot: mask all, as valid <= 0 does
+      lo = 0;
+      masked = true;
+    }
+  }
+  const int cnt = n - lo;
+  const int span = ((cnt + P - 1) / P + kRows - 1) / kRows * kRows;
+  const int r0 = lo + min(cnt, part * span), r1 = min(n, r0 + span);
   const int tiles = (r1 - r0 + kRows - 1) / kRows;
   const int mine = warp < tiles ? (tiles - warp + W - 1) / W : 0;
   // a lane's first (row, column) of a tile's copies and its step
@@ -432,7 +453,7 @@ template <bool kVec, int NC, int GQ>
 cudaError_t launch(dim3 grid, int warps, size_t smem, cudaStream_t stream,
                    const float* q, const float* k, const float* v,
                    const int* valid, float* out, int S, int Hkv, int G, int D,
-                   int stages) {
+                   int stages, int window) {
   static int limit[kMaxDevices];
   static bool ready[kMaxDevices];
   auto kern = flash_decode_kernel<kVec, NC, GQ>;
@@ -456,7 +477,7 @@ cudaError_t launch(dim3 grid, int warps, size_t smem, cudaStream_t stream,
   const float qscale = kLog2e / sqrtf((float)D);
   if (grid.x == 1) {   // one split: an implicit cluster of one block
     kern<<<grid, 32 * warps, smem, stream>>>(q, k, v, valid, out, S, Hkv, G,
-                                             D, stages, qscale);
+                                             D, stages, qscale, window);
     return cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -472,26 +493,60 @@ cudaError_t launch(dim3 grid, int warps, size_t smem, cudaStream_t stream,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kern, q, k, v, valid, out, S, Hkv, G, D,
-                           stages, qscale);
+                           stages, qscale, window);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// the instantiation of this query-row count: 1 to 4 rows a block on the
+// narrow path, 1 or 2 on the wide one; 4-byte staging takes the cap alone
 template <bool kVec, int NC>
 cudaError_t launch_gq(int gq, dim3 grid, int warps, size_t smem,
                       cudaStream_t stream, const float* q, const float* k,
                       const float* v, const int* valid, float* out, int S,
-                      int Hkv, int G, int D, int stages) {
-  switch (gq) {
-    case 1: return launch<kVec, NC, 1>(grid, warps, smem, stream, q, k, v,
-                                       valid, out, S, Hkv, G, D, stages);
-    case 2: return launch<kVec, NC, 2>(grid, warps, smem, stream, q, k, v,
-                                       valid, out, S, Hkv, G, D, stages);
-    case 3: return launch<kVec, NC, 3>(grid, warps, smem, stream, q, k, v,
-                                       valid, out, S, Hkv, G, D, stages);
-    default: return launch<kVec, NC, 4>(grid, warps, smem, stream, q, k, v,
-                                        valid, out, S, Hkv, G, D, stages);
+                      int Hkv, int G, int D, int stages, int window) {
+#define FD_GQ(N)                                                           \
+  return launch<kVec, NC, N>(grid, warps, smem, stream, q, k, v, valid,   \
+                             out, S, Hkv, G, D, stages, window)
+  if constexpr (!kVec) {
+    FD_GQ((NC > kNarrowNC ? kWideGQ : kMaxGQ));
+  } else if constexpr (NC > kNarrowNC) {
+    if (gq == 1) FD_GQ(1);
+    FD_GQ(2);
+  } else {
+    switch (gq) {
+      case 1: FD_GQ(1);
+      case 2: FD_GQ(2);
+      case 3: FD_GQ(3);
+      default: FD_GQ(4);
+    }
   }
+#undef FD_GQ
+}
+
+cudaError_t dispatch(bool vec, int nc, int gq, dim3 grid, int warps,
+                     size_t smem, cudaStream_t s, const float* q,
+                     const float* k, const float* v, const int* valid,
+                     float* out, int S, int Hkv, int G, int D, int stages,
+                     int window) {
+#define FD_NC(V, NC)                                                       \
+  return launch_gq<V, NC>(gq, grid, warps, smem, s, q, k, v, valid, out,  \
+                          S, Hkv, G, D, stages, window)
+#define FD_ALL(V)                                                          \
+  switch (nc) {                                                            \
+    case 1: FD_NC(V, 1);                                                   \
+    case 2: FD_NC(V, 2);                                                   \
+    case 3: FD_NC(V, 3);                                                   \
+    case 4: FD_NC(V, 4);                                                   \
+    case 5: FD_NC(V, 5);                                                   \
+    case 6: FD_NC(V, 6);                                                   \
+    case 7: FD_NC(V, 7);                                                   \
+    default: FD_NC(V, 8);                                                  \
+  }
+  if (vec) FD_ALL(true);
+  FD_ALL(false);
+#undef FD_ALL
+#undef FD_NC
 }
 
 }  // namespace
@@ -499,49 +554,37 @@ cudaError_t launch_gq(int gq, dim3 grid, int warps, size_t smem,
 // splits: blocks of a cluster that share one (b, h)'s rows (1 to 16);
 // warps per block (1, 2, 4 or 8); stages: ring slots per warp (2 to 6,
 // so stages - 1 tiles of 16 rows in flight); vec: 16-byte staging, which
-// needs D % 4 == 0 and 16-byte aligned k and v.  kernels/flash_decode.py:
-// decode_plan picks them.
+// needs D % 4 == 0 and 16-byte aligned k and v; window: 0, or a sliding
+// window's length.  kernels/flash_decode.py:
+// decode_plan picks splits, warps and stages.
 extern "C" int flash_decode_f32(const void* q, const void* k, const void* v,
                                 const void* valid, void* out, int B, int S,
                                 int Hkv, int G, int D, int splits, int warps,
-                                int stages, int vec, void* stream) {
+                                int stages, int vec, int window,
+                                void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || G <= 0 || D <= 0 || D > kMaxD ||
       splits < 1 || splits > kMaxSplits ||
       (warps != 1 && warps != 2 && warps != 4 && warps != 8) || stages < 2 ||
-      stages > kMaxStages)
+      stages > kMaxStages || window < 0)
     return (int)cudaErrorInvalidValue;
   if (vec && (D % 4 != 0 || reinterpret_cast<size_t>(k) % 16 != 0 ||
               reinterpret_cast<size_t>(v) % 16 != 0))
     return (int)cudaErrorInvalidValue;
-  // 4-byte staging (odd D) takes 4 query rows a block, guarded past G
-  const int gq = vec ? query_rows(G) : kMaxGQ;
+  const int nc = ((D + 3) / 4 + 7) / 8;
+  // 4-byte staging (odd D) takes the cap of query rows a block, guarded
+  // past G
+  const int cap = nc > kNarrowNC ? kWideGQ : kMaxGQ;
+  const int gq = vec ? query_rows(G, cap) : cap;
   const long long gy = (long long)Hkv * ((G + gq - 1) / gq);
   if (gy > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(D, gq, splits, warps, stages);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const dim3 grid(splits, (unsigned)gy, B);
-  const int nc = ((D + 3) / 4 + 7) / 8;
   const cudaStream_t s = (cudaStream_t)stream;
   const float *qf = (const float*)q, *kf = (const float*)k,
               *vf = (const float*)v;
   const int* vi = (const int*)valid;
   float* of = (float*)out;
-#define FD_VEC(NC)                                                          \
-  return (int)launch_gq<true, NC>(gq, grid, warps, smem, s, qf, kf, vf, vi,  \
-                                  of, S, Hkv, G, D, stages)
-#define FD_ODD(NC)                                                          \
-  return (int)launch<false, NC, kMaxGQ>(grid, warps, smem, s, qf, kf, vf, vi, \
-                                        of, S, Hkv, G, D, stages)
-  if (vec) {
-    if (nc == 1) FD_VEC(1);
-    if (nc == 2) FD_VEC(2);
-    if (nc == 3) FD_VEC(3);
-    FD_VEC(4);
-  }
-  if (nc == 1) FD_ODD(1);
-  if (nc == 2) FD_ODD(2);
-  if (nc == 3) FD_ODD(3);
-  FD_ODD(4);
-#undef FD_VEC
-#undef FD_ODD
+  return (int)dispatch(vec, nc, gq, grid, warps, smem, s, qf, kf, vf, vi, of,
+                       S, Hkv, G, D, stages, window);
 }

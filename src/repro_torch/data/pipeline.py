@@ -40,8 +40,8 @@ def lm_batches(mcfg: ModelConfig, dcfg: DataConfig, start: int = 0
     token stream with a few strong modes per token (so a model's loss
     falls).  For the VLM family the text is ``seq_len − num_image_tokens``
     long and "image_embeds" (B, num_image_tokens, d_model) float32 come
-    from the same stream; the audio extras join with that family
-    (ROADMAP.md, Queue 1 item 6)."""
+    from the same stream; for the audio family "frames" (B,
+    encoder_frames, d_model) float32 do."""
     _, per = _host_slice(dcfg)
     vocab = mcfg.vocab_size
     rng = np.random.default_rng(dcfg.seed)
@@ -66,6 +66,9 @@ def lm_batches(mcfg: ModelConfig, dcfg: DataConfig, start: int = 0
         if mcfg.family == "vlm":
             batch["image_embeds"] = brng.standard_normal(
                 (per, mcfg.num_image_tokens, mcfg.d_model), np.float32)
+        if mcfg.family == "audio":
+            batch["frames"] = brng.standard_normal(
+                (per, mcfg.encoder_frames, mcfg.d_model), np.float32)
         yield batch
         step += 1
 

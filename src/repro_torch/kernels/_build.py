@@ -57,8 +57,8 @@ _SIGNATURES = {
     # valid, rows, threads, stream
     "window_sim_f32": (*(_P,) * 10, *(_I,) * 7, _P),
     # q, k, v, valid (int32), out, B, S, Hkv, G, D, splits, warps, stages,
-    # vec, stream
-    "flash_decode_f32": (*(_P,) * 5, *(_I,) * 9, _P),
+    # vec, window, stream
+    "flash_decode_f32": (*(_P,) * 5, *(_I,) * 10, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,6 +1,7 @@
 """GQA decode attention: one query token per (batch, kv head, group
-member) against a KV cache whose slots >= ``valid`` are masked, with an
-online softmax over the cache.
+member) against a KV cache whose slots >= ``valid`` are masked (and, with
+a sliding ``window``, the slots below ``valid − window``), with an online
+softmax over the cache.
 
 Port of ``repro.kernels.flash_decode.flash_decode_pallas``; the CUDA
 kernel is ``csrc/flash_decode.cu`` (flash-decoding: a cluster of
@@ -11,8 +12,11 @@ through distributed shared memory; ``valid`` is read on the card).
 :func:`decode_plan` sizes a launch from the shapes and the SM count.  Its
 oracle is ``ref.flash_decode_ref``, which the plain version is.
 
-Layouts: q (B, Hkv, G, D), k and v (B, S, Hkv, D) float32, ``valid`` an
-int or a one-element int32 tensor on the card -> (B, Hkv, G, D).
+Layouts: q (B, Hkv, G, D), k and v (B, S, Hkv, D) float32 with D <= 256,
+``valid`` an int or a one-element int32 tensor on the card -> (B, Hkv,
+G, D).  Head dims up to 128 run the kernel's narrow instantiations (up to
+4 query rows a block); 129 to 256 the wide ones (up to 2 query rows, so
+a lane's query and accumulator registers stay the narrow path's).
 """
 from __future__ import annotations
 
@@ -24,10 +28,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_decode_ref as flash_decode_plain
 
-MAX_HEAD_DIM = 128        # the kernel's limit on D
+MAX_HEAD_DIM = 256        # the kernel's limit on D
+NARROW_HEAD_DIM = 128     # D above this takes the wide instantiations
 SMEM_MAX = 227 * 1024     # dynamic shared memory a block may use
 TILE_ROWS = 16            # rows of a warp's tile (csrc/flash_decode.cu)
 MAX_QUERY_ROWS = 4        # query rows per block
+WIDE_QUERY_ROWS = 2       # query rows per block at D > 128
 MAX_SPLITS = 16           # cluster size; above 8 a non-portable one
 WARPS = (1, 2, 4, 8)
 STAGES = (2, 3, 4, 5, 6)  # ring slots per warp: stages - 1 tiles in flight
@@ -45,11 +51,13 @@ class DecodePlan(NamedTuple):
 
 
 def query_rows(G: int, D: int) -> int:
-    """Query rows per block (csrc/flash_decode.cu): G up to 4, else G's
-    chunks of at most 4 evened out; 4 under 4-byte staging (D % 4 != 0)."""
+    """Query rows per block (csrc/flash_decode.cu): G up to the cap (4,
+    or 2 at D > 128), else G's chunks of at most the cap evened out; the
+    cap itself under 4-byte staging (D % 4 != 0)."""
+    cap = MAX_QUERY_ROWS if D <= NARROW_HEAD_DIM else WIDE_QUERY_ROWS
     if D % 4:
-        return MAX_QUERY_ROWS
-    chunks = -(-G // MAX_QUERY_ROWS)
+        return cap
+    chunks = -(-G // cap)
     return -(-G // chunks)
 
 
@@ -120,11 +128,13 @@ def decode_plan(B: int, S: int, Hkv: int, G: int, D: int,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 valid: Union[int, torch.Tensor],
+                 valid: Union[int, torch.Tensor], window: int = 0,
                  plan: Optional[DecodePlan] = None) -> torch.Tensor:
     """(B, Hkv, G, D) queries against a (B, S, Hkv, D) cache, slots >=
-    ``valid`` masked: launches the CUDA kernel for CUDA tensors (sized by
-    ``plan``, default :func:`decode_plan`); CPU tensors take
+    ``valid`` masked, and with ``window`` > 0 (a host int) the slots
+    below ``valid − window`` too (the kernel reads that bound from
+    ``valid`` on the card): launches the CUDA kernel for CUDA tensors
+    (sized by ``plan``, default :func:`decode_plan`); CPU tensors take
     :func:`flash_decode_plain`."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_decode: q {tuple(q.shape)}, k "
@@ -133,8 +143,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[2] != Hkv or k.shape[3] != D:
         raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match "
                          f"the cache {tuple(k.shape)}")
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"flash_decode: window {window} < 0")
     if _build.dispatch_device("flash_decode", q) == "cpu":
-        return flash_decode_plain(q, k, v, valid)
+        return flash_decode_plain(q, k, v, valid, window)
     _build.check_cuda_f32("flash_decode", q, k, v)
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_decode: head_dim {D} > {MAX_HEAD_DIM}")
@@ -157,5 +170,5 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.launch("flash_decode", "flash_decode_f32", q.device,
                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       valid.data_ptr(), out.data_ptr(), B, S, Hkv, G, D,
-                      plan.splits, plan.warps, plan.stages, vec)
+                      plan.splits, plan.warps, plan.stages, vec, window)
     return out

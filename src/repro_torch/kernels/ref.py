@@ -83,14 +83,22 @@ def graph_sconv_csr_ref(x: torch.Tensor, indptr: torch.Tensor,
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: Union[int, torch.Tensor]) -> torch.Tensor:
-    """GQA decode attention oracle: cache slots >= ``valid`` masked.
-    q: (B, Hkv, G, D), k/v: (B, S, Hkv, D) -> (B, Hkv, G, D); ``valid`` an
-    int or a one-element integer tensor on k's device."""
+                     valid: Union[int, torch.Tensor],
+                     window: int = 0) -> torch.Tensor:
+    """GQA decode attention oracle: cache slots >= ``valid`` masked, and
+    with ``window`` > 0 also the slots below ``valid − window`` (the
+    sliding window of the query at position valid − 1, as
+    ``flash_attention`` masks qi − kj >= window).  q: (B, Hkv, G, D),
+    k/v: (B, S, Hkv, D) -> (B, Hkv, G, D); ``valid`` an int or a
+    one-element integer tensor on k's device.  A query with no live slot
+    gets the mean of v over all S."""
     D, S = q.shape[-1], k.shape[1]
     s = torch.einsum("bhgd,bshd->bhgs", q, k) / math.sqrt(D)
     if torch.is_tensor(valid):
         valid = valid.reshape(())
-    live = torch.arange(S, device=k.device) < valid
+    slots = torch.arange(S, device=k.device)
+    live = slots < valid
+    if window > 0:
+        live = live & (slots >= valid - window)
     s = torch.where(live, s, -1e30)
     return torch.einsum("bhgs,bshd->bhgd", torch.softmax(s, -1), v)

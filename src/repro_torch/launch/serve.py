@@ -1,5 +1,5 @@
-"""Serving CLI for the port — 2s-AGCN two-stream inference and decoder LM
-decoding (dense, MoE and VLM).
+"""Serving CLI for the port — 2s-AGCN two-stream inference and language
+model decoding (every LM family: dense, MoE, VLM, SSM, hybrid, audio).
 
     PYTHONPATH=src python -m repro_torch.launch.serve clip --arch agcn-2s \\
         [--reduced] [--batch N] [--clips N] \\
@@ -14,8 +14,9 @@ decoding (dense, MoE and VLM).
         [--saliency-thresh X] [--mesh N] [--replicas R] \\
         [--backend cuda|reference|both] [--device cuda|cpu] [--bench PATH]
     PYTHONPATH=src python -m repro_torch.launch.serve lm \\
-        --arch smollm-360m|h2o-danube-1.8b|granite-moe-3b-a800m|\\
-        qwen3-moe-30b-a3b|llava-next-mistral-7b \\
+        --arch smollm-360m|h2o-danube-1.8b|gemma3-12b|internlm2-20b|\\
+        granite-moe-3b-a800m|qwen3-moe-30b-a3b|llava-next-mistral-7b|\\
+        xlstm-1.3b|zamba2-7b|whisper-small \\
         [--reduced] [--batch N] [--prompt-len N] [--gen N] \\
         [--backend cuda|reference|both] [--device cuda|cpu]
 
@@ -24,10 +25,11 @@ plan (Q8.8 weights).  ``clip`` drains clip batches through the ensemble
 step and prints clips/s per backend.  ``stream`` feeds one clip batch
 frame by frame through the per-frame ensemble step, then the flush drain,
 and prints frames/s, the per-step latency and the post-drain top-1
-agreement with the clip engine.  ``lm`` serves a decoder LM (dense, MoE,
-or the VLM's text backbone, which serves text alone as the reference's
-step does) with random weights: a seeded random prompt fed token by token through the
-KV-cache decode step, then greedy decoding, and prints tokens/s and the
+agreement with the clip engine.  ``lm`` serves a language model of any LM
+family (the VLM's text backbone serves text alone, as the reference's step
+does; the audio decoder attends to an encoder memory drawn from the seed)
+with random weights: a seeded random prompt fed token by token through the
+cached decode step, then greedy decoding, and prints tokens/s and the
 per-step latency.  ``--backend both`` adds the cross-backend top-1 (token)
 agreement.  ``sessions`` serves many independent sessions through
 ``repro_torch.serving.GcnService`` (generated Poisson or bursty load, or a
@@ -196,19 +198,35 @@ def serve_gcn_stream(arch: str, *, reduced: bool = True, batch: int = 4,
     return results
 
 
+def prompt_and_memory(cfg: ModelConfig, batch: int, prompt_len: int,
+                      seed: int):
+    """The prompt (batch, prompt_len) int32 of :func:`generate` and, for
+    the audio family, the encoder memory (batch, encoder_frames, d_model)
+    float32 drawn right after it from the same generator (else None), as
+    the reference's ``generate`` draws them."""
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, cfg.vocab_size, size=(batch, prompt_len))
+    memory = None
+    if cfg.family == "audio":
+        memory = rng.standard_normal(
+            (batch, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+    return prompt.astype(np.int32), memory
+
+
 def generate(arch: str, *, reduced: bool = True, batch: int = 4,
              prompt_len: int = 16, gen: int = 32, seed: int = 0,
              backend: str = "cuda", device: DeviceLike = None,
              params: Optional[Dict] = None,
              keep_logits: bool = False,
              cfg: Optional[ModelConfig] = None) -> Dict:
-    """KV-cache decoding of a decoder LM (dense, MoE, or the VLM's text
-    alone): a random prompt from
-    ``np.random.default_rng(seed)`` is fed token by token through the
-    decode step (the prefill), then ``gen`` greedy tokens follow, as the
-    reference's ``generate`` does.  Weights are ``params`` if given (e.g.
-    the reference's, through the bridge), else ``registry.init_params``
-    seeded with ``seed``; the cache is float32.  Each step is timed on the
+    """Cached decoding of a language model of any LM family (the VLM's
+    text alone): a random prompt from ``np.random.default_rng(seed)`` (and
+    for the audio family the encoder memory, drawn from the same
+    generator right after it, :func:`prompt_and_memory`) is fed token by
+    token through the decode step (the prefill), then ``gen`` greedy
+    tokens follow, as the reference's ``generate`` does.  Weights are
+    ``params`` if given (e.g. the reference's, through the bridge), else
+    ``registry.init_params`` seeded with ``seed``; the cache is float32.  Each step is timed on the
     host clock up to a synchronise.  Returns {"tokens" (batch, prompt_len
     + gen) numpy, "tokens_per_s" (batch × steps / summed step time),
     "latency_ms_p50", "latency_ms_mean" (per step), "steps", and with
@@ -227,9 +245,10 @@ def generate(arch: str, *, reduced: bool = True, batch: int = 4,
     step = make_serve_step(cfg, backend)
     if backend == "cuda" and dev.type == "cuda":
         _build.library()                  # build the kernels before timing
-    prompt = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, size=(batch, prompt_len))
-    prompt = torch.from_numpy(prompt.astype(np.int32)).to(dev)
+    prompt, memory = prompt_and_memory(cfg, batch, prompt_len, seed)
+    prompt = torch.from_numpy(prompt).to(dev)
+    extra = {} if memory is None else {
+        "memory": torch.from_numpy(memory).to(dev)}
     tok = prompt[:, :1]
     pos = torch.zeros((), dtype=torch.int32, device=dev)
     out_tokens, kept, lat = [tok], [], []
@@ -237,7 +256,7 @@ def generate(arch: str, *, reduced: bool = True, batch: int = 4,
     for p in range(max_len - 1):
         t0 = time.perf_counter()
         next_tok, cache, logits = step(params, cache,
-                                       {"tokens": tok, "pos": pos})
+                                       {"tokens": tok, "pos": pos, **extra})
         tok = prompt[:, p + 1: p + 2] if p + 1 < prompt_len else \
             next_tok[:, None]
         pos = pos + 1
@@ -432,8 +451,8 @@ def build_parser() -> argparse.ArgumentParser:
                                            "continual inference")
     sessions = sub.add_parser("sessions", help="gcn: multi-session traffic "
                                                "through GcnService")
-    lm = sub.add_parser("lm", help="decoder LM: token-by-token prefill and "
-                                   "greedy KV-cache decoding")
+    lm = sub.add_parser("lm", help="language model: token-by-token prefill "
+                                   "and greedy cached decoding")
     for p in (clip, stream, sessions, lm):
         p.add_argument("--arch", required=True)
         p.add_argument("--reduced", action="store_true")

@@ -1,7 +1,7 @@
 """Training entry point: config -> data -> train step -> checkpoints ->
 fault monitors, in one process or data-parallel over ``torch.distributed``
-ranks.  Port of ``repro.launch.train`` for the gcn family (2s-AGCN) and
-the dense, MoE and VLM decoder LMs.
+ranks.  Port of ``repro.launch.train`` for every family: the gcn family
+(2s-AGCN) and the LM families (dense, MoE, VLM, SSM, hybrid, audio).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch agcn-2s \\
         [--reduced] --steps 30 --batch 16 [--device cuda|cpu]
@@ -13,8 +13,9 @@ With ``--mesh data,model`` the process is one rank of a data-parallel run
 under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``): NCCL on the
 card (rank on ``cuda:LOCAL_RANK``), gloo with ``--device cpu``; the
 parameters are DTensors laid out by ``distributed.params`` and each rank
-reads its host's slice of the global batch.  A model axis above 1 is not
-supported yet.
+reads its host's slice of the global batch.  The data-parallel step is
+the same for every family.  A model axis above 1 is not supported yet
+(ROADMAP.md, Queue 1 item 7).
 
 The CLI switches TF32 off for matmuls and cuDNN, so the card trains in
 full float32 (cuDNN's TF32 default would put ``F.conv2d``'s training

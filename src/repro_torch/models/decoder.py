@@ -2,9 +2,9 @@
 family (granite-moe, qwen3-moe: the MLP replaced by a top-k mixture of
 experts whose load-balance loss is summed over layers) and the VLM family
 (llava: projected patch embeddings put before the text embeddings).  GQA
-attention with optional sliding windows, gated MLP, RMSNorm, tied
-embeddings.  Port of ``repro.models.decoder``; gemma3's local:global
-stack is not ported (ROADMAP.md, Queue 1 item 6).
+attention with optional sliding windows or gemma3's local:global stack
+(groups of ``local_global_ratio`` windowed layers and one global layer),
+gated MLP, RMSNorm, tied embeddings.  Port of ``repro.models.decoder``.
 
 Per-layer parameters and caches are stacked into (num_groups, group, ...)
 leaves as in the reference, so JAX trees carry across unchanged
@@ -14,18 +14,18 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device
-from repro_torch.common.tree import tree_map
+from repro_torch.common.tree import tree_index, tree_map
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers.attention import attention_layer, attn_init
 from repro_torch.models.layers.common import (he_init, rmsnorm, rmsnorm_init,
-                                              rope_tables)
+                                              rope_tables, stack_layers)
 from repro_torch.models.layers.mlp import mlp, mlp_init
 from repro_torch.models.layers.moe import moe_ffn, moe_init
 
@@ -37,13 +37,22 @@ FAMILIES = ("dense", "moe", "vlm")
 # ---------------------------------------------------------------------------
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
-    """Per-layer attention kind within one group: all local with a
-    sliding window, else all global."""
-    return ["local" if cfg.window_size > 0 else "global"] * scan_group_size(
-        cfg)
+    """Per-layer attention kind within one group: r local layers and one
+    global for a local:global ratio r, else all local with a sliding
+    window, else all global."""
+    g = scan_group_size(cfg)
+    if cfg.local_global_ratio > 0:
+        r = cfg.local_global_ratio
+        return ["local"] * r + ["global"] * (g - r) if g == r + 1 else (
+            (["local"] * r + ["global"]) * (g // (r + 1)))
+    return ["local" if cfg.window_size > 0 else "global"] * g
 
 
 def scan_group_size(cfg: ModelConfig) -> int:
+    """Layers per stacked group: one local:global period, else
+    ``cfg.scan_group``."""
+    if cfg.local_global_ratio > 0:
+        return cfg.local_global_ratio + 1
     return max(1, cfg.scan_group)
 
 
@@ -59,21 +68,8 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not a decoder family "
-            f"the port has ({', '.join(FAMILIES)}; see ROADMAP.md, Queue 1 "
-            f"item 6)")
-    if cfg.local_global_ratio > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: the local:global stack (gemma3) is not ported "
-            f"(see ROADMAP.md, Queue 1 item 6)")
-
-
-def _index(tree: Any, gi: int, i: int) -> Any:
-    """The (gi, i) slice (a view) of every leaf of a stacked tree."""
-    if isinstance(tree, dict):
-        return {k: _index(v, gi, i) for k, v in tree.items()}
-    return tree[gi, i]
+        raise ValueError(f"{cfg.name}: the {cfg.family!r} family is not a "
+                         f"decoder family ({', '.join(FAMILIES)})")
 
 
 # ---------------------------------------------------------------------------
@@ -114,32 +110,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     gdev = dev if gen is None else gen.device
     g, ng = scan_group_size(cfg), num_groups(cfg)
     with torch.device("meta") if meta else contextlib.nullcontext():
-        # each layer is drawn, then copied into its slot of the stacked
-        # leaves, so the tree is never held twice
-        layers = None
-        for gi in range(ng):
-            for i in range(g):
-                lp = _layer_init(gen, cfg, gdev)
-                if layers is None:
-                    layers = tree_map(lambda t: t.new_empty((ng, g, *t.shape)),
-                                      lp)
-                tree_map(lambda dst, src: dst[gi, i].copy_(src), layers, lp)
         params = {
+            "layers": stack_layers(lambda: _layer_init(gen, cfg, gdev),
+                                   (ng, g)),
             "embed": he_init(gen, (cfg.padded_vocab, cfg.d_model),
                              cfg.d_model),
-            "layers": layers,
             "final_norm": rmsnorm_init(cfg.d_model, gdev),
         }
         if cfg.family == "vlm":
             params["img_proj"] = he_init(gen, (cfg.d_model, cfg.d_model),
                                          cfg.d_model)
-    return _to(params, dev)
-
-
-def _to(tree: Any, dev: torch.device) -> Any:
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+    return tree_map(lambda t: t.to(dev), params)
 
 
 # ---------------------------------------------------------------------------
@@ -176,8 +157,8 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta, x.device)
     for gi in range(num_groups(cfg)):
         for i, kind in enumerate(kinds):
-            lp = _index(params["layers"], gi, i)
-            cache = _index(caches, gi, i) if caches is not None else None
+            lp = tree_index(params["layers"], gi, i)
+            cache = tree_index(caches, gi, i) if caches is not None else None
             attn_in = constrain(rmsnorm(x, lp["ln1"], cfg.norm_eps),
                                 "batch", None, None)
             h, _ = attention_layer(
@@ -207,8 +188,10 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def cache_len(cfg: ModelConfig, max_len: int) -> int:
-    """A sliding window only needs ``window`` slots (a ring)."""
-    if cfg.window_size > 0:
+    """A uniform sliding window only needs ``window`` slots (a ring); a
+    local:global stack keeps the full length (its global layers need it,
+    and every layer's cache has one shape)."""
+    if cfg.window_size > 0 and cfg.local_global_ratio == 0:
         return min(max_len, cfg.window_size)
     return max_len
 
@@ -226,3 +209,4 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return {"k": torch.zeros(shape, dtype=torch.float32, device=dev),
             "v": torch.zeros(shape, dtype=torch.float32, device=dev),
             "pos": torch.zeros((ng, g), dtype=torch.int32, device=dev)}
+

@@ -1,13 +1,12 @@
-"""GQA attention with blockwise (flash-style) softmax, sliding-window
-masks and a KV-cache decode path.  Port of
-``repro.models.layers.attention`` (self-attention only: cross-attention
-belongs to the audio family, not ported).
+"""GQA attention with blockwise (flash-style) softmax, sliding-window and
+local:global masks, cross-attention and a KV-cache decode path.  Port of
+``repro.models.layers.attention``.
 
 ``flash_attention`` is the plain blockwise version (online softmax over KV
 blocks, float32 running max and sum); it serves the ``reference`` backend
 and every call with more than one query token.  With the ``cuda`` backend a
-one-token decode step against the cache goes to the ``flash_decode``
-kernel instead.
+one-token step (against the cache, or cross-attention against a memory)
+goes to the ``flash_decode`` kernel instead.
 """
 from __future__ import annotations
 
@@ -17,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.models.layers.common import he_init, rotate
+from repro_torch.models.layers.common import he_init, rotate, wide
 
 NEG_INF = -1e30
 BACKENDS = ("reference", "cuda")
@@ -85,14 +84,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = torch.zeros((B, Hkv, G, qb, D), device=dev)
         for kidx in range(nk):
             kj = kidx * kb + torch.arange(kb, device=dev)
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk,
-                             kg[:, kidx]).float() * scale
+            s = wide(torch.einsum("bqhgd,bkhd->bhgqk", qblk,
+                                  kg[:, kidx])) * scale
             s = s + _mask(qi, kj, causal, window, kv_valid)
             m_new = torch.maximum(m_run, s.amax(-1))
             p = torch.exp((s - m_new[..., None]).to(v.dtype))
             corr = torch.exp(m_run - m_new)
-            l_run = l_run * corr + p.float().sum(-1)
-            pv = torch.einsum("bhgqk,bkhd->bhgqd", p, vg[:, kidx]).float()
+            l_run = l_run * corr + wide(p).sum(-1)
+            pv = wide(torch.einsum("bhgqk,bkhd->bhgqd", p, vg[:, kidx]))
             acc = acc * corr[..., None] + pv
             m_run = m_new
         out = acc / torch.clamp_min(l_run[..., None], 1e-20)
@@ -102,46 +101,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_layer(p: Dict, x: torch.Tensor,
-                    rope: Tuple[torch.Tensor, torch.Tensor], *,
+                    rope: Optional[Tuple[torch.Tensor, torch.Tensor]], *,
                     num_heads: int, num_kv_heads: int, head_dim: int,
                     causal: bool = True, window: int = 0,
-                    cache: Optional[Dict] = None, backend: str = "cuda"
+                    cache: Optional[Dict] = None,
+                    memory: Optional[torch.Tensor] = None,
+                    backend: str = "cuda"
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x (B, S, d) -> (B, S, d).  ``rope`` holds the tokens' RoPE tables
     (``common.rope_tables`` of their positions; the reference takes the
     positions and theta and builds them in every layer).
-    ``cache`` = {"k", "v": (B, L, Hkv, D),
-    "pos": int32 device scalar} is updated in place (the tokens' k/v
-    written at their slots, pos advanced by S) and returned; the reference
-    returns a new cache instead.  With a sliding window the cache holds at
-    most ``window`` slots and is a ring: one token is written at pos % L
-    and attends to every live slot.  A cache longer than the window
-    (gemma3's local layers) is not ported.
 
-    With ``backend="cuda"`` a one-token step against the cache calls the
-    ``flash_decode`` kernel with valid = pos + 1 (min(pos + 1, L) in a
-    ring), read on the card; every other call runs
+    ``memory`` (B, Sm, d) makes it cross-attention: k and v come from the
+    memory, with no RoPE, no causal mask and no cache.
+
+    ``cache`` = {"k", "v": (B, L, Hkv, D), "pos": int32 device scalar} is
+    updated in place (the tokens' k/v written at their slots, pos
+    advanced by S) and returned; the reference returns a new cache
+    instead.  A one-token step under a sliding window whose cache is no
+    longer than the window is a ring (the reference's rule): the token is
+    written at pos % L and attends to every live slot.  A cache longer
+    than the window (gemma3's local layers) is written at pos, and the
+    window masks the slots at or below pos − window.
+
+    With ``backend="cuda"`` a one-token step calls the ``flash_decode``
+    kernel: against the cache with valid = pos + 1 (min(pos + 1, L) in a
+    ring), read on the card, and the window as its lower bound when the
+    cache is longer than the window; or, for cross-attention, against the
+    memory's k and v with valid = Sm.  Every other call runs
     :func:`flash_attention`."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (expected one of "
                          f"{BACKENDS})")
     B, S, _ = x.shape
+    kv_src = x if memory is None else memory
+    Skv = kv_src.shape[1]
     q = (x @ p["wq"]).reshape(B, S, num_heads, head_dim)
-    k, v = (x @ p["wkv"]).chunk(2, dim=-1)
-    k = k.reshape(B, S, num_kv_heads, head_dim)
-    v = v.reshape(B, S, num_kv_heads, head_dim)
-    q, k = rotate(q, rope), rotate(k, rope)
+    k, v = (kv_src @ p["wkv"]).chunk(2, dim=-1)
+    k = k.reshape(B, Skv, num_kv_heads, head_dim)
+    v = v.reshape(B, Skv, num_kv_heads, head_dim)
+    if memory is None:
+        q, k = rotate(q, rope), rotate(k, rope)
 
     kv_valid, q_offset, ring = None, 0, False
     if cache is not None:
         pos = cache["pos"]                              # int32 device scalar
         L = cache["k"].shape[1]
-        if 0 < window < L:
-            raise NotImplementedError(
-                f"a {L}-slot cache under a {window}-token window needs a "
-                f"lower bound on the window (gemma3's local layers; see "
-                f"ROADMAP.md, Queue 1 item 6)")
-        ring = window > 0 and S == 1
+        ring = window > 0 and L <= window and S == 1
         slot = pos % L if ring else pos
         # a device index: the write never reads the position on the host
         idx = slot.reshape(1).long() + torch.arange(S, device=x.device)
@@ -151,12 +157,20 @@ def attention_layer(p: Dict, x: torch.Tensor,
         kv_valid = torch.clamp(pos + S, max=L) if ring else pos + S
         q_offset = pos
 
-    if backend == "cuda" and cache is not None and S == 1:
+    if backend == "cuda" and S == 1 and (cache is not None
+                                         or memory is not None):
         G = num_heads // num_kv_heads
+        if cache is not None:
+            valid, win = kv_valid.reshape(1), 0 if ring else window
+        else:
+            k, v = k.contiguous(), v.contiguous()
+            valid = torch.full((1,), Skv, dtype=torch.int32, device=x.device)
+            win = 0
         out = flash_decode(q.reshape(B, num_kv_heads, G, head_dim), k, v,
-                           kv_valid.reshape(1))
+                           valid, window=win)
     else:
-        out = flash_attention(q, k, v, causal=causal and not ring,
+        out = flash_attention(q, k, v, causal=causal and memory is None
+                              and not ring,
                               window=0 if ring else window,
                               q_offset=0 if ring else q_offset,
                               kv_valid=kv_valid)

@@ -22,6 +22,18 @@ def he_init(generator: Optional[torch.Generator], shape: Sequence[int],
     return w * math.sqrt(2.0 / max(1, fan_in))
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 for statistics, states and accumulators, or as it
+    is when it is float64: a float64 run (chip_smoke's exact-arithmetic
+    check of the SSM and hybrid recurrences) stays float64 throughout."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def wide_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype :func:`wide` gives a tensor of ``dtype``."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def rmsnorm_init(d: int, device: Optional[torch.device] = None) -> Dict:
     return {"scale": torch.ones(d, device=device)}
 
@@ -29,9 +41,50 @@ def rmsnorm_init(d: int, device: Optional[torch.device] = None) -> Dict:
 def rmsnorm(x: torch.Tensor, p: Dict, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm with float32 statistics and the elementwise product in
     ``x``'s dtype."""
-    var = x.float().square().mean(-1, keepdim=True)
+    var = wide(x).square().mean(-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * p["scale"].to(x.dtype)
+
+
+def layernorm_init(d: int, device: Optional[torch.device] = None) -> Dict:
+    return {"scale": torch.ones(d, device=device),
+            "bias": torch.zeros(d, device=device)}
+
+
+def layernorm(x: torch.Tensor, p: Dict, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 (the biased variance), cast back to ``x``'s
+    dtype."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps) * p["scale"]
+            + p["bias"]).to(x.dtype)
+
+
+def stack_layers(make: Callable[[], Dict], shape: Sequence[int]) -> Dict:
+    """A tree whose leaves stack ``prod(shape)`` calls of ``make()`` (one
+    layer's parameters) into leaves of shape (*shape, ...), drawn in
+    row-major order; each layer is copied into its slot as it is drawn,
+    so the tree is never held twice.  Under ``torch.device("meta")`` the
+    leaves are shapes alone."""
+    from repro_torch.common.tree import tree_map
+    out = None
+    n = math.prod(shape)
+    for i in range(n):
+        lp = make()
+        if out is None:
+            out = tree_map(lambda t: t.new_empty((*shape, *t.shape)), lp)
+        idx = _unravel(i, shape)
+        tree_map(lambda dst, src: dst[idx].copy_(src), out, lp)
+    return out
+
+
+def _unravel(i: int, shape: Sequence[int]) -> Tuple[int, ...]:
+    idx = []
+    for n in reversed(shape):
+        idx.append(i % n)
+        i //= n
+    return tuple(reversed(idx))
 
 
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -73,7 +126,7 @@ def rotate(x: torch.Tensor, tables: Tuple[torch.Tensor, torch.Tensor]
     x1·cos + x2·(−sin) and x2·cos + x1·sin equal the reference's
     x1·cos − x2·sin and x2·cos + x1·sin exactly."""
     cos2, sin2 = tables
-    xf = x.float()
+    xf = wide(x)
     x1, x2 = xf.chunk(2, dim=-1)
     return (xf * cos2 + torch.cat([x2, x1], -1) * sin2).to(x.dtype)
 

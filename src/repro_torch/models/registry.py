@@ -1,5 +1,4 @@
-"""Family dispatch, as ``repro.models.registry``, for the families the
-port has:
+"""Family dispatch over every family, as ``repro.models.registry``:
 
     init_params(cfg, generator, seed=, device=)  -> params tree
     loss_fn(params, batch, cfg, inference=False) -> (loss, metrics)
@@ -7,12 +6,14 @@ port has:
     serve_fn(params, batch, cache, cfg, backend) -> (logits, cache)
     init_cache(cfg, batch, max_len, device=)     -> cache tree
 
-The gcn family (2s-AGCN, one stream) and the dense, MoE and VLM decoder
-families are ported; the others raise NotImplementedError (ROADMAP.md,
-Queue 1 item 6).  Batch dicts: gcn {x (N, T, V, C), labels (N,)};
-dense/moe {tokens (B, S), labels (B, S)}; vlm {tokens (B, S_text),
-image_embeds (B, N_img, d), labels (B, S_text)}; and for a decode step
-{tokens (B, 1), pos int32 device scalar}.
+The gcn family (2s-AGCN, one stream), the decoder families (dense, moe,
+vlm), the SSM family (xLSTM), the hybrid (Zamba2) and the audio
+encoder-decoder (Whisper); an unknown family raises ValueError.  Batch
+dicts: gcn {x (N, T, V, C), labels (N,)}; dense/moe/ssm/hybrid {tokens
+(B, S), labels (B, S)}; vlm {tokens (B, S_text), image_embeds (B, N_img,
+d), labels (B, S_text)}; audio {frames (B, F, d), tokens (B, S), labels
+(B, S)}; and for a decode step {tokens (B, 1), pos int32 device scalar,
+and for audio memory (B, F, d)}.
 """
 from __future__ import annotations
 
@@ -23,16 +24,27 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike
 from repro_torch.core.agcn import model as agcn
-from repro_torch.models import decoder
+from repro_torch.models import decoder, encdec, hybrid, ssm_model
+
+LM_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+
+
+def _module(cfg: ModelConfig):
+    """The model module of ``cfg``'s family."""
+    if cfg.family in decoder.FAMILIES:
+        return decoder
+    mod = {"gcn": agcn, "audio": encdec, "ssm": ssm_model,
+           "hybrid": hybrid}.get(cfg.family)
+    if mod is None:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    return mod
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 *, seed: int = 0, device: DeviceLike = None) -> Dict:
     """Random float32 parameters of ``cfg``'s family from ``generator``
     (else seeded with ``seed``), on ``device`` (default CUDA)."""
-    if cfg.family == "gcn":
-        return agcn.init_params(cfg, generator, seed=seed, device=device)
-    return decoder.init_params(cfg, generator, seed=seed, device=device)
+    return _module(cfg).init_params(cfg, generator, seed=seed, device=device)
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -79,10 +91,19 @@ def loss_fn(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         loss = _xent(logits, batch["labels"])
         acc = (logits.argmax(-1) == batch["labels"]).to(torch.float32).mean()
         return loss, {"loss": loss, "acc": acc}
-    logits, _, aux = decoder.forward(params, batch["tokens"], cfg,
-                                     image_embeds=batch.get("image_embeds"))
-    if cfg.family == "vlm":
-        logits = logits[:, -batch["tokens"].shape[1]:]      # text positions
+    mod = _module(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+    if mod is decoder:
+        logits, _, aux = decoder.forward(
+            params, batch["tokens"], cfg,
+            image_embeds=batch.get("image_embeds"))
+        if cfg.family == "vlm":
+            logits = logits[:, -batch["tokens"].shape[1]:]  # text positions
+    elif mod is encdec:
+        memory = encdec.encode(params, batch["frames"], cfg)
+        logits, _ = encdec.decode(params, batch["tokens"], memory, cfg)
+    else:
+        logits, _ = mod.forward(params, batch["tokens"], cfg)
     loss = _xent(logits[:, :-1], batch["labels"][:, 1:])
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
@@ -90,19 +111,33 @@ def loss_fn(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 def serve_fn(params: Dict, batch: Dict[str, torch.Tensor], cache: Dict,
              cfg: ModelConfig, backend: str = "cuda"
              ) -> Tuple[torch.Tensor, Dict]:
-    """One decode step: batch = {tokens (B, S), pos int32 device scalar};
-    the cache is updated in place and returned.  The VLM serves text
-    alone, as the reference's step does (no image embeddings).  A step of S > 1 tokens
-    must fit in the cache's L slots (pos + S <= L): the reference clamps
-    such a write's start, which this port does not reproduce, so it
-    raises (the check reads pos on the host; one-token steps never do)."""
+    """One decode step: batch = {tokens (B, S), pos int32 device scalar,
+    and for the audio family memory (B, F, d)}; the cache is updated in
+    place and returned.  The VLM serves text alone, as the reference's
+    step does (no image embeddings).  The SSM and hybrid recurrences take
+    one token a step.  A decoder step of S > 1 tokens must fit in the
+    cache's L slots (pos + S <= L): the reference clamps such a write's
+    start, which this port does not reproduce, so it raises (the check
+    reads pos on the host; one-token steps never do)."""
     pos = batch["pos"]
     S = batch["tokens"].shape[1]
+    positions = pos + torch.arange(S, device=pos.device)
+    mod = _module(cfg)
+    if mod is encdec:
+        return encdec.decode(params, batch["tokens"], batch["memory"], cfg,
+                             caches=cache, positions=positions,
+                             backend=backend)
+    if mod is ssm_model:
+        return ssm_model.forward(params, batch["tokens"], cfg, caches=cache)
+    if mod is hybrid:
+        return hybrid.forward(params, batch["tokens"], cfg, caches=cache,
+                              positions=positions, backend=backend)
+    if mod is not decoder:
+        raise ValueError(f"no serve path for family {cfg.family}")
     L = cache["k"].shape[3]
     if S > 1 and int(pos) + S > L:
         raise ValueError(f"serve_fn: {S} tokens at position {int(pos)} do "
                          f"not fit in the cache's {L} slots")
-    positions = pos + torch.arange(S, device=pos.device)
     logits, cache, _ = decoder.forward(params, batch["tokens"], cfg,
                                        caches=cache, positions=positions,
                                        backend=backend, need_aux=False)
@@ -110,5 +145,17 @@ def serve_fn(params: Dict, batch: Dict[str, torch.Tensor], cache: Dict,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: DeviceLike = None) -> Dict:
-    return decoder.init_cache(cfg, batch, max_len, device)
+               device: DeviceLike = None,
+               dtype: torch.dtype = torch.float32) -> Dict:
+    """The family's zero decode cache on ``device`` (default CUDA):
+    float32, or float64 for the SSM and hybrid families (a float64 run
+    of their recurrences)."""
+    mod = _module(cfg)
+    if mod is agcn:
+        raise ValueError(f"{cfg.name}: the gcn family has no decode cache")
+    if dtype == torch.float32:
+        return mod.init_cache(cfg, batch, max_len, device)
+    if mod not in (ssm_model, hybrid) or dtype != torch.float64:
+        raise ValueError(f"{cfg.name}: no {dtype} decode cache")
+    return mod.init_cache(cfg, batch, max_len, device, dtype)
+

@@ -156,6 +156,23 @@ FD_SPLIT_CASES = [(2, 100, 2, 3, 16, 0), (2, 100, 2, 3, 20, 1),
                   (2, 512, 2, 3, 64, 17), (1, 200, 3, 4, 80, 37),
                   (3, 47, 1, 2, 16, 47)]
 
+# (B, S, Hkv, G, D, valid, window): the zoo's shapes (zamba2's shared
+# attention D 112 G 1, internlm2's G 6, whisper's cross-attention over
+# 1 500 frames, gemma3's D 256 with its 1 024-token window over a longer
+# cache), the wide instantiations (D 132 and 256 at G 3 and 5; D 130:
+# 4-byte staging) and the window's edges: a window at least valid (no
+# bound), valid 0, valid past S with the bound inside S and past it (no
+# live slot: every slot masked), odd D
+FD_WIDE_CASES = [(2, 40, 32, 1, 112, 33, 0), (4, 64, 8, 6, 128, 40, 0),
+                 (4, 1500, 12, 1, 64, 1500, 0),
+                 (1, 1108, 8, 2, 256, 1101, 1024),
+                 (1, 1108, 8, 2, 256, 1101, 0), (2, 300, 2, 3, 256, 300, 0),
+                 (1, 64, 1, 5, 132, 40, 0), (1, 100, 2, 3, 130, 77, 0),
+                 (2, 512, 2, 3, 64, 500, 128), (2, 100, 2, 3, 20, 90, 16),
+                 (2, 100, 2, 3, 64, 30, 64), (2, 100, 2, 3, 64, 0, 16),
+                 (2, 48, 1, 2, 16, 52, 8), (2, 48, 1, 2, 16, 200, 8),
+                 (1, 300, 2, 2, 256, 290, 100)]
+
 # (splits, warps, stages) forced through make_plan; splits None: the most
 # the cache's 16-row tiles allow (at most 16)
 FD_FORCED = [(1, 4, 3), (2, 2, 4), (None, 1, 6), (None, 8, 2)]
@@ -497,3 +514,30 @@ def test_flash_decode_split_plans_match_plain(cuda, B, S, Hkv, G, D, valid):
         assert torch.equal(got, fd.flash_decode(q, k, v, vt, plan=plan)), plan
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4,
                                    msg=lambda m: f"{plan}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hkv,G,D,valid,window", FD_WIDE_CASES)
+def test_flash_decode_wide_and_window_match_plain(cuda, B, S, Hkv, G, D,
+                                                  valid, window):
+    """D up to 256 (the wide instantiations) and the sliding window's
+    lower bound, read from valid on the card: the decode plan and every
+    forced plan that fits against the plain version (atol = rtol =
+    1e-4), two calls bit-equal, one launch a call."""
+    q, k, v = (torch.from_numpy(a).to(cuda)
+               for a in _fd_inputs(B, S, Hkv, G, D))
+    vt = torch.tensor([valid], dtype=torch.int32, device=cuda)
+    want = fd.flash_decode_plain(q, k, v, vt, window)
+    plans = _fd_forced(B, S, Hkv, G, D)
+    _build.reset_launch_counts()
+    for plan in plans:
+        got = fd.flash_decode(q, k, v, vt, window=window, plan=plan)
+        assert torch.equal(got, fd.flash_decode(q, k, v, vt, window=window,
+                                                plan=plan)), plan
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m: f"{plan}: {m}")
+    assert _build.LAUNCHES["flash_decode"] == 2 * len(plans)
+    if window:      # the window changes the result where it bounds
+        full = fd.flash_decode_plain(q, k, v, vt)
+        assert torch.equal(want, full) == (valid - window <= 0)
+

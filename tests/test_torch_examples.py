@@ -1,8 +1,10 @@
 """The port's examples run on the CPU at reduced size, each in a fresh
 interpreter where jax and repro cannot be imported:
 ``examples/torch_train_lm.py`` (train, checkpoint, resume) for a dense, an
-MoE and a VLM config, and ``examples/torch_elastic_restart.py`` (4 gloo
-ranks, a checkpoint, 2 survivors resharded onto a data = 2 mesh)."""
+MoE and a VLM config, ``examples/torch_elastic_restart.py`` (4 gloo
+ranks, a checkpoint, 2 survivors resharded onto a data = 2 mesh) and
+``examples/torch_serve_lm.py`` (the dense, MoE, SSM and hybrid families
+served)."""
 import os
 import subprocess
 import sys
@@ -49,3 +51,13 @@ def test_torch_elastic_restart_example():
     assert "dead ranks [2, 3]: new mesh data=2 model=1" in out.stdout
     assert "2 ranks after the restore" in out.stdout
     assert "(optimizer step 4)" in out.stdout
+
+
+def test_torch_serve_lm_example():
+    out = _run([str(ROOT / "examples" / "torch_serve_lm.py"), "--device",
+                "cpu"], timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert [ln.split()[0] for ln in lines] == [
+        "smollm-360m", "qwen3-moe-30b-a3b", "xlstm-1.3b", "zamba2-7b"]
+    assert all("32 tokens/seq" in ln for ln in lines)

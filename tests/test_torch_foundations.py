@@ -35,8 +35,12 @@ def test_config_fields_match_jax(reduced):
 
 
 def test_unported_config_and_topology_raise():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("gemma3-12b")
+    """Every arch of the reference is ported: an unknown arch raises
+    KeyError, as in JAX, naming the archs there are."""
+    for fn in (get_config, jax_get_config):
+        with pytest.raises(KeyError, match="unknown arch 'gemma4-12b'"):
+            fn("gemma4-12b")
+    assert get_config("gemma3_12b").name == "gemma3-12b"
     # every registry skeleton is ported; an unknown name raises as in JAX
     with pytest.raises(KeyError, match="unknown topology"):
         tgraph.get_topology("ntu26")

@@ -419,26 +419,35 @@ def _merge(parts):
     return M, L, A
 
 
-def _fd_split_emulation(q, k, v, valid, plan):
-    """csrc/flash_decode.cu's split-and-merge in torch (tests only): split
-    p of the cluster takes rows [p·span, (p+1)·span) of the first n, span
-    = ceil(n / splits) rounded up to 16; warp w its 16-row tiles w, w + W,
-    ...; 8-lane group j rows j, j + 4, ... of each tile, one online-softmax
-    update per tile on base-2 logits (q prescaled by log2(e)/sqrt(D));
-    then groups merge pairwise (0+1, 2+3, then both), warps and splits in
-    order, and the sum divides by max(l, 1e-20)."""
+def _fd_split_emulation(q, k, v, valid, plan, window=0):
+    """csrc/flash_decode.cu's split-and-merge in torch (tests only): the
+    live rows are [lo, n), n the first ``valid`` (all S when valid <= 0 or
+    past S), lo = max(0, valid − window) under a window (0 without one;
+    every slot masked, as valid <= 0, when lo >= n); split p of the
+    cluster takes rows [lo + p·span, lo + (p+1)·span) of them, span =
+    ceil((n − lo) / splits) rounded up to 16; warp w its 16-row tiles w,
+    w + W, ...; 8-lane group j rows j, j + 4, ... of each tile, one
+    online-softmax update per tile on base-2 logits (q prescaled by
+    log2(e)/sqrt(D)); then groups merge pairwise (0+1, 2+3, then both),
+    warps and splits in order, and the sum divides by max(l, 1e-20)."""
     B, Hkv, G, D = q.shape
     S = k.shape[1]
     n = valid if 1 <= valid < S else S
+    lo, masked = 0, valid <= 0
+    if window > 0:
+        lo = max(0, valid - window)
+        if lo >= n:
+            lo, masked = 0, True
     s2 = torch.einsum("bhgd,bshd->bhgs", q * (np.log2(np.e) / np.sqrt(D)), k)
-    if valid <= 0:
+    if masked:
         s2 = torch.full_like(s2, -1e30)
     empty = (torch.full(q.shape[:3], -torch.inf), torch.zeros(q.shape[:3]),
              torch.zeros(q.shape))
-    span = -(-(-(-n // plan.splits)) // 16) * 16
+    span = -(-(-(-(n - lo) // plan.splits)) // 16) * 16
     splits = []
     for p in range(plan.splits):
-        r0, r1 = min(n, p * span), min(n, p * span + span)
+        r0 = lo + min(n - lo, p * span)
+        r1 = min(n, r0 + span)
         starts = list(range(r0, r1, 16))
         warps = []
         for w in range(plan.warps):
@@ -482,6 +491,71 @@ def test_flash_decode_split_merge_matches_jax(B, S, Hkv, G, D, valid):
         for want in (pallas, oracle):
             np.testing.assert_allclose(got, want, atol=3e-5, rtol=3e-5,
                                        err_msg=str(plan))
+
+
+# (B, S, Hkv, G, D, valid, window): windows inside the cache (gemma3's
+# local layers at a reduced size), a window past valid (no bound), odd D,
+# D 112 and 256
+FD_WINDOW_CASES = [(2, 100, 2, 3, 16, 90, 16), (1, 64, 2, 2, 32, 64, 8),
+                   (2, 100, 2, 3, 20, 37, 50), (1, 80, 1, 1, 112, 70, 33),
+                   (1, 60, 2, 2, 256, 41, 24)]
+
+
+@pytest.mark.parametrize("B,S,Hkv,G,D,valid,window", FD_WINDOW_CASES)
+def test_flash_decode_window_matches_jax_flash_attention(B, S, Hkv, G, D,
+                                                         valid, window):
+    """The plain version and the kernel's split-and-merge (emulated at
+    every forced plan) with a window, against JAX's ``flash_attention``
+    for one query at position valid − 1 under that window (3e-5); with
+    window 0 the plain version equals JAX's ``flash_decode_ref``."""
+    from repro.models.layers.attention import flash_attention
+    q, k, v = _fd_inputs(B, S, Hkv, G, D)
+    want = np.asarray(flash_attention(
+        jnp.asarray(q.reshape(B, 1, Hkv * G, D)), jnp.asarray(k),
+        jnp.asarray(v), causal=True, window=window, q_offset=valid - 1,
+        kv_valid=jnp.asarray(valid))).reshape(B, Hkv, G, D)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    vt = torch.tensor([valid], dtype=torch.int32)
+    for got in (ref.flash_decode_ref(tq, tk, tv, vt, window),
+                fd.flash_decode(tq, tk, tv, vt, window=window)):
+        np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=3e-5)
+    for plan in _fd_forced(B, S, Hkv, G, D):
+        got = _fd_split_emulation(tq, tk, tv, valid, plan, window).numpy()
+        np.testing.assert_allclose(got, want, atol=3e-5, rtol=3e-5,
+                                   err_msg=str(plan))
+    np.testing.assert_allclose(
+        ref.flash_decode_ref(tq, tk, tv, vt, 0).numpy(),
+        np.asarray(jref.flash_decode_ref(q, k, v, valid)), atol=3e-5,
+        rtol=3e-5)
+
+
+def test_flash_decode_window_leaving_no_slot_masks_all():
+    """valid past S with its window's bound past S too: no live slot, so
+    the plain version and the emulation give the mean of v over all S,
+    as valid <= 0 does."""
+    q, k, v = map(torch.from_numpy, _fd_inputs(2, 48, 1, 2, 16))
+    mean = v.mean(1)[:, :, None].expand(2, 1, 2, 16)
+    torch.testing.assert_close(ref.flash_decode_ref(q, k, v, 200, 8), mean)
+    plan = fd.make_plan(2, 48, 1, 2, 16, 2, 1, 2)
+    torch.testing.assert_close(_fd_split_emulation(q, k, v, 200, plan, 8),
+                               mean, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("shape", [(1, 1108, 8, 2, 256), (2, 40, 32, 1, 112),
+                                   (1, 64, 1, 5, 132), (1, 100, 2, 3, 130),
+                                   (4, 1500, 12, 1, 64), (4, 64, 8, 6, 128)])
+def test_decode_plan_takes_the_zoo_shapes(shape):
+    """The wide instantiations (D > 128) take at most 2 query rows a block
+    (the cap itself under 4-byte staging); their plans fit shared memory;
+    D above 256 is refused."""
+    B, S, Hkv, G, D = shape
+    p = fd.decode_plan(*shape)
+    cap = 2 if D > 128 else 4
+    gq = fd.query_rows(G, D)
+    assert gq <= cap and (gq == cap if D % 4 else gq <= G)
+    assert p.smem <= fd.SMEM_MAX and p.grid[1] == Hkv * -(-G // gq)
+    with pytest.raises(ValueError):
+        fd.decode_plan(B, S, Hkv, G, 260)
 
 
 def test_flash_decode_split_emulation_leaves_splits_empty():

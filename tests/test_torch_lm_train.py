@@ -1,11 +1,14 @@
 """LM training on the port against the JAX package on the CPU, at the
 reduced smollm-360m (dense), granite-moe (MoE: the loss carries 0.01 × the
 load-balance aux) and llava (VLM: image embeddings before the text)
-configs: ``make_train_step`` over 3 steps from bridged JAX weights on the
+configs, and the reduced xlstm (SSM), zamba2 (hybrid) and whisper
+(audio) configs (their first step's gradient of every leaf against JAX's
+too): ``make_train_step`` over 3 steps from bridged JAX weights on the
 JAX pipeline's batches, losses within 1e-4 of JAX's and parameters within
 1e-4 × the leaf's max |value| wherever JAX's gradient exceeded 1e-6 at
 every step (AdamW's normalised update carries a rounding difference in a
-vanishing gradient at full size, as PR 21's gcn bound says), at
+vanishing gradient at full size, as the gcn train step's bound does; the new
+families' mask and bound are in their test's docstring), at
 microbatches 1 and 2 and with bf16 gradient compression; the batches of
 the port's pipeline bit-equal to JAX's (the VLM's image embeddings from
 the same stream); and ``launch.train`` running each family a few steps
@@ -80,7 +83,81 @@ def test_lm_train_step_matches_jax(arch, nmb, comp):
     assert int(to.step) == 3
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-7b",
+                                  "whisper-small"])
+def test_ssm_hybrid_audio_train_step_matches_jax(arch):
+    """``make_train_step`` of the SSM, hybrid and audio families from
+    bridged JAX weights on the JAX pipeline's batches (whisper's frames
+    from the same stream), 3 steps.  The first step's gradient of every
+    leaf (zamba2's shared block, applied once per group, included: autograd
+    sums its uses) against ``jax.grad`` of JAX's loss within 5e-4 of the
+    leaf's max |g| (zamba2's float32 rounding reaches 7e-5 of it in either
+    package).  At each step: the gradient norm finite (so is every
+    gradient: the SSD decay mask goes on before its exp), the loss within
+    1e-4 of JAX's, and the parameters within max(1e-4 × the leaf's max
+    |value|, 0.1 × lr) of JAX's wherever JAX's gradient exceeded
+    max(1e-6, 1e-3 × the leaf's max |g|) at every step so far.  zamba2's
+    gradients carry float32 rounding up to 1e-4 of a leaf's max |g| in
+    either package (against a float64 run of the port), so an element at
+    1e-3 of the max carries up to 10% relative rounding, which AdamW's
+    normalised update m / sqrt(v) passes on as up to 0.1 × lr (its
+    dt_bias starts at 0, so its leaf's max |value| is a few lr); an
+    element below that may flip sign, and its first update, lr · sign(g),
+    then moves it by 2 · lr between the two.  Learning rate 3e-4: at the
+    3e-3 of the tests above zamba2's rounding puts 6e-4 between the
+    second steps' losses."""
+    from repro_torch.models import registry
+    cfg, jcfg = get_config(arch, reduced=True), jax_get_config(arch,
+                                                               reduced=True)
+    jp = jreg.init_params(jcfg, jax.random.PRNGKey(1))
+    data = jpipe.make_batches(jcfg, jpipe.DataConfig(2, 16, seed=5))
+    batches = [next(data) for _ in range(3)]
+    lr = 3e-4
+    kw = dict(learning_rate=lr, warmup_steps=3, total_steps=30)
+    jstep = jax.jit(jax_make_train_step(jcfg, JTrainConfig(**kw)))
+    jgrad = jax.jit(jax.grad(lambda p, b: jreg.loss_fn(p, b, jcfg)[0]))
+    tstep = make_train_step(cfg, TrainConfig(**kw))
+    jpp, jo = jp, jadamw.init(jp)
+    tpp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    to = adamw.init(tpp)
+    small = jax.tree.map(lambda p: np.zeros(p.shape, bool), jp)
+    for i, b in enumerate(batches):
+        jb = jax.tree.map(jnp.asarray, b)
+        tb = {k: torch.as_tensor(v) for k, v in b.items()}
+        g = jgrad(jpp, jb)
+        if i == 0:
+            paths = tree.tree_paths(tpp)
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for _, t in paths]
+            tp = tree.tree_unflatten(tpp, leaves)
+            tg = torch.autograd.grad(registry.loss_fn(tp, tb, cfg)[0],
+                                     leaves)
+            for (n, _), t, j in zip(paths, tg, jax.tree.leaves(g)):
+                j = np.asarray(j)
+                np.testing.assert_allclose(
+                    t.numpy(), j, rtol=0, atol=5e-4 * np.abs(j).max(),
+                    err_msg=n)
+            if cfg.family == "hybrid":
+                assert any(n.startswith("shared/") for n, _ in paths)
+        small = jax.tree.map(
+            lambda s, x: s | (np.abs(np.asarray(x)) <= max(
+                1e-6, 1e-3 * float(np.abs(np.asarray(x)).max()))), small, g)
+        jpp, jo, jm = jstep(jpp, jo, jb)
+        tpp, to, tm = tstep(tpp, to, tb)
+        assert bool(torch.isfinite(tm["grad_norm"])), i
+        assert abs(float(tm["loss"]) - float(jm["loss"])) <= 1e-4, i
+        assert float(tm["aux"]) == float(jm["aux"]) == 0.0
+        for (n, t), j, sm in zip(tree.tree_paths(tpp), jax.tree.leaves(jpp),
+                                 jax.tree.leaves(small)):
+            j = np.asarray(j)
+            np.testing.assert_allclose(
+                t.numpy()[~sm], j[~sm], rtol=0,
+                atol=max(1e-4 * np.abs(j).max(), 0.1 * lr),
+                err_msg=f"step {i}: {n}")
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["qwen3-moe-30b-a3b",
+                                          "whisper-small"])
 def test_lm_batches_bit_equal_to_jax(arch):
     cfg, jcfg = get_config(arch, reduced=True), jax_get_config(arch,
                                                                reduced=True)
@@ -99,6 +176,8 @@ def test_lm_batches_bit_equal_to_jax(arch):
         assert tb["tokens"].shape == (2, 16)
         assert tb["image_embeds"].shape == (2, cfg.num_image_tokens,
                                             cfg.d_model)
+    if cfg.family == "audio":
+        assert tb["frames"].shape == (2, cfg.encoder_frames, cfg.d_model)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -351,6 +351,55 @@ def test_lm_families_training_and_distribution_run_without_jax(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+# the SSM, hybrid and audio families and gemma3's local:global stack run
+# on the CPU where jax and repro cannot be imported: generate on both
+# backends (equal tokens), a train step, a few launch.train steps with the
+# serve CLI, and the port's serve example
+_RUN_ZOO = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+import torch
+from repro_torch.common.config import TrainConfig
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import DataConfig, make_batches
+from repro_torch.launch import serve, train
+from repro_torch.models import registry
+from repro_torch.optim import adamw
+from repro_torch.train.steps import make_train_step
+for arch in ("xlstm-1.3b", "zamba2-7b", "whisper-small", "gemma3-12b"):
+    cfg = get_config(arch, reduced=True)
+    p = registry.init_params(cfg, seed=0, device="cpu")
+    toks = [serve.generate(arch, batch=2, prompt_len=4, gen=8, backend=b,
+                           device="cpu", params=p)["tokens"]
+            for b in ("cuda", "reference")]
+    assert toks[0].shape == (2, 12) and (toks[0] == toks[1]).all(), arch
+    b = {k: torch.as_tensor(v) for k, v in next(make_batches(
+        cfg, DataConfig(2, 16))).items()}
+    p2, _, m = make_train_step(cfg, TrainConfig())(p, adamw.init(p), b)
+    assert np.isfinite(float(m["loss"])), arch
+train.main(["--arch", "whisper-small", "--reduced", "--steps", "2",
+            "--batch", "2", "--seq", "16", "--device", "cpu", "--ckpt-dir",
+            sys.argv[1]])
+serve.main(["lm", "--arch", "zamba2-7b", "--reduced", "--batch", "2",
+            "--prompt-len", "3", "--gen", "3", "--device", "cpu",
+            "--backend", "both"])
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m in ("jax", "repro") or m.startswith(("jax.", "repro."))))
+print(bad)
+"""
+
+
+def test_ssm_hybrid_audio_and_local_global_run_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _RUN_ZOO, str(tmp_path)],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "token agreement: 100.0%" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 # the card's kernel tests are collected where there is no JAX: the module
 # imports in an interpreter where jax and repro cannot be imported
 _IMPORT_CARD_TESTS = r"""
@@ -385,7 +434,8 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
     + [Path("chip_smoke.py"), Path("benchmarks/torch_paper.py"),
        Path("tests/torch_dist_workers.py"),
        Path("examples/torch_train_lm.py"),
-       Path("examples/torch_elastic_restart.py")]), ids=str)
+       Path("examples/torch_elastic_restart.py"),
+       Path("examples/torch_serve_lm.py")]), ids=str)
 def test_source_names_no_jax_or_repro_import(path):
     assert not _FORBIDDEN.findall((ROOT / path).read_text())
 

@@ -489,8 +489,21 @@ def test_train_loop_trains_and_resumes(tmp_path):
 
 
 def test_train_loop_refuses_lm_family():
-    """The dense, MoE and VLM families train now
-    (``tests/test_torch_lm_train.py``); an LM family the port lacks (the
-    SSM family's xlstm) is refused by name."""
-    with pytest.raises(KeyError, match="ROADMAP"):
-        train_loop("xlstm-1.3b", TrainConfig(total_steps=1), device="cpu")
+    """Every LM family trains now (``tests/test_torch_lm_train.py``; the
+    data-parallel step is the same for each); what stays refused is a
+    model axis above 1 (tensor or expert parallelism), named by its
+    ROADMAP item."""
+    from repro_torch.distributed import sharding
+    cfg = get_config("xlstm-1.3b", reduced=True)
+    params = registry.init_params(cfg, seed=0, device="cpu")
+
+    class Mesh:
+        shape = {"data": 1, "model": 2}
+        axis_names = ("data", "model")
+    spec = sharding.NamedSharding(Mesh(), sharding.PartitionSpec())
+    step = make_train_step(cfg, TrainConfig(total_steps=1),
+                           grad_shardings=tree.tree_map(lambda _: spec,
+                                                        params))
+    toks = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        step(params, adamw.init(params), {"tokens": toks, "labels": toks})
