@@ -290,6 +290,28 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                zamba2-7b with the depth cut to 25 of 81 layers (batch 2 x
                256) and whisper-small (batch 2 x 128): step p50, tokens/s,
                peak memory, finite losses, no kernel launch.
+  18. dryrun — ``launch.dryrun.run_cell`` on one static h100x8 cell per
+               arch (``DRYRUN_CELLS``, meta tensors, in six spawned
+               processes), then ``smollm-360m__decode_32k`` (batch 16, a
+               32 768-slot bf16 cache, ``cuda``, position S - 1) and
+               ``agcn-2s__gcn_infer`` (256 clips, ``make_prefill_step``)
+               built for real at their per-card h100x8 shapes: each step's
+               launch count, its ``launch.op_cost`` FLOPs within 1% of the
+               static count (the ops that differ named), its time on the
+               clock, its device busy time (``torch.profiler``) and the
+               measured roofline fraction (static ``ideal_s`` over the
+               device busy time) on the H100's constants; then the
+               served clip step (pruned ``cuda`` plans, 256 clips) with
+               its own count.
+The LM phase (13) also serves smollm-360m on bf16 caches at a 240-token
+prompt (``LM_BF16_PROMPT``, a 256-slot cache): ``cuda`` against
+``reference`` on bf16 caches (teacher-forced, within ``LM_BF16_SHARE`` of
+the gap bf16 opens over the prompt between the reference on bf16 caches
+and the float32 forward), the gap to a float32-cache ``cuda`` run of the
+same prompt printed, and the bf16 flash_decode held to its plain version on that
+run's inputs and at ``FD_BF16_CASES`` within ``flash_decode.bf16_bound``
+(half the gap the bf16 rounding of p opens, at most 1e-3 on the served
+steps and 3e-4 at the random shapes).
 
 Prints the kernels JSON line, the nvidia-smi line and, last, the result
 line.  Any failed phase exits non-zero.  Per-case kernel numbers go to
@@ -308,15 +330,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+sys.path.insert(0, str(SRC))
 
-# NVIDIA H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor
-# cores, and dense TF32 tensor-core rate.  graph_sconv and cavity_tconv
-# run on the tensor cores (TF32, 3-pass split), so their bound takes the
-# TF32 rate, with the float32 bound beside it and 3 x operations / TF32
-# rate as the split's own floor; the other kernels use float32 FMAs.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-TF32_FLOP_PER_S = 495e12
+# The card's rates (launch.mesh, from NVIDIA's H100 SXM data sheet): HBM3,
+# float32 outside the tensor cores, and dense TF32 on them.  graph_sconv
+# and cavity_tconv run on the tensor cores (TF32, 3-pass split), so their
+# bound takes the TF32 rate, with the float32 bound beside it and 3 x
+# operations / TF32 rate as the split's own floor; the other kernels use
+# float32 FMAs.  Each kernel's (flops, bytes) come from its work function
+# in repro_torch.kernels (the one launch.op_cost counts), given this
+# run's data where the work depends on it.
+from repro_torch.launch.mesh import (HBM_BW as HBM_BYTES_PER_S,  # noqa: E402
+                                     PEAK_FLOPS_F32 as F32_FLOP_PER_S,
+                                     PEAK_FLOPS_TF32 as TF32_FLOP_PER_S)
 TENSOR_CORE_KERNELS = ("graph_sconv", "cavity_tconv", "graph_sconv_csr",
                        "cavity_tconv_step")
 
@@ -335,7 +361,7 @@ KERNEL_INFO = {   # name -> (CUDA source, TPU kernel it replaces)
                    "src/repro/kernels/rfc_pack.py:67"),
     "rfc_decode": ("src/repro_torch/csrc/rfc_pack.cu",
                    "src/repro/kernels/rfc_pack.py:87"),
-    "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+    "flash_decode": ("src/repro_torch/csrc/flash_decode.cuh",
                      "src/repro/kernels/flash_decode.py:72"),
 }
 ARCH, BATCH, CLIPS, SEED = "agcn-2s", 8, 32, 0
@@ -361,11 +387,39 @@ _CLOCK = {}                        # the spin kernel's cycles per ms
 HOST_GAPS = set()                  # timings whose host time could not be
                                    # hidden behind a spin
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "smollm-360m", 4, 496, 16
+LM_BF16_PROMPT = 240               # the bf16-cache runs' prompt (a 256-slot
+                                   # cache), shorter to fit the run's time
 LM_EARLY = 16                      # an early serve step: valid = 17
+LM_BF16_SHARE = 0.75               # bf16 caches: the backends' share of
+                                   # bf16's own gap (lm_phase)
 # flash_decode cases off the served run: (label, B, S, Hkv, G, D, valid)
 FD_CASES = [("long context", 8, 32768, 5, 3, 64, 30000),
             ("danube ring", 4, 4096, 8, 4, 80, 4096),
             ("small odd", 2, 48, 1, 3, 20, 1)]
+# flash_decode on a bf16 cache (float32 q), off the served bf16 run:
+# (label, B, S, Hkv, G, D, valid, window): smollm's 32 768-slot context,
+# gemma3 at D = 256 windowed and global, whisper's cross-attention
+FD_BF16_CASES = [("bf16 long context", 8, 32768, 5, 3, 64, 32768, 0),
+                 ("bf16 gemma3 local", 1, 1108, 8, 2, 256, 1101, 1024),
+                 ("bf16 gemma3 global", 1, 1108, 8, 2, 256, 1101, 0),
+                 ("bf16 whisper cross", 4, 1500, 12, 1, 64, 1500, 0)]
+# the dryrun phase: one static cell per arch (launch.dryrun.run_cell on
+# h100x8), and two cells run on the card at their per-card h100x8 shapes
+# (arch, shape, the decode backend)
+DRYRUN_CELLS = (("h2o-danube-1.8b", "decode_32k"),
+                ("gemma3-12b", "decode_32k"),
+                ("internlm2-20b", "decode_32k"),
+                ("smollm-360m", "decode_32k"),
+                ("whisper-small", "decode_32k"),
+                ("llava-next-mistral-7b", "decode_32k"),
+                ("qwen3-moe-30b-a3b", "decode_32k"),
+                ("granite-moe-3b-a800m", "decode_32k"),
+                ("xlstm-1.3b", "decode_32k"),
+                ("zamba2-7b", "decode_32k"),
+                ("agcn-2s", "gcn_infer"))
+DRYRUN_WORKERS = 6
+DRYRUN_REAL = (("smollm-360m", "decode_32k", "cuda"),
+               ("agcn-2s", "gcn_infer", "reference"))
 
 # the moe_vlm phase: decode at full width (qwen3 cut in depth: 48 float32
 # layers are ~122 GB), llava's image prefill, then a text decode
@@ -614,24 +668,22 @@ def _dense_cavity(wp, taps, ks):
     return w_dense
 
 
-def measure_case(name, args, kwargs, modules):
+def measure_case(name, args, kwargs, modules, served=True):
     """Kernel vs plain on one captured input: error, pass/fail, times and
-    the bound on this card."""
+    the bound on this card.  ``served``: the input comes from a served
+    model's step (the cap of a bf16 flash_decode's bound)."""
     import torch
     import torch.nn.functional as F
     gs, ct, rp, ws = modules
     from repro_torch.kernels import flash_decode as fd
-    library, as_kernel, composite, extra = None, None, None, {}
+    library, as_kernel, composite, extra, tol = None, None, None, {}, None
     exact = len(args) if name.startswith("rfc") else 0   # bit-equal outputs
     if name == "graph_sconv":
         x, g, w = args
         kern = lambda: gs.graph_sconv_cuda(x, g, w)
         plain = lambda: gs.graph_sconv_plain(x, g, w)
         library = lambda: torch.einsum("rvc,kwv,kco->rwo", x, g, w)
-        R, V, Cin = x.shape
-        K, _, Cout = w.shape
-        nbytes = 4 * (x.numel() + g.numel() + w.numel() + R * V * Cout)
-        flops = 2 * R * K * (V * V * Cin + V * Cin * Cout)
+        flops, nbytes = gs.graph_sconv_work(*x.shape, w.shape[2], w.shape[0])
     elif name == "cavity_tconv":
         x, wp, taps, inv, nf = args
         ks, stride = kwargs["kernel_size"], kwargs["stride"]
@@ -653,9 +705,8 @@ def measure_case(name, args, kwargs, modules):
         live = inv[:nf]
         slots = (wp != 0).any(dim=2).permute(0, 2, 1).reshape(-1, wp.shape[1])
         pairs = int(slots[live].sum())
-        nbytes = 4 * (x.numel() + wp.numel() + taps.numel()
-                      + N * T_out * V * nf) + 8 * inv.numel()
-        flops = 2 * N * V * T_out * C * pairs
+        flops, nbytes = ct.cavity_tconv_work(N, T, V, C, *wp.shape[:2],
+                                             wp.shape[3], nf, T_out, pairs)
     elif name == "cavity_tconv_step":
         ring, head, wp, taps, slot_col, bias = args
         kern = lambda: ct.cavity_tconv_step_ring_cuda(*args)
@@ -679,9 +730,8 @@ def measure_case(name, args, kwargs, modules):
                      & (slot_col.reshape(L, 1, Fg) >= 0)).sum())
         # the frames some group reads (the union of the kept taps)
         frames = len(set(taps.flatten().tolist()))
-        nbytes = 4 * (S * V * frames * C + wp.numel() + taps.numel()
-                      + slot_col.numel() + cout + S + S * V * cout)
-        flops = 2 * S * V * C * pairs
+        flops, nbytes = ct.cavity_tconv_step_work(S, K, V, C, L, n_keep, Fg,
+                                                  cout, pairs, frames)
     elif name == "graph_sconv_csr":
         x, idx, val, w = args
         kern = lambda: gs.graph_sconv_csr_cuda(x, idx, val, w)
@@ -693,9 +743,8 @@ def measure_case(name, args, kwargs, modules):
             2, idx.long(), val)
         library = lambda: torch.einsum("rvc,kwv,kco->rwo", x, g, w)
         nnz = int((val != 0).sum())            # the entries this graph has
-        nbytes = 4 * (x.numel() + idx.numel() + val.numel() + w.numel()
-                      + R * V * Cout)
-        flops = 2 * R * (nnz * Cin + K * V * Cin * Cout)
+        flops, nbytes = gs.graph_sconv_csr_work(R, V, Cin, Cout, K,
+                                                idx.shape[-1], nnz)
     elif name == "windowed_similarity":
         th, ph, valid = args[0], args[1], args[-1]
         S, K, V, Ce = th.shape
@@ -708,18 +757,15 @@ def measure_case(name, args, kwargs, modules):
             n_has, n_e = int(has.sum()), int((has & inv).sum())
             # the ring rows not overwritten, the embeddings written, the
             # flags; the new rings and the graph
-            nbytes = (4 * 2 * V * Ce * ((S * K - n_has) + n_e) + 6 * S
-                      + 4 * (th.numel() + ph.numel() + S * V * V))
+            flops, nbytes = ws.windowed_similarity_work(
+                S, K, V, Ce, valid, step=True, n_has=n_has, n_e=n_e)
             extra["form"] = "step"
         else:
             kern = lambda: ws.windowed_similarity_cuda(th, ph, valid)
             plain = lambda: ws.windowed_similarity_plain(th, ph, valid)
             new_th, new_ph = th, ph
-            nbytes = 4 * (th.numel() + ph.numel() + S * V * V)
+            flops, nbytes = ws.windowed_similarity_work(S, K, V, Ce, valid)
             extra["form"] = "bare"
-        # window sums, the live columns' dots, then scale, max, exp, sum,
-        # divide
-        flops = 2 * S * K * V * Ce + 2 * S * V * valid * Ce + 5 * S * V * V
         # the yardstick: four PyTorch calls on the (new) rings, stacked
         # here outside the timing (no one call computes this function)
         rings = torch.stack((new_th, new_ph))
@@ -738,26 +784,37 @@ def measure_case(name, args, kwargs, modules):
         plain = lambda: fd.flash_decode_plain(q, k, v, valid, window)
         B, Hkv, G, D = q.shape
         S = k.shape[1]
-        slots = torch.arange(S, device=k.device)
-        live = slots < valid
-        if window:
-            live &= slots >= valid - window
-        live = live.view(1, 1, 1, S)
-        qh = q.reshape(B, Hkv * G, 1, D)
-        kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
-        library = lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=live, enable_gqa=True).reshape(q.shape)
+        if k.dtype == torch.float32:
+            slots = torch.arange(S, device=k.device)
+            live = slots < valid
+            if window:
+                live &= slots >= valid - window
+            live = live.view(1, 1, 1, S)
+            qh = q.reshape(B, Hkv * G, 1, D)
+            kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+            library = lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=live, enable_gqa=True).reshape(q.shape)
+        else:
+            # a bf16 cache with float32 q: no one PyTorch call computes
+            # this function; the bound is a share of the gap the bf16
+            # rounding of p opens, which a kernel skipping it would read
+            gap = fd.bf16_rounding_gap(q, k, v, valid, window)
+            tol = fd.bf16_bound(gap, fd.BF16_CAP_SERVED if served
+                                else fd.BF16_CAP_RANDOM)
         # the rows the softmax needs (the kernel reads no row past valid,
         # nor below the window's bound)
         n = int(valid.item())
         lo = max(0, n - window) if window else 0
         n = min(n, S) if n >= 1 else S
         n = n - lo if lo < n else S
-        nbytes = 4 * (2 * q.numel() + 2 * B * n * Hkv * D + 1)
-        flops = B * Hkv * G * n * (4 * D + 5)
+        flops, nbytes = fd.flash_decode_work(B, S, Hkv, G, D,
+                                             k.element_size(), rows=n)
         p = fd.decode_plan(B, S, Hkv, G, D, torch.cuda.get_device_properties(
             q.device).multi_processor_count)
-        extra = {"plan": [p.splits, p.warps, p.stages], "window": window}
+        extra = {"plan": [p.splits, p.warps, p.stages], "window": window,
+                 "cache": str(k.dtype).replace("torch.", "")}
+        if tol is not None:
+            extra.update(bf16_bound=tol, bf16_gap=gap)
     elif name == "rfc_encode":
         t, res, live, keep, old = args
         call = lambda a: rp.rfc_encode_cuda(*a)
@@ -775,11 +832,9 @@ def measure_case(name, args, kwargs, modules):
         if live is not None:
             need &= live.repeat(rows // live.numel())
         n_need = int(need.sum())
-        packed = 4 + 2 / 16                 # bytes of values and bits
-        nbytes = (4 * C * n_need * (1 + (res is not None)) + n_old * C * packed
-                  + rows * C * packed
-                  + sum(m.numel() for m in (live, keep) if m is not None))
-        flops = n_need * C * (1 + (res is not None))   # add, max
+        flops, nbytes = rp.rfc_encode_work(
+            rows, C, res is not None, n_need, n_old,
+            sum(m.numel() for m in (live, keep) if m is not None))
         in_bytes = sum(a.numel() * a.element_size() for a in
                        (t, res, live, keep, *(old or {}).values())
                        if a is not None)
@@ -788,7 +843,7 @@ def measure_case(name, args, kwargs, modules):
         call = lambda a: rp.rfc_decode_cuda(*a)
         kern = lambda: call(args)
         plain = lambda: rp.rfc_decode_plain(values, bits)
-        nbytes, flops = (4 + 2 / 16 + 4) * values.numel(), values.numel()
+        flops, nbytes = rp.rfc_decode_work(values.numel())
         in_bytes = 4 * values.numel() + 2 * bits.numel()
 
     got, want = kern(), plain()
@@ -798,7 +853,8 @@ def measure_case(name, args, kwargs, modules):
     err = max(float((a - b).abs().max()) if a.numel() else 0.0
               for a, b in zip(got, want))
     ok = all(torch.equal(a, b) if i < exact else
-             torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+             torch.allclose(a, b, atol=1e-4, rtol=1e-4) if tol is None else
+             float((a - b).abs().max()) <= tol
              for i, (a, b) in enumerate(zip(got, want)))
     if library is not None:
         ref = as_kernel() if as_kernel is not None else library()
@@ -861,9 +917,11 @@ def summarize(cs):
     return out
 
 
-def profile_steps(label, run, steps: int = 2) -> None:
-    """Print the device's busy share and its time by kernel name over
-    ``steps`` calls of ``run``, from ``torch.profiler``."""
+def device_rows(run, steps: int = 2):
+    """(wall ms, rows) per call over ``steps`` calls of ``run`` under
+    ``torch.profiler``, after one warm-up call: rows of (device ms, count,
+    name) per kernel or copy, device-side events only (operator rows
+    repeat their kernels); no rows when the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -875,13 +933,20 @@ def profile_steps(label, run, steps: int = 2) -> None:
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    rows = []   # device-side events only: operator rows repeat their kernels
+    rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         dev_us = getattr(e, "self_device_time_total", 0) or 0
         if dev_us > 0:
             rows.append((dev_us / 1e3 / steps, e.count / steps, e.key))
+    return wall_ms, rows
+
+
+def profile_steps(label, run, steps: int = 2) -> None:
+    """Print the device's busy share and its time by kernel name over
+    ``steps`` calls of ``run``, from ``torch.profiler``."""
+    wall_ms, rows = device_rows(run, steps)
     if not rows:
         print(f"profile {label}: the profiler recorded no device time "
               f"(not measured)")
@@ -1128,36 +1193,50 @@ def record_decode(steps, per_step):
     return restore, got
 
 
-def hold_flash_decode(path, calls, cases, summary, failures, modules):
-    """Hold flash_decode against its plain version on recorded calls and
-    time them; one ``kernel flash_decode`` line."""
-    cs = [measure_case("flash_decode", a, k, modules) for a, k in calls]
+def hold_flash_decode(path, calls, cases, summary, failures, modules,
+                      served=True):
+    """Hold flash_decode against its plain version on recorded calls
+    (``served``: a served model's, else random inputs) and time them; one
+    ``kernel flash_decode`` line."""
+    cs = [measure_case("flash_decode", a, k, modules, served)
+          for a, k in calls]
     cases[f"{path}/flash_decode"] = cs
     bad = [i for i, c in enumerate(cs) if not c["ok"]]
     if bad:
         failures.append(f"{path} flash_decode: kernel disagrees with its "
                         f"plain version on cases {bad}")
     sm = summary[(path, "flash_decode")] = summarize(cs)
+    bf16 = ("; bf16 cache, bound " + ", ".join(f"{c['bf16_bound']:.3g}"
+                                              for c in cs)
+            + " (the float32 rules' gap " + ", ".join(
+                f"{c['bf16_gap']:.3g}" for c in cs) + ")"
+            if "bf16_bound" in cs[0] else "")
+    lib = (f", sdpa {sm['library_ms']:.4f}" if sm["library_ms"] is not None
+           else "")
     print(f"kernel flash_decode [{path}]: {'ok' if not bad else 'FAIL'} "
           f"on {len(cs)} inputs {cs[0]['shape']}, valid "
           f"{int(calls[0][0][3].item())}, window "
           f"{sorted({c['window'] for c in cs})}, splits/warps/stages "
           f"{'/'.join(map(str, cs[0]['plan']))}, max_abs_err "
-          f"{sm['max_abs_err']:.3g}; {sm['ms']:.4f} ms, "
-          f"{sm['ms'] / len(cs) * 1e3:.2f} us a launch, "
+          f"{sm['max_abs_err']:.3g}{bf16}; {sm['ms']:.4f} ms, "
+          f"{sm['ms'] / len(cs) * 1e3:.2f} us a launch against "
+          f"{sm['bound_ms'] / len(cs) * 1e3:.2f} us at the byte bound, "
           f"{sm['bound_ms'] / sm['ms'] * 100:.1f}% of the bound (plain "
-          f"{sm['plain_ms']:.4f}, sdpa {sm['library_ms']:.4f}, bound "
-          f"{sm['bound_ms']:.4f} ms by {sm['bound_by']})")
+          f"{sm['plain_ms']:.4f}{lib}, bound {sm['bound_ms']:.4f} ms by "
+          f"{sm['bound_by']})")
 
 
-def teacher_forced(label, cfg, params, res, ref, prompt, failures, dev):
+def teacher_forced(label, cfg, params, res, ref, prompt, failures, dev,
+                   cache_dtype=None, tol=None):
     """The ``reference`` backend teacher-forced on the ``cuda`` run's
     tokens: per-step logits within atol=rtol=1e-3, and a greedy token the
     reference would not pick only at its top-2 margin <= 1e-3.  While the
     free-running reference picked the tokens it was fed, its own logits
     serve; after a divergence it is run again on the cuda tokens.
     Returns (worst |diff|, the flips, the free-running token agreement,
-    the cuda tokens on the device)."""
+    the cuda tokens on the device).  ``cache_dtype`` is the caches'
+    (default float32); ``tol``, when given, replaces the 1e-3 with a
+    bound on max |diff| (rtol 0) and on the flips' margins."""
     import numpy as np
     import torch
     from repro_torch.models import registry
@@ -1171,13 +1250,15 @@ def teacher_forced(label, cfg, params, res, ref, prompt, failures, dev):
         forced = ref["logits"]
     else:
         step = make_serve_step(cfg, "reference")
-        cache = registry.init_cache(cfg, B, n, device=dev)
+        cache = registry.init_cache(cfg, B, n, device=dev,
+                                    dtype=cache_dtype or torch.float32)
         forced = torch.stack([step(params, cache, {
             "tokens": tt[:, t:t + 1],
             "pos": torch.full((), t, dtype=torch.int32, device=dev)})[2]
             for t in range(steps)])
     worst = float((res["logits"] - forced).abs().max())
-    close = torch.isclose(res["logits"], forced, atol=1e-3, rtol=1e-3)
+    atol, rtol = (1e-3, 1e-3) if tol is None else (tol, 0.0)
+    close = torch.isclose(res["logits"], forced, atol=atol, rtol=rtol)
     if not bool(close.all()):
         bad = torch.nonzero(~close.flatten(1).all(1)).flatten().tolist()
         failures.append(f"{label}: logits of steps {bad[:10]} differ from "
@@ -1188,11 +1269,11 @@ def teacher_forced(label, cfg, params, res, ref, prompt, failures, dev):
               != tt[:, prompt:].T).cpu().numpy()
     flips = [(prompt - 1 + t, b, float(margin[t, b]))
              for t, b in zip(*np.nonzero(differ))]
-    hard = [f for f in flips if f[2] > 1e-3]
+    hard = [f for f in flips if f[2] > atol]
     if hard:
         failures.append(f"{label}: greedy tokens differ from the "
-                        f"reference's where its top-2 margin exceeds 1e-3: "
-                        f"{hard}")
+                        f"reference's where its top-2 margin exceeds "
+                        f"{atol:.3g}: {hard}")
     return worst, flips, agree, tt
 
 
@@ -1289,6 +1370,10 @@ def lm_phase(dev, failures, cases, summary, check_launches, modules):
                                            device=dev)), {})])
         del q, k, v
 
+    del res, ref
+    bf16_runs(cfg, params, gen, failures, cases, summary, check_launches,
+              modules, dev)
+
     # one decode step past the prompt may not sync with the host
     fstep = make_serve_step(cfg, "cuda")
     cache = registry.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
@@ -1318,6 +1403,90 @@ def lm_phase(dev, failures, cases, summary, check_launches, modules):
         cache["pos"].fill_(p0)
         fstep(params, cache, {"tokens": batch["tokens"], "pos": at})
     profile_steps("lm decode step", decode_step)
+
+
+def bf16_runs(cfg, params, gen, failures, cases, summary, check_launches,
+              modules, dev):
+    """The lm phase on bf16 caches (the reference's default), at a
+    ``LM_BF16_PROMPT``-token prompt: the served run on ``cuda``, the
+    teacher-forced ``reference`` on bf16 caches, the gap to a float32-cache
+    ``cuda`` run of the same prompt printed; flash_decode held on the bf16
+    run's inputs and at ``FD_BF16_CASES``.  The two backends round the
+    cache and the probabilities to bf16 at the same points, but a float32
+    sum in another order flips a bf16 rounding now and then, and 32 layers
+    amplify it (0.0335 read where 1e-3 was asked): the backends are held
+    to ``LM_BF16_SHARE`` of the gap bf16 itself opens over the prompt
+    between the reference on bf16 caches and the float32 forward of the
+    same tokens (the rule tests/test_torch_lm.py holds against JAX)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decoder
+
+    bf16 = torch.bfloat16
+    P = LM_BF16_PROMPT
+    steps = P + LM_GEN - 1
+    first, last = P, steps - 1
+
+    def hold(path, calls, served=True):
+        hold_flash_decode(path, calls, cases, summary, failures, modules,
+                          served)
+
+    def serve(backend, dtype):
+        return generate(LM_ARCH, reduced=False, batch=LM_BATCH,
+                        prompt_len=P, gen=LM_GEN, seed=SEED, backend=backend,
+                        device=dev, params=params, keep_logits=True,
+                        cache_dtype=dtype)
+
+    restore, got16 = record_decode((first, last), cfg.num_layers)
+    try:
+        res16, counts = counted(lambda: serve("cuda", bf16))
+    finally:
+        restore()
+    check_launches("lm bf16", counts, {"flash_decode": cfg.num_layers},
+                   steps)
+    ref16, counts = counted(lambda: serve("reference", bf16))
+    check_launches("lm bf16 reference", counts, {}, steps)
+    res32 = serve("cuda", torch.float32)
+    tt = torch.from_numpy(res16["tokens"]).to(dev)
+    with torch.inference_mode():
+        full, _, _ = decoder.forward(params, tt[:, :P - 1], cfg)
+    own = float((ref16["logits"][:P - 1] - full.transpose(0, 1))
+                .abs().max())
+    del full
+    bound16 = LM_BF16_SHARE * own + 1e-4
+    worst16, flips16, agree16, _ = teacher_forced(
+        "lm bf16", cfg, params, res16, ref16, P, failures, dev,
+        cache_dtype=bf16, tol=bound16)
+    del ref16
+    f32_gap = float((res16["logits"][:P - 1]
+                     - res32["logits"][:P - 1]).abs().max())
+    same = float(np.mean(res16["tokens"][:, P:] == res32["tokens"][:, P:]))
+    if not bool(torch.isfinite(res16["logits"]).all()):
+        failures.append("lm bf16: logits not finite")
+    print(f"lm bf16: backend=cuda {res16['tokens_per_s']:.2f} tokens/s, "
+          f"step p50 {res16['latency_ms_p50']:.3f} ms (bf16 caches, "
+          f"{LM_BATCH} x {res16['steps']} steps, prompt {P}); float32 "
+          f"caches at the same prompt {res32['latency_ms_p50']:.3f} ms; "
+          f"teacher-forced reference (bf16 caches) vs cuda logits "
+          f"{worst16:.3g} (bound {bound16:.3g}: {LM_BF16_SHARE} x the "
+          f"reference's bf16 caches against the float32 forward over the "
+          f"prompt, {own:.3g}, + 1e-4), greedy flips {flips16}, "
+          f"free-running agreement {agree16 * 100:.1f}%; against the "
+          f"float32-cache cuda run: prompt logits {f32_gap:.3g}, generated "
+          f"tokens equal {same * 100:.1f}%")
+    del res16, res32
+    hold("lm bf16 first decode step", got16[first])
+    hold("lm bf16 last step", got16[last])
+    del got16
+    for label, B, S, Hkv, G, D, valid, window in FD_BF16_CASES:
+        q = torch.randn(B, Hkv, G, D, generator=gen, device=dev)
+        k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(bf16)
+                for _ in range(2))
+        hold(label, [((q, k, v, torch.full((1,), valid, dtype=torch.int32,
+                                           device=dev)), {"window": window})],
+             served=False)
+        del q, k, v
 
 
 def _max_rel(got, want) -> float:
@@ -2202,6 +2371,176 @@ def zoo_phase(dev, failures, cases, summary, check_launches, modules):
     print(f"zoo: {smi}; phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+HOST_NOTE = " (host time included: the queueing outlasted the spin)"
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.3f} ms"
+
+
+def step_device_ms(run, label, failures):
+    """One step's time on the clock (``cuda_ms``, which may hold host time:
+    ``label`` then goes into ``HOST_GAPS``) and its device busy time from
+    ``torch.profiler`` (the sum of its kernels and copies, the device time
+    a roofline share reads), or None when the profiler saw no device time
+    and the clock held host time, a failure; and where the device time
+    came from."""
+    ms = cuda_ms(run, reps=3, inner=3, label=label)
+    _, rows = device_rows(run, steps=3)
+    if rows:
+        return ms, sum(r[0] for r in rows), "torch.profiler"
+    if label not in HOST_GAPS:
+        return ms, ms, "the clock"
+    failures.append(f"{label}: no device time (the profiler saw none and "
+                    f"the clock held host time)")
+    return ms, None, "not measured"
+
+
+def dryrun_phase(dev, failures, check_launches):
+    """Phase 18: ``launch.dryrun.run_cell`` on one static h100x8 cell per
+    arch (meta tensors, no card), then two cells built for real at their
+    per-card h100x8 shapes: ``smollm-360m__decode_32k`` (batch 16, a
+    32 768-slot bf16 cache, the ``cuda`` backend, position S − 1) and
+    ``agcn-2s__gcn_infer`` (256 clips, the step the dry run counts:
+    ``make_prefill_step``, ``reference``).  Each real step is counted by
+    ``launch.op_cost`` and its FLOPs held to the static count within 1%
+    (naming the ops that differ): on smollm the static count runs
+    ``reference`` and the card ``cuda``, so this holds flash_decode's work
+    function to the dots it replaces.  Prints each real step's time on
+    the clock (``cuda_ms``) and its device busy time (``torch.profiler``),
+    the static ``ideal_s`` and the measured fraction ideal / device busy,
+    on the H100's constants (``launch.mesh``); then the
+    served clip step (``make_gcn_infer_step`` on ``cuda``, the pruned
+    plans) at the same 256 clips with its own counter reading, printed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.agcn import engine
+    from repro_torch.core.agcn.model import bone_stream, init_params
+    from repro_torch.core.pruning.plan import plan_from_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_F32,
+                                         make_production_mesh)
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.train.steps import make_gcn_infer_step
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "chip_smoke_dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    # the static cells are host work alone: six spawned processes share
+    # them (spawned, as this process holds the card; the pool is closed
+    # before the card runs)
+    import concurrent.futures
+    import multiprocessing
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=DRYRUN_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        recs = list(pool.map(dr.run_cell, *zip(*(
+            (arch, shape, True, out, False)
+            for arch, shape in DRYRUN_CELLS))))
+    static = {}
+    for (arch, shape), rec in zip(DRYRUN_CELLS, recs):
+        static[(arch, shape)] = rec
+        if rec["status"] != "ok":
+            failures.append(f"dryrun: {rec['cell']} {rec['status']}: "
+                            f"{rec.get('reason')}")
+            continue
+        r, m = rec["roofline"], rec["memory"]
+        print(f"dryrun: {rec['cell']} static ({rec['count_s']:.1f} s): "
+              f"flops {r['hlo_flops']:.4g}, bytes {r['hlo_bytes']:.4g}, "
+              f"collective {r['collective_bytes']:.4g}; compute "
+              f"{r['t_compute_s'] * 1e3:.3f} ms, memory "
+              f"{r['t_memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['t_collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}; "
+              f"ideal {r['ideal_s'] * 1e3:.3f} ms, roofline fraction "
+              f"{r['roofline_fraction']:.3f}; peak "
+              f"{m['peak_bytes'] / 2 ** 30:.2f} GiB (fits 80 GiB: "
+              f"{m['fits_hbm']})")
+    print(f"dryrun: {len(DRYRUN_CELLS)} static cells in "
+          f"{time.perf_counter() - t0:.1f} s")
+    mesh = make_production_mesh(multi=True)
+    for arch, shape, backend in DRYRUN_REAL:
+        cfg = get_config(arch)
+        rec = static[(arch, shape)]
+        cell = dr.build_cell(cfg, shape, mesh, device=str(dev),
+                             backend=backend, seed=SEED)
+        positions = (dr.cache_positions(cell.args[1])
+                     if cell.kind == "decode" else [])
+        last = cell.args[2]["pos"] if positions else None
+
+        def run():
+            for p in positions:          # back to S − 1 before each step
+                p.fill_(last)
+            return cell.step(*cell.args)
+
+        run()
+        torch.cuda.synchronize()
+        expect = ({"flash_decode": cfg.num_layers}
+                  if backend == "cuda" and cell.kind == "decode" else {})
+        _, counts = counted(run)
+        check_launches(f"dryrun {arch}", counts, expect, 1)
+        with OpCost() as c:
+            run()
+        real = c.analyze()
+        torch.cuda.synchronize()
+        want = rec["cost_analysis"]["flops"]
+        gap = abs(real["flops"] - want) / want
+        ops = sorted(set(real["flops_by_op"]) | set(rec["flops_by_op"]))
+        differ = {o: (real["flops_by_op"].get(o, 0.0),
+                      rec["flops_by_op"].get(o, 0.0)) for o in ops
+                  if real["flops_by_op"].get(o, 0.0)
+                  != rec["flops_by_op"].get(o, 0.0)}
+        if gap > 0.01:
+            failures.append(f"dryrun {rec['cell']}: the card's counted flops "
+                            f"{real['flops']:.6g} differ from the static "
+                            f"{want:.6g} by {gap * 100:.3f}%; ops (card, "
+                            f"static): {differ}")
+        ms, busy, how = step_device_ms(run, f"dryrun {arch}", failures)
+        ideal = rec["roofline"]["ideal_s"]
+        frac = (f"{ideal / (busy / 1e3):.4f}" if busy is not None
+                else "not measured")
+        print(f"dryrun: {rec['cell']} on the card ({backend}, the per-card "
+              f"step of {mesh.shape['data']}-way data): device busy "
+              f"{_ms(busy)} a step ({how}), {ms:.3f} ms on the "
+              f"clock{HOST_NOTE if f'dryrun {arch}' in HOST_GAPS else ''}; "
+              f"ideal {ideal * 1e3:.3f} ms (H100: {HBM_BW:.3g} B/s, "
+              f"{PEAK_FLOPS_F32:.3g} FLOP/s float32), measured roofline "
+              f"fraction {frac} (ideal / device busy); counted flops "
+              f"{real['flops']:.6g} vs static {want:.6g} "
+              f"({gap * 100:.4f}%), bytes {real['bytes']:.4g} vs static "
+              f"{rec['cost_analysis']['bytes']:.4g}, kernels "
+              f"{real['kernels']}; ops whose flops differ (card, static): "
+              f"{differ}")
+        del cell, positions, last
+        torch.cuda.empty_cache()
+    # the served clip step at the same 256 clips: pruned cuda plans
+    cfg = get_config("agcn-2s")
+    gen = torch.Generator().manual_seed(SEED)
+    params = [init_params(cfg, gen, device=dev) for _ in range(2)]
+    prune = plan_from_config(cfg)
+    plans = tuple(engine.build_execution_plan(
+        p, cfg, prune, quant=True, backend="cuda") for p in params)
+    rows = dr.GCN_SHAPES["gcn_infer"].global_batch * cfg.gcn_persons \
+        // mesh.shape["data"]
+    x = torch.randn(rows, cfg.gcn_frames, cfg.gcn_joints,
+                    cfg.gcn_in_channels, device=dev)
+    infer = make_gcn_infer_step(cfg)
+    with OpCost() as c:
+        infer(plans, x)
+    served = c.analyze()
+    ms, busy, how = step_device_ms(lambda: infer(plans, x),
+                                   "dryrun served clip", failures)
+    print(f"dryrun: served clip step (make_gcn_infer_step, cuda, pruned, "
+          f"{rows // cfg.gcn_persons} clips): device busy {_ms(busy)} "
+          f"({how}), {ms:.3f} ms on the clock"
+          f"{HOST_NOTE if 'dryrun served clip' in HOST_GAPS else ''}; "
+          f"counted flops "
+          f"{served['flops']:.4g}, bytes {served['bytes']:.4g}, ops "
+          f"{served['ops']}, kernels {served['kernels']} (a different "
+          f"program from the dry run's prefill: printed, not compared)")
+    del plans, params, x
+    torch.cuda.empty_cache()
+    print(f"dryrun: phase {time.perf_counter() - t0:.1f} s")
+
+
 def _leaves(tree):
     from repro_torch.common.tree import tree_leaves
     return tree_leaves(tree)
@@ -2895,7 +3234,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     import repro_torch
     if Path(repro_torch.__file__).resolve().parents[1] != SRC:
         fail(f"repro_torch imported from {repro_torch.__file__}, not {SRC}")
@@ -3545,6 +3883,10 @@ def main() -> int:
     zoo_phase(dev, failures, cases, summary, check_launches, modules)
     phase_done("zoo")
 
+    # ---- 18. the dry run: static cells and two measured on the card ----------
+    dryrun_phase(dev, failures, check_launches)
+    phase_done("dryrun")
+
     print(f"clock: spin {spin_cycles_per_ms():.0f} cycles/ms; timings with "
           f"host time included (the plain versions that read taps on the "
           f"host, and any whose queueing outlasted three spins): "
@@ -3578,6 +3920,8 @@ def main() -> int:
             f"ck padded stream S={S8}", f"ck padded stream S={S8} bare"],
         "flash_decode": ["lm early decode step", "lm first decode step",
                          *(c[0] for c in FD_CASES),
+                         "lm bf16 first decode step", "lm bf16 last step",
+                         *(c[0] for c in FD_BF16_CASES),
                          *(f"{m} {w}" for m in ("moe granite", "moe qwen3",
                                                 "vlm llava")
                            for w in ("first decode step", "last step")),

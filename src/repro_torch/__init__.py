@@ -14,6 +14,8 @@ the paper's offline path: 2s-AGCN training (``optim.adamw``,
 ``launch.train``) and the accounting of hybrid pruning, RFC storage and
 E(D) scheduling (``core.pruning``, ``core.rfc``, ``core.sched``), with
 hand-written CUDA kernels (``repro_torch.kernels``) on the serving paths
-and the RFC pair in ``core.rfc.checkpoint``.  Entry points run on the GPU
-unless the caller passes ``device="cpu"``.
+and the RFC pair in ``core.rfc.checkpoint``; and the analysis tools on H100
+terms (``launch.op_cost``, ``launch.roofline``, ``launch.mesh``,
+``launch.dryrun``).  Entry points run on the GPU unless the caller passes
+``device="cpu"``.
 """

@@ -3,7 +3,9 @@ hybrid and audio fields of ``repro.common.config.ModelConfig``).
 
 Frozen dataclass, so a config can key caches and be shared freely.
 :class:`TrainConfig` holds the optimizer, schedule, microbatching and
-checkpoint settings of ``repro.common.config.TrainConfig``.  Every family
+checkpoint settings of ``repro.common.config.TrainConfig``;
+:class:`ShapeConfig`, ``SHAPES`` and ``GCN_SHAPES`` are its input-shape
+cells (an arch × a shape is one cell of ``launch.dryrun``).  Every family
 of the reference is ported; the LM fields default to 0 or off (with the
 reference's defaults for the SSM and audio widths), so a gcn config
 leaves them alone.
@@ -177,6 +179,34 @@ class ModelConfig:
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
         ffn = 3 * d * self.moe_d_ff * self.experts_per_token
         return L * (attn + ffn) + self.padded_vocab * d
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell (an arch × a shape makes a dry-run cell)."""
+
+    name: str                # train_4k | prefill_32k | decode_32k | long_500k | gcn_*
+    kind: str                # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+# GCN (paper) shapes: a batch of skeleton clips (N, T, V, C), persons folded
+GCN_SHAPES = {
+    "gcn_train": ShapeConfig("gcn_train", "train", 300, 512),
+    "gcn_infer": ShapeConfig("gcn_infer", "prefill", 300, 2048),
+}
 
 
 @dataclasses.dataclass(frozen=True)

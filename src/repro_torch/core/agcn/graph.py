@@ -17,6 +17,7 @@ import dataclasses
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
+import torch
 
 # NTU RGB+D 25-joint skeleton, 1-indexed bone list (joint, parent).
 NTU_EDGES = [
@@ -67,6 +68,36 @@ def build_subsets(edges, center: int, num_joints: int,
             else:
                 subsets[2, i, j] = norm[i, j]           # centrifugal
     return subsets.astype(np.float32)
+
+
+def build_ntu_subsets(num_subsets: int = 3) -> np.ndarray:
+    """A of shape (K, V, V) for the NTU 25-joint skeleton: identity /
+    centripetal / centrifugal subsets, each column-normalized."""
+    return build_subsets(NTU_EDGES, NTU_CENTER, NUM_JOINTS, num_subsets)
+
+
+def static_graph(num_subsets: int = 3) -> torch.Tensor:
+    """The normalized NTU subset graphs A as a (K, V, V) float32 CPU
+    tensor."""
+    return torch.from_numpy(build_ntu_subsets(num_subsets))
+
+
+def similarity_graph(x: torch.Tensor, w_theta: torch.Tensor,
+                     w_phi: torch.Tensor) -> torch.Tensor:
+    """C_k = softmax(theta(x)^T phi(x)) over joints, eq. (1): x (N, T, V,
+    C), w_theta and w_phi (C, Ce) -> (N, V, V) in x's dtype.
+
+    The paper's full-clip ablation form: one graph per clip, the
+    embeddings summed over all T frames.  The streaming engine serves the
+    causal per-frame form instead (``adaptive.windowed_ck``: a trailing
+    window of pooled embeddings per tick), which reaches this form once
+    the window spans the clip."""
+    theta = torch.einsum("ntvc,ce->nve", x, w_theta)
+    phi = torch.einsum("ntvc,ce->nve", x, w_phi)
+    logits = torch.einsum("nve,nwe->nvw", theta, phi) / torch.sqrt(
+        torch.tensor(float(theta.shape[-1]), dtype=x.dtype, device=x.device))
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    return (e / e.sum(-1, keepdim=True)).to(x.dtype)
 
 
 def parents_from_edges(edges, num_joints: int) -> np.ndarray:

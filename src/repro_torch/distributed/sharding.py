@@ -31,6 +31,8 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.common.cost import report_collective
+
 Rules = Dict[str, Union[None, str, Tuple[str, ...]]]
 
 # Default rules for the production mesh (data, model) [+ optional pod axis]:
@@ -266,4 +268,5 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
         for a in batch_axes(mesh):
             if axis_size(mesh, a) > 1:
                 x = dist_fn.all_reduce(x, group=mesh.get_group(a))
+                report_collective("all-reduce", x.numel() * x.element_size())
     return x / n

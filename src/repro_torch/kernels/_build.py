@@ -59,6 +59,8 @@ _SIGNATURES = {
     # q, k, v, valid (int32), out, B, S, Hkv, G, D, splits, warps, stages,
     # vec, window, stream
     "flash_decode_f32": (*(_P,) * 5, *(_I,) * 10, _P),
+    # the same with a bf16 cache, always 16-byte staging (no vec)
+    "flash_decode_bf16": (*(_P,) * 5, *(_I,) * 9, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

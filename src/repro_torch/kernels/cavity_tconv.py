@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.common.cost import reports_work
 
 SMEM_MAX = 227 * 1024          # dynamic shared memory a block may use
 TCONV_PAIRS = 128              # (row, step) pairs of a clip block's tile
@@ -111,6 +112,34 @@ def _check_packed(name: str, x: torch.Tensor, wp: torch.Tensor,
     _build.check_cuda_f32(name, x, wp)
 
 
+def cavity_tconv_work(N: int, T: int, V: int, C: int, L: int, n_keep: int,
+                      Fg: int, F: int, T_out: int, pairs: int = None
+                      ) -> tuple:
+    """(flops, bytes) of one clip call with ``pairs`` (kept filter, tap)
+    pairs holding weights (default F · n_keep, every kept filter at each
+    of its group's taps): their multiply-adds; x, the packed weights, the
+    taps and inv_perm read once, the output written once."""
+    pairs = F * n_keep if pairs is None else pairs
+    return (2 * N * V * T_out * C * pairs,
+            4 * (N * T * V * C + L * n_keep * C * Fg + L * n_keep
+                 + N * T_out * V * F) + 8 * L * Fg)
+
+
+def cavity_tconv_step_work(S: int, K: int, V: int, C: int, L: int,
+                           n_keep: int, Fg: int, cout: int, pairs: int = None,
+                           frames: int = None) -> tuple:
+    """(flops, bytes) of one ring step with ``pairs`` (packed slot, tap)
+    pairs holding weights on live columns (default all L · n_keep · Fg)
+    and ``frames`` ring frames some group reads (default all K): their
+    multiply-adds; those frames, the packed weights, taps, slot_col, bias
+    and head read once, the output written once."""
+    pairs = L * n_keep * Fg if pairs is None else pairs
+    frames = K if frames is None else frames
+    return (2 * S * V * C * pairs,
+            4 * (S * V * frames * C + L * n_keep * C * Fg + L * n_keep
+                 + L * Fg + cout + S + S * V * cout))
+
+
 def cavity_tconv_plain(x: torch.Tensor, wp: torch.Tensor, taps: torch.Tensor,
                        inv_perm: torch.Tensor, num_filters: int,
                        kernel_size: int = 9, stride: int = 1) -> torch.Tensor:
@@ -132,6 +161,10 @@ def cavity_tconv_plain(x: torch.Tensor, wp: torch.Tensor, taps: torch.Tensor,
     return flat[..., :num_filters]
 
 
+@reports_work("cavity_tconv", lambda x, wp, taps, inv_perm, num_filters,
+              kernel_size=9, stride=1: cavity_tconv_work(
+                  *x.shape, *wp.shape[:2], wp.shape[3], num_filters,
+                  t_out(x.shape[1], kernel_size, stride)))
 def cavity_tconv_cuda(x: torch.Tensor, wp: torch.Tensor, taps: torch.Tensor,
                       inv_perm: torch.Tensor, num_filters: int,
                       kernel_size: int = 9, stride: int = 1) -> torch.Tensor:
@@ -288,6 +321,9 @@ def cavity_tconv_step_ring_plain(ring: torch.Tensor, head: torch.Tensor,
     return out.reshape(S, V, cout)
 
 
+@reports_work("cavity_tconv_step", lambda ring, head, wp, taps, slot_col,
+              bias, plan=None: cavity_tconv_step_work(
+                  *ring.shape, *wp.shape[:2], wp.shape[3], bias.shape[0]))
 def cavity_tconv_step_ring_cuda(ring: torch.Tensor, head: torch.Tensor,
                                 wp: torch.Tensor, taps: torch.Tensor,
                                 slot_col: torch.Tensor, bias: torch.Tensor,
@@ -327,6 +363,9 @@ def cavity_tconv_step_ring_cuda(ring: torch.Tensor, head: torch.Tensor,
     return out
 
 
+@reports_work("cavity_tconv_step", lambda x, wp, taps: cavity_tconv_step_work(
+    x.shape[0], x.shape[1], 1, x.shape[2], *wp.shape[:2], wp.shape[3],
+    wp.shape[0] * wp.shape[3]))
 def cavity_tconv_step_cuda(x: torch.Tensor, wp: torch.Tensor,
                            taps: torch.Tensor) -> torch.Tensor:
     """The packed streaming product on chronological windows, (B, K, C) ->

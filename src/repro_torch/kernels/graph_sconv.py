@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.common.cost import reports_work
 
 SM_COUNT = 132                 # the H100's streaming multiprocessors
 SMEM_MAX = 227 * 1024          # dynamic shared memory a block may use
@@ -155,6 +156,27 @@ def _plan(name: str, R: int, V: int, Cin: int, Cout: int, K: int,
     return plans[-1]
 
 
+def graph_sconv_work(R: int, V: int, Cin: int, Cout: int,
+                     K: int) -> tuple:
+    """(flops, bytes) of one dense call: the graph product and the 1×1
+    conv's multiply-adds; x, g and w read once, the output written once
+    (float32)."""
+    flops = 2 * R * K * (V * V * Cin + V * Cin * Cout)
+    return flops, 4 * (R * V * Cin + K * V * V + K * Cin * Cout + R * V * Cout)
+
+
+def graph_sconv_csr_work(R: int, V: int, Cin: int, Cout: int, K: int, D: int,
+                         nnz: int = None) -> tuple:
+    """(flops, bytes) of one ELL call over ``nnz`` stored edges (default
+    all K·V·D slots, what a shape-only count can see): the gather's and
+    the 1×1 conv's multiply-adds; x, idx, val and w read once, the output
+    written once."""
+    nnz = K * V * D if nnz is None else nnz
+    flops = 2 * R * (nnz * Cin + K * V * Cin * Cout)
+    return flops, 4 * (R * V * Cin + 2 * K * V * D + K * Cin * Cout
+                       + R * V * Cout)
+
+
 def graph_sconv_plain(x: torch.Tensor, g: torch.Tensor,
                       w: torch.Tensor) -> torch.Tensor:
     """Plain version: two einsums, the graph product then the 1×1 conv."""
@@ -162,6 +184,8 @@ def graph_sconv_plain(x: torch.Tensor, g: torch.Tensor,
     return torch.einsum("krwc,kco->rwo", y, w)
 
 
+@reports_work("graph_sconv", lambda x, g, w: graph_sconv_work(
+    *x.shape, w.shape[2], w.shape[0]))
 def graph_sconv_cuda(x: torch.Tensor, g: torch.Tensor,
                      w: torch.Tensor) -> torch.Tensor:
     """Σ_k (G_k·x)·W_k: launches the CUDA kernel for CUDA tensors; CPU
@@ -217,6 +241,8 @@ def graph_sconv_csr_plain(x: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+@reports_work("graph_sconv_csr", lambda x, idx, val, w: graph_sconv_csr_work(
+    *x.shape, w.shape[2], w.shape[0], idx.shape[-1]))
 def graph_sconv_csr_cuda(x: torch.Tensor, idx: torch.Tensor,
                          val: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Σ_k (G_k·x)·W_k over an ELL graph: launches the CUDA kernel for

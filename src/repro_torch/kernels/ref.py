@@ -91,9 +91,15 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention`` masks qi − kj >= window).  q: (B, Hkv, G, D),
     k/v: (B, S, Hkv, D) -> (B, Hkv, G, D); ``valid`` an int or a
     one-element integer tensor on k's device.  A query with no live slot
-    gets the mean of v over all S."""
+    gets the mean of v over all S.
+
+    With a bfloat16 cache (float32 q) the reference's bf16 rules apply
+    (``repro.models.layers.attention.flash_attention``): float32 scores,
+    ``s − max`` rounded to bfloat16 before ``exp`` and the probabilities
+    bfloat16, their float32 sum, the PV product of bf16 p and v
+    accumulated in float32, the output in q's dtype."""
     D, S = q.shape[-1], k.shape[1]
-    s = torch.einsum("bhgd,bshd->bhgs", q, k) / math.sqrt(D)
+    s = torch.einsum("bhgd,bshd->bhgs", q, k.to(q.dtype)) / math.sqrt(D)
     if torch.is_tensor(valid):
         valid = valid.reshape(())
     slots = torch.arange(S, device=k.device)
@@ -101,4 +107,8 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window > 0:
         live = live & (slots >= valid - window)
     s = torch.where(live, s, -1e30)
-    return torch.einsum("bhgs,bshd->bhgd", torch.softmax(s, -1), v)
+    if v.dtype != torch.bfloat16:
+        return torch.einsum("bhgs,bshd->bhgd", torch.softmax(s, -1), v)
+    p = torch.exp((s - s.amax(-1, keepdim=True)).to(v.dtype)).float()
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return (out / p.sum(-1, keepdim=True).clamp_min(1e-20)).to(q.dtype)

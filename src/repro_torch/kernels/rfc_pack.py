@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.common.cost import reports_work
 
 BANK = 16
 
@@ -139,6 +140,36 @@ def _check_mask(name: str, m: torch.Tensor, n: int, what: str,
     return m.contiguous()
 
 
+PACKED_BYTES = 4 + 2 / BANK     # bytes per channel of values and bits
+
+
+def rfc_encode_work(rows: int, C: int, res: bool = False,
+                    n_need: int = None, n_old: int = 0,
+                    mask_bytes: int = 0) -> tuple:
+    """(flops, bytes) of one encode over ``rows`` rows of C channels:
+    ``n_need`` rows (default all) read t (and ``res``), ``n_old`` rows
+    copy their old leaves, ``mask_bytes`` of live/keep masks are read,
+    and every row's values and bits are written.  No dot products: 0
+    flops."""
+    n_need = rows if n_need is None else n_need
+    return 0, (4 * C * n_need * (1 + bool(res)) + n_old * C * PACKED_BYTES
+               + rows * C * PACKED_BYTES + mask_bytes)
+
+
+def rfc_decode_work(n: int) -> tuple:
+    """(flops, bytes) of one decode of ``n`` channel values: values and
+    bits read, the dense rows written; no dot products."""
+    return 0, (PACKED_BYTES + 4) * n
+
+
+def _encode_work(t, res=None, live=None, keep=None, old=None):
+    C = t.shape[-1]
+    return rfc_encode_work(t.numel() // C if C else 0, C, res is not None,
+                           mask_bytes=sum(m.numel() for m in (live, keep)
+                                          if m is not None))
+
+
+@reports_work("rfc_encode", _encode_work)
 def rfc_encode_cuda(t: torch.Tensor, res: Optional[torch.Tensor] = None,
                     live: Optional[torch.Tensor] = None,
                     keep: Optional[torch.Tensor] = None,
@@ -190,6 +221,8 @@ def rfc_encode_cuda(t: torch.Tensor, res: Optional[torch.Tensor] = None,
     return vals, bits
 
 
+@reports_work("rfc_decode", lambda values, bits: rfc_decode_work(
+    values.numel()))
 def rfc_decode_cuda(values: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """Bank decompaction (values (..., C), bits (..., C/16)) -> dense
     (..., C): launches the CUDA kernel for CUDA tensors; CPU tensors take

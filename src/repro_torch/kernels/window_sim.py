@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.core.agcn.adaptive import windowed_ck
 from repro_torch.kernels import _build
+from repro_torch.common.cost import reports_work
 
 MAX_V = 128               # joints: a lane owns at most 4 columns
 MAX_THREADS = 512
@@ -137,6 +138,27 @@ def _plan(ring: torch.Tensor, plan: Optional[SimPlan]) -> SimPlan:
     return plan or sim_plan(S, K, V, Ce, _build.sm_count(ring.device))
 
 
+def windowed_similarity_work(S: int, K: int, V: int, Ce: int,
+                             valid: int = None, step: bool = False,
+                             n_has: int = None, n_e: int = None) -> tuple:
+    """(flops, bytes) of one call over (S, K, V, Ce) rings with ``valid``
+    live columns (default V): the live columns' dot products as flops
+    (the window sums and the softmax are not dots); both rings read and
+    the graphs written once.  The step form (``step``) also reads the
+    ring rows it keeps and the ``n_e`` embeddings it writes (default S
+    each: every slot has input, ``n_has``), writes both new rings and
+    reads its three (S,) flag vectors."""
+    valid = V if valid is None else valid
+    nbytes = 4 * (2 * S * K * V * Ce + S * V * V)
+    if step:
+        n_has = S if n_has is None else n_has
+        n_e = S if n_e is None else n_e
+        nbytes += 4 * 2 * V * Ce * ((S * K - n_has) + n_e) + 6 * S
+    return 2 * S * V * valid * Ce, nbytes
+
+
+@reports_work("windowed_similarity", lambda ring_th, ring_ph, valid,
+              plan=None: windowed_similarity_work(*ring_th.shape, valid))
 def windowed_similarity_cuda(ring_th: torch.Tensor, ring_ph: torch.Tensor,
                              valid: int,
                              plan: Optional[SimPlan] = None) -> torch.Tensor:
@@ -159,6 +181,9 @@ def windowed_similarity_cuda(ring_th: torch.Tensor, ring_ph: torch.Tensor,
     return out
 
 
+@reports_work("windowed_similarity", lambda ring_th, ring_ph, e_th, e_ph, t,
+              has_input, in_valid, valid, plan=None:
+              windowed_similarity_work(*ring_th.shape, valid, step=True))
 def windowed_similarity_step_cuda(
         ring_th: torch.Tensor, ring_ph: torch.Tensor, e_th: torch.Tensor,
         e_ph: torch.Tensor, t: torch.Tensor, has_input: torch.Tensor,

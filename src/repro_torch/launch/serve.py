@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -218,7 +219,8 @@ def generate(arch: str, *, reduced: bool = True, batch: int = 4,
              backend: str = "cuda", device: DeviceLike = None,
              params: Optional[Dict] = None,
              keep_logits: bool = False,
-             cfg: Optional[ModelConfig] = None) -> Dict:
+             cfg: Optional[ModelConfig] = None,
+             cache_dtype: torch.dtype = torch.float32) -> Dict:
     """Cached decoding of a language model of any LM family (the VLM's
     text alone): a random prompt from ``np.random.default_rng(seed)`` (and
     for the audio family the encoder memory, drawn from the same
@@ -226,7 +228,9 @@ def generate(arch: str, *, reduced: bool = True, batch: int = 4,
     token through the decode step (the prefill), then ``gen`` greedy
     tokens follow, as the reference's ``generate`` does.  Weights are
     ``params`` if given (e.g. the reference's, through the bridge), else
-    ``registry.init_params`` seeded with ``seed``; the cache is float32.  Each step is timed on the
+    ``registry.init_params`` seeded with ``seed``; the cache is
+    ``registry.init_cache``'s of ``cache_dtype`` (float32, or bfloat16,
+    the reference's default).  Each step is timed on the
     host clock up to a synchronise.  Returns {"tokens" (batch, prompt_len
     + gen) numpy, "tokens_per_s" (batch × steps / summed step time),
     "latency_ms_p50", "latency_ms_mean" (per step), "steps", and with
@@ -241,7 +245,8 @@ def generate(arch: str, *, reduced: bool = True, batch: int = 4,
     if params is None:
         params = registry.init_params(cfg, seed=seed, device=dev)
     max_len = prompt_len + gen
-    cache = registry.init_cache(cfg, batch, max_len, device=dev)
+    cache = registry.init_cache(cfg, batch, max_len, device=dev,
+                                dtype=cache_dtype)
     step = make_serve_step(cfg, backend)
     if backend == "cuda" and dev.type == "cuda":
         _build.library()                  # build the kernels before timing
@@ -531,10 +536,58 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+SUBCOMMANDS = ("clip", "stream", "sessions", "lm")
+
+
+def _legacy_argv(argv: Sequence[str]) -> List[str]:
+    """Map the pre-subcommand flag spelling onto the CLI, as the
+    reference's: ``--sessions S`` -> ``sessions --slots S``, ``--stream``
+    -> ``stream``, a gcn arch without either -> ``clip``, an LM arch ->
+    ``lm``.  Prints a one-line deprecation note naming the new form."""
+    legacy = argparse.ArgumentParser(add_help=False)
+    legacy.add_argument("--arch", required=True)
+    legacy.add_argument("--reduced", action="store_true")
+    legacy.add_argument("--stream", action="store_true")
+    legacy.add_argument("--sessions", type=int, default=0)
+    known, _ = legacy.parse_known_args(argv)
+    cfg = get_config(known.arch, reduced=known.reduced)
+    out = list(argv)
+    if cfg.family != "gcn":
+        mode = "lm"
+    elif known.sessions:
+        mode = "sessions"
+        for i, a in enumerate(out):
+            if a == "--sessions":
+                out[i] = "--slots"
+                break
+            if a.startswith("--sessions="):
+                out[i] = "--slots=" + a.split("=", 1)[1]
+                break
+    elif known.stream:
+        mode = "stream"
+        out.remove("--stream")
+    else:
+        mode = "clip"
+    print(f"# note: flag-style invocation is deprecated — use "
+          f"`serve {mode} ...` (mapped automatically)", file=sys.stderr)
+    return [mode] + out
+
+
 def main(argv=None) -> None:
-    """CLI entry."""
+    """CLI entry: the subcommand form, with the legacy flag form mapped
+    (:func:`_legacy_argv`; flags the mapped mode does not take are
+    ignored with a note, as the reference's single parser did)."""
     ap = build_parser()
-    args = ap.parse_args(argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] not in SUBCOMMANDS and any(
+            a == "--arch" or a.startswith("--arch=") for a in argv):
+        argv = _legacy_argv(argv)
+        args, extra = ap.parse_known_args(argv)
+        if extra:
+            print(f"# note: ignoring legacy flags not used by "
+                  f"`serve {argv[0]}`: {' '.join(extra)}", file=sys.stderr)
+    else:
+        args = ap.parse_args(argv)
     cfg = get_config(args.arch, reduced=args.reduced)
     backends = engine.BACKENDS if args.backend == "both" else (args.backend,)
     if args.mode == "sessions":

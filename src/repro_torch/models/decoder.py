@@ -197,16 +197,24 @@ def cache_len(cfg: ModelConfig, max_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: DeviceLike = None) -> Dict:
-    """Zero KV caches {"k", "v": (ng, g, batch, L, Hkv, D), "pos": (ng, g)
-    int32} on ``device`` (default CUDA).  float32: the ``flash_decode``
-    kernel takes float32 caches (the reference defaults to bfloat16)."""
+               device: DeviceLike = None,
+               dtype: torch.dtype = torch.float32) -> Dict:
+    """Zero KV caches {"k", "v": (ng, g, batch, L, Hkv, D) of ``dtype``
+    (float32, or bfloat16, the reference's default), "pos": (ng, g)
+    int32} on ``device`` (default CUDA)."""
     _check_family(cfg)
     dev = resolve_device(device)
     ng, g = num_groups(cfg), scan_group_size(cfg)
     shape = (ng, g, batch, cache_len(cfg, max_len), cfg.num_kv_heads,
              cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.float32, device=dev),
-            "v": torch.zeros(shape, dtype=torch.float32, device=dev),
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
             "pos": torch.zeros((ng, g), dtype=torch.int32, device=dev)}
+
+
+def cache_specs(cfg: ModelConfig) -> Dict:
+    """Logical axes of each cache leaf, as the reference's."""
+    return {"k": (None, None, "batch", "kv_seq", None, "kv_hd"),
+            "v": (None, None, "batch", "kv_seq", None, "kv_hd"),
+            "pos": (None, None)}
 

@@ -162,14 +162,15 @@ def decode(params: Dict, tokens: torch.Tensor, memory: torch.Tensor,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: DeviceLike = None) -> Dict:
-    """Zero self-attention caches {"k", "v": (layers, B, max_len, Hkv, D),
-    "pos": (layers,) int32} on ``device`` (default CUDA), float32 (the
-    reference defaults to bfloat16)."""
+               device: DeviceLike = None,
+               dtype: torch.dtype = torch.float32) -> Dict:
+    """Zero self-attention caches {"k", "v": (layers, B, max_len, Hkv, D)
+    of ``dtype`` (float32, or bfloat16, the reference's default), "pos":
+    (layers,) int32} on ``device`` (default CUDA)."""
     dev = resolve_device(device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.float32, device=dev),
-            "v": torch.zeros(shape, dtype=torch.float32, device=dev),
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
             "pos": torch.zeros(cfg.num_layers, dtype=torch.int32, device=dev)}
 
 

@@ -24,7 +24,8 @@ from repro_torch.common.tree import tree_copy_, tree_index, tree_map
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers.attention import attention_layer, attn_init
 from repro_torch.models.layers.common import (he_init, rmsnorm, rmsnorm_init,
-                                              rope_tables, stack_layers)
+                                              rope_tables, stack_layers,
+                                              wide_dtype)
 from repro_torch.models.layers.mamba2 import HEAD_P, mamba2_init, mamba2_layer
 from repro_torch.models.layers.mlp import mlp, mlp_init
 
@@ -116,9 +117,18 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     ``jax.checkpoint``); with caches (from :func:`init_cache`) a decode
     step, the caches updated in place and returned.  ``backend`` picks the
     shared attention's decode path (``"cuda"``: ``flash_decode`` for a
-    one-token step)."""
+    one-token step).
+
+    A conv leaf narrower than the activations (a bf16 cache) is widened
+    to their dtype at the first step, as the reference's conv step
+    returns its context (the bf16 cache concatenated with float32 inputs
+    is float32): from then on the context is read unrounded, as there."""
     ng, per, tail = structure(cfg)
     x = F.embedding(tokens, params["embed"]) * math.sqrt(cfg.d_model)
+    if caches is not None:
+        for part in (caches["groups"]["mamba"], caches.get("tail")):
+            if part is not None and part["conv"].dtype != x.dtype:
+                part["conv"] = part["conv"].to(x.dtype)
     x = constrain(x, "batch", "seq_shard", None)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
@@ -146,8 +156,10 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None,
                dtype: torch.dtype = torch.float32) -> Dict:
-    """Zero caches on ``device`` (default CUDA), ``dtype`` throughout (the
-    reference's default is bfloat16 for the KV and conv leaves):
+    """Zero caches on ``device`` (default CUDA): the KV and conv leaves of
+    ``dtype`` (float32, bfloat16 as the reference's default, or float64),
+    the SSM states float32 (float64 in a float64 run), as the
+    reference keeps them:
     {"groups": {"attn": {"k", "v": (ng, B, max_len, Hkv, D), "pos": (ng,)
     int32}, "mamba": {"conv": (ng, per, B, K − 1, C), "ssm": (ng, per, B,
     H, N, P)}}, "tail": the tail's mamba caches (tail, ...) when there is
@@ -162,7 +174,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
     def mamba(*lead):
         return {"conv": zeros(*lead, batch, cfg.ssm_conv - 1, d_inner),
-                "ssm": zeros(*lead, batch, H, cfg.ssm_state, HEAD_P)}
+                "ssm": zeros(*lead, batch, H, cfg.ssm_state, HEAD_P,
+                             dtype=wide_dtype(dtype))}
     kv = (ng, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     cache = {"groups": {
         "attn": {"k": zeros(*kv), "v": zeros(*kv),

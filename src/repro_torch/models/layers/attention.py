@@ -57,7 +57,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Sq, H, D), k/v (B, Skv, Hkv, D) -> (B, Sq, H, D).  Query head
     h = hkv * G + g attends with kv head hkv.  ``q_offset`` is the global
     position of query 0 and ``kv_valid`` the number of valid cache slots
-    (ints or device scalars)."""
+    (ints or device scalars).
+
+    k and v may be bfloat16 (a bf16 cache) with float32 q, under the
+    reference's rules: the scores are float32 (k widened exactly), the
+    stabilised ``s − m`` is rounded to v's dtype before ``exp`` (so the
+    probabilities are bf16), ``l`` sums them in float32, the PV product
+    takes the bf16 p and v with float32 accumulation, and the output has
+    q's dtype."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -85,13 +92,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for kidx in range(nk):
             kj = kidx * kb + torch.arange(kb, device=dev)
             s = wide(torch.einsum("bqhgd,bkhd->bhgqk", qblk,
-                                  kg[:, kidx])) * scale
+                                  kg[:, kidx].to(qblk.dtype))) * scale
             s = s + _mask(qi, kj, causal, window, kv_valid)
             m_new = torch.maximum(m_run, s.amax(-1))
             p = torch.exp((s - m_new[..., None]).to(v.dtype))
             corr = torch.exp(m_run - m_new)
             l_run = l_run * corr + wide(p).sum(-1)
-            pv = wide(torch.einsum("bhgqk,bkhd->bhgqd", p, vg[:, kidx]))
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", wide(p),
+                              wide(vg[:, kidx]))
             acc = acc * corr[..., None] + pv
             m_run = m_new
         out = acc / torch.clamp_min(l_run[..., None], 1e-20)

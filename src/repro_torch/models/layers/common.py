@@ -22,6 +22,17 @@ def he_init(generator: Optional[torch.Generator], shape: Sequence[int],
     return w * math.sqrt(2.0 / max(1, fan_in))
 
 
+def lecun_init(generator: Optional[torch.Generator], shape: Sequence[int],
+               fan_in: int) -> torch.Tensor:
+    """float32 normal weights with variance 1 / fan_in, as
+    :func:`he_init` draws them (shape-only without a generator)."""
+    if generator is None:
+        return torch.empty(tuple(shape), dtype=torch.float32)
+    w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return w * math.sqrt(1.0 / max(1, fan_in))
+
+
 def wide(x: torch.Tensor) -> torch.Tensor:
     """``x`` in float32 for statistics, states and accumulators, or as it
     is when it is float64: a float64 run (chip_smoke's exact-arithmetic

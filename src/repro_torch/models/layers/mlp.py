@@ -26,3 +26,14 @@ def mlp(p: Dict, x: torch.Tensor, act: str = "silu",
         wg = wg.index_select(1, kept_ff)
         wo = wo.index_select(0, kept_ff)
     return (activation(act)(x @ wg) * (x @ wi)) @ wo
+
+
+def prune_mlp_channels(p: Dict, keep_frac: float) -> torch.Tensor:
+    """Kept d_ff channels by magnitude (the paper's C1 selection rule: the
+    largest mean |W| over the producers and the consumer), sorted: an
+    int64 index tensor for :func:`mlp`'s ``kept_ff``."""
+    score = (p["wi"].abs().mean(0) + p["wg"].abs().mean(0)
+             + p["wo"].abs().mean(1))
+    keep = max(1, int(round(score.shape[0] * keep_frac)))
+    idx = torch.argsort(-score, stable=True)[:keep]
+    return torch.sort(idx).values

@@ -4,7 +4,9 @@
     loss_fn(params, batch, cfg, inference=False) -> (loss, metrics)
     gcn_logits(params, x, cfg, plan=None)        -> logits (training forward)
     serve_fn(params, batch, cache, cfg, backend) -> (logits, cache)
-    init_cache(cfg, batch, max_len, device=)     -> cache tree
+    prefill_fn(params, batch, cfg)               -> the prefill loss
+    init_cache(cfg, batch, max_len, device=, dtype=) -> cache tree
+    cache_specs(cfg)                             -> logical axes of the cache
 
 The gcn family (2s-AGCN, one stream), the decoder families (dense, moe,
 vlm), the SSM family (xLSTM), the hybrid (Zamba2) and the audio
@@ -144,18 +146,36 @@ def serve_fn(params: Dict, batch: Dict[str, torch.Tensor], cache: Dict,
     return logits, cache
 
 
+def prefill_fn(params: Dict, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig) -> Optional[torch.Tensor]:
+    """The prefill forward's loss (the cache writes are ``serve_fn``'s),
+    None for a batch without labels, as the reference's."""
+    return loss_fn(params, batch, cfg)[0] if "labels" in batch else None
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None,
                dtype: torch.dtype = torch.float32) -> Dict:
-    """The family's zero decode cache on ``device`` (default CUDA):
-    float32, or float64 for the SSM and hybrid families (a float64 run
-    of their recurrences)."""
+    """The family's zero decode cache on ``device`` (default CUDA), with
+    the reference's leaf dtypes for ``dtype``: float32 throughout;
+    bfloat16 (the reference's default) for the attention k and v and the
+    hybrid's conv context, the SSM states staying float32; or float64
+    for the SSM and hybrid families (a float64 run of their
+    recurrences).  Positions are int32."""
     mod = _module(cfg)
     if mod is agcn:
         raise ValueError(f"{cfg.name}: the gcn family has no decode cache")
-    if dtype == torch.float32:
-        return mod.init_cache(cfg, batch, max_len, device)
-    if mod not in (ssm_model, hybrid) or dtype != torch.float64:
+    if dtype == torch.float64 and mod not in (ssm_model, hybrid):
+        raise ValueError(f"{cfg.name}: no {dtype} decode cache")
+    if dtype not in (torch.float32, torch.bfloat16, torch.float64):
         raise ValueError(f"{cfg.name}: no {dtype} decode cache")
     return mod.init_cache(cfg, batch, max_len, device, dtype)
+
+
+def cache_specs(cfg: ModelConfig) -> Dict:
+    """Logical axes of each leaf of the family's decode cache."""
+    mod = _module(cfg)
+    if mod is agcn:
+        raise ValueError(f"{cfg.name}: the gcn family has no decode cache")
+    return mod.cache_specs(cfg)
 

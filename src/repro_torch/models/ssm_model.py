@@ -22,7 +22,7 @@ from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.tree import tree_copy_, tree_index, tree_map
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers.common import (he_init, rmsnorm, rmsnorm_init,
-                                              stack_layers)
+                                              stack_layers, wide_dtype)
 from repro_torch.models.layers.mlp import mlp, mlp_init
 from repro_torch.models.layers.xlstm import (mlstm_init, mlstm_layer,
                                              slstm_init, slstm_layer)
@@ -133,7 +133,9 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None,
                dtype: torch.dtype = torch.float32) -> Dict:
-    """Zero recurrent states on ``device`` (default CUDA), ``dtype``:
+    """Zero recurrent states on ``device`` (default CUDA), float32 (the
+    reference's, whatever cache dtype it is asked for) or float64 when
+    ``dtype`` is float64 (:func:`common.wide_dtype`):
     {"mlstm": {"ssm": (ng, g − 1, B, H, dh, dh + 1)}, "slstm": {"c",
     "n", "h", "m": (ng, B, H, d / H)}}; ``max_len`` does not size them."""
     dev = resolve_device(device)
@@ -142,7 +144,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     dh_s = cfg.d_model // cfg.num_heads
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        return torch.zeros(shape, dtype=wide_dtype(dtype), device=dev)
     return {
         "mlstm": {"ssm": zeros(ng, g - 1, batch, cfg.num_heads, dh, dh + 1)},
         "slstm": {k: zeros(ng, batch, cfg.num_heads, dh_s)

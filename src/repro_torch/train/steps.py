@@ -1,18 +1,20 @@
 """Step functions.  Training: the loss, its gradients and the AdamW train
 step with microbatch accumulation, in one process or data-parallel over
 ``torch.distributed`` ranks (``make_loss_fn``, ``loss_and_grads``,
-``make_train_step``, ``sync_grads``, ``shard_batch``).  GCN inference
+``make_train_step``, ``grad_sync_plan``, ``sync_grads``,
+``shard_batch``).  GCN inference
 over prebuilt ExecutionPlans: the clip step, the per-frame stream step,
 the session-slab step and the fused serving tick, each the two-stream
 (joint + bone) ensemble.  LM steps: the greedy KV-cache decode step and
 the prefill forward.  Port of ``repro.train.steps``."""
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.common.config import ModelConfig, TrainConfig
+from repro_torch.common.cost import report_collective
 from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -51,50 +53,97 @@ def _check_mesh(mesh) -> None:
             "(ROADMAP.md, Queue 1 item 7); use a (data, 1) mesh")
 
 
-def sync_grads(grads, shardings, compression: str = "none"):
-    """The data-parallel gradient sync of one train step: each rank's
-    gradients (full leaves, its rows' mean) -> the mean over the batch
-    axes' ranks, as DTensors laid out by ``shardings`` (a tree of
-    ``sharding.NamedSharding``, or anything with ``mesh`` and
-    ``placements``).  A leaf sharded over a batch axis gets a
-    reduce-scatter into its shard, every other leaf an all-reduce.  With
-    ``compression == "bf16"`` the payloads are bfloat16 (half the bytes;
-    the sum is rounded to bfloat16) and the result stays bfloat16, as the
-    reference's compressed sync hands AdamW bf16 gradients."""
-    import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
-    from repro_torch.distributed.sharding import (axis_names, axis_size,
-                                                  batch_axes)
-    rs = getattr(dist, "reduce_scatter_single", None) or \
-        dist.reduce_scatter_tensor
+class SyncStep(NamedTuple):
+    """One collective of the gradient sync: ``kind`` ("all-reduce" or
+    "reduce-scatter", the latter along tensor dim ``dim``) over the
+    ``ranks`` ranks of mesh axis ``axis``; ``nbytes`` is its result's
+    bytes at the payload dtype (``hlo_cost``'s measure)."""
+    axis: str
+    kind: str
+    dim: Optional[int]
+    ranks: int
+    nbytes: int
 
-    def one(g, s):
+
+def grad_sync_plan(grads, shardings, compression: str = "none"
+                   ) -> List[List[SyncStep]]:
+    """The collectives :func:`sync_grads` issues, per leaf of ``grads``
+    (in ``tree_leaves`` order; tensors or anything with ``shape`` and
+    ``dtype``, e.g. meta tensors): for each batch axis of the mesh with
+    more than one rank, a reduce-scatter into the leaf's shard when its
+    spec shards it over that axis, else an all-reduce, in the batch axes'
+    order.  The payload is the gradient's dtype, or bfloat16 with
+    ``compression == "bf16"``.  Needs no process group: the dry run reads
+    it on a shape-only mesh."""
+    from repro_torch.distributed.sharding import axis_size, batch_axes
+    plan = []
+    for g, s in zip(tree_leaves(grads), tree_leaves(shardings)):
         mesh = s.mesh
-        names = axis_names(mesh)
-        if compression == "bf16":
-            g = g.to(torch.bfloat16)
-        n = 1
+        item = 2 if compression == "bf16" else g.dtype.itemsize
+        numel = 1
+        for d in g.shape:
+            numel *= int(d)
+        steps = []
         for a in batch_axes(mesh):
             k = axis_size(mesh, a)
             if k == 1:
                 continue
-            n *= k
-            pl = s.placements[names.index(a)]
-            group = mesh.get_group(a)
-            if pl.is_shard():
-                d = pl.dim
-                src = g.movedim(d, 0).contiguous()
-                out = src.new_empty((src.shape[0] // k, *src.shape[1:]))
+            dim = next((i for i, e in enumerate(s.spec)
+                        if e == a or (isinstance(e, tuple) and a in e)),
+                       None)
+            if dim is not None:
+                numel //= k
+                steps.append(SyncStep(a, "reduce-scatter", dim, k,
+                                      numel * item))
+            else:
+                steps.append(SyncStep(a, "all-reduce", None, k,
+                                      numel * item))
+        plan.append(steps)
+    return plan
+
+
+def sync_grads(grads, shardings, compression: str = "none"):
+    """The data-parallel gradient sync of one train step: each rank's
+    gradients (full leaves, its rows' mean) -> the mean over the batch
+    axes' ranks, as DTensors laid out by ``shardings`` (a tree of
+    ``sharding.NamedSharding``, or anything with ``mesh``, ``spec`` and
+    ``placements``).  Issues :func:`grad_sync_plan`'s collectives, each
+    counted on the active cost counter (``common.cost``): a leaf sharded over
+    a batch axis gets a reduce-scatter into its shard, every other leaf
+    an all-reduce.  With ``compression == "bf16"`` the payloads are
+    bfloat16 (half the bytes; the sum is rounded to bfloat16) and the
+    result stays bfloat16, as the reference's compressed sync hands AdamW
+    bf16 gradients."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    rs = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    plan = grad_sync_plan(grads, shardings, compression)
+
+    def one(g, s, steps):
+        if compression == "bf16":
+            g = g.to(torch.bfloat16)
+        n = 1
+        for st in steps:
+            n *= st.ranks
+            group = s.mesh.get_group(st.axis)
+            if st.kind == "reduce-scatter":
+                src = g.movedim(st.dim, 0).contiguous()
+                out = src.new_empty((src.shape[0] // st.ranks,
+                                     *src.shape[1:]))
                 rs(out, src, group=group)
-                g = out.movedim(0, d)
+                g = out.movedim(0, st.dim)
             else:
                 g = g.clone(memory_format=torch.contiguous_format)
                 dist.all_reduce(g, group=group)     # the caller's grads stay
+            report_collective(st.kind, st.nbytes)
         g = g / n if n > 1 else g
-        return DTensor.from_local(g.contiguous(), mesh, s.placements,
+        return DTensor.from_local(g.contiguous(), s.mesh, s.placements,
                                   run_check=False)
 
-    return tree_map(one, grads, shardings)
+    return tree_unflatten(grads, [
+        one(g, s, steps) for g, s, steps in zip(
+            tree_leaves(grads), tree_leaves(shardings), plan)])
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,

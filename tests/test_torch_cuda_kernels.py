@@ -173,6 +173,20 @@ FD_WIDE_CASES = [(2, 40, 32, 1, 112, 33, 0), (4, 64, 8, 6, 128, 40, 0),
                  (2, 48, 1, 2, 16, 52, 8), (2, 48, 1, 2, 16, 200, 8),
                  (1, 300, 2, 2, 256, 290, 100)]
 
+# (B, S, Hkv, G, D, valid, window) over a bf16 cache: smollm's served step
+# and its 32 768-slot context, gemma3 at D = 256 windowed and global,
+# whisper's cross-attention shape, danube's ring (D = 80), valid 0 (every
+# slot masked: the mean of V) and an early step (valid 17)
+FD_BF16_CASES = [(4, 512, 5, 3, 64, 497, 0), (8, 32768, 5, 3, 64, 32768, 0),
+                 (1, 1108, 8, 2, 256, 1101, 1024),
+                 (1, 1108, 8, 2, 256, 1101, 0),
+                 (4, 1500, 12, 1, 64, 1500, 0), (4, 4096, 8, 4, 80, 4096, 0),
+                 (2, 100, 2, 3, 16, 0, 0), (2, 512, 2, 3, 64, 17, 0)]
+# both round each probability to bf16 against the row's max, but another
+# float32 sum order can tip a rounding, which moves a result by a share of
+# the rounding's own effect: the bound is fd.bf16_bound's (a share of
+# fd.bf16_rounding_gap under fd.BF16_CAP_RANDOM)
+
 # (splits, warps, stages) forced through make_plan; splits None: the most
 # the cache's 16-row tiles allow (at most 16)
 FD_FORCED = [(1, 4, 3), (2, 2, 4), (None, 1, 6), (None, 8, 2)]
@@ -541,3 +555,37 @@ def test_flash_decode_wide_and_window_match_plain(cuda, B, S, Hkv, G, D,
         full = fd.flash_decode_plain(q, k, v, vt)
         assert torch.equal(want, full) == (valid - window <= 0)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hkv,G,D,valid,window", FD_BF16_CASES)
+def test_flash_decode_bf16_cache_matches_plain(cuda, B, S, Hkv, G, D, valid,
+                                               window):
+    """A bf16 cache (float32 q and out): the decode plan and every forced
+    plan that fits against the plain version's bf16 rules within
+    ``fd.bf16_bound`` (which the plain version under float32 rules
+    exceeds wherever the rounding moves the result), two calls bit-equal,
+    one launch a call; a mixed or a float16 cache raises."""
+    q, k, v = (torch.from_numpy(a).to(cuda)
+               for a in _fd_inputs(B, S, Hkv, G, D))
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    vt = torch.tensor([valid], dtype=torch.int32, device=cuda)
+    want = fd.flash_decode_plain(q, k, v, vt, window)
+    assert want.dtype == torch.float32
+    gap = fd.bf16_rounding_gap(q, k, v, vt, window, want)
+    bound = fd.bf16_bound(gap, fd.BF16_CAP_RANDOM)
+    assert gap > bound or gap <= 2 * fd.BF16_FLOOR, (gap, bound)
+    plans = _fd_forced(B, S, Hkv, G, D)
+    _build.reset_launch_counts()
+    for plan in plans:
+        got = fd.flash_decode(q, k, v, vt, window=window, plan=plan)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, fd.flash_decode(q, k, v, vt, window=window,
+                                                plan=plan)), plan
+        err = float((got - want).abs().max())
+        assert err <= bound, (plan, err, bound, gap)
+    assert _build.LAUNCHES["flash_decode"] == 2 * len(plans)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fd.flash_decode(q, k, v.float(), vt)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fd.flash_decode(q, k.half(), v.half(), vt)

@@ -61,3 +61,17 @@ def test_torch_serve_lm_example():
     assert [ln.split()[0] for ln in lines] == [
         "smollm-360m", "qwen3-moe-30b-a3b", "xlstm-1.3b", "zamba2-7b"]
     assert all("32 tokens/seq" in ln for ln in lines)
+
+
+def test_torch_quickstart_example():
+    """The paper's pipeline at the reduced 2s-AGCN: a few train steps, the
+    Drop scheme, the cav-70-1 prune plan, quantised inference on the cuda
+    backend (its plain versions here) and the RFC storage it writes."""
+    out = _run([str(ROOT / "examples" / "torch_quickstart.py"), "--device",
+                "cpu", "--steps", "6"], timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "trained: loss" in out.stdout
+    assert "per-block sparsity:" in out.stdout
+    assert "compression" in out.stdout and "graph-skip" in out.stdout
+    assert "pruned+quantised accuracy on batch:" in out.stdout
+    assert "RFC storage saving on 3 block boundaries" in out.stdout

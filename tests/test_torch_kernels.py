@@ -30,7 +30,8 @@ from repro_torch.kernels import graph_sconv as gs
 from repro_torch.kernels import ref
 from repro_torch.kernels import rfc_pack as rp
 from repro_torch.kernels import window_sim as ws
-from test_torch_cuda_kernels import (FD_SHAPES, FD_SPLIT_CASES, RFC_CASES,
+from test_torch_cuda_kernels import (FD_BF16_CASES, FD_SHAPES,
+                                     FD_SPLIT_CASES, RFC_CASES,
                                      RFC_SHAPES, SCONV_SHAPES, STEP_CASES,
                                      TCONV_CASES, _fd_forced, _fd_inputs,
                                      _rand, _rfc_inputs, _sconv_inputs)
@@ -528,6 +529,36 @@ def test_flash_decode_window_matches_jax_flash_attention(B, S, Hkv, G, D,
         np.asarray(jref.flash_decode_ref(q, k, v, valid)), atol=3e-5,
         rtol=3e-5)
 
+
+
+@pytest.mark.parametrize("B,S,Hkv,G,D,valid,window", FD_BF16_CASES)
+def test_flash_decode_bf16_bound_rejects_float32_rules(B, S, Hkv, G, D,
+                                                       valid, window):
+    """The bound the bf16 kernel is held to (``fd.bf16_bound`` at the card
+    tests' cap) sits between a sound kernel and one that skips the rounding
+    of p: the plain version's bf16 rules in float64 arithmetic (another
+    sum order, the same rounding points) lie within it, and the plain
+    version under float32 rules lies outside it wherever the rounding
+    moves the result."""
+    q, k, v = (torch.from_numpy(a) for a in _fd_inputs(B, S, Hkv, G, D))
+    k, v = k.bfloat16(), v.bfloat16()
+    want = fd.flash_decode_plain(q, k, v, valid, window)
+    f32 = fd.flash_decode_plain(q, k.float(), v.float(), valid, window)
+    gap = fd.bf16_rounding_gap(q, k, v, valid, window, want)
+    assert gap == float((want - f32).abs().max())
+    bound = fd.bf16_bound(gap, fd.BF16_CAP_RANDOM)
+    s = torch.einsum("bhgd,bshd->bhgs", q.double(), k.double()) / D ** 0.5
+    slots = torch.arange(S)
+    live = (slots < valid) & ((slots >= valid - window) if window else True)
+    s = torch.where(live, s, -1e30)
+    p = torch.exp((s - s.amax(-1, keepdim=True)).bfloat16().double())
+    p = p.bfloat16().double()
+    sound = (torch.einsum("bhgs,bshd->bhgd", p, v.double())
+             / p.sum(-1, keepdim=True)).float()
+    assert float((sound - want).abs().max()) <= bound
+    if valid > 0:
+        assert gap > 2 * fd.BF16_FLOOR
+        assert float((f32 - want).abs().max()) > bound
 
 def test_flash_decode_window_leaving_no_slot_masks_all():
     """valid past S with its window's bound past S too: no live slot, so

@@ -400,6 +400,60 @@ def test_ssm_hybrid_audio_and_local_global_run_without_jax(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+# the analysis tools (the dry run's cells, the op counter, the roofline,
+# the H100 meshes), bf16 caches, the sessions shim and the graph and MLP
+# helpers run in an interpreter where jax and repro cannot be imported
+_RUN_ANALYSIS = r"""
+import sys, warnings
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import pathlib
+import torch
+from repro_torch.configs import get_config
+from repro_torch.core.agcn import graph
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.launch import dryrun, mesh, op_cost, roofline, sessions
+from repro_torch.models import registry
+from repro_torch.models.layers import common, mlp
+out = pathlib.Path(sys.argv[1])
+rec = dryrun.run_cell("agcn-2s", "gcn_infer", True, out, verbose=False)
+skip = dryrun.run_cell("xlstm-1.3b", "long_500k", True, out, verbose=False)
+print(rec["status"], rec["mesh"], skip["status"])
+cfg = get_config("zamba2-7b", reduced=True)
+cache = registry.init_cache(cfg, 2, 8, device="cpu", dtype=torch.bfloat16)
+print(sorted({str(t.dtype) for t in (cache["groups"]["attn"]["k"],
+                                      cache["groups"]["mamba"]["conv"],
+                                      cache["groups"]["mamba"]["ssm"])}))
+q = torch.randn(1, 1, 2, 16)
+k = torch.randn(1, 8, 1, 16).bfloat16()
+with op_cost.OpCost() as c:
+    fd.flash_decode(q, k, k, 8)
+print(c.analyze()["kernels"]["flash_decode"]["calls"],
+      roofline.roofline_terms(c.analyze(), 1.0, 1)["dominant"])
+with warnings.catch_warnings(record=True) as w:
+    warnings.simplefilter("always")
+    sessions.run_sessions
+print(w[0].category.__name__, graph.static_graph().shape[0],
+      mlp.prune_mlp_channels({"wi": torch.ones(4, 8), "wg": torch.ones(4, 8),
+                              "wo": torch.ones(8, 4)}, 0.5).numel(),
+      common.lecun_init(None, (2, 3), 2).shape[0])
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m in ("jax", "repro") or m.startswith(("jax.", "repro."))))
+print(bad)
+"""
+
+
+def test_analysis_tools_and_bf16_caches_run_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _RUN_ANALYSIS,
+                          str(tmp_path)], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines() == [
+        "ok h100x8 skipped", "['torch.bfloat16', 'torch.float32']",
+        "1 memory", "DeprecationWarning 3 4 2", "[]"]
+
+
 # the card's kernel tests are collected where there is no JAX: the module
 # imports in an interpreter where jax and repro cannot be imported
 _IMPORT_CARD_TESTS = r"""
