@@ -303,6 +303,32 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                device busy time) on the H100's constants; then the
                served clip step (pruned ``cuda`` plans, 256 clips) with
                its own count.
+  19. model_parallel — the model axis and the kv_seq decode on 2 ranks of
+               this card (``torch.multiprocessing``, gloo carrying CUDA
+               tensors: NCCL takes no two ranks on one device).  Each rank
+               probes the collectives the port calls on CUDA tensors and
+               stages through the host those gloo refuses (the rank
+               wrapper's, printed; the package is unchanged); the compute
+               and every kernel stay on the card.  On a (1, 2) mesh:
+               granite-moe-3b-a800m and h2o-danube-1.8b at full width cut
+               to 4 layers, 3 train steps (batch 2 x 64) against the same
+               training in one rank on the card (losses 1e-5, parameters
+               1e-4 where the first gradient exceeds 1e-6), then 8 ``cuda``
+               decode steps against one rank (logits 1e-4, one flash_decode
+               a layer a step on each rank); agcn-2s (reduced) under
+               ``dp_only`` on (1, 2) against (2, 1), equal losses (cuDNN
+               deterministic for it); then
+               smollm-360m at full width and depth, batch 1, a bf16 cache
+               of 131 072 slots from a seeded generator on (2, 1) under
+               kv_seq (65 536 a rank), 8 ``cuda`` steps against the
+               unsharded decode of the same cache in this process (within
+               ``flash_decode.bf16_bound`` of the gap the same decode on
+               the float32-widened cache opens), flash_decode_row_max and
+               flash_decode_partial once a layer a step on each rank; the
+               partial form (bf16 against ``bf16_bound``, float32 1e-5)
+               and the row-max pass (1e-5) held to their plain versions at
+               the path's shard, timed beside their bound and masked SDPA.
+               A 2-card NCCL run only when two cards are visible.
 The LM phase (13) also serves smollm-360m on bf16 caches at a 240-token
 prompt (``LM_BF16_PROMPT``, a 256-slot cache): ``cuda`` against
 ``reference`` on bf16 caches (teacher-forced, within ``LM_BF16_SHARE`` of
@@ -363,6 +389,12 @@ KERNEL_INFO = {   # name -> (CUDA source, TPU kernel it replaces)
                    "src/repro/kernels/rfc_pack.py:87"),
     "flash_decode": ("src/repro_torch/csrc/flash_decode.cuh",
                      "src/repro/kernels/flash_decode.py:72"),
+    # the same kernel's partial form and its first pass alone, over a
+    # kv_seq shard (GSPMD runs the TPU kernel's caller per shard there)
+    "flash_decode_partial": ("src/repro_torch/csrc/flash_decode.cuh",
+                             "src/repro/kernels/flash_decode.py:72"),
+    "flash_decode_row_max": ("src/repro_torch/csrc/flash_decode.cuh",
+                             "src/repro/kernels/flash_decode.py:72"),
 }
 ARCH, BATCH, CLIPS, SEED = "agcn-2s", 8, 32, 0
 DEVICE = "cuda"
@@ -432,6 +464,15 @@ DIST_TRAIN = (("granite-moe-3b-a800m", 12, 4, 512, 4),
               ("smollm-360m", 0, 8, 512, 6))
 DIST_NCCL = "smollm-360m"           # the entry run again under torchrun
 DIST_LR = 3e-4
+# the model_parallel phase: (arch, layers) at full width on a (1, 2) mesh,
+# MP_STEPS train steps of MP_BATCH x MP_SEQ, then MP_DECODE decode steps
+# over MP_DECODE_SLOTS; smollm's kv_seq decode at batch 1 over a bf16
+# cache of MP_KV_SLOTS slots from 3 * MP_KV_STEPS before its end,
+# MP_KV_STEPS steps
+MP_TRAIN = (("granite-moe-3b-a800m", 4), ("h2o-danube-1.8b", 4))
+MP_BATCH, MP_SEQ, MP_STEPS, MP_DECODE, MP_DECODE_SLOTS = 2, 64, 3, 8, 16
+MP_KV_ARCH, MP_KV_SLOTS, MP_KV_STEPS = "smollm-360m", 131072, 8
+MP_TIMEOUT = 420                   # the ranks' deadline, seconds
 
 # the zoo phase: (arch, layers or 0 for all, batch, prompt, gen, backends,
 # bound on the cached decode against the cache-free forward, or None:
@@ -2758,6 +2799,543 @@ def dist_train_phase(dev, failures, cases, check_launches):
     print(f"dist_train: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the model axis and the kv_seq decode, 2 ranks on the card
+# ---------------------------------------------------------------------------
+
+# the collectives the port's layers, steps and optimizer call through
+# torch.distributed, checked on CUDA tensors over gloo on each rank
+MP_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
+                  "reduce_scatter_tensor", "all_to_all_single")
+
+
+def _mp_check_collectives(dev) -> None:
+    """Run each collective of ``MP_COLLECTIVES`` on small CUDA tensors over
+    this rank's gloo group and raise (failing the rank, and so the phase)
+    where gloo refuses one or returns a wrong value: the port's layers
+    hand gloo CUDA tensors, and nothing here stages them through the
+    host."""
+    import torch
+    import torch.distributed as dist
+    n = dist.get_world_size()
+    ones = torch.ones(2 * n, device=dev)
+    cases = {   # name: (call, its output, the value every element must hold)
+        "all_reduce": (lambda out: dist.all_reduce(out), ones.clone(),
+                       float(n)),
+        "all_gather_into_tensor": (
+            lambda out: dist.all_gather_into_tensor(out, ones[:2]),
+            torch.zeros(2 * n, device=dev), 1.0),
+        "reduce_scatter_tensor": (
+            lambda out: dist.reduce_scatter_tensor(out, ones),
+            torch.zeros(2, device=dev), float(n)),
+        "all_to_all_single": (
+            lambda out: dist.all_to_all_single(out, ones.clone()),
+            torch.zeros(2 * n, device=dev), 1.0)}
+    for name in MP_COLLECTIVES:
+        call, out, value = cases[name]
+        call(out)
+        torch.cuda.synchronize(dev)
+        if not bool((out == value).all()):
+            raise RuntimeError(f"gloo's {name} on CUDA tensors gave "
+                               f"{out.tolist()}, not all {value}")
+
+
+def _mp_cut(p, placements, mesh):
+    """This rank's shard of a whole tensor under DTensor ``placements``."""
+    for i, pl in enumerate(placements):
+        if pl.is_shard() and mesh.size(i) > 1:
+            k = p.shape[pl.dim] // mesh.size(i)
+            p = p.narrow(pl.dim, mesh.get_local_rank(i) * k, k)
+    return p.contiguous()
+
+
+def _mp_train(cfg, mesh, batches, policy, lr):
+    """``make_train_step`` on ``mesh`` for ``len(batches)`` steps from
+    parameters of seed SEED, laid out by ``param_shardings`` (each rank
+    cuts its shard: ``DTensor.from_local``, no collective): (losses, the
+    final parameters' local shards by path, the shardings)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.tree import tree_map, tree_paths
+    from repro_torch.distributed.params import param_shardings
+    from repro_torch.distributed.sharding import (batch_rank, batch_ranks,
+                                                  rules_for)
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step, shard_batch
+    dev = next(iter(batches[0].values())).device
+    full = registry.init_params(cfg, seed=SEED, device=dev)
+    sh = param_shardings(full, mesh, expert_dim=cfg.padded_experts or None,
+                         policy=policy)
+    rows = next(iter(batches[0].values())).shape[0]
+    rules = rules_for(policy, rows, mesh)
+    params = tree_map(lambda p, s: DTensor.from_local(
+        _mp_cut(p, s.placements, mesh), mesh, s.placements, run_check=False),
+        full, sh)
+    del full
+    tcfg = TrainConfig(learning_rate=lr, total_steps=len(batches),
+                       warmup_steps=1)
+    step = make_train_step(cfg, tcfg, grad_shardings=sh, rules=rules)
+    opt, losses = adamw.init(params), []
+    for b in batches:
+        local = shard_batch(b, batch_rank(mesh, rules),
+                            batch_ranks(mesh, rules))
+        params, opt, m = step(params, opt, local)
+        losses.append(float(m["loss"]))
+    return losses, {n: p.to_local() for n, p in tree_paths(params)}, sh
+
+
+def _mp_one_rank(cfg, batches, lr):
+    """The same training in this rank alone (no mesh): (losses, final
+    parameters, the first step's gradients), by path."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.tree import tree_paths
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import (loss_and_grads, make_loss_fn,
+                                         make_train_step)
+    dev = next(iter(batches[0].values())).device
+    params = registry.init_params(cfg, seed=SEED, device=dev)
+    g1 = dict(tree_paths(loss_and_grads(make_loss_fn(cfg), params,
+                                        batches[0])[2]))
+    tcfg = TrainConfig(learning_rate=lr, total_steps=len(batches),
+                       warmup_steps=1)
+    step = make_train_step(cfg, tcfg)
+    opt, losses = adamw.init(params), []
+    for b in batches:
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+    return losses, dict(tree_paths(params)), g1
+
+
+def _mp_decode(cfg, params, toks, slots, backend, mesh=None, rules=None,
+               dtype=None, fill=None):
+    """Teacher-forced serve steps of ``toks`` (B, T) from position ``pos0``
+    of ``fill`` (a function filling a fresh cache; else an empty cache at
+    position 0), on ``mesh`` when given: (logits (T, B, vocab) on the
+    host, launch counts of the steps)."""
+    import contextlib
+    import torch
+    from repro_torch.distributed import params as dparams
+    from repro_torch.kernels import _build
+    from repro_torch.models import registry
+    from repro_torch.train.steps import make_serve_step
+    dev = toks.device
+    ctx = (dparams.mesh_context(cfg, mesh, rules) if mesh is not None
+           else contextlib.nullcontext())
+    with ctx:
+        cache = registry.init_cache(cfg, toks.shape[0], slots, device=dev,
+                                    dtype=dtype or torch.float32)
+    pos0 = fill(cache) if fill is not None else 0
+    step = make_serve_step(cfg, backend, mesh, rules)
+    out = []
+    _build.reset_launch_counts()
+    for t in range(toks.shape[1]):
+        _, cache, last = step(params, cache, {
+            "tokens": toks[:, t:t + 1],
+            "pos": torch.tensor(pos0 + t, dtype=torch.int32, device=dev)})
+        out.append(last.float())
+    torch.cuda.synchronize(dev)
+    counts = dict(_build.LAUNCHES)
+    return torch.stack(out).cpu(), counts
+
+
+def mp_kv_fill(cfg, lo, n, dev, slots, pos):
+    """A function that fills a decode cache with slots [lo, lo + n) of
+    the seeded full cache of ``slots`` slots (bf16 values, widened where
+    the cache is float32: per layer and leaf a generator on ``dev``
+    seeded from SEED, the layer and the leaf) and sets its positions to
+    ``pos``; it returns ``pos``."""
+    import torch
+
+    def fill(cache):
+        ng, g = cache["k"].shape[:2]
+        for li in range(ng * g):
+            for j, name in enumerate(("k", "v")):
+                gen = torch.Generator(device=dev).manual_seed(
+                    SEED * 100_000 + 2 * li + j)
+                whole = torch.randn(
+                    (cache[name].shape[2], slots, cfg.num_kv_heads,
+                     cfg.head_dim), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                cache[name][li // g, li % g].copy_(whole[:, lo:lo + n])
+        cache["pos"].fill_(pos)
+        return pos
+    return fill
+
+
+def _mp_rank(rank, world, init, out_dir, spec):
+    """One rank of the model_parallel phase on the card (``spec``: the
+    process group's backend, the kv_seq cache's slots and position):
+    every case on this rank, its numbers to ``out_dir/rank<r>.json`` (the
+    traceback there on a failure, and the process then fails)."""
+    import traceback
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batches
+    from repro_torch.distributed.sharding import make_mesh, rules_for
+    from repro_torch.models import registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if spec["backend"] == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(spec["backend"], init_method=f"file://{init}",
+                            rank=rank, world_size=world)
+    rec, out = {"rank": rank}, Path(out_dir)
+    try:
+        if spec["backend"] == "gloo":
+            _mp_check_collectives(dev)
+
+        def to_dev(b):
+            return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        tok_gen = np.random.default_rng(SEED)
+        for arch, layers in MP_TRAIN:
+            full_cfg = get_config(arch)
+            cfg = dataclasses.replace(full_cfg, num_layers=layers or
+                                      full_cfg.num_layers)
+            data = make_batches(cfg, DataConfig(MP_BATCH, MP_SEQ, seed=SEED))
+            batches = [to_dev(next(data)) for _ in range(MP_STEPS)]
+            mesh = make_mesh((1, world), dev)
+            t0 = time.perf_counter()
+            losses, mine, sh = _mp_train(cfg, mesh, batches,
+                                         cfg.sharding, DIST_LR)
+            t_mesh = time.perf_counter() - t0
+            ref_losses, ref, g1 = _mp_one_rank(cfg, batches, DIST_LR)
+            gaps = []
+            for (n, p), s in zip(mine.items(), _leaves(sh)):
+                want = _mp_cut(ref[n], s.placements, mesh)
+                big = _mp_cut(g1[n], s.placements, mesh).abs() > 1e-6
+                if bool(big.any()):
+                    gaps.append(float((p - want).abs()[big].max()))
+            del mine, ref, g1
+            toks = torch.as_tensor(tok_gen.integers(
+                0, cfg.vocab_size, (MP_BATCH, MP_DECODE)), device=dev)
+            from repro_torch.distributed import params as dparams
+            layout = dparams.model_layout(cfg, mesh)
+            full = registry.init_params(cfg, seed=SEED, device=dev)
+            local = dparams.local_shards(full, layout.specs, mesh)
+            rules = rules_for(layout.policy, MP_BATCH, mesh)
+            logits, counts = _mp_decode(cfg, local, toks, MP_DECODE_SLOTS,
+                                        "cuda", mesh, rules)
+            want, _ = _mp_decode(cfg, full, toks, MP_DECODE_SLOTS, "cuda")
+            del full, local
+            rec[arch] = {
+                "layers": cfg.num_layers, "plan": layout.plan._asdict(),
+                "losses": losses, "one_rank_losses": ref_losses,
+                "loss_gap": max(abs(a - b) for a, b in zip(losses,
+                                                            ref_losses)),
+                "param_gap": max(gaps), "train_s": t_mesh,
+                "logit_gap": float((logits - want).abs().max()),
+                "logits_finite": bool(torch.isfinite(logits).all()),
+                "decode_counts": counts}
+        # agcn-2s under dp_only: the model axis carries batch.  cuDNN's
+        # convolution gradients sum with atomics unless deterministic, and
+        # the two meshes' losses are held equal
+        gcn = get_config("agcn-2s", reduced=True)
+        data = make_batches(gcn, DataConfig(8, 0, seed=SEED))
+        batches = [to_dev(next(data)) for _ in range(MP_STEPS)]
+        torch.backends.cudnn.deterministic = True
+        rec["gcn"] = {str(shape): _mp_train(
+            gcn, make_mesh(shape, dev), batches, "dp_only", DIST_LR)[0]
+            for shape in ((1, world), (world, 1))}
+        torch.backends.cudnn.deterministic = False
+        # the kv_seq decode: batch 1 over (world, 1), the cache's slots split
+        cfg = get_config(MP_KV_ARCH)
+        mesh = make_mesh((world, 1), dev)
+        rules = rules_for(cfg.sharding, 1, mesh)
+        params = registry.init_params(cfg, seed=SEED, device=dev)
+        n = spec["slots"] // world
+        toks = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+            0, cfg.vocab_size, (1, MP_KV_STEPS)), device=dev)
+        logits, counts = _mp_decode(
+            cfg, params, toks, spec["slots"], "cuda", mesh, rules, torch.bfloat16,
+            mp_kv_fill(cfg, rank * n, n, dev, spec["slots"], spec["pos"]))
+        torch.save(logits, out / f"kv_logits_rank{rank}.pt")
+        rec["kv_seq"] = {"rules": {"kv_seq": rules["kv_seq"],
+                                   "batch": rules["batch"]},
+                         "slots_a_rank": n, "decode_counts": counts}
+    except BaseException:
+        rec["error"] = traceback.format_exc()
+        raise
+    finally:
+        (out / f"rank{rank}.json").write_text(json.dumps(rec))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _mp_spawn(spec, out_dir, timeout):
+    """Start ``spec["ranks"]`` processes of :func:`_mp_rank` (a ``file://``
+    rendezvous under ``out_dir``); returns a function that waits for them
+    (killing them past ``timeout`` seconds) and returns their exit codes."""
+    import torch.multiprocessing as mp
+    init = Path(out_dir) / f"rdzv_{time.monotonic_ns()}"
+    ctx = mp.start_processes(_mp_rank, args=(
+        spec["ranks"], str(init), str(out_dir), spec), nprocs=spec["ranks"],
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+
+    def wait():
+        while not all(p.exitcode is not None for p in ctx.processes):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                break
+            time.sleep(0.2)
+        for p in ctx.processes:
+            p.join(5)
+        return [p.exitcode for p in ctx.processes]
+    return wait
+
+
+def _mp_kernel_case(name, q, k, v, valid, offset, row_max, served):
+    """The partial form (``name`` "flash_decode_partial") or the row-max
+    pass ("flash_decode_row_max") against its plain version on one input,
+    timed beside the bound (the rows this shard holds live) and, for the
+    partial form, masked ``F.scaled_dot_product_attention`` on the same
+    shard (float32 k and v: SDPA takes one dtype)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    B, Hkv, G, D = q.shape
+    S = k.shape[1]
+    n = int(valid.item())
+    rows = max(0, min(n - offset, S))
+    itemsize = k.element_size()
+    if name == "flash_decode_row_max":
+        kern = lambda: fd.flash_decode_row_max(q, k, valid, offset=offset)
+        plain = lambda: fd.flash_decode_row_max_ref(q, k, valid, 0, offset)
+        flops, nbytes = fd.flash_decode_row_max_work(B, S, Hkv, G, D,
+                                                     itemsize, rows)
+        library, tol = None, 1e-5
+    else:
+        kern = lambda: fd.flash_decode_partial(q, k, v, valid, offset=offset,
+                                               row_max=row_max)
+        plain = lambda: fd.flash_decode_partial_ref(q, k, v, valid, 0,
+                                                    offset, row_max)
+        flops, nbytes = fd.flash_decode_partial_work(B, S, Hkv, G, D,
+                                                     itemsize, rows)
+        slots = offset + torch.arange(S, device=k.device)
+        live = (slots < n).view(1, 1, 1, S)
+        qh = q.reshape(B, Hkv * G, 1, D)
+        kh = k.float().permute(0, 2, 1, 3)
+        vh = v.float().permute(0, 2, 1, 3)
+        library = lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=live, enable_gqa=True)
+        tol = 1e-5
+        if k.dtype == torch.bfloat16:
+            f32 = fd.flash_decode_partial_ref(q, k.float(), v.float(), valid,
+                                              0, offset)[0]
+            gap = float((plain()[0] - f32).abs().max())
+            tol = fd.bf16_bound(gap, fd.BF16_CAP_SERVED if served
+                                else fd.BF16_CAP_RANDOM)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    b_ms, t_bytes, t_ops = bound_ms(nbytes, flops)
+    return {"shape": [list(q.shape), list(k.shape)], "offset": offset,
+            "valid": n, "rows": rows,
+            "cache": str(k.dtype).replace("torch.", ""),
+            "ok": err <= tol, "max_abs_err": err, "tol": tol,
+            "ms": cuda_ms(kern, label=f"{name} kernel"),
+            "plain_ms": cuda_ms(plain, reps=3, inner=3,
+                                label=f"{name} plain"),
+            "library_ms": (cuda_ms(library, label=f"{name} library")
+                           if library is not None else None),
+            "composite_ms": None, "bound_ms": b_ms, "bytes_ms": t_bytes,
+            "ops_ms": t_ops, "bound_f32_ms": b_ms, "split_floor_ms": None}
+
+
+def model_parallel_phase(dev, failures, cases, summary, check_launches):
+    """Phase 19: the model axis and the kv_seq decode on 2 ranks of this
+    card, gloo carrying CUDA tensors (NCCL takes no two ranks on one
+    device).  Each rank first checks that gloo takes the collectives the
+    port calls on CUDA tensors (:func:`_mp_check_collectives`; a refusal
+    fails the phase); the compute and every kernel stay on the card.  On a (1, 2) mesh: granite-moe and
+    h2o-danube at full width, depth cut (MP_TRAIN), 3 train steps against
+    the same training in one rank on the card (losses 1e-5; the
+    parameters' local shards 1e-4 wherever the one-rank first gradient
+    exceeds 1e-6), then 8 teacher-forced ``cuda`` decode steps against one
+    rank (logits 1e-4; one flash_decode a layer a step on each rank);
+    agcn-2s (reduced) under ``dp_only`` on (1, 2) against (2, 1) (the same
+    losses, cuDNN deterministic: its convolution gradients otherwise sum
+    with atomics); smollm-360m at full width and depth at batch 1 over a bf16
+    cache of MP_KV_SLOTS slots on (2, 1) under kv_seq (each rank its
+    half, from a seeded generator, 24 slots before its end): 8 ``cuda``
+    steps against this process's unsharded decode of the same cache
+    (logits within ``flash_decode.bf16_bound`` of the gap the same decode
+    on the cache widened to float32 opens; flash_decode_row_max and
+    flash_decode_partial once a layer a step on each rank).  Then the
+    partial form and the row-max pass held to their plain versions at the
+    path's shard (and the partial form on float32, 1e-5), timed beside
+    their bound and masked SDPA.  With 2 cards visible the ranks run again
+    on NCCL, one card each."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import registry
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    base = ROOT / "build" / "chip_smoke_mp"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    slots = MP_KV_SLOTS
+    spec = {"backend": "gloo", "slots": slots,
+            "pos": slots - 3 * MP_KV_STEPS, "ranks": 2}
+    wait = _mp_spawn(spec, base, timeout=MP_TIMEOUT)
+
+    # meanwhile: the unsharded kv_seq reference on this card, on the bf16
+    # cache and on the same values widened to float32
+    cfg = get_config(MP_KV_ARCH)
+    params = registry.init_params(cfg, seed=SEED, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (1, MP_KV_STEPS)), device=dev)
+    fill = mp_kv_fill(cfg, 0, slots, dev, slots, spec["pos"])
+    want, _ = _mp_decode(cfg, params, toks, spec["slots"], "cuda",
+                         dtype=torch.bfloat16, fill=fill)
+    gc.collect()
+    wide, _ = _mp_decode(cfg, params, toks, spec["slots"], "cuda",
+                         dtype=torch.float32, fill=fill)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    codes = wait()
+    t_ranks = time.perf_counter() - t_phase
+    recs = []
+    for r in range(spec["ranks"]):
+        path = base / f"rank{r}.json"
+        recs.append(json.loads(path.read_text()) if path.exists() else
+                    {"error": "no record"})
+    record = cases["model_parallel"] = {"device": smi, "exit": codes,
+                                        "ranks": recs}
+    if any(c != 0 for c in codes) or any("error" in r for r in recs):
+        for r in recs:
+            if "error" in r:
+                print(r["error"][-3000:])
+        failures.append(f"model_parallel: the ranks exited {codes}")
+        return
+    print(f"model_parallel: 2 ranks on one card over gloo, which took "
+          f"{', '.join(MP_COLLECTIVES)} on CUDA tensors; "
+          f"{t_ranks:.1f} s for the ranks")
+    for arch, layers in MP_TRAIN:
+        for r, rec in enumerate(recs):
+            a = rec[arch]
+            print(f"model_parallel: {arch} at full width, {a['layers']} "
+                  f"layers, mesh (1, 2) rank {r}, plan {a['plan']}: "
+                  f"{MP_STEPS} train steps (batch {MP_BATCH} x "
+                  f"{MP_SEQ}, {a['train_s']:.1f} s) losses "
+                  f"{[round(x, 6) for x in a['losses']]}, against one rank "
+                  f"|diff| {a['loss_gap']:.3g} (bound 1e-5), parameters "
+                  f"{a['param_gap']:.3g} (bound 1e-4 where the first "
+                  f"gradient exceeds 1e-6); {MP_DECODE} cuda decode steps' "
+                  f"logits {a['logit_gap']:.3g} (bound 1e-4); launches "
+                  f"{ {k: v for k, v in a['decode_counts'].items() if v} }")
+            if a["loss_gap"] > 1e-5 or a["param_gap"] > 1e-4 or \
+                    a["logit_gap"] > 1e-4 or not a["logits_finite"]:
+                failures.append(f"model_parallel {arch} rank {r}: losses "
+                                f"{a['loss_gap']:.3g}, parameters "
+                                f"{a['param_gap']:.3g}, logits "
+                                f"{a['logit_gap']:.3g} from one rank")
+            check_launches(f"mp {arch} rank {r}", a["decode_counts"],
+                           {"flash_decode": a["layers"]}, MP_DECODE)
+    g = [rec["gcn"] for rec in recs]
+    same = all(x == g[0] for x in g) and \
+        g[0]["(1, 2)"] == g[0]["(2, 1)"]
+    print(f"model_parallel: agcn-2s (reduced) under dp_only, losses on "
+          f"(1, 2) {g[0]['(1, 2)']} and on (2, 1) {g[0]['(2, 1)']}: "
+          f"{'equal' if same else 'NOT equal'}")
+    if not same:
+        failures.append(f"model_parallel: agcn-2s on (1, 2) against (2, 1): "
+                        f"{g}")
+    got = [torch.load(base / f"kv_logits_rank{r}.pt")
+           for r in range(spec["ranks"])]
+    gap = float((want - wide).abs().max())
+    bound = fd.bf16_bound(gap, fd.BF16_CAP_SERVED)
+    err = max(float((x - want).abs().max()) for x in got)
+    kv = recs[0]["kv_seq"]
+    record["kv_seq"] = {"err": err, "bound": bound, "bf16_gap": gap}
+    print(f"model_parallel: {MP_KV_ARCH} at full width and depth, batch 1, "
+          f"a bf16 cache of {spec['slots']} slots on (2, 1) under "
+          f"{kv['rules']} ({kv['slots_a_rank']} slots a rank), {MP_KV_STEPS} "
+          f"cuda steps from position {spec['pos']}: logits {err:.3g} from the "
+          f"unsharded decode of the same cache (bound {bound:.3g}: "
+          f"bf16_bound of the {gap:.3g} the float32-widened cache opens); "
+          f"ranks equal: {all(torch.equal(x, got[0]) for x in got)}")
+    if err > bound or not all(torch.isfinite(x).all() for x in got):
+        failures.append(f"model_parallel kv_seq: logits {err:.3g} from the "
+                        f"unsharded decode (bound {bound:.3g})")
+    per = {"flash_decode_partial": cfg.num_layers,
+           "flash_decode_row_max": cfg.num_layers}
+    for r, rec in enumerate(recs):
+        check_launches(f"mp kv_seq rank {r}",
+                       rec["kv_seq"]["decode_counts"], per, MP_KV_STEPS)
+    # the two new forms at the path's shard: rank 1's layer-0 slots, the
+    # rows' maxima over both halves (what the path passes)
+    n = spec["slots"] // 2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    q = torch.randn((1, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+                     cfg.head_dim), generator=gen, device=dev)
+    whole = {}
+    for j, name in enumerate(("k", "v")):
+        g_ = torch.Generator(device=dev).manual_seed(SEED * 100_000 + j)
+        whole[name] = torch.randn((1, spec["slots"], cfg.num_kv_heads,
+                                   cfg.head_dim), generator=g_,
+                                  device=dev).to(torch.bfloat16)
+    valid = torch.tensor([spec["pos"] + MP_KV_STEPS], dtype=torch.int32,
+                         device=dev)
+    halves = [{k: t[:, r * n:(r + 1) * n].contiguous()
+               for k, t in whole.items()} for r in range(2)]
+    del whole
+    row_max = torch.maximum(*(fd.flash_decode_row_max(
+        q, h["k"], valid, offset=r * n) for r, h in enumerate(halves)))
+    k1, v1 = halves[1]["k"], halves[1]["v"]
+    cs = {"flash_decode_partial": [
+        ("mp kv_seq shard", _mp_kernel_case(
+            "flash_decode_partial", q, k1, v1, valid, n, row_max, False)),
+        ("mp kv_seq shard float32", _mp_kernel_case(
+            "flash_decode_partial", q, k1.float(), v1.float(), valid, n,
+            None, False))],
+        "flash_decode_row_max": [("mp kv_seq shard", _mp_kernel_case(
+            "flash_decode_row_max", q, k1, None, valid, n, None, False))]}
+    for name, named in cs.items():
+        for label, c in named:
+            summary[(label, name)] = summarize([c])
+            cases.setdefault(name, {})[label] = c
+            lib = ("none" if c["library_ms"] is None
+                   else f"{c['library_ms']:.4f} ms")
+            print(f"kernel {name} [{label}]: shape {c['shape']} ({c['cache']}"
+                  f", offset {c['offset']}, valid {c['valid']}, {c['rows']} "
+                  f"live rows) max_abs_err {c['max_abs_err']:.3g} (bound "
+                  f"{c['tol']:.3g}), {c['ms'] * 1e3:.2f} us a launch, plain "
+                  f"{c['plain_ms']:.4f} ms, masked SDPA {lib}, bound "
+                  f"{c['bound_ms'] * 1e3:.2f} us (bytes; kernel at "
+                  f"{c['bound_ms'] / c['ms'] * 100:.1f}%); {smi}")
+            if not c["ok"]:
+                failures.append(f"{name} [{label}]: {c['max_abs_err']:.3g} "
+                                f"from its plain version (bound "
+                                f"{c['tol']:.3g})")
+    if torch.cuda.device_count() >= 2:
+        spec2 = dict(spec, backend="nccl")
+        base2 = base / "nccl"
+        base2.mkdir()
+        codes = _mp_spawn(spec2, base2, timeout=MP_TIMEOUT)()
+        print(f"model_parallel: 2 cards on NCCL: exit codes {codes}")
+        if any(codes):
+            failures.append(f"model_parallel: the 2-card NCCL ranks exited "
+                            f"{codes}")
+    else:
+        print(f"model_parallel: a 2-card NCCL run was not run "
+              f"({torch.cuda.device_count()} card visible)")
+    print(f"model_parallel: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def golden_mismatch(out, want) -> list:
     """The counters of a replay row that differ from a golden cell (the
     ones the golden tests check), as 'name got/want' strings."""
@@ -3887,6 +4465,10 @@ def main() -> int:
     dryrun_phase(dev, failures, check_launches)
     phase_done("dryrun")
 
+    # ---- 19. the model axis and the kv_seq decode, 2 ranks on the card -------
+    model_parallel_phase(dev, failures, cases, summary, check_launches)
+    phase_done("model_parallel")
+
     print(f"clock: spin {spin_cycles_per_ms():.0f} cycles/ms; timings with "
           f"host time included (the plain versions that read taps on the "
           f"host, and any whose queueing outlasted three spins): "
@@ -3903,7 +4485,9 @@ def main() -> int:
     main_case = {"cavity_tconv_step": f"stream S={S8}",
                  "graph_sconv_csr": "ntu50 csr clip",
                  "windowed_similarity": f"ck stream S={S8}",
-                 "flash_decode": "lm last step"}
+                 "flash_decode": "lm last step",
+                 "flash_decode_partial": "mp kv_seq shard",
+                 "flash_decode_row_max": "mp kv_seq shard"}
     more_cases = {
         "graph_sconv": [f"stream S={S8}", "ntu50 dense clip",
                         f"ntu50 dense stream S={S8}",
@@ -3930,7 +4514,8 @@ def main() -> int:
                            != "xlstm-1.3b"
                            for w in ("first decode step", "last step")),
                          "zoo gemma3 long local", "zoo gemma3 long global",
-                         *(c[0] for c in ZOO_FD_CASES)]}
+                         *(c[0] for c in ZOO_FD_CASES)],
+        "flash_decode_partial": ["mp kv_seq shard float32"]}
     kernels = []
     for name in _build.KERNELS:
         path = main_case.get(name, "clip")

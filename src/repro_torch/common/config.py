@@ -102,6 +102,9 @@ class ModelConfig:
                                            # (clip parity); W > 0 = sliding
                                            # window of the last W frames
     gcn_backend: str = "cuda"              # engine backend: cuda | reference
+    sharding: str = "2d"                   # parameter policy on a mesh: 2d
+                                           # (model + data) | dp_only
+                                           # (replicated; batch on every axis)
 
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:

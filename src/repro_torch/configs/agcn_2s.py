@@ -13,6 +13,8 @@ CONFIG = ModelConfig(
     # the paper's final accelerating target: Drop-1 + cav-70-1 + input skip 2
     cavity_pattern="cav-70-1", input_skip=2, gcn_stream_pool=0,
     prune_channel_fracs=(1.0, 0.6, 0.6, 0.55, 0.5, 0.5, 0.45, 0.4, 0.35, 0.3),
+    # 3.5M parameters: replicated, the model axis carries batch
+    sharding="dp_only",
 )
 
 REDUCED = ModelConfig(

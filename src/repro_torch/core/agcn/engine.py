@@ -28,8 +28,12 @@ data-dependent graph C_k (``repro_torch.core.agcn.adaptive``).
 Every plan runs clip mode (``execute``) and streaming (``step_frame``
 against a ``StreamState`` of per-slot temporal rings; ``step_frames`` and
 ``fused_tick`` are the session slab's scheduler tick).  See the streaming
-section below.  Not ported (ROADMAP.md): the JAX mesh's slot-axis
-sharding hint (``constrain``).
+section below.  The JAX engine's slot-axis sharding hint (``constrain``
+on the slab's slot axis) has no counterpart and needs none: the hint asks
+GSPMD to keep one slab split over a slot mesh, while the port's sharded
+slab (``GcnService(mesh=...)``, ``repro_torch.distributed.serving``) keeps
+one slab per shard and runs each shard's step on that shard's own device,
+so no tensor here ever spans shards.
 """
 from __future__ import annotations
 

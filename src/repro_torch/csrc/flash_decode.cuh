@@ -88,6 +88,28 @@
 // kernels/flash_decode.py:decode_plan (splits, warps, stages), fitted to
 // tools/torch_kernel_plans.py's sweep.
 //
+// The partial form (a non-null `lse`): the cache is one kv_seq shard, slots
+// [offset, offset + S) of a longer cache, and `valid` and the window stay
+// the whole cache's (read on the card): the shard's live rows are
+// [clamp(valid - window - offset, 0, S), clamp(valid - offset, 0, S)) (the
+// lower bound 0 without a window).  Each query row's log-sum-exp of its
+// scaled scores over those rows, in natural units, goes to lse[b, h, g]
+// (float32, (B, Hkv, G)) beside its output; a shard with no live row reads
+// nothing and gives out = 0 and lse = -inf (no masked slot, no NaN).  The
+// cluster merge already holds each row's max m and sum l: lse is
+// m + log(l) (m in log2 units on the float32 path, so (m + log2 l) ln 2),
+// one more store.  On a bf16 cache a shard would round its probabilities
+// against its own max, where one rank rounds them against the row's max
+// over the whole cache; so there the caller takes two launches: the
+// max-only form (a null `out`: pass A alone, each row's max over the
+// shard's live rows to lse, -inf where none), the maxima's max over the
+// ranks, then the partial form with that max given (`row_max`: pass A is
+// skipped and every probability rounds against it, so the ranks' partials
+// merge into what one rank computes, up to float32 sum order).  Replaces
+// the part of the TPU kernel's callers that GSPMD runs per sequence shard
+// under JAX's kv_seq rule (the merge is the caller's:
+// kernels/ref.py:flash_decode_merge).
+//
 // This header holds the kernel template and its dispatch; flash_decode.cu
 // instantiates the float32 cache (flash_decode_f32) and
 // flash_decode_bf16.cu the bf16 one (flash_decode_bf16), so the two
@@ -122,6 +144,7 @@ constexpr int kMaxWarps = 8;
 constexpr int kMaxStages = 6;
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __host__ __device__ constexpr int up4(int n) { return (n + 3) / 4 * 4; }
 __host__ __device__ constexpr int row_ld(int d4) { return 4 * d4 + 4; }
@@ -229,8 +252,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
 flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v,
                     const int* __restrict__ valid_ptr, float* __restrict__ out,
-                    int S, int Hkv, int G, int D, int stages, float qscale,
-                    int window) {
+                    float* __restrict__ lse_out,
+                    const float* __restrict__ row_max, int S, int Hkv, int G,
+                    int D, int stages, float qscale, int window, int offset) {
   constexpr bool kBf16 = !std::is_same<T, float>::value;
   static_assert(!kBf16 || kVec, "a bf16 cache takes 16-byte staging");
   extern __shared__ __align__(16) float smem[];
@@ -255,7 +279,8 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
   const size_t base = (size_t)b * S * row_stride + (size_t)h * D;
   const T* kb = k + base;
   const T* vb = v + base;
-  const size_t qo = (((size_t)b * Hkv + h) * G + g0) * D;
+  const size_t lq = ((size_t)b * Hkv + h) * G + g0;   // row g0's index
+  const size_t qo = lq * D;
 
   const int valid = *valid_ptr;
   // the query rows' chunks, prescaled; zero past D and past G
@@ -277,15 +302,23 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
     for (int i = lane; i < stages * 2 * kRows * per; i += 32)
       ring[(i / per) * ld + D + i % per] = 0.f;
 
-  const int n = (valid >= 1 && valid < S) ? valid : S;
-  bool masked = valid <= 0;
-  // the first live row: 0, or the window's lower bound (read on the card)
-  int lo = 0;
-  if (window > 0) {
-    lo = max(0, valid - window);
-    if (lo >= n) {   // no live slot: mask all, as valid <= 0 does
-      lo = 0;
-      masked = true;
+  // the live rows [lo, n): n from valid, lo 0 or the window's lower bound
+  // (read on the card)
+  int n, lo = 0;
+  bool masked = false;
+  if (lse_out != nullptr) {   // the partial form: this shard's share
+    n = min(max(valid - offset, 0), S);
+    if (window > 0) lo = min(max(valid - window - offset, 0), S);
+    if (lo >= n) n = lo = 0;  // no live slot here: every split reads nothing
+  } else {
+    n = (valid >= 1 && valid < S) ? valid : S;
+    masked = valid <= 0;
+    if (window > 0) {
+      lo = max(0, valid - window);
+      if (lo >= n) {   // no live slot: mask all, as valid <= 0 does
+        lo = 0;
+        masked = true;
+      }
     }
   }
   const int cnt = n - lo;
@@ -359,61 +392,76 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int g = 0; g < GQ; ++g) m[g] = -INFINITY;
   if constexpr (kBf16) {
-    // pass A (a bf16 cache): each query row's max score over the cluster's
-    // rows [lo, n), so every probability is rounded against the row's max,
-    // as the plain version rounds it.  The warps walk their K tiles alone,
-    // then the maxima meet over the lane groups, the warps and the cluster
-    // (each block pushes its own into every block's gather slot).
-    for (int t = 0; t < stages - 1; ++t) {
-      if (t < mine) stage(t, t, false);
-      cp_async_commit();
-    }
-    for (int t = 0, slot = 0, next = stages - 1; t < mine; ++t) {
-      if (t + stages - 1 < mine) stage(t + stages - 1, next, false);
-      cp_async_commit();
-      cp_async_wait_newest(stages - 1);
-      __syncwarp();
-      float s[GQ][kGroupRows];
-      scores(ring + slot * 2 * kRows * ld,
-             min(kRows, r1 - (r0 + (warp + t * W) * kRows)), s);
-      slot = slot + 1 == stages ? 0 : slot + 1;
-      next = next + 1 == stages ? 0 : next + 1;
+    if (row_max != nullptr) {   // the rows' maxima over every shard, given
 #pragma unroll
       for (int g = 0; g < GQ; ++g)
-#pragma unroll
-        for (int i = 0; i < kGroupRows; ++i) m[g] = fmaxf(m[g], s[g][i]);
-      __syncwarp();
-    }
-    tc::cp_async_wait_all();
-#pragma unroll
-    for (int off = 8; off < 32; off *= 2)
-#pragma unroll
-      for (int g = 0; g < GQ; ++g)
-        m[g] = fmaxf(m[g], __shfl_xor_sync(0xffffffffu, m[g], off));
-    __syncwarp();
-#pragma unroll
-    for (int g = 0; g < GQ; ++g)           // the warp's maxima, its ring head
-      if (lane == g) ring[g] = m[g];
-    __syncthreads();
-    if (tid < GQ) {
-      float bm = -INFINITY;
-      for (int w = 0; w < W; ++w)
-        bm = fmaxf(bm, rings[w * ring_floats(d4, stages) + tid]);
-      cluster_wait();                        // every block has started
-      for (int p = 0; p < P; ++p)
-        cluster.map_shared_rank(gm, p)[part * GQ + tid] = bm;
+        m[g] = g < gn ? row_max[lq + g] : -INFINITY;
     } else {
-      cluster_wait();
-    }
-    cluster.sync();                          // every block's maxima landed
+      // pass A (a bf16 cache): each query row's max score over the cluster's
+      // rows [lo, n), so every probability is rounded against the row's max,
+      // as the plain version rounds it.  The warps walk their K tiles alone,
+      // then the maxima meet over the lane groups, the warps and the cluster
+      // (each block pushes its own into every block's gather slot).
+      for (int t = 0; t < stages - 1; ++t) {
+        if (t < mine) stage(t, t, false);
+        cp_async_commit();
+      }
+      for (int t = 0, slot = 0, next = stages - 1; t < mine; ++t) {
+        if (t + stages - 1 < mine) stage(t + stages - 1, next, false);
+        cp_async_commit();
+        cp_async_wait_newest(stages - 1);
+        __syncwarp();
+        float s[GQ][kGroupRows];
+        scores(ring + slot * 2 * kRows * ld,
+               min(kRows, r1 - (r0 + (warp + t * W) * kRows)), s);
+        slot = slot + 1 == stages ? 0 : slot + 1;
+        next = next + 1 == stages ? 0 : next + 1;
 #pragma unroll
-    for (int g = 0; g < GQ; ++g) {
-      m[g] = -INFINITY;
-      for (int p = 0; p < P; ++p) m[g] = fmaxf(m[g], gm[p * GQ + g]);
+        for (int g = 0; g < GQ; ++g)
+#pragma unroll
+          for (int i = 0; i < kGroupRows; ++i) m[g] = fmaxf(m[g], s[g][i]);
+        __syncwarp();
+      }
+      tc::cp_async_wait_all();
+#pragma unroll
+      for (int off = 8; off < 32; off *= 2)
+#pragma unroll
+        for (int g = 0; g < GQ; ++g)
+          m[g] = fmaxf(m[g], __shfl_xor_sync(0xffffffffu, m[g], off));
+      __syncwarp();
+#pragma unroll
+      for (int g = 0; g < GQ; ++g)           // the warp's maxima, its ring head
+        if (lane == g) ring[g] = m[g];
+      __syncthreads();
+      if (tid < GQ) {
+        float bm = -INFINITY;
+        for (int w = 0; w < W; ++w)
+          bm = fmaxf(bm, rings[w * ring_floats(d4, stages) + tid]);
+        cluster_wait();                        // every block has started
+        for (int p = 0; p < P; ++p)
+          cluster.map_shared_rank(gm, p)[part * GQ + tid] = bm;
+      } else {
+        cluster_wait();
+      }
+      cluster.sync();                          // every block's maxima landed
+#pragma unroll
+      for (int g = 0; g < GQ; ++g) {
+        m[g] = -INFINITY;
+        for (int p = 0; p < P; ++p) m[g] = fmaxf(m[g], gm[p * GQ + g]);
+      }
+      if (out == nullptr) {   // the max-only form: the rows' maxima, done (no
+                              // block touches another's memory after the sync)
+        if (part == 0 && tid < gn) {
+          float mx = -INFINITY;
+          for (int p = 0; p < P; ++p) mx = fmaxf(mx, gm[p * GQ + tid]);
+          lse_out[lq + tid] = mx;
+        }
+        return;
+      }
+      // done with the gather buffer until the merge: its writers wait here
+      cluster_arrive();
+      __syncthreads();                         // the rings are free again
     }
-    // done with the gather buffer until the merge: its writers wait here
-    cluster_arrive();
-    __syncthreads();                         // the rings are free again
   }
 
   for (int t = 0; t < stages - 1; ++t) {
@@ -578,14 +626,19 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       if (4 * c + i < D) o[4 * c + i] = e[i];
+    if (lse_out != nullptr && c == 0)   // one item a row stores its lse
+      lse_out[lq + g] = ls > 0.f ? (kBf16 ? mx + logf(ls)
+                                              : (mx + log2f(ls)) * kLn2)
+                                     : -INFINITY;
   }
 }
 
 template <typename T, bool kVec, int NC, int GQ>
 cudaError_t launch(dim3 grid, int warps, size_t smem, cudaStream_t stream,
                    const float* q, const T* k, const T* v,
-                   const int* valid, float* out, int S, int Hkv, int G, int D,
-                   int stages, int window) {
+                   const int* valid, float* out, float* lse,
+                   const float* row_max, int S, int Hkv, int G, int D,
+                   int stages, int window, int offset) {
   static int limit[kMaxDevices];
   static bool ready[kMaxDevices];
   auto kern = flash_decode_kernel<T, kVec, NC, GQ>;
@@ -610,8 +663,9 @@ cudaError_t launch(dim3 grid, int warps, size_t smem, cudaStream_t stream,
   const float qscale =
       (std::is_same<T, float>::value ? kLog2e : 1.f) / sqrtf((float)D);
   if (grid.x == 1) {   // one split: an implicit cluster of one block
-    kern<<<grid, 32 * warps, smem, stream>>>(q, k, v, valid, out, S, Hkv, G,
-                                             D, stages, qscale, window);
+    kern<<<grid, 32 * warps, smem, stream>>>(q, k, v, valid, out, lse,
+                                             row_max, S, Hkv, G, D, stages,
+                                             qscale, window, offset);
     return cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -626,8 +680,8 @@ cudaError_t launch(dim3 grid, int warps, size_t smem, cudaStream_t stream,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kern, q, k, v, valid, out, S, Hkv, G, D,
-                           stages, qscale, window);
+  err = cudaLaunchKernelEx(&cfg, kern, q, k, v, valid, out, lse, row_max, S,
+                           Hkv, G, D, stages, qscale, window, offset);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -637,11 +691,13 @@ cudaError_t launch(dim3 grid, int warps, size_t smem, cudaStream_t stream,
 template <typename T, bool kVec, int NC>
 cudaError_t launch_gq(int gq, dim3 grid, int warps, size_t smem,
                       cudaStream_t stream, const float* q, const T* k,
-                      const T* v, const int* valid, float* out, int S,
-                      int Hkv, int G, int D, int stages, int window) {
+                      const T* v, const int* valid, float* out, float* lse,
+                      const float* row_max, int S, int Hkv, int G, int D,
+                      int stages, int window, int offset) {
 #define FD_GQ(N)                                                           \
   return launch<T, kVec, NC, N>(grid, warps, smem, stream, q, k, v,       \
-                                valid, out, S, Hkv, G, D, stages, window)
+                                valid, out, lse, row_max, S, Hkv, G, D,   \
+                                stages, window, offset)
   if constexpr (!kVec) {
     FD_GQ((NC > kNarrowNC ? kWideGQ : kMaxGQ));
   } else if constexpr (NC > kNarrowNC) {
@@ -662,11 +718,13 @@ template <typename T>
 cudaError_t dispatch(bool vec, int nc, int gq, dim3 grid, int warps,
                      size_t smem, cudaStream_t s, const float* q,
                      const T* k, const T* v, const int* valid,
-                     float* out, int S, int Hkv, int G, int D, int stages,
-                     int window) {
+                     float* out, float* lse, const float* row_max, int S,
+                     int Hkv, int G, int D, int stages, int window,
+                     int offset) {
 #define FD_NC(V, NC)                                                       \
   return launch_gq<T, V, NC>(gq, grid, warps, smem, s, q, k, v, valid,    \
-                             out, S, Hkv, G, D, stages, window)
+                             out, lse, row_max, S, Hkv, G, D, stages,     \
+                             window, offset)
 #define FD_ALL(V)                                                          \
   switch (nc) {                                                            \
     case 1: FD_NC(V, 1);                                                   \
@@ -685,16 +743,24 @@ cudaError_t dispatch(bool vec, int nc, int gq, dim3 grid, int warps,
 #undef FD_NC
 }
 
-// the checks and the launch of one call; T is the cache's element type
+// the checks and the launch of one call; T is the cache's element type; a
+// non-null lse makes it the partial form, and on a bf16 cache a null out
+// the max-only form, a non-null row_max the partial form against it
 template <typename T>
 int entry(const void* q, const void* k, const void* v, const void* valid,
-          void* out, int B, int S, int Hkv, int G, int D, int splits,
-          int warps, int stages, int vec, int window, void* stream) {
+          void* out, void* lse, const void* row_max, int B, int S, int Hkv,
+          int G, int D, int splits, int warps, int stages, int vec,
+          int window, int offset, void* stream) {
   constexpr int kAlign = std::is_same<T, float>::value ? 4 : 8;
   if (B <= 0 || S <= 0 || Hkv <= 0 || G <= 0 || D <= 0 || D > kMaxD ||
       splits < 1 || splits > kMaxSplits ||
       (warps != 1 && warps != 2 && warps != 4 && warps != 8) || stages < 2 ||
-      stages > kMaxStages || window < 0)
+      stages > kMaxStages || window < 0 || offset < 0)
+    return (int)cudaErrorInvalidValue;
+  // a null out or a given row_max: the partial form on a bf16 cache only
+  if ((out == nullptr || row_max != nullptr) &&
+      (lse == nullptr || std::is_same<T, float>::value ||
+       (out == nullptr && row_max != nullptr)))
     return (int)cudaErrorInvalidValue;
   if (!std::is_same<T, float>::value && !vec)
     return (int)cudaErrorInvalidValue;
@@ -714,8 +780,9 @@ int entry(const void* q, const void* k, const void* v, const void* valid,
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)dispatch<T>(vec, nc, gq, grid, warps, smem, s,
                           (const float*)q, (const T*)k, (const T*)v,
-                          (const int*)valid, (float*)out, S, Hkv, G, D,
-                          stages, window);
+                          (const int*)valid, (float*)out, (float*)lse,
+                          (const float*)row_max, S, Hkv, G, D, stages, window,
+                          offset);
 }
 
 }  // namespace

@@ -12,14 +12,22 @@ Rule per weight leaf:
 This never shards a head axis, so odd head counts (smollm's 15 heads) are
 safe.  :func:`param_shardings` gives each spec's DTensor placements on the
 mesh and :func:`distribute_params` lays a tree out with them.
+
+The model axis: :func:`model_layout` reads which layers of a decoder take
+their weights as model shards (a :class:`ModelPlan`) off the specs;
+:func:`local_params` turns the DTensor tree into this rank's local
+tensors (gathered over the batch axes, each leaf's model shard kept), and
+:func:`prepare` gathers, inside autograd, every model-sharded leaf that
+no layer takes as a shard (norm scales, the router, a layer whose heads
+do not divide the axis), so each rank's gradients are of its own shards.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 from repro_torch.common.tree import tree_map, tree_paths, tree_unflatten
 from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
-                                              axis_size)
+                                              axis_size, gather_from_model)
 
 MIN_SHARD_DIM = 128
 
@@ -141,3 +149,169 @@ def _itemsize(leaf: Any) -> int:
     if hasattr(leaf, "element_size"):
         return int(leaf.element_size())
     return int(leaf.dtype.itemsize)
+
+
+def held_bytes(params) -> int:
+    """Parameter bytes this rank holds: a DTensor leaf's local shard, else
+    the whole leaf (:func:`sharded_bytes` of the full tree under its specs,
+    read off the laid-out tree)."""
+    total = 0
+    for _, leaf in tree_paths(params):
+        local = leaf.to_local() if hasattr(leaf, "to_local") else leaf
+        total += local.numel() * local.element_size()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# the model axis: which layers take shards, and this rank's local tree
+# ---------------------------------------------------------------------------
+
+class ModelPlan(NamedTuple):
+    """Which decoder layers take their weights as model shards: ``attn``
+    (wq and wkv column-parallel, wo row-parallel, whole query and kv heads
+    a rank), ``mlp`` (wi and wg columns, wo rows), ``moe`` (experts) and
+    ``vocab`` (embedding rows: the lookup and the logits vocab-parallel).
+    A layer that does not runs whole on every model rank."""
+    attn: bool = False
+    mlp: bool = False
+    moe: bool = False
+    vocab: bool = False
+
+
+# the leaves a layer takes as shards, and the dim its model shard lies on
+SHARD_CONSUMERS = {
+    "attn": {"layers/attn/wq": -1, "layers/attn/wkv": -1,
+             "layers/attn/wo": -2},
+    "mlp": {"layers/mlp/wi": -1, "layers/mlp/wg": -1, "layers/mlp/wo": -2},
+    "moe": {"layers/moe/wi": -3, "layers/moe/wg": -3, "layers/moe/wo": -3},
+    "vocab": {"embed": -2},
+}
+
+
+class ModelLayout(NamedTuple):
+    """A model's parameter specs on a mesh, its :class:`ModelPlan` and the
+    policy they came from."""
+    specs: Any
+    plan: ModelPlan
+    policy: str
+
+
+def model_dim(spec: PartitionSpec) -> Optional[int]:
+    """The tensor dim ``spec`` puts on ``model`` (None if none), counted
+    from the end (negative)."""
+    for i, s in enumerate(spec):
+        if s == "model" or (isinstance(s, tuple) and "model" in s):
+            return i - len(spec)
+    return None
+
+
+def plan_of(cfg, specs, mesh) -> ModelPlan:
+    """The :class:`ModelPlan` of a decoder's ``specs`` on ``mesh``: a layer
+    takes shards when every leaf it would take so is model-sharded on the
+    dim it expects, and attention only when the query and kv heads divide
+    the axis (JAX shards the flattened ``qkv_flat`` dim, which divides
+    where the heads do not, and GSPMD reshards; the port runs such
+    attention whole instead, after gathering its weights)."""
+    m = axis_size(mesh, "model")
+    if m == 1 or cfg.family not in ("dense", "moe", "vlm"):
+        return ModelPlan()
+    flat = dict(tree_paths(specs))
+
+    def takes(group):
+        for path, dim in SHARD_CONSUMERS[group].items():
+            if path not in flat or model_dim(flat[path]) != dim:
+                return False
+        return True
+
+    return ModelPlan(
+        attn=takes("attn") and cfg.num_heads % m == 0
+        and cfg.num_kv_heads % m == 0,
+        mlp=takes("mlp"), moe=takes("moe"), vocab=takes("vocab"))
+
+
+def model_layout(cfg, mesh, policy: Optional[str] = None) -> ModelLayout:
+    """``cfg``'s parameter specs on ``mesh`` (the shapes from a meta init)
+    under ``policy`` (default the config's ``sharding``) and their plan."""
+    from repro_torch.models import registry
+    policy = policy or cfg.sharding
+    meta = registry.init_params(cfg, device="meta")
+    specs = param_specs(meta, mesh, expert_dim=cfg.padded_experts or None,
+                        policy=policy)
+    return ModelLayout(specs, plan_of(cfg, specs, mesh), policy)
+
+
+def _consumed(plan: ModelPlan):
+    out = {}
+    for group in ModelPlan._fields:
+        if getattr(plan, group):
+            out.update(SHARD_CONSUMERS[group])
+    return out
+
+
+def local_params(params):
+    """This rank's local tensors of a DTensor tree: each leaf gathered
+    over every mesh dim but ``model`` (a collective every rank joins,
+    outside autograd) with its model shard kept; plain leaves as they
+    are."""
+    from torch.distributed.tensor import Replicate
+
+    def one(x):
+        if not hasattr(x, "device_mesh"):
+            return x
+        mesh = x.device_mesh
+        names = mesh.mesh_dim_names
+        # a shard over a mesh dim of one rank is already whole there
+        want = [pl if n == "model" or mesh.size(i) == 1 else Replicate()
+                for i, (n, pl) in enumerate(zip(names, x.placements))]
+        if list(x.placements) != want:
+            x = x.redistribute(mesh, want)
+        return x.to_local()
+    return tree_map(one, params)
+
+
+def local_shards(params, specs, mesh):
+    """Whole (one-process) ``params`` cut to this rank's model shards by
+    ``specs`` (the rank's index along ``model`` of ``mesh``): what
+    :func:`local_params` gives for the same values laid out on the mesh,
+    with no collective (rank 0's on a shape-only mesh)."""
+    m = axis_size(mesh, "model")
+    rank = (mesh.get_local_rank("model")
+            if m > 1 and hasattr(mesh, "get_local_rank") else 0)
+
+    def one(x, spec):
+        d = model_dim(spec)
+        if d is None or m == 1:
+            return x
+        k = x.shape[d] // m
+        return x.narrow(d, rank * k, k).contiguous()
+    return tree_map(one, params, specs)
+
+
+def prepare(params, layout: ModelLayout):
+    """The tree the model code takes on a model rank: ``params`` (this
+    rank's local tensors) with every model-sharded leaf that no layer of
+    ``layout.plan`` takes as a shard gathered over ``model``
+    (differentiable: its backward keeps this rank's slice, since every
+    rank uses the whole leaf alike).  Needs the mesh's context
+    (``sharding.axis_rules``)."""
+    keep = _consumed(layout.plan)
+    out = []
+    for (path, x), (_, spec) in zip(tree_paths(params),
+                                    tree_paths(layout.specs)):
+        d = model_dim(spec)
+        if d is None or keep.get(path) == d:
+            out.append(x)
+        else:
+            out.append(gather_from_model(x, d))
+    return tree_unflatten(params, out)
+
+
+def mesh_context(cfg, mesh, rules=None, layout: Optional[ModelLayout] = None):
+    """``sharding.axis_rules`` for ``cfg`` on ``mesh``: ``rules`` (default
+    ``rules_for`` of the policy with a batch that divides) and the plan of
+    ``layout`` (default :func:`model_layout`).  Caches made by
+    ``registry.init_cache`` inside it are this rank's shards."""
+    from repro_torch.distributed.sharding import axis_rules, rules_for
+    layout = layout or model_layout(cfg, mesh)
+    return axis_rules(mesh, rules or rules_for(layout.policy, 0, mesh),
+                      layout.plan)

@@ -20,6 +20,25 @@ itself.  The port's data-parallel step holds each rank's rows as plain
 local tensors, so the few reductions that couple rows (BatchNorm's
 statistics, the MoE load-balance means) call :func:`batch_mean`, a
 differentiable mean over the ranks of the batch axes.
+
+The model axis (tensor and expert parallelism) and the ``kv_seq`` decode
+are explicit too: a layer holds its shard of a weight as a plain local
+tensor and calls the collectives below, Megatron's column- and
+row-parallel products.  Between blocks the activations stay replicated
+over ``model`` (every model rank computes the same full activation), so a
+loss is the same number on every model rank, and each collective's
+backward is the one that gives every rank the gradient of that one loss
+for its own tensors: :func:`copy_to_model` (identity forward, all-reduce
+backward) at a column-parallel input, :func:`reduce_from_model`
+(all-reduce forward, identity backward) at a row-parallel output,
+:func:`gather_from_model` (all-gather forward; backward the rank's slice
+when every rank uses the whole result, a reduce-scatter when each uses
+only its part), :func:`scatter_to_model` (a rank's slice forward,
+all-gather backward) and :func:`all_to_all` (its own adjoint).  Each
+counts its result's bytes through ``common.cost.report_collective``.  On
+a shape-only mesh (the dry run) they return meta tensors of the result's
+shape and report the same bytes.  The ranks of an axis are found with
+:func:`axis_group`.
 """
 from __future__ import annotations
 
@@ -27,7 +46,7 @@ import contextlib
 import dataclasses
 import threading
 import warnings
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -136,21 +155,49 @@ def spec_placements(mesh, spec: PartitionSpec) -> tuple:
 class _Ctx(threading.local):
     mesh: Optional[Any] = None
     rules: Optional[Rules] = None
+    plan: Optional[Any] = None
 
 
 _CTX = _Ctx()
 
 
 @contextlib.contextmanager
-def axis_rules(mesh, rules: Optional[Rules] = None):
+def axis_rules(mesh, rules: Optional[Rules] = None, plan: Any = None):
     """Map logical axis names to ``mesh``'s axes by ``rules`` (default
-    :data:`DEFAULT_RULES`) inside the block."""
-    prev = (_CTX.mesh, _CTX.rules)
+    :data:`DEFAULT_RULES`) inside the block.  ``plan``
+    (``distributed.params.ModelPlan``) says which layers take their
+    weights as model shards; without one every layer runs whole."""
+    prev = (_CTX.mesh, _CTX.rules, _CTX.plan)
     _CTX.mesh, _CTX.rules = mesh, dict(rules or DEFAULT_RULES)
+    _CTX.plan = plan
     try:
         yield
     finally:
-        _CTX.mesh, _CTX.rules = prev
+        _CTX.mesh, _CTX.rules, _CTX.plan = prev
+
+
+def model_plan():
+    """The active ``ModelPlan``, None outside :func:`axis_rules` or when
+    no layer takes model shards."""
+    return _CTX.plan
+
+
+def rules_for(policy: str, rows: int, mesh) -> Rules:
+    """The rules of one cell (JAX's ``launch.dryrun._rules_for``): the
+    default rules; under the ``dp_only`` policy the batch on every mesh
+    axis; and where ``rows`` (the global batch) does not divide over the
+    batch ranks, no batch sharding and the decode cache's sequence over
+    ``data`` (``kv_seq``: every rank runs the whole batch against its
+    slot range of the cache)."""
+    rules = dict(DEFAULT_RULES)
+    dp = axis_size(mesh, "data") * axis_size(mesh, "pod")
+    if policy == "dp_only":
+        rules["batch"] = ("pod", "data", "model")
+        dp *= axis_size(mesh, "model")
+    if rows % dp:
+        rules["batch"] = None
+        rules["kv_seq"] = "data"
+    return rules
 
 
 def _resolve(axis: Optional[str]) -> Union[None, str, Tuple[str, ...]]:
@@ -176,15 +223,19 @@ def logical_spec(*axes: Optional[str]) -> PartitionSpec:
 
 def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
     """The logical sharding constraint of the reference; does nothing
-    outside :func:`axis_rules`.  Inside, it checks the rank and returns
-    ``x``: the port's data-parallel step keeps each rank's batch rows as
-    local tensors, which meets a batch constraint by construction, and a
-    model axis above 1 (tensor or expert parallelism) is refused by the
-    train step."""
+    outside :func:`axis_rules`.  Inside, it resolves ``axes`` through the
+    active rules (an unknown logical name raises KeyError), checks the
+    rank and returns ``x``: the port lays its tensors out itself, each
+    rank's batch rows and its model shards being local tensors that the
+    layers move with the collectives of this module, so a constraint is
+    met by construction where GSPMD would reshard."""
     if _CTX.mesh is None:
         return x
     if len(axes) != x.dim():
         raise ValueError(f"{len(axes)} axes for rank-{x.dim()} tensor")
+    for a in axes:
+        if a is not None and a not in _CTX.rules:
+            raise KeyError(f"no rule for logical axis {a!r}")
     return x
 
 
@@ -226,28 +277,34 @@ def make_mesh(shape, device="cuda"):
                             mesh_dim_names=names)
 
 
-def batch_axes(mesh) -> List[str]:
-    """The mesh axes the logical batch axis maps to (``pod``, ``data``)."""
-    spec = DEFAULT_RULES["batch"]
+def batch_axes(mesh, rules: Optional[Rules] = None) -> List[str]:
+    """The mesh axes the logical batch axis maps to under ``rules`` (by
+    default the active rules, else :data:`DEFAULT_RULES`: ``pod``,
+    ``data``; every axis under ``dp_only``; none under ``kv_seq``)."""
+    rules = rules or _CTX.rules or DEFAULT_RULES
+    spec = rules.get("batch")
+    if spec is None:
+        return []
+    spec = spec if isinstance(spec, tuple) else (spec,)
     return [a for a in spec if a in axis_names(mesh)]
 
 
-def batch_ranks(mesh=None) -> int:
+def batch_ranks(mesh=None, rules: Optional[Rules] = None) -> int:
     """How many ranks split the batch on ``mesh`` (default: the current
     context's; 1 outside a context)."""
     mesh = _CTX.mesh if mesh is None else mesh
     if mesh is None:
         return 1
     n = 1
-    for a in batch_axes(mesh):
+    for a in batch_axes(mesh, rules):
         n *= axis_size(mesh, a)
     return n
 
 
-def batch_rank(mesh) -> int:
+def batch_rank(mesh, rules: Optional[Rules] = None) -> int:
     """This rank's index among the batch axes' ranks of ``mesh``."""
     r = 0
-    for a in batch_axes(mesh):
+    for a in batch_axes(mesh, rules):
         r = r * axis_size(mesh, a) + mesh.get_local_rank(a)
     return r
 
@@ -257,7 +314,9 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
     (its backward sums the cotangents over the same ranks), for the
     reductions over a batch that a rank holds only a share of: each rank
     passes its local mean over an equal number of rows.  ``x`` itself
-    outside :func:`axis_rules` or where one rank holds the whole batch."""
+    outside :func:`axis_rules` or where one rank holds the whole batch.
+    On a shape-only mesh it counts the all-reduces and returns ``x / n``
+    (a meta tensor there)."""
     n = batch_ranks()
     if n == 1:
         return x
@@ -266,7 +325,232 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
     with warnings.catch_warnings():   # deprecated in newer torch, kept there
         warnings.simplefilter("ignore", FutureWarning)
         for a in batch_axes(mesh):
-            if axis_size(mesh, a) > 1:
-                x = dist_fn.all_reduce(x, group=mesh.get_group(a))
+            ax = axis_group(a)
+            if ax.size > 1:
+                if ax.group is not None:
+                    x = dist_fn.all_reduce(x, group=ax.group)
                 report_collective("all-reduce", x.numel() * x.element_size())
     return x / n
+
+
+# ---------------------------------------------------------------------------
+# the model axis and the kv_seq ranks: groups and differentiable collectives
+# ---------------------------------------------------------------------------
+
+class AxisGroup(NamedTuple):
+    """The ranks of one mesh axis as this rank sees them: the process
+    group (None on a shape-only mesh, or where the axis has one rank),
+    this rank's index along the axis (0 on a shape-only mesh) and the
+    axis's size."""
+    group: Any
+    rank: int
+    size: int
+
+
+def axis_group(name: Optional[str]) -> AxisGroup:
+    """The ranks of mesh axis ``name`` in the active context (one rank
+    outside a context, or for ``None``)."""
+    mesh = _CTX.mesh
+    if mesh is None or name is None:
+        return AxisGroup(None, 0, 1)
+    n = axis_size(mesh, name)
+    if n == 1 or getattr(mesh, "mesh_dim_names", None) is None:
+        return AxisGroup(None, 0, n)
+    return AxisGroup(mesh.get_group(name), mesh.get_local_rank(name), n)
+
+
+def model_group() -> AxisGroup:
+    """The ranks of the ``model`` axis."""
+    return axis_group("model")
+
+
+def kv_seq_group() -> AxisGroup:
+    """The ranks that split a decode cache's slots (the mesh axis the
+    ``kv_seq`` rule names; one rank when it names none)."""
+    spec = _resolve("kv_seq")
+    if isinstance(spec, tuple):
+        raise NotImplementedError(f"kv_seq over {spec}: one mesh axis only")
+    return axis_group(spec)
+
+
+def _report(kind: str, t: torch.Tensor) -> None:
+    report_collective(kind, t.numel() * t.element_size())
+
+
+def _gathered(x: torch.Tensor, ax: AxisGroup, dim: int) -> torch.Tensor:
+    """All-gather ``x`` along ``dim`` over ``ax`` (rank order)."""
+    dim = dim % x.dim()
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((ax.size * src.shape[0], *src.shape[1:]))
+    if ax.group is not None:
+        import torch.distributed as dist
+        dist.all_gather_into_tensor(out, src, group=ax.group)
+    _report("all-gather", out)
+    return out.movedim(0, dim)
+
+
+def _scattered(x: torch.Tensor, ax: AxisGroup, dim: int) -> torch.Tensor:
+    """Reduce-scatter (sum) ``x`` along ``dim`` over ``ax``."""
+    dim = dim % x.dim()
+    src = x.movedim(dim, 0).contiguous()
+    if src.shape[0] % ax.size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {ax.size} ranks")
+    out = src.new_empty((src.shape[0] // ax.size, *src.shape[1:]))
+    if ax.group is not None:
+        import torch.distributed as dist
+        dist.reduce_scatter_tensor(out, src, group=ax.group)
+    _report("reduce-scatter", out)
+    return out.movedim(0, dim)
+
+
+def _summed(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    """All-reduce (sum) of ``x`` over ``ax``, into a new tensor."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    if ax.group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(out, group=ax.group)
+    _report("all-reduce", out)
+    return out
+
+
+def _own(x: torch.Tensor, ax: AxisGroup, dim: int) -> torch.Tensor:
+    """This rank's contiguous slice of ``x`` along ``dim``."""
+    n = x.shape[dim]
+    if n % ax.size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {ax.size} ranks")
+    k = n // ax.size
+    return x.narrow(dim, ax.rank * k, k).contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.ax), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        return _summed(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim, partial_use):
+        ctx.ax, ctx.dim, ctx.partial = ax, dim, partial_use
+        return _gathered(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            return _scattered(g, ctx.ax, ctx.dim), None, None, None
+        return _own(g, ctx.ax, ctx.dim), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _own(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gathered(g, ctx.ax, ctx.dim), None, None
+
+
+def _exchange(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if ax.group is not None:
+        import torch.distributed as dist
+        dist.all_to_all_single(out, x.contiguous(), group=ax.group)
+    _report("all-to-all", out)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _exchange(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.ax), None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel product's input: ``x`` itself, whose backward sums
+    the cotangents of the model ranks (each holds the part its shard of
+    the weight gives)."""
+    ax = model_group()
+    return x if ax.size == 1 else _CopyTo.apply(x, ax)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's output: the sum of the model ranks'
+    partial ``x``, replicated; the cotangent passes through unchanged."""
+    ax = model_group()
+    return x if ax.size == 1 else _ReduceFrom.apply(x, ax)
+
+
+def gather_from_model(x: torch.Tensor, dim: int,
+                      partial_use: bool = False) -> torch.Tensor:
+    """The model ranks' shards of ``x`` concatenated along ``dim`` in rank
+    order.  Backward: this rank's slice of the cotangent when every rank
+    uses the whole result alike, or with ``partial_use`` (each rank uses
+    only a part of it) the sum of the ranks' cotangents, reduce-scattered."""
+    ax = model_group()
+    return x if ax.size == 1 else _Gather.apply(x, ax, dim, partial_use)
+
+
+def scatter_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This model rank's contiguous slice of replicated ``x`` along
+    ``dim``; the backward all-gathers the ranks' cotangents."""
+    ax = model_group()
+    return x if ax.size == 1 else _Scatter.apply(x, ax, dim)
+
+
+def all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """Exchange along leading dim 0 (of the model axis's size) over the
+    model ranks: slice j goes to rank j, and slice j of the result came
+    from rank j.  Its own adjoint."""
+    ax = model_group()
+    if ax.size == 1:
+        return x
+    if x.shape[0] != ax.size:
+        raise ValueError(f"all_to_all: leading dim {x.shape[0]} is not the "
+                         f"{ax.size} ranks")
+    return _AllToAll.apply(x, ax)
+
+
+def max_over(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``ax``'s ranks, outside autograd
+    (a softmax's stabiliser)."""
+    if ax.size == 1:
+        return x
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    if ax.group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=ax.group)
+    _report("all-reduce", out)
+    return out
+
+
+def gather_over(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    """The ranks' ``x`` stacked along a new leading dim in rank order, for
+    use in inference (no backward): the kv_seq ranks' partial
+    attention."""
+    if ax.size == 1:
+        return x[None]
+    return _gathered(x[None], ax, 0)

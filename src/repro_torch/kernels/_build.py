@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("graph_sconv", "cavity_tconv", "cavity_tconv_step", "rfc_encode",
            "rfc_decode", "graph_sconv_csr", "windowed_similarity",
-           "flash_decode")
+           "flash_decode", "flash_decode_partial", "flash_decode_row_max")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -56,11 +56,13 @@ _SIGNATURES = {
     # new_th, new_ph (the seven null in the bare form), out, S, K, V, Ce,
     # valid, rows, threads, stream
     "window_sim_f32": (*(_P,) * 10, *(_I,) * 7, _P),
-    # q, k, v, valid (int32), out, B, S, Hkv, G, D, splits, warps, stages,
-    # vec, window, stream
-    "flash_decode_f32": (*(_P,) * 5, *(_I,) * 10, _P),
-    # the same with a bf16 cache, always 16-byte staging (no vec)
-    "flash_decode_bf16": (*(_P,) * 5, *(_I,) * 9, _P),
+    # q, k, v, valid (int32), out, lse (null but in the partial form),
+    # row_max (null), B, S, Hkv, G, D, splits, warps, stages, vec, window,
+    # offset, stream
+    "flash_decode_f32": (*(_P,) * 7, *(_I,) * 11, _P),
+    # the same with a bf16 cache, always 16-byte staging (no vec); with
+    # lse, out may be null (the rows' maxima alone) and row_max given
+    "flash_decode_bf16": (*(_P,) * 7, *(_I,) * 10, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

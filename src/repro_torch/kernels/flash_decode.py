@@ -12,6 +12,17 @@ through distributed shared memory; ``valid`` is read on the card).
 :func:`decode_plan` sizes a launch from the shapes and the SM count.  Its
 oracle is ``ref.flash_decode_ref``, which the plain version is.
 
+:func:`flash_decode_partial` is the kernel's partial form for a cache
+sharded over the kv_seq ranks: the same launch over one shard (slots
+[offset, offset + S) of the cache, the bounds whole and read on the card)
+that also stores each query row's log-sum-exp; its plain version is
+``ref.flash_decode_partial_ref`` and the caller merges the ranks'
+partials (``ref.flash_decode_merge``).  On a bf16 cache the caller first
+takes :func:`flash_decode_row_max` (the same kernel's first pass alone:
+each row's max over the shard), the max over the ranks, and passes it as
+``row_max``, so every probability rounds against the row's max over the
+whole cache as one rank rounds it.
+
 Layouts: q (B, Hkv, G, D) float32, k and v (B, S, Hkv, D) float32 or
 both bfloat16 (a bf16 cache: ``csrc/flash_decode_bf16.cu``, D % 8 == 0,
 the probabilities rounded to bf16 as the reference's bf16 attention
@@ -30,6 +41,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_decode_ref as flash_decode_plain
+from repro_torch.kernels.ref import (flash_decode_partial_ref,
+                                     flash_decode_row_max_ref)
 from repro_torch.common.cost import reports_work
 
 MAX_HEAD_DIM = 256        # the kernel's limit on D
@@ -194,19 +207,10 @@ def _check_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError(f"flash_decode: k is {k.dtype} and v {v.dtype}")
 
 
-@reports_work("flash_decode", lambda q, k, v, valid, window=0, plan=None:
-              flash_decode_work(*k.shape[:3], q.shape[2], q.shape[3],
-                                k.element_size()))
-def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 valid: Union[int, torch.Tensor], window: int = 0,
-                 plan: Optional[DecodePlan] = None) -> torch.Tensor:
-    """(B, Hkv, G, D) queries against a (B, S, Hkv, D) cache, slots >=
-    ``valid`` masked, and with ``window`` > 0 (a host int) the slots
-    below ``valid − window`` too (the kernel reads that bound from
-    ``valid`` on the card): launches the CUDA kernel for CUDA tensors
-    (sized by ``plan``, default :func:`decode_plan`); CPU tensors take
-    :func:`flash_decode_plain`.  A bf16 cache needs D % 8 == 0 and 16-byte
-    aligned k and v (16-byte staging of 8 values)."""
+def _checked_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid: Union[int, torch.Tensor], window: int, offset: int
+                  ) -> tuple:
+    """The checks both forms share; returns (window, offset) as ints."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_decode: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
@@ -214,12 +218,24 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[2] != Hkv or k.shape[3] != D:
         raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match "
                          f"the cache {tuple(k.shape)}")
-    window = int(window)
-    if window < 0:
-        raise ValueError(f"flash_decode: window {window} < 0")
-    if _build.dispatch_device("flash_decode", q) == "cpu":
-        return flash_decode_plain(q, k, v, valid, window)
+    window, offset = int(window), int(offset)
+    if window < 0 or offset < 0:
+        raise ValueError(f"flash_decode: window {window} or offset "
+                         f"{offset} < 0")
+    return window, offset
+
+
+def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            valid: Union[int, torch.Tensor], window: int,
+            plan: Optional[DecodePlan], lse: Optional[torch.Tensor],
+            offset: int, row_max: Optional[torch.Tensor] = None,
+            max_only: bool = False) -> Optional[torch.Tensor]:
+    """Check the CUDA inputs and launch the kernel (the partial form when
+    ``lse`` is given: against ``row_max`` when given, or with
+    ``max_only`` the rows' maxima alone, into ``lse``), counted as
+    ``kernel``; returns the output (None with ``max_only``)."""
     _check_cache(q, k, v)
+    B, Hkv, G, D = q.shape
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_decode: head_dim {D} > {MAX_HEAD_DIM}")
     bf16 = k.dtype == torch.bfloat16
@@ -234,21 +250,118 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"flash_decode: valid must be one int32 on "
                         f"{q.device}, got {valid.dtype} {tuple(valid.shape)} "
                         f"on {valid.device}")
-    out = torch.empty_like(q)
-    if out.numel():
+    if (max_only or row_max is not None) and not bf16:
+        raise ValueError("flash_decode: the rows' maxima are a bf16 cache's")
+    if row_max is not None and (row_max.shape != q.shape[:3]
+                                or row_max.dtype != torch.float32
+                                or not row_max.is_contiguous()):
+        raise ValueError(f"flash_decode: row_max must be contiguous float32 "
+                         f"{tuple(q.shape[:3])}")
+    out = None if max_only else torch.empty_like(q)
+    if q.numel():
         S = k.shape[1]
         if plan is None:
             plan = decode_plan(B, S, Hkv, G, D, _build.sm_count(q.device))
+        ptr = lambda t: 0 if t is None else t.data_ptr()   # noqa: E731
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                out.data_ptr(), B, S, Hkv, G, D, plan.splits, plan.warps,
-                plan.stages)
+                ptr(out), ptr(lse), ptr(row_max), B, S, Hkv, G, D,
+                plan.splits, plan.warps, plan.stages)
         if bf16:
-            _build.launch("flash_decode", "flash_decode_bf16", q.device,
-                          *args, window)
+            _build.launch(kernel, "flash_decode_bf16", q.device,
+                          *args, window, offset)
         else:
             # 16-byte staging needs 16-byte rows and pointers; else 4-byte
             vec = int(D % 4 == 0 and k.data_ptr() % 16 == 0
                       and v.data_ptr() % 16 == 0)
-            _build.launch("flash_decode", "flash_decode_f32", q.device,
-                          *args, vec, window)
+            _build.launch(kernel, "flash_decode_f32", q.device,
+                          *args, vec, window, offset)
     return out
+
+
+@reports_work("flash_decode", lambda q, k, v, valid, window=0, plan=None:
+              flash_decode_work(*k.shape[:3], q.shape[2], q.shape[3],
+                                k.element_size()))
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 valid: Union[int, torch.Tensor], window: int = 0,
+                 plan: Optional[DecodePlan] = None) -> torch.Tensor:
+    """(B, Hkv, G, D) queries against a (B, S, Hkv, D) cache, slots >=
+    ``valid`` masked, and with ``window`` > 0 (a host int) the slots
+    below ``valid − window`` too (the kernel reads that bound from
+    ``valid`` on the card): launches the CUDA kernel for CUDA tensors
+    (sized by ``plan``, default :func:`decode_plan`); CPU tensors take
+    :func:`flash_decode_plain`.  A bf16 cache needs D % 8 == 0 and 16-byte
+    aligned k and v (16-byte staging of 8 values)."""
+    window, _ = _checked_call(q, k, v, valid, window, 0)
+    if _build.dispatch_device("flash_decode", q) == "cpu":
+        return flash_decode_plain(q, k, v, valid, window)
+    return _launch("flash_decode", q, k, v, valid, window, plan, None, 0)
+
+
+@reports_work("flash_decode_partial",
+              lambda q, k, v, valid, window=0, offset=0, row_max=None,
+              plan=None: flash_decode_partial_work(
+                  *k.shape[:3], q.shape[2], q.shape[3], k.element_size()))
+def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         valid: Union[int, torch.Tensor], window: int = 0,
+                         offset: int = 0,
+                         row_max: Optional[torch.Tensor] = None,
+                         plan: Optional[DecodePlan] = None) -> tuple:
+    """The partial form over one kv_seq shard: k and v (B, S, Hkv, D) are
+    slots [offset, offset + S) of a longer cache, ``valid`` (read on the
+    card) and ``window`` its whole bounds.  Returns (o (B, Hkv, G, D)
+    float32, lse (B, Hkv, G) float32): the attention over the shard's live
+    slots and their log-sum-exp; a shard with none gives o = 0 and lse =
+    −inf.  On a bf16 cache ``row_max`` (B, Hkv, G), when given, is what
+    every probability rounds against (:func:`flash_decode_row_max`'s
+    maxima, maxed over the ranks).  The same kernel as
+    :func:`flash_decode`, counted apart; CPU tensors take
+    ``ref.flash_decode_partial_ref``."""
+    window, offset = _checked_call(q, k, v, valid, window, offset)
+    if _build.dispatch_device("flash_decode_partial", q) == "cpu":
+        return flash_decode_partial_ref(q, k, v, valid, window, offset,
+                                        row_max)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    out = _launch("flash_decode_partial", q, k, v, valid, window, plan, lse,
+                  offset, row_max)
+    return out, lse
+
+
+def flash_decode_partial_work(B: int, S: int, Hkv: int, G: int, D: int,
+                              itemsize: int = 4, rows: int = None) -> tuple:
+    """(flops, bytes) of one :func:`flash_decode_partial` call:
+    :func:`flash_decode_work` and the (B, Hkv, G) float32 log-sum-exps
+    written (and the maxima read with ``row_max``, counted alike)."""
+    flops, nbytes = flash_decode_work(B, S, Hkv, G, D, itemsize, rows)
+    return flops, nbytes + 4 * B * Hkv * G
+
+
+def flash_decode_row_max_work(B: int, S: int, Hkv: int, G: int, D: int,
+                              itemsize: int = 2, rows: int = None) -> tuple:
+    """(flops, bytes) of one :func:`flash_decode_row_max` call reading
+    ``rows`` cache rows (default all S): the q·k dots as flops; q, the
+    rows of k, ``valid`` and the (B, Hkv, G) float32 maxima moved once."""
+    n = S if rows is None else rows
+    return (2 * B * Hkv * G * n * D,
+            4 * B * Hkv * G * (D + 1) + itemsize * B * n * Hkv * D + 4)
+
+
+@reports_work("flash_decode_row_max",
+              lambda q, k, valid, window=0, offset=0, plan=None:
+              flash_decode_row_max_work(*k.shape[:3], q.shape[2], q.shape[3],
+                                        k.element_size()))
+def flash_decode_row_max(q: torch.Tensor, k: torch.Tensor,
+                         valid: Union[int, torch.Tensor], window: int = 0,
+                         offset: int = 0,
+                         plan: Optional[DecodePlan] = None) -> torch.Tensor:
+    """Each query row's max scaled score over a kv_seq shard's live slots
+    (:func:`flash_decode_partial`'s bounds), −inf where none: (B, Hkv, G)
+    float32, a bf16 cache's first pass alone (the kernel's max-only form,
+    which reads K only).  CPU tensors take
+    ``ref.flash_decode_row_max_ref``."""
+    window, offset = _checked_call(q, k, k, valid, window, offset)
+    if _build.dispatch_device("flash_decode_row_max", q) == "cpu":
+        return flash_decode_row_max_ref(q, k, valid, window, offset)
+    m = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch("flash_decode_row_max", q, k, k, valid, window, plan, m, offset,
+            max_only=True)
+    return m

@@ -112,3 +112,74 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp((s - s.amax(-1, keepdim=True)).to(v.dtype)).float()
     out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     return (out / p.sum(-1, keepdim=True).clamp_min(1e-20)).to(q.dtype)
+
+
+def _shard_scores(q, k, valid, window, offset):
+    """Scaled scores over a shard's slots, −inf where a slot is not live."""
+    D, S = q.shape[-1], k.shape[1]
+    s = torch.einsum("bhgd,bshd->bhgs", q, k.to(q.dtype)) / math.sqrt(D)
+    if torch.is_tensor(valid):
+        valid = valid.reshape(())
+    slots = offset + torch.arange(S, device=k.device)
+    live = slots < valid
+    if window > 0:
+        live = live & (slots >= valid - window)
+    return torch.where(live, s, float("-inf"))
+
+
+def flash_decode_row_max_ref(q: torch.Tensor, k: torch.Tensor,
+                             valid: Union[int, torch.Tensor],
+                             window: int = 0, offset: int = 0
+                             ) -> torch.Tensor:
+    """Each query row's max scaled score over a kv_seq shard's live slots
+    (:func:`flash_decode_partial_ref`'s bounds), −inf where none: (B,
+    Hkv, G) float32."""
+    return _shard_scores(q, k, valid, window, offset).amax(-1).float()
+
+
+def flash_decode_partial_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor,
+                             valid: Union[int, torch.Tensor],
+                             window: int = 0, offset: int = 0,
+                             row_max: torch.Tensor = None):
+    """The partial form of :func:`flash_decode_ref` over one kv_seq shard:
+    k and v (B, S, Hkv, D) hold slots [offset, offset + S) of a longer
+    cache whose ``valid`` and ``window`` bounds are given whole; a slot is
+    live when offset + s < valid and, with ``window`` > 0, offset + s >=
+    valid − window.  Returns (o (B, Hkv, G, D) in q's dtype, the softmax
+    over this shard's live slots applied to v; lse (B, Hkv, G) float32,
+    the log-sum-exp of the scaled scores over them).  A shard with no
+    live slot gives o = 0 and lse = −inf.  A bf16 cache follows
+    :func:`flash_decode_ref`'s bf16 rules, each probability rounded
+    against ``row_max`` (B, Hkv, G) when given (the rows' maxima over
+    every shard, so the shards' partials merge into the unsharded
+    result), else against the shard's own max."""
+    s = _shard_scores(q, k, valid, window, offset)
+    m = s.amax(-1, keepdim=True) if row_max is None else row_max[..., None]
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    if v.dtype == torch.bfloat16:
+        p = torch.exp((s - m).to(v.dtype)).float()
+    else:
+        p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v.to(p.dtype))
+    o = (o / l.clamp_min(1e-20)).to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(l), float("-inf"))[..., 0]
+    return o, lse.float()
+
+
+def flash_decode_merge(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The kv_seq ranks' partials merged: ``o`` (P, ..., D) and ``lse``
+    (P, ...) stacked in rank order -> Σ_r e^{lse_r − M} o_r / Σ_r
+    e^{lse_r − M}, M = max_r lse_r, summed in rank order (so the result
+    does not depend on which partial arrived first); a rank with no live
+    slot (lse −inf) weighs 0.  One partial returns itself."""
+    M = lse.amax(0)
+    M = torch.where(torch.isfinite(M), M, torch.zeros_like(M))
+    num = torch.zeros_like(o[0], dtype=torch.float32)
+    den = torch.zeros_like(M, dtype=torch.float32)
+    for r in range(o.shape[0]):
+        w = torch.exp(lse[r] - M)
+        num = num + w[..., None] * o[r].float()
+        den = den + w
+    return (num / den.clamp_min(1e-20)[..., None]).to(o.dtype)

@@ -19,10 +19,21 @@ output and peak-live bytes, and whether the peak fits the card's 80 GiB)
 and ``roofline`` (``launch.roofline`` on the H100's float32 peak, the
 port's compute dtype: TF32 is off).
 
+Meshes (``launch.mesh``): ``h100x1``, ``h100x8`` (data 8) and
+``h100x8m4`` (data 2, model 4).  Each cell takes JAX's rules for it
+(``sharding.rules_for``, JAX's ``_rules_for``): a batch that does not
+divide over the batch ranks (``long_500k``'s single sequence on
+``h100x8``) is run whole on every rank against its share of the cache's
+slots (``kv_seq``), and a model axis shards the decoder families' layers
+(``params.model_layout``: the parameters are this rank's model shards).
+Such a cell runs under the mesh's context on the shape-only mesh, where
+the layers' collectives return meta results and count their bytes, so
+the roofline's collective term holds the model axis's traffic and the
+kv_seq merge beside the gradient sync.
+
 A cell the port cannot run is recorded ``skipped`` with its reason: a
-shape the arch does not take (``configs.shape_applicable``), a batch that
-does not divide over the data axis (``long_500k``'s single sequence on
-``h100x8``, which JAX shards over ``kv_seq``), a mesh with a model axis.
+shape the arch does not take (``configs.shape_applicable``), or a model
+axis under the SSM, hybrid or audio family (ROADMAP.md Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -38,13 +49,14 @@ import torch
 
 from repro_torch.common.config import (GCN_SHAPES, SHAPES, ModelConfig,
                                        TrainConfig)
-from repro_torch.common.tree import tree_leaves
+from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.configs import (CONFIGS, get_config, input_specs,
                                  shape_applicable)
-from repro_torch.distributed.params import param_shardings
-from repro_torch.distributed.sharding import axis_size
-from repro_torch.launch.mesh import (HBM_BYTES, PEAK_FLOPS_F32,
-                                     make_production_mesh)
+from repro_torch.distributed import params as dparams
+from repro_torch.distributed.sharding import (NamedSharding, axis_size,
+                                              batch_ranks, rules_for)
+from repro_torch.launch.mesh import (HBM_BYTES, MESHES, PEAK_FLOPS_F32,
+                                     make_production_mesh, named_mesh)
 from repro_torch.launch.op_cost import OpCost
 from repro_torch.launch.roofline import roofline_terms
 from repro_torch.models import registry
@@ -106,6 +118,12 @@ def model_bytes(cfg: ModelConfig, shape_name: str, param_bytes: float = 4.0,
     return base
 
 
+# --mesh values: the meshes each one runs
+MESH_CHOICES = {"single": ["h100x1"], "multi": ["h100x8"],
+                "model": ["h100x8m4"], "both": ["h100x1", "h100x8"],
+                "all": list(MESHES)}
+
+
 class Cell(NamedTuple):
     """One cell's per-card step: ``step(*args)``, its kind, and for train
     the gradient sync's plan (one list of ``SyncStep`` a leaf)."""
@@ -117,20 +135,22 @@ class Cell(NamedTuple):
 
 def cell_skip(cfg: ModelConfig, shape_name: str, mesh) -> str:
     """Why the port cannot run this cell ('' when it can)."""
+    from repro_torch.train.steps import NO_MODEL_AXIS
     ok, reason = shape_applicable(cfg, shape_name)
     if not ok:
         return reason
-    if axis_size(mesh, "model") > 1:
-        return ("a model axis above 1 (tensor or expert parallelism, "
-                "ROADMAP.md Queue 1 item 7)")
+    if axis_size(mesh, "model") > 1 and cfg.family in NO_MODEL_AXIS:
+        return (f"a model axis above 1 for the {cfg.family} family (the "
+                f"model axis of the SSM, hybrid and audio families, "
+                f"ROADMAP.md Queue 1 item 9)")
+    return ""
+
+
+def cell_rules(cfg: ModelConfig, shape_name: str, mesh) -> Dict:
+    """The cell's logical rules (JAX's ``_rules_for``)."""
     shp = (GCN_SHAPES | SHAPES)[shape_name]
     rows = shp.global_batch * (cfg.gcn_persons if cfg.family == "gcn" else 1)
-    data = axis_size(mesh, "data")
-    if rows % data:
-        return (f"a batch of {rows} does not divide over {data} data ranks "
-                f"(JAX shards the KV sequence, kv_seq, over data here; the "
-                f"port has no sequence-sharded decode)")
-    return ""
+    return rules_for(cfg.sharding, rows, mesh)
 
 
 def _fill(t: torch.Tensor, gen: torch.Generator, high: int,
@@ -153,46 +173,69 @@ def build_cell(cfg: ModelConfig, shape_name: str, mesh,
     (the static count), or real ones on ``device`` (random weights and
     inputs from ``seed``; decode at position S − 1, so the step writes the
     cache's last slot and attends to all S).  ``backend`` is the decode
-    step's (the dry run counts ``reference``)."""
+    step's (the dry run counts ``reference``).  The batch is split over
+    the cell's batch ranks (:func:`cell_rules`); on a model axis the
+    parameters are rank 0's model shards and the step runs under the
+    mesh's context, as it does under ``kv_seq`` (the cache rank 0's slot
+    range)."""
+    import contextlib
     from repro_torch.optim import adamw
-    from repro_torch.train.steps import (grad_sync_plan, make_prefill_step,
-                                         make_serve_step, make_train_step)
+    from repro_torch.train.steps import (grad_sync_plan, make_loss_fn,
+                                         make_prefill_step, make_serve_step,
+                                         make_train_step)
     shp = (GCN_SHAPES | SHAPES)[shape_name]
-    data = axis_size(mesh, "data")
+    rules = cell_rules(cfg, shape_name, mesh)
+    ranks = batch_ranks(mesh, rules)
+    layout = dparams.model_layout(cfg, mesh)
+    on_mesh = axis_size(mesh, "model") > 1 or rules["kv_seq"] is not None
     meta = torch.device(device).type == "meta"
     gen = torch.Generator().manual_seed(seed)
     params = registry.init_params(cfg, seed=seed, device=device)
+    if on_mesh:
+        params = dparams.local_shards(params, layout.specs, mesh)
     specs, _ = input_specs(cfg, shape_name)
     high = cfg.gcn_num_classes if cfg.family == "gcn" else cfg.vocab_size
     batch = {}
     for k, t in specs.items():
         if t.dim():
-            t = torch.empty((t.shape[0] // data, *t.shape[1:]),
+            t = torch.empty((t.shape[0] // ranks, *t.shape[1:]),
                             dtype=t.dtype, device="meta")
         batch[k] = t if meta else _fill(t, gen, high, device)
+    def context():
+        return (dparams.mesh_context(cfg, mesh, rules, layout) if on_mesh
+                else contextlib.nullcontext())
     if shp.kind == "train":
         opt = adamw.init(params)
-        step = make_train_step(
-            cfg, TrainConfig(microbatches=TRAIN_MICROBATCHES))
-        # the gradients' layout, as JAX's cells constrain them: 2D (a
-        # reduce-scatter into the data shard) but replicated for the
-        # GCN, which JAX runs data-parallel only (sharding="dp_only")
-        sync = grad_sync_plan(params, param_shardings(
-            params, mesh, expert_dim=cfg.padded_experts or None,
-            policy="dp_only" if cfg.family == "gcn" else "2d"))
+        loss = make_loss_fn(cfg)
+        tcfg = TrainConfig(microbatches=TRAIN_MICROBATCHES)
+        inner = make_train_step(cfg, tcfg) if not on_mesh else \
+            make_train_step(cfg, tcfg, loss_fn=lambda p, b: loss(
+                dparams.prepare(p, layout), b))
+
+        def step(*args):
+            with context():
+                return inner(*args)
+        # the gradients' layout, as JAX's cells constrain them: the
+        # policy's (2D: a reduce-scatter into the data shard; the GCN's
+        # dp_only: replicated), each rank's gradient its model shard
+        sync = grad_sync_plan(params, tree_map(
+            lambda sp: NamedSharding(mesh, sp), layout.specs), rules=rules)
         return Cell("train", step, (params, opt, batch), sync)
     if shp.kind == "prefill":
-        return Cell("prefill", make_prefill_step(cfg), (params, batch), [])
-    B = shp.global_batch // data
-    cache = registry.init_cache(cfg, B, shp.seq_len, device=device,
-                                dtype=CACHE_DTYPE)
+        return Cell("prefill", make_prefill_step(
+            cfg, mesh if on_mesh else None, rules), (params, batch), [])
+    B = shp.global_batch // ranks
+    with context():
+        cache = registry.init_cache(cfg, B, shp.seq_len, device=device,
+                                    dtype=CACHE_DTYPE)
     if not meta:
         pos = shp.seq_len - 1
         batch["pos"] = torch.full((), pos, dtype=torch.int32, device=device)
         for leaf in cache_positions(cache):
             leaf.fill_(pos)
-    return Cell("decode", make_serve_step(cfg, backend),
-                (params, cache, batch), [])
+    return Cell("decode", make_serve_step(
+        cfg, backend, mesh if on_mesh else None, rules),
+        (params, cache, batch), [])
 
 
 def cache_positions(cache) -> list:
@@ -236,11 +279,14 @@ def count_cell(cell: Cell) -> Tuple[Dict, Dict, float]:
     return cost, memory, seconds
 
 
-def run_cell(arch: str, shape_name: str, multi: bool, out_dir: pathlib.Path,
+def run_cell(arch: str, shape_name: str, multi, out_dir: pathlib.Path,
              verbose: bool = True) -> Optional[Dict]:
-    """Count one cell and write its record to ``out_dir/<cell>.json``."""
+    """Count one cell and write its record to ``out_dir/<cell>.json``.
+    ``multi``: a mesh name of ``launch.mesh.MESHES``, or True for
+    ``h100x8`` and False for ``h100x1``."""
     cfg = get_config(arch)
-    mesh = make_production_mesh(multi=multi)
+    mesh = (named_mesh(multi) if isinstance(multi, str)
+            else make_production_mesh(multi=multi))
     cell_id = f"{cfg.name}__{shape_name}__{mesh.name}"
     out_path = out_dir / f"{cell_id}.json"
     reason = cell_skip(cfg, shape_name, mesh)
@@ -292,14 +338,16 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--mesh", default="both",
-                    choices=["single", "multi", "both"])
+                    choices=sorted(MESH_CHOICES),
+                    help="single (h100x1), multi (h100x8), model "
+                         "(h100x8m4), both (h100x1 and h100x8) or all")
     ap.add_argument("--out", default="experiments/torch_dryrun")
     ap.add_argument("--skip-existing", action="store_true")
     args = ap.parse_args(argv)
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     archs = list(CONFIGS) if args.arch == "all" else [args.arch]
-    meshes = [False, True] if args.mesh == "both" else [args.mesh == "multi"]
+    meshes = MESH_CHOICES[args.mesh]
     failures = []
     t0 = time.perf_counter()
     for arch in archs:
@@ -309,14 +357,13 @@ def main(argv=None) -> None:
         else:
             shapes = [args.shape]
         for shape_name in shapes:
-            for multi in meshes:
-                mesh = make_production_mesh(multi=multi)
-                cell = f"{cfg.name}__{shape_name}__{mesh.name}"
+            for name in meshes:
+                cell = f"{cfg.name}__{shape_name}__{name}"
                 if args.skip_existing and (out_dir / f"{cell}.json").exists():
                     print(f"[keep] {cell}")
                     continue
                 try:
-                    run_cell(arch, shape_name, multi, out_dir)
+                    run_cell(arch, shape_name, name, out_dir)
                 except Exception as e:  # noqa: BLE001 — record and go on
                     failures.append((cell, repr(e)))
                     (out_dir / f"{cell}.json").write_text(json.dumps(

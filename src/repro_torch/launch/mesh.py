@@ -5,12 +5,11 @@ A :class:`ShapeMesh` has axis names and sizes and nothing else (no
 process group, no devices), which ``distributed.sharding`` accepts for
 its shape logic: the dry run lays out a cell on it without a card.
 
-    h100x1  (data 1, model 1): one card
-    h100x8  (data 8, model 1): one 8-card NVLink node, data-parallel
-
-The model axis stays 1: the port's train step raises on a model axis
-above 1 (``train/steps.py:_check_mesh``; tensor and expert parallelism
-are ROADMAP.md Queue 1 item 7).
+    h100x1    (data 1, model 1): one card
+    h100x8    (data 8, model 1): one 8-card NVLink node, data-parallel
+    h100x8m4  (data 2, model 4): the same node with a model axis of 4
+              (tensor and expert parallelism), the counterpart of the
+              model axis of JAX's production mesh (data 16, model 16)
 """
 from __future__ import annotations
 
@@ -46,12 +45,24 @@ class ShapeMesh:
         return math.prod(self.dims)
 
 
+MESHES = {
+    "h100x1": ShapeMesh("h100x1", ("data", "model"), (1, 1)),
+    "h100x8": ShapeMesh("h100x8", ("data", "model"), (8, 1)),
+    "h100x8m4": ShapeMesh("h100x8m4", ("data", "model"), (2, 4)),
+}
+
+
 def make_production_mesh(*, multi: bool = False) -> ShapeMesh:
     """``h100x8`` (one 8-card NVLink node, data 8) with ``multi``, else
     ``h100x1`` (one card)."""
-    if multi:
-        return ShapeMesh("h100x8", ("data", "model"), (8, 1))
-    return ShapeMesh("h100x1", ("data", "model"), (1, 1))
+    return MESHES["h100x8" if multi else "h100x1"]
+
+
+def named_mesh(name: str) -> ShapeMesh:
+    """The shape-only mesh ``name`` of :data:`MESHES`."""
+    if name not in MESHES:
+        raise KeyError(f"unknown mesh {name!r} (one of {sorted(MESHES)})")
+    return MESHES[name]
 
 
 def make_smoke_mesh() -> ShapeMesh:

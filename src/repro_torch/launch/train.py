@@ -1,5 +1,5 @@
 """Training entry point: config -> data -> train step -> checkpoints ->
-fault monitors, in one process or data-parallel over ``torch.distributed``
+fault monitors, in one process or over a mesh of ``torch.distributed``
 ranks.  Port of ``repro.launch.train`` for every family: the gcn family
 (2s-AGCN) and the LM families (dense, MoE, VLM, SSM, hybrid, audio).
 
@@ -8,14 +8,20 @@ ranks.  Port of ``repro.launch.train`` for every family: the gcn family
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch smollm-360m --reduced --steps 20 --batch 8 --seq 64 \\
         --mesh 4,1 --device cpu
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m \\
+        repro_torch.launch.train --arch granite-moe-3b-a800m --reduced \\
+        --steps 4 --batch 8 --seq 32 --mesh 2,2 --device cpu
 
-With ``--mesh data,model`` the process is one rank of a data-parallel run
-under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``): NCCL on the
-card (rank on ``cuda:LOCAL_RANK``), gloo with ``--device cpu``; the
-parameters are DTensors laid out by ``distributed.params`` and each rank
-reads its host's slice of the global batch.  The data-parallel step is
-the same for every family.  A model axis above 1 is not supported yet
-(ROADMAP.md, Queue 1 item 7).
+With ``--mesh data,model`` the process is one rank of a run under
+``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``): NCCL on the card
+(rank on ``cuda:LOCAL_RANK``), gloo with ``--device cpu``; the
+parameters are DTensors laid out by ``distributed.params`` (the config's
+policy: "2d", or ``dp_only`` for the gcn family) and each rank reads its
+batch rank's slice of the global batch.  A model axis above 1 shards the
+decoder families' layers over it (tensor, expert and vocabulary
+parallelism, ``train.steps.make_train_step``: ``--mesh 2,2`` on 4 ranks)
+and carries batch for the gcn family; the SSM, hybrid and audio families
+refuse it (ROADMAP.md, Queue 1 item 9).
 
 The CLI switches TF32 off for matmuls and cuDNN, so the card trains in
 full float32 (cuDNN's TF32 default would put ``F.conv2d``'s training
@@ -103,9 +109,9 @@ def train_loop(
     (pod, data, model) shape: this process joins the ``torchrun``
     process group (:func:`init_distributed`) and builds the mesh; the
     parameters and optimizer state are then DTensors
-    (``param_shardings``, the reference's "2d" policy), the step is
-    data-parallel, each rank reads host ``batch_rank`` of the batch
-    ranks' slices, only rank 0 prints and writes checkpoints, and the
+    (``param_shardings`` under the config's ``sharding`` policy), the step
+    runs over the mesh (``make_train_step``), each rank reads host
+    ``batch_rank`` of the batch ranks' slices, only rank 0 prints and writes checkpoints, and the
     monitors hold one entry per rank.
 
     With ``resume``, the latest checkpoint under ``tcfg.checkpoint_dir``
@@ -121,13 +127,16 @@ def train_loop(
     Returns (params, the losses of the steps run: the global batch's)."""
     import torch.distributed as dist
     cfg = cfg or get_config(arch, reduced=reduced)
+    rules = None
     if mesh is None:
         dev, world, rank, data_rank, hosts = resolve_device(device), 1, 0, 0, 1
     else:
         dev = init_distributed(device)
         mesh = shd.make_mesh(mesh, dev)
         world, rank = dist.get_world_size(), dist.get_rank()
-        data_rank, hosts = shd.batch_rank(mesh), shd.batch_ranks(mesh)
+        rules = shd.rules_for(cfg.sharding, batch, mesh)
+        data_rank = shd.batch_rank(mesh, rules)
+        hosts = shd.batch_ranks(mesh, rules)
     heart = HeartbeatMonitor(num_hosts=world)
     strag = StragglerDetector(num_hosts=world)
     say = print if rank == 0 else (lambda *a, **k: None)
@@ -136,7 +145,8 @@ def train_loop(
     shardings = None
     if mesh is not None:
         shardings = param_shardings(params, mesh,
-                                    expert_dim=cfg.padded_experts or None)
+                                    expert_dim=cfg.padded_experts or None,
+                                    policy=cfg.sharding)
         params = distribute_params(params, shardings)
     opt_state = adamw.init(params)
     start = 0
@@ -151,7 +161,8 @@ def train_loop(
     data = make_batches(cfg, DataConfig(
         global_batch=batch, seq_len=seq, seed=tcfg.seed,
         host_index=data_rank, host_count=hosts), start=start)
-    step_fn = make_train_step(cfg, tcfg, grad_shardings=shardings)
+    step_fn = make_train_step(cfg, tcfg, grad_shardings=shardings,
+                              rules=rules)
 
     losses: List[float] = []
     for step in range(start, tcfg.total_steps):
@@ -197,7 +208,7 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     ap.add_argument("--mesh", default="",
                     help="data,model (or pod,data,model): run as one rank of "
-                         "a data-parallel torchrun launch on this mesh")
+                         "a torchrun launch on this mesh")
     ap.add_argument("--out", default="",
                     help="write the losses, step ms and peak device memory "
                          "as JSON here (rank 0)")

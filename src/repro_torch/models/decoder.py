@@ -9,6 +9,19 @@ gated MLP, RMSNorm, tied embeddings.  Port of ``repro.models.decoder``.
 Per-layer parameters and caches are stacked into (num_groups, group, ...)
 leaves as in the reference, so JAX trees carry across unchanged
 (``repro_torch.bridge``); the layers run as a Python loop over them.
+
+On a model axis (``distributed.sharding.axis_rules`` with a ``ModelPlan``,
+the tree from ``distributed.params.prepare``) the layers take their
+shards: attention by heads, the MLP by d_ff, the MoE by experts and the
+embedding and logits by vocabulary rows.  Between blocks the activations
+stay replicated over ``model``: every model rank holds the whole (B, S, d)
+residual and each block ends in one all-reduce (attention's and the MLP's
+row-parallel outputs) or an all-gather (the MoE's rows).  JAX's rules
+shard the sequence over ``model`` there instead (``seq_shard``,
+Megatron-style sequence parallelism: a reduce-scatter into sequence
+shards after each block and an all-gather before the next, the norms on
+a sequence shard).  The arithmetic is the same; the residual's memory is
+M times JAX's (ROADMAP.md Queue 2 holds sequence parallelism).
 """
 from __future__ import annotations
 
@@ -17,15 +30,17 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.tree import tree_index, tree_map
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import constrain
-from repro_torch.models.layers.attention import attention_layer, attn_init
-from repro_torch.models.layers.common import (he_init, rmsnorm, rmsnorm_init,
-                                              rope_tables, stack_layers)
+from repro_torch.models.layers.attention import (attention_layer, attn_init,
+                                                 local_cache_len)
+from repro_torch.models.layers.common import (embed_lookup, he_init, rmsnorm,
+                                              rmsnorm_init, rope_tables,
+                                              stack_layers, tied_logits)
 from repro_torch.models.layers.mlp import mlp, mlp_init
 from repro_torch.models.layers.moe import moe_ffn, moe_init
 
@@ -131,7 +146,8 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             image_embeds: Optional[torch.Tensor] = None,
             caches: Optional[Dict] = None,
             positions: Optional[torch.Tensor] = None,
-            backend: str = "cuda", need_aux: bool = True
+            backend: str = "cuda", need_aux: bool = True,
+            gather_logits: bool = True
             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """tokens (B, S) int -> (logits (B, S_total, padded_vocab), caches,
     aux), as the reference's.  ``aux`` is the MoE load-balance loss summed
@@ -143,10 +159,12 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     attention (``"cuda"``: the ``flash_decode`` kernel for one-token
     steps; ``"reference"``: the plain blockwise attention).  With
     ``need_aux=False`` the MoE layers skip the aux loss (a serving step
-    discards it) and ``aux`` stays zero."""
+    discards it) and ``aux`` stays zero.  Where a model axis's plan shards
+    the vocabulary, ``gather_logits=False`` returns this rank's vocabulary
+    columns alone (the loss's ``common.xent`` takes them so)."""
     _check_family(cfg)
     kinds = layer_kinds(cfg)
-    x = F.embedding(tokens, params["embed"]) * math.sqrt(cfg.d_model)
+    x = embed_lookup(tokens, params["embed"]) * math.sqrt(cfg.d_model)
     if cfg.family == "vlm" and image_embeds is not None:
         img = image_embeds @ params["img_proj"]
         x = torch.cat([img.to(x.dtype), x], dim=1)
@@ -179,7 +197,8 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
                 h2 = mlp(lp["mlp"], h2, cfg.act)
             x = constrain(x + h2, "batch", "seq_shard", None)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = constrain(x @ params["embed"].T, "batch", None, "vocab")
+    logits = constrain(tied_logits(x, params["embed"], gather_logits),
+                       "batch", None, "vocab")
     return logits, caches, aux
 
 
@@ -201,11 +220,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.float32) -> Dict:
     """Zero KV caches {"k", "v": (ng, g, batch, L, Hkv, D) of ``dtype``
     (float32, or bfloat16, the reference's default), "pos": (ng, g)
-    int32} on ``device`` (default CUDA)."""
+    int32} on ``device`` (default CUDA).  Inside ``sharding.axis_rules``
+    it is this rank's shard: L / P slots under the ``kv_seq`` rule (slots
+    [r·L/P, (r+1)·L/P)), and Hkv / M kv heads where the plan takes
+    attention by heads.  JAX's spec shards the cache's head_dim over
+    ``model`` (``kv_hd``); the port shards the kv heads, as its attention
+    computes (``cache_specs`` gives the reference's axes)."""
     _check_family(cfg)
     dev = resolve_device(device)
     ng, g = num_groups(cfg), scan_group_size(cfg)
-    shape = (ng, g, batch, cache_len(cfg, max_len), cfg.num_kv_heads,
+    plan = sharding.model_plan()
+    hkv = cfg.num_kv_heads
+    if plan is not None and plan.attn:
+        hkv //= sharding.model_group().size
+    shape = (ng, g, batch, local_cache_len(cache_len(cfg, max_len)), hkv,
              cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev),

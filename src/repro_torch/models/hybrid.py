@@ -22,7 +22,8 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.tree import tree_copy_, tree_index, tree_map
 from repro_torch.distributed.sharding import constrain
-from repro_torch.models.layers.attention import attention_layer, attn_init
+from repro_torch.models.layers.attention import (attention_layer, attn_init,
+                                                 local_cache_len)
 from repro_torch.models.layers.common import (he_init, rmsnorm, rmsnorm_init,
                                               rope_tables, stack_layers,
                                               wide_dtype)
@@ -163,7 +164,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     {"groups": {"attn": {"k", "v": (ng, B, max_len, Hkv, D), "pos": (ng,)
     int32}, "mamba": {"conv": (ng, per, B, K − 1, C), "ssm": (ng, per, B,
     H, N, P)}}, "tail": the tail's mamba caches (tail, ...) when there is
-    a tail}."""
+    a tail}.  Under the ``kv_seq`` rule the attention cache is this rank's
+    slot range (``attention.local_cache_len``)."""
     dev = resolve_device(device)
     ng, per, tail = structure(cfg)
     d_inner = cfg.ssm_expand * cfg.d_model
@@ -176,7 +178,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         return {"conv": zeros(*lead, batch, cfg.ssm_conv - 1, d_inner),
                 "ssm": zeros(*lead, batch, H, cfg.ssm_state, HEAD_P,
                              dtype=wide_dtype(dtype))}
-    kv = (ng, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    kv = (ng, batch, local_cache_len(max_len), cfg.num_kv_heads,
+          cfg.head_dim)
     cache = {"groups": {
         "attn": {"k": zeros(*kv), "v": zeros(*kv),
                  "pos": zeros(ng, dtype=torch.int32)},

@@ -15,7 +15,13 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.distributed import sharding
+from repro_torch.kernels.flash_decode import (flash_decode,
+                                              flash_decode_partial,
+                                              flash_decode_row_max)
+from repro_torch.kernels.ref import (flash_decode_merge,
+                                     flash_decode_partial_ref,
+                                     flash_decode_row_max_ref)
 from repro_torch.models.layers.common import he_init, rotate, wide
 
 NEG_INF = -1e30
@@ -137,44 +143,86 @@ def attention_layer(p: Dict, x: torch.Tensor,
     ring), read on the card, and the window as its lower bound when the
     cache is longer than the window; or, for cross-attention, against the
     memory's k and v with valid = Sm.  Every other call runs
-    :func:`flash_attention`."""
+    :func:`flash_attention`.
+
+    On a model axis whose plan takes attention as shards
+    (``sharding.model_plan().attn``) ``wq`` and ``wkv`` are this rank's
+    column shards and ``wo`` its row shard: the layer attends with its
+    rank's query and kv heads (its cache holds those kv heads alone) and
+    sums the ranks' output products.  Under the ``kv_seq`` rule the cache
+    holds this rank's slot range [r·L/P, (r+1)·L/P) of an L-slot cache:
+    the token's k and v go to the rank that owns its slot (pos, or pos % L
+    in a ring), each rank attends over its slots (``flash_decode_partial``
+    on ``cuda``, its plain version on ``reference``) and the ranks'
+    partial outputs merge by their log-sum-exps, in rank order; one token
+    a step there."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (expected one of "
                          f"{BACKENDS})")
     B, S, _ = x.shape
+    plan = sharding.model_plan()
+    tp = plan is not None and plan.attn and memory is None
+    H, Hkv = num_heads, num_kv_heads
+    if tp:
+        ax = sharding.model_group()
+        H, Hkv = H // ax.size, Hkv // ax.size
+        x = sharding.copy_to_model(x)
     kv_src = x if memory is None else memory
     Skv = kv_src.shape[1]
-    q = (x @ p["wq"]).reshape(B, S, num_heads, head_dim)
-    k, v = (kv_src @ p["wkv"]).chunk(2, dim=-1)
-    k = k.reshape(B, Skv, num_kv_heads, head_dim)
-    v = v.reshape(B, Skv, num_kv_heads, head_dim)
+    q = (x @ p["wq"]).reshape(B, S, H, head_dim)
+    kv = kv_src @ p["wkv"]
+    if tp:
+        # JAX stores wkv as [k | v] (repro/models/layers/attention.py:147)
+        # and its spec shards the flat columns over model, so a rank's
+        # column shard is not whole kv heads: gather the products and keep
+        # this rank's heads' k and v columns (each rank uses only its part
+        # of the gathered product, so the backward reduce-scatters)
+        kv = sharding.gather_from_model(kv, -1, partial_use=True)
+        k, v = kv.chunk(2, dim=-1)
+        lo, n = ax.rank * Hkv * head_dim, Hkv * head_dim
+        k, v = k[..., lo:lo + n], v[..., lo:lo + n]
+    else:
+        k, v = kv.chunk(2, dim=-1)
+    k = k.reshape(B, Skv, Hkv, head_dim)
+    v = v.reshape(B, Skv, Hkv, head_dim)
     if memory is None:
         q, k = rotate(q, rope), rotate(k, rope)
 
     kv_valid, q_offset, ring = None, 0, False
+    seq = sharding.kv_seq_group() if cache is not None else None
     if cache is not None:
+        if seq.size > 1 and S != 1:
+            raise NotImplementedError(
+                "a cache sharded over kv_seq takes one token a step (feed a "
+                "prompt token by token)")
         pos = cache["pos"]                              # int32 device scalar
-        L = cache["k"].shape[1]
+        L = cache["k"].shape[1] * seq.size
         ring = window > 0 and L <= window and S == 1
         slot = pos % L if ring else pos
         # a device index: the write never reads the position on the host
         idx = slot.reshape(1).long() + torch.arange(S, device=x.device)
-        cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+        if seq.size == 1:
+            cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
+            cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+        else:
+            _write_owned(cache, idx - seq.rank * cache["k"].shape[1], k, v)
         k, v = cache["k"], cache["v"]
         kv_valid = torch.clamp(pos + S, max=L) if ring else pos + S
         q_offset = pos
 
-    if backend == "cuda" and S == 1 and (cache is not None
-                                         or memory is not None):
-        G = num_heads // num_kv_heads
+    if cache is not None and seq.size > 1:
+        out = _kv_seq_decode(q, k, v, kv_valid.reshape(1),
+                             0 if ring else window, seq, backend)
+    elif backend == "cuda" and S == 1 and (cache is not None
+                                           or memory is not None):
+        G = H // Hkv
         if cache is not None:
             valid, win = kv_valid.reshape(1), 0 if ring else window
         else:
             k, v = k.contiguous(), v.contiguous()
             valid = torch.full((1,), Skv, dtype=torch.int32, device=x.device)
             win = 0
-        out = flash_decode(q.reshape(B, num_kv_heads, G, head_dim), k, v,
+        out = flash_decode(q.reshape(B, Hkv, G, head_dim), k, v,
                            valid, window=win)
     else:
         out = flash_attention(q, k, v, causal=causal and memory is None
@@ -184,4 +232,66 @@ def attention_layer(p: Dict, x: torch.Tensor,
                               kv_valid=kv_valid)
     if cache is not None:
         cache["pos"].add_(S)             # after every read of the old pos
-    return out.reshape(B, S, num_heads * head_dim) @ p["wo"], cache
+    out = out.reshape(B, S, H * head_dim) @ p["wo"]
+    return (sharding.reduce_from_model(out) if tp else out), cache
+
+
+def local_cache_len(L: int) -> int:
+    """A decode cache's slots on this rank: L, or its share L / P under the
+    active ``kv_seq`` rule (P ranks, rank r holding slots [r·L/P,
+    (r+1)·L/P))."""
+    P = sharding.kv_seq_group().size
+    if L % P:
+        raise ValueError(f"a {L}-slot cache does not split over {P} kv_seq "
+                         f"ranks")
+    return L // P
+
+
+def _write_owned(cache: Dict, local: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """Write one token's k and v at local slot ``local`` (a one-element
+    device index) of this kv_seq rank's cache shard if it lies there: a
+    device-side select (a slot outside the shard rewrites the value the
+    clamped slot holds), so the write never reads the position on the
+    host."""
+    Ls = cache["k"].shape[1]
+    own = (local >= 0) & (local < Ls)
+    li = local.clamp(0, Ls - 1)
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        keep = c.index_select(1, li)
+        c.index_copy_(1, li, torch.where(own[None, :, None, None],
+                                         new.to(c.dtype), keep))
+
+
+def _kv_seq_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid: torch.Tensor, window: int, seq, backend: str
+                   ) -> torch.Tensor:
+    """One query token (B, 1, H, D) against this kv_seq rank's cache shard
+    (B, L/P, Hkv, D), merged with the other ranks' partials: the partial
+    output and log-sum-exp over the shard's live slots (global valid and
+    window bounds, the shard's offset), all-gathered over the ranks and
+    combined in rank order (``kernels.ref.flash_decode_merge``).  A bf16
+    cache rounds each probability against the row's max over the whole
+    cache, as one rank does: each rank's maxima first (the kernel's first
+    pass alone), their max over the ranks, then the partials against it."""
+    B, _, H, D = q.shape
+    Hkv = k.shape[2]
+    qd = q.reshape(B, Hkv, H // Hkv, D)
+    off = seq.rank * k.shape[1]
+    cuda = backend == "cuda"
+    row_max = None
+    if k.dtype == torch.bfloat16:
+        mine = (flash_decode_row_max(qd, k, valid, window=window, offset=off)
+                if cuda else flash_decode_row_max_ref(qd, k, valid, window,
+                                                      off))
+        row_max = sharding.max_over(mine, seq)
+    if cuda:
+        o, lse = flash_decode_partial(qd, k, v, valid, window=window,
+                                      offset=off, row_max=row_max)
+    else:
+        o, lse = flash_decode_partial_ref(qd, k, v, valid, window, off,
+                                          row_max)
+    out = flash_decode_merge(sharding.gather_over(o, seq),
+                             sharding.gather_over(lse, seq))
+    return out.reshape(B, 1, H, D).to(q.dtype)

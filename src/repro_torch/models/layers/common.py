@@ -1,4 +1,6 @@
-"""Shared layer primitives: norms, RoPE, inits, activations.  Port of
+"""Shared layer primitives: norms, RoPE, inits, activations, and the
+vocab-parallel embedding lookup, logits and cross-entropy a model axis
+takes where its plan shards the vocabulary.  Port of
 ``repro.models.layers.common``."""
 from __future__ import annotations
 
@@ -7,6 +9,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import sharding
 
 
 def he_init(generator: Optional[torch.Generator], shape: Sequence[int],
@@ -146,3 +150,64 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S) or (S,)."""
     return rotate(x, rope_tables(positions, x.shape[-1], theta, x.device))
+
+
+def _vocab_sharded() -> bool:
+    plan = sharding.model_plan()
+    return plan is not None and plan.vocab
+
+
+def _vocab_range(embed: torch.Tensor) -> Tuple[int, int]:
+    """(first row, rows) of this model rank's vocabulary shard."""
+    n = embed.shape[0]
+    return sharding.model_group().rank * n, n
+
+
+def embed_lookup(tokens: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, embed)``.  Where the plan shards the
+    vocabulary ``embed`` is this model rank's rows: each rank looks up the
+    tokens in its range (zero elsewhere) and the ranks' rows are summed."""
+    if not _vocab_sharded():
+        return F.embedding(tokens, embed)
+    lo, n = _vocab_range(embed)
+    t = tokens.long() - lo
+    inside = ((t >= 0) & (t < n)).to(embed.dtype)[..., None]
+    return sharding.reduce_from_model(
+        F.embedding(t.clamp(0, n - 1), embed) * inside)
+
+
+def tied_logits(x: torch.Tensor, embed: torch.Tensor,
+                gather: bool = True) -> torch.Tensor:
+    """``x @ embed.T``.  Where the plan shards the vocabulary: this model
+    rank's vocabulary columns (column-parallel), all-gathered into the
+    whole vocabulary unless ``gather`` is False (the loss takes them
+    sharded: :func:`xent`)."""
+    if not _vocab_sharded():
+        return x @ embed.T
+    local = sharding.copy_to_model(x) @ embed.T
+    return sharding.gather_from_model(local, -1) if gather else local
+
+
+def xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over the logits' last axis plus the 1e-4 z-loss
+    (the reference's logit drift regulariser).  Where the plan shards the
+    vocabulary, ``logits`` are this model rank's columns
+    (``tied_logits(..., gather=False)``): the max, the sum of exps and the
+    target's logit are each reduced over the model ranks."""
+    logits = logits.float()
+    if not _vocab_sharded():
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return (logz - gold).mean() + 1e-4 * logz.square().mean()
+    ax = sharding.model_group()
+    n = logits.shape[-1]
+    lo = ax.rank * n
+    m = sharding.max_over(logits.amax(-1), ax)
+    sumexp = sharding.reduce_from_model(
+        torch.exp(logits - m[..., None]).sum(-1))
+    logz = torch.log(sumexp) + m
+    t = labels.long() - lo
+    inside = ((t >= 0) & (t < n)).to(logits.dtype)
+    gold = sharding.reduce_from_model(torch.gather(
+        logits, -1, t.clamp(0, n - 1)[..., None])[..., 0] * inside)
+    return (logz - gold).mean() + 1e-4 * logz.square().mean()

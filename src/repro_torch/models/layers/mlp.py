@@ -6,6 +6,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models.layers.common import activation, he_init
 
 
@@ -19,8 +20,18 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int) -> Dict:
 
 def mlp(p: Dict, x: torch.Tensor, act: str = "silu",
         kept_ff: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x: (B, S, d).  kept_ff: optional kept d_ff channel indices."""
+    """x: (B, S, d).  kept_ff: optional kept d_ff channel indices.  On a
+    model axis whose plan takes the MLP as shards, ``wi`` and ``wg`` are
+    this rank's d_ff columns and ``wo`` its rows (column- then
+    row-parallel): the ranks' output products are summed."""
     wi, wg, wo = p["wi"], p["wg"], p["wo"]
+    plan = sharding.model_plan()
+    if plan is not None and plan.mlp:
+        if kept_ff is not None:
+            raise NotImplementedError("kept_ff on a model-sharded MLP")
+        x = sharding.copy_to_model(x)
+        return sharding.reduce_from_model(
+            (activation(act)(x @ wg) * (x @ wi)) @ wo)
     if kept_ff is not None:
         wi = wi.index_select(1, kept_ff)
         wg = wg.index_select(1, kept_ff)

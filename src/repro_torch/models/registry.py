@@ -27,6 +27,7 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike
 from repro_torch.core.agcn import model as agcn
 from repro_torch.models import decoder, encdec, hybrid, ssm_model
+from repro_torch.models.layers.common import xent
 
 LM_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
@@ -52,11 +53,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy over the logits' last axis (the padded
     vocabulary, or the classes) plus the 1e-4 z-loss (the reference's
-    logit drift regulariser)."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return (logz - gold).mean() + 1e-4 * logz.square().mean()
+    logit drift regulariser); over vocabulary shards on a model axis
+    whose plan shards the vocabulary (``common.xent``)."""
+    return xent(logits, labels)
 
 
 def gcn_logits(params: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -98,7 +97,7 @@ def loss_fn(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     if mod is decoder:
         logits, _, aux = decoder.forward(
             params, batch["tokens"], cfg,
-            image_embeds=batch.get("image_embeds"))
+            image_embeds=batch.get("image_embeds"), gather_logits=False)
         if cfg.family == "vlm":
             logits = logits[:, -batch["tokens"].shape[1]:]  # text positions
     elif mod is encdec:

@@ -1,8 +1,8 @@
 """Step functions.  Training: the loss, its gradients and the AdamW train
-step with microbatch accumulation, in one process or data-parallel over
-``torch.distributed`` ranks (``make_loss_fn``, ``loss_and_grads``,
-``make_train_step``, ``grad_sync_plan``, ``sync_grads``,
-``shard_batch``).  GCN inference
+step with microbatch accumulation, in one process or over a
+``torch.distributed`` mesh of data (and pod) and model ranks
+(``make_loss_fn``, ``loss_and_grads``, ``make_train_step``,
+``grad_sync_plan``, ``sync_grads``, ``shard_batch``).  GCN inference
 over prebuilt ExecutionPlans: the clip step, the per-frame stream step,
 the session-slab step and the fused serving tick, each the two-stream
 (joint + bone) ensemble.  LM steps: the greedy KV-cache decode step and
@@ -44,13 +44,22 @@ def loss_and_grads(loss_fn: Callable, params, batch
             tree_unflatten(params, grads))
 
 
-def _check_mesh(mesh) -> None:
+# the families whose layers take no model shards yet
+NO_MODEL_AXIS = ("ssm", "hybrid", "audio")
+
+
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """Raise NotImplementedError for a model axis above 1 under a family
+    whose layers take no model shards (the SSM, hybrid and audio
+    families: ROADMAP.md Queue 1 item 9); the gcn family runs such a
+    mesh data-parallel over every axis (``dp_only``)."""
     from repro_torch.distributed.sharding import axis_size
-    if axis_size(mesh, "model") > 1:
+    if axis_size(mesh, "model") > 1 and cfg.family in NO_MODEL_AXIS:
         raise NotImplementedError(
-            "a model axis above 1 is tensor or expert parallelism of the "
-            "decoder, which the port's train step does not do yet "
-            "(ROADMAP.md, Queue 1 item 7); use a (data, 1) mesh")
+            f"{cfg.name}: a model axis above 1 for the {cfg.family} family "
+            f"is the model axis of the SSM, hybrid and audio families, "
+            f"which the port does not do yet (ROADMAP.md, Queue 1 item 9); "
+            f"use a (data, 1) mesh")
 
 
 class SyncStep(NamedTuple):
@@ -65,16 +74,22 @@ class SyncStep(NamedTuple):
     nbytes: int
 
 
-def grad_sync_plan(grads, shardings, compression: str = "none"
-                   ) -> List[List[SyncStep]]:
+def grad_sync_plan(grads, shardings, compression: str = "none",
+                   rules=None) -> List[List[SyncStep]]:
     """The collectives :func:`sync_grads` issues, per leaf of ``grads``
-    (in ``tree_leaves`` order; tensors or anything with ``shape`` and
-    ``dtype``, e.g. meta tensors): for each batch axis of the mesh with
-    more than one rank, a reduce-scatter into the leaf's shard when its
-    spec shards it over that axis, else an all-reduce, in the batch axes'
-    order.  The payload is the gradient's dtype, or bfloat16 with
-    ``compression == "bf16"``.  Needs no process group: the dry run reads
-    it on a shape-only mesh."""
+    (each rank's gradients: a leaf's model shard where its spec shards it
+    over ``model``; in ``tree_leaves`` order; tensors or anything with
+    ``shape`` and ``dtype``, e.g. meta tensors): for each batch axis of
+    the mesh under ``rules`` (default the active rules, else the default
+    ones) with more than one rank, a reduce-scatter into the leaf's shard
+    when its spec shards it over that axis, else an all-reduce, in the
+    batch axes' order.  No step runs over ``model`` unless the rules put
+    batch on it (``dp_only``): the activations stay replicated over
+    ``model`` between blocks, so a rank's gradient of a leaf replicated on
+    ``model`` is already the whole one (sequence parallelism would make
+    the norms' partial, ROADMAP.md Queue 2).  The payload is the
+    gradient's dtype, or bfloat16 with ``compression == "bf16"``.  Needs
+    no process group: the dry run reads it on a shape-only mesh."""
     from repro_torch.distributed.sharding import axis_size, batch_axes
     plan = []
     for g, s in zip(tree_leaves(grads), tree_leaves(shardings)):
@@ -84,7 +99,7 @@ def grad_sync_plan(grads, shardings, compression: str = "none"
         for d in g.shape:
             numel *= int(d)
         steps = []
-        for a in batch_axes(mesh):
+        for a in batch_axes(mesh, rules):
             k = axis_size(mesh, a)
             if k == 1:
                 continue
@@ -102,10 +117,12 @@ def grad_sync_plan(grads, shardings, compression: str = "none"
     return plan
 
 
-def sync_grads(grads, shardings, compression: str = "none"):
+def sync_grads(grads, shardings, compression: str = "none", rules=None):
     """The data-parallel gradient sync of one train step: each rank's
-    gradients (full leaves, its rows' mean) -> the mean over the batch
-    axes' ranks, as DTensors laid out by ``shardings`` (a tree of
+    gradients (its rows' mean; whole leaves, or a leaf's model shard where
+    ``shardings`` shards it over ``model``) -> the mean over the batch
+    axes' ranks under ``rules`` (:func:`grad_sync_plan`), as DTensors laid
+    out by ``shardings`` (a tree of
     ``sharding.NamedSharding``, or anything with ``mesh``, ``spec`` and
     ``placements``).  Issues :func:`grad_sync_plan`'s collectives, each
     counted on the active cost counter (``common.cost``): a leaf sharded over
@@ -116,9 +133,7 @@ def sync_grads(grads, shardings, compression: str = "none"):
     bf16 gradients."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
-    rs = getattr(dist, "reduce_scatter_single", None) or \
-        dist.reduce_scatter_tensor
-    plan = grad_sync_plan(grads, shardings, compression)
+    plan = grad_sync_plan(grads, shardings, compression, rules)
 
     def one(g, s, steps):
         if compression == "bf16":
@@ -131,7 +146,7 @@ def sync_grads(grads, shardings, compression: str = "none"):
                 src = g.movedim(st.dim, 0).contiguous()
                 out = src.new_empty((src.shape[0] // st.ranks,
                                      *src.shape[1:]))
-                rs(out, src, group=group)
+                dist.reduce_scatter_tensor(out, src, group=group)
                 g = out.movedim(0, st.dim)
             else:
                 g = g.clone(memory_format=torch.contiguous_format)
@@ -147,8 +162,8 @@ def sync_grads(grads, shardings, compression: str = "none"):
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                    grad_shardings=None, loss_fn: Optional[Callable] = None
-                    ) -> Callable:
+                    grad_shardings=None, loss_fn: Optional[Callable] = None,
+                    rules=None) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     forward and backward, gradients averaged over ``tcfg.microbatches``
     equal slices of the batch (each slice's loss on its own, so BatchNorm
@@ -157,29 +172,50 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     new trees; the inputs are not changed.
 
     ``grad_shardings`` (a tree of ``sharding.NamedSharding``, from
-    ``distributed.params.param_shardings``) makes it the data-parallel
-    step over the mesh's batch axes, JAX's meaning of the argument: the
-    parameters and the optimizer state are DTensors laid out so
-    (``distribute_params``), ``batch`` holds this rank's rows, and each
-    microbatch of a rank is its share of the global microbatch (the global
-    batch split as (microbatches, ranks, rows), ``shard_batch``).  The
-    step gathers the full parameters, runs the loss under
-    ``sharding.axis_rules`` (so BatchNorm statistics and the MoE
-    load-balance means span every rank), syncs the gradients
+    ``distributed.params.param_shardings``) makes it the step over the
+    mesh, JAX's meaning of the argument: the parameters and the optimizer
+    state are DTensors laid out so (``distribute_params``), ``batch``
+    holds this rank's rows (its batch rank's, ``sharding.batch_rank``),
+    and each microbatch of a rank is its share of the global microbatch
+    (the global batch split as (microbatches, ranks, rows),
+    ``shard_batch``).  ``rules`` are the mesh's logical rules (default
+    ``sharding.rules_for`` of ``cfg.sharding``: the batch
+    over ``data`` and ``pod``, or over every axis under ``dp_only``).
+    The step gathers each parameter over the batch axes and keeps its
+    model shard (``params.local_params``), runs the loss under
+    ``sharding.axis_rules`` with the specs' ``ModelPlan`` (so BatchNorm
+    statistics and the MoE load-balance means span every batch rank, and
+    the decoder's layers take their model shards: ``params.prepare``
+    gathers the rest inside autograd), so each rank differentiates with
+    respect to its own shards; then it syncs the gradients
     (:func:`sync_grads`: a reduce-scatter into the shard of a leaf sharded
     over ``data``, an all-reduce mean elsewhere, on bf16 payloads with
     compression), and AdamW updates each rank's shard; the metrics are
-    means over the ranks.  A model axis above 1 raises
-    NotImplementedError.
+    means over the ranks.  A model axis above 1 under the SSM, hybrid or
+    audio family raises NotImplementedError (:func:`check_mesh`).
 
     ``loss_fn`` (default :func:`make_loss_fn`) may be any ``(params,
     batch) -> (loss, metrics)`` — the pruning bench's prune-aware
     losses."""
+    from repro_torch.distributed import params as dparams
     from repro_torch.distributed import sharding
     from repro_torch.optim import adamw
 
     loss_fn = loss_fn or make_loss_fn(cfg)
     nmb = max(1, tcfg.microbatches)
+    layout = None
+    if grad_shardings is not None:
+        mesh = tree_leaves(grad_shardings)[0].mesh
+        check_mesh(cfg, mesh)
+        specs = tree_map(lambda s: s.spec, grad_shardings)
+        policy = cfg.sharding
+        layout = dparams.ModelLayout(
+            specs, dparams.plan_of(cfg, specs, mesh), policy)
+        rules = rules or sharding.rules_for(policy, 0, mesh)
+        shard_loss = loss_fn
+
+        def loss_fn(params, batch):
+            return shard_loss(dparams.prepare(params, layout), batch)
 
     def local_grads(params, batch):
         if nmb == 1:
@@ -205,15 +241,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             if tcfg.grad_compression == "bf16":
                 grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
         else:
-            mesh = tree_leaves(grad_shardings)[0].mesh
-            _check_mesh(mesh)
-            full = tree_map(lambda p: p.full_tensor()
-                            if hasattr(p, "full_tensor") else p, params)
-            with sharding.axis_rules(mesh):
-                loss, metrics, grads = local_grads(full, batch)
-            del full
-            grads = sync_grads(grads, grad_shardings, tcfg.grad_compression)
-            with torch.no_grad(), sharding.axis_rules(mesh):
+            local = dparams.local_params(params)
+            with sharding.axis_rules(mesh, rules, layout.plan):
+                loss, metrics, grads = local_grads(local, batch)
+            del local
+            grads = sync_grads(grads, grad_shardings, tcfg.grad_compression,
+                               rules)
+            with torch.no_grad(), sharding.axis_rules(mesh, rules):
                 metrics = {k: sharding.batch_mean(v)
                            for k, v in metrics.items()}
         params, opt_state, opt_metrics = adamw.update(
@@ -341,30 +375,56 @@ def make_gcn_fused_tick(cfg: ModelConfig) -> Callable:
     return fused_tick
 
 
-def make_serve_step(cfg: ModelConfig, backend: str = "cuda") -> Callable:
+def _on_mesh(cfg: ModelConfig, mesh, rules, fn: Callable) -> Callable:
+    """``fn(params, *args)`` run on ``mesh``'s ranks: under the mesh's
+    rules and plan (``params.mesh_context``), with ``params`` (DTensors,
+    or this rank's local tensors from ``params.local_params`` or
+    ``params.local_shards``) prepared for the layers.  ``fn`` itself
+    without a mesh."""
+    if mesh is None:
+        return fn
+    from repro_torch.distributed import params as dparams
+    check_mesh(cfg, mesh)
+    layout = dparams.model_layout(cfg, mesh)
+
+    def on_mesh(params, *args):
+        with dparams.mesh_context(cfg, mesh, rules, layout):
+            return fn(dparams.prepare(dparams.local_params(params), layout),
+                      *args)
+    return on_mesh
+
+
+def make_serve_step(cfg: ModelConfig, backend: str = "cuda", mesh=None,
+                    rules=None) -> Callable:
     """LM decode step ``step(params, cache, batch) -> (next_tok (B,) int32,
     cache, logits (B, padded_vocab))``: ``registry.serve_fn`` (the cache
     updated in place) and the greedy next token.  The reference's step
     returns the token and cache only; the last position's logits are
-    returned too so callers can check them."""
+    returned too so callers can check them.
+
+    With ``mesh`` it is one rank's step: the layers take their model
+    shards (the logits come back whole on every rank) and, under
+    ``rules`` with ``kv_seq`` (``sharding.rules_for`` of a batch that
+    does not divide over the data ranks), the cache is this rank's slot
+    range; ``cache`` must come from ``registry.init_cache`` inside
+    ``params.mesh_context`` of the same mesh and rules."""
     from repro_torch.models import registry
 
-    @torch.inference_mode()
-    def serve_step(params, cache, batch):
+    def serve(params, cache, batch):
         logits, cache = registry.serve_fn(params, batch, cache, cfg, backend)
         last = logits[:, -1, : cfg.padded_vocab]
         return last.argmax(-1).to(torch.int32), cache, last
 
-    return serve_step
+    return torch.inference_mode()(_on_mesh(cfg, mesh, rules, serve))
 
 
-def make_prefill_step(cfg: ModelConfig) -> Callable:
+def make_prefill_step(cfg: ModelConfig, mesh=None, rules=None) -> Callable:
     """LM prefill ``step(params, {tokens, labels}) -> metrics``: the
-    cache-free forward and its next-token loss."""
+    cache-free forward and its next-token loss (on ``mesh``'s ranks as
+    :func:`make_serve_step` runs them)."""
     from repro_torch.models import registry
 
-    @torch.inference_mode()
-    def prefill_step(params, batch):
+    def prefill(params, batch):
         return registry.loss_fn(params, batch, cfg)[1]
 
-    return prefill_step
+    return torch.inference_mode()(_on_mesh(cfg, mesh, rules, prefill))

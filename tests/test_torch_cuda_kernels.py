@@ -589,3 +589,63 @@ def test_flash_decode_bf16_cache_matches_plain(cuda, B, S, Hkv, G, D, valid,
         fd.flash_decode(q, k, v.float(), vt)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fd.flash_decode(q, k.half(), v.half(), vt)
+
+
+# (B, S, Hkv, G, D, valid, window, offset): the partial form over one
+# kv_seq shard of S slots at `offset` of a longer cache, the bounds whole:
+# valid inside the shard, the whole shard live, valid at or below the
+# shard (no live slot: o 0, lse -inf), a window whose lower bound lies
+# past the shard (none again) or inside it (D 256), 4-byte staging (D 20)
+FD_PARTIAL_CASES = [(2, 100, 2, 3, 64, 150, 0, 64),
+                    (1, 256, 2, 4, 64, 1000, 0, 256),
+                    (2, 100, 2, 3, 64, 50, 0, 100),
+                    (2, 100, 2, 3, 64, 400, 64, 100),
+                    (1, 1108, 8, 2, 256, 2000, 1024, 900),
+                    (2, 100, 2, 3, 20, 130, 0, 50),
+                    (1, 4096, 5, 3, 64, 70000, 0, 65536)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hkv,G,D,valid,window,offset", FD_PARTIAL_CASES)
+def test_flash_decode_partial_matches_plain(cuda, B, S, Hkv, G, D, valid,
+                                            window, offset):
+    """The partial form's (o, lse) against its plain version
+    (``ref.flash_decode_partial_ref``) within 1e-5 on a float32 cache, for
+    the decode plan and every forced plan that fits, one launch a call
+    counted as ``flash_decode_partial``; on a bf16 cache the rows' maxima
+    (``flash_decode_row_max``) within 1e-5 and the partial against them
+    within ``fd.bf16_bound`` (lse 1e-4)."""
+    q, k, v = (torch.from_numpy(a).to(cuda)
+               for a in _fd_inputs(B, S, Hkv, G, D))
+    vt = torch.tensor([valid], dtype=torch.int32, device=cuda)
+    want_o, want_l = fd.flash_decode_partial_ref(q, k, v, vt, window, offset)
+    plans = _fd_forced(B, S, Hkv, G, D)
+    _build.reset_launch_counts()
+    for plan in plans:
+        o, lse = fd.flash_decode_partial(q, k, v, vt, window=window,
+                                         offset=offset, plan=plan)
+        for got, want in ((o, want_o), (lse, want_l)):
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5,
+                                       msg=lambda m: f"{plan}: {m}")
+    assert _build.LAUNCHES["flash_decode_partial"] == len(plans)
+    assert not torch.isnan(o).any() and not torch.isnan(lse).any()
+    if D % 8:
+        return
+    kb, vb = k.bfloat16(), v.bfloat16()
+    m = fd.flash_decode_row_max(q, kb, vt, window=window, offset=offset)
+    torch.testing.assert_close(m, fd.flash_decode_row_max_ref(
+        q, kb, vt, window, offset), atol=1e-5, rtol=1e-5)
+    row_max = m + 0.25 * torch.isfinite(m)      # as another rank's max
+    for rm in (None, row_max):
+        want_o, want_l = fd.flash_decode_partial_ref(q, kb, vb, vt, window,
+                                                     offset, rm)
+        f32 = fd.flash_decode_partial_ref(q, k, v, vt, window, offset)[0]
+        bound = fd.bf16_bound(float((want_o - f32).abs().max()),
+                              fd.BF16_CAP_RANDOM)
+        o, lse = fd.flash_decode_partial(q, kb, vb, vt, window=window,
+                                         offset=offset, row_max=rm)
+        assert float((o - want_o).abs().max()) <= bound
+        torch.testing.assert_close(lse, want_l, atol=1e-4, rtol=1e-4)
+    assert _build.LAUNCHES["flash_decode_row_max"] == 1
+    with pytest.raises(ValueError, match="bf16"):
+        fd.flash_decode_row_max(q, k, vt, offset=offset)

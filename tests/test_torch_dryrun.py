@@ -292,9 +292,56 @@ def test_run_cell_writes_records(tmp_path):
     assert (tmp_path / "agcn-2s__gcn_infer__h100x1.json").exists()
     assert rec["roofline"]["hlo_flops"] > 0 and rec["dtype"]["cache"] is None
 
-    for arch, shape, why in (("xlstm-1.3b", "long_500k", "kv_seq"),
-                             ("smollm-360m", "long_500k", "sub-quadratic")):
-        rec = dryrun.run_cell(arch, shape, True, tmp_path, verbose=False)
+    # long_500k's one sequence on h100x8 runs whole on every rank (JAX's
+    # kv_seq rule; xlstm has no KV cache to shard); smollm stays skipped
+    rec = dryrun.run_cell("xlstm-1.3b", "long_500k", True, tmp_path,
+                          verbose=False)
+    assert rec["status"] == "ok" and rec["roofline"]["collective_bytes"] == 0
+    for arch, shape, mesh_name, why in (
+            ("smollm-360m", "long_500k", True, "sub-quadratic"),
+            ("xlstm-1.3b", "decode_32k", "h100x8m4", "Queue 1 item 9")):
+        rec = dryrun.run_cell(arch, shape, mesh_name, tmp_path, verbose=False)
         assert rec["status"] == "skipped" and why in rec["reason"]
         assert json.loads((tmp_path / f"{rec['cell']}.json").read_text(
         )) == rec
+
+
+def test_model_axis_and_kv_seq_cells_count_their_collectives(tmp_path):
+    """granite-moe ``decode_32k`` on ``h100x8m4`` (data 2, model 4: 64
+    sequences a data rank) counts the collectives the reckoning gives:
+    the step's gathers of the leaves no layer takes as shards (the router,
+    the two norm scales), per layer the gathered kv products (wkv's column
+    shards are not whole heads), the row-parallel attention output's
+    all-reduce, the MoE's two all-to-alls of its (16, 48, cap + 1, 1536)
+    capacity buffer (cap 1) and the all-gather of its rows, then the
+    vocab-parallel embedding's all-reduce and the logits' all-gather.
+    h2o-danube ``long_500k`` on ``h100x8`` (kv_seq, 512 ring slots a
+    rank, a bf16 cache) counts per layer the all-reduce (max) of the rows'
+    maxima and one all-gather of the (o, lse) partials."""
+    rec = dryrun.run_cell("granite-moe-3b-a800m", "decode_32k", "h100x8m4",
+                          tmp_path, verbose=False)
+    assert rec["status"] == "ok" and rec["chips"] == 8
+    cfg = get_config("granite-moe-3b-a800m")
+    L, d, E, f32 = cfg.num_layers, cfg.d_model, cfg.padded_experts, 4
+    B, M = 64, 4
+    act = B * d * f32
+    gathers = (L * d * E + 2 * L * d) * f32 \
+        + L * B * 2 * cfg.kv_dim * f32 + L * act \
+        + B * cfg.padded_vocab * f32
+    reduces = act + L * act
+    a2a = 2 * L * (B // M) * E * 2 * d * f32
+    assert rec["roofline"]["collectives"] == {
+        "all-gather": gathers, "all-reduce": reduces, "reduce-scatter": 0.0,
+        "all-to-all": a2a, "collective-permute": 0.0}
+    rec = dryrun.run_cell("h2o-danube-1.8b", "long_500k", True, tmp_path,
+                          verbose=False)
+    cfg = get_config("h2o-danube-1.8b")
+    rows = cfg.num_kv_heads * (cfg.num_heads // cfg.num_kv_heads)
+    gather = 8 * rows * (cfg.head_dim + 1) * 4
+    assert rec["status"] == "ok"
+    assert rec["roofline"]["collectives"]["all-gather"] == \
+        cfg.num_layers * gather
+    assert rec["roofline"]["collectives"]["all-reduce"] == \
+        cfg.num_layers * rows * 4
+    assert rec["roofline"]["collective_bytes"] == \
+        cfg.num_layers * (gather + rows * 4)

@@ -417,8 +417,8 @@ from repro_torch.models import registry
 from repro_torch.models.layers import common, mlp
 out = pathlib.Path(sys.argv[1])
 rec = dryrun.run_cell("agcn-2s", "gcn_infer", True, out, verbose=False)
-skip = dryrun.run_cell("xlstm-1.3b", "long_500k", True, out, verbose=False)
-print(rec["status"], rec["mesh"], skip["status"])
+kv_seq = dryrun.run_cell("xlstm-1.3b", "long_500k", True, out, verbose=False)
+print(rec["status"], rec["mesh"], kv_seq["status"])
 cfg = get_config("zamba2-7b", reduced=True)
 cache = registry.init_cache(cfg, 2, 8, device="cpu", dtype=torch.bfloat16)
 print(sorted({str(t.dtype) for t in (cache["groups"]["attn"]["k"],
@@ -450,7 +450,7 @@ def test_analysis_tools_and_bf16_caches_run_without_jax(tmp_path):
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines() == [
-        "ok h100x8 skipped", "['torch.bfloat16', 'torch.float32']",
+        "ok h100x8 ok", "['torch.bfloat16', 'torch.float32']",
         "1 memory", "DeprecationWarning 3 4 2", "[]"]
 
 

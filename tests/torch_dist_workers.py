@@ -60,10 +60,22 @@ def spawn(fn, world: int, workdir, *args, timeout: float = 300.0) -> None:
     gloo process group that meets through a file under ``workdir``.
     Raises if a rank fails, and kills every rank and raises TimeoutError
     past ``timeout`` seconds."""
+    join(start(fn, world, workdir, *args), timeout)
+
+
+def start(fn, world: int, workdir, *args):
+    """:func:`spawn` without waiting: returns the ranks' context for
+    :func:`join`, so the caller can work while they run."""
     import torch.multiprocessing as mp
     init = Path(workdir) / f"rdzv_{time.monotonic_ns()}"
-    ctx = mp.start_processes(_entry, args=(fn, world, str(init), args),
-                             nprocs=world, join=False, start_method="spawn")
+    return mp.start_processes(_entry, args=(fn, world, str(init), args),
+                              nprocs=world, join=False, start_method="spawn")
+
+
+def join(ctx, timeout: float = 300.0) -> None:
+    """Wait for :func:`start`'s ranks: raises if a rank fails, and kills
+    every rank and raises TimeoutError past ``timeout`` seconds."""
+    world = len(ctx.processes)
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
         if time.monotonic() >= deadline:
@@ -77,6 +89,15 @@ def _cfg(spec):
     from repro_torch.configs import get_config
     cfg = get_config(spec["arch"], reduced=True)
     return dataclasses.replace(cfg, **spec.get("cfg", {}))
+
+
+def _policy(spec, cfg):
+    return spec.get("policy") or cfg.sharding
+
+
+def _rules(spec, cfg, mesh, rows):
+    from repro_torch.distributed.sharding import rules_for
+    return rules_for(_policy(spec, cfg), rows, mesh)
 
 
 def load_tree(path):
@@ -127,19 +148,23 @@ def _run_one(rank, world, spec, mesh):
     from repro_torch.common.config import TrainConfig
     from repro_torch.distributed.params import (distribute_params,
                                                 param_shardings)
+    from repro_torch.distributed.sharding import batch_rank, batch_ranks
     from repro_torch.optim import adamw
     from repro_torch.train.steps import make_train_step, shard_batch
     cfg = _cfg(spec)
     tcfg = TrainConfig(**spec["tcfg"])
     params = load_tree(spec["params"])
+    batches = _batches(spec["batches"])[: spec["steps"]]
+    rules = _rules(spec, cfg, mesh, next(iter(batches[0].values())).shape[0])
     sh = param_shardings(params, mesh, expert_dim=cfg.padded_experts or None,
-                         policy=spec.get("policy", "2d"))
+                         policy=_policy(spec, cfg))
     params = distribute_params(params, sh)
     opt = adamw.init(params)
-    step = make_train_step(cfg, tcfg, grad_shardings=sh)
+    step = make_train_step(cfg, tcfg, grad_shardings=sh, rules=rules)
     losses, first = [], None
-    for b in _batches(spec["batches"])[: spec["steps"]]:
-        local = shard_batch(b, rank, world, tcfg.microbatches)
+    for b in batches:
+        local = shard_batch(b, batch_rank(mesh, rules),
+                            batch_ranks(mesh, rules), tcfg.microbatches)
         params, opt, m = step(params, opt, local)
         losses.append(float(m["loss"]))
         if first is None:
@@ -252,7 +277,12 @@ def _paths(tree):
 
 
 def _elastic(rank, world, spec, mesh, out_dir):
+    """Train ``steps`` steps on ``mesh``, checkpoint, then the first
+    ``survivors`` ranks (default 2) form a new group on the degraded mesh
+    (the model axis kept) and train ``more`` steps."""
     import torch.distributed as dist
+    from repro_torch.distributed.sharding import (axis_size, batch_rank,
+                                                  batch_ranks)
     from repro_torch.checkpoint import store
     from repro_torch.common.config import TrainConfig
     from repro_torch.distributed.params import (distribute_params,
@@ -266,26 +296,33 @@ def _elastic(rank, world, spec, mesh, out_dir):
     losses, params, opt, _, _ = _run_one(rank, world, spec, mesh)
     store.save(str(ckpt), spec["steps"], params)
     store.save(str(ckpt / "opt"), spec["steps"], opt)
+    model = axis_size(mesh, "model")
+    old_data = axis_size(mesh, "data")
     dist.destroy_process_group()
-    survivors = 2
+    survivors = spec.get("survivors", 2)
     if rank >= survivors:
         return
     dist.init_process_group("gloo", init_method=f"file://{spec['rdzv2']}",
                             rank=rank, world_size=survivors)
-    plan = plan_degraded_mesh(survivors, model=1, old_data=world)
+    plan = plan_degraded_mesh(survivors, model=model, old_data=old_data)
     new_mesh = degraded_mesh(plan, "cpu")
     cfg = _cfg(spec)
     tcfg = adjust_train_config(TrainConfig(**spec["tcfg"]), plan)
     like = load_tree(spec["params"])
-    sh = param_shardings(like, new_mesh, expert_dim=cfg.padded_experts or None)
+    batches = _batches(spec["batches"])[spec["steps"]:
+                                        spec["steps"] + spec["more"]]
+    rules = _rules(spec, cfg, new_mesh,
+                   next(iter(batches[0].values())).shape[0])
+    sh = param_shardings(like, new_mesh, expert_dim=cfg.padded_experts or None,
+                         policy=_policy(spec, cfg))
     params = reshard_checkpoint(str(ckpt), spec["steps"], like, new_mesh, sh)
     host = store.restore(str(ckpt / "opt"), spec["steps"], adamw.init(like))
     opt = adamw.OptState(step=host.step, m=distribute_params(host.m, sh),
                          v=distribute_params(host.v, sh))
-    step = make_train_step(cfg, tcfg, grad_shardings=sh)
-    for b in _batches(spec["batches"])[spec["steps"]:
-                                       spec["steps"] + spec["more"]]:
-        local = shard_batch(b, rank, survivors, tcfg.microbatches)
+    step = make_train_step(cfg, tcfg, grad_shardings=sh, rules=rules)
+    for b in batches:
+        local = shard_batch(b, batch_rank(new_mesh, rules),
+                            batch_ranks(new_mesh, rules), tcfg.microbatches)
         params, opt, m = step(params, opt, local)
         losses.append(float(m["loss"]))
     full = _full(params)
@@ -294,6 +331,91 @@ def _elastic(rank, world, spec, mesh, out_dir):
         (out_dir / f"{spec['name']}.json").write_text(json.dumps(
             {"losses": losses, "plan": dataclasses.asdict(plan),
              "microbatches": tcfg.microbatches}))
+
+
+def run_mesh_scenarios(rank, world, scenarios, out_dir):
+    """Rank body of the model-axis tests: each scenario on its own mesh
+    (``spec["mesh"]``, re-formed per scenario over the same ranks).  Kind
+    "train" (default): :func:`_run_one`; rank 0 writes the losses, the
+    final and first-step parameters and their local shapes, and with
+    ``ckpt`` every rank joins saving the final parameters there
+    (``checkpoint.store``).  Kind "decode": teacher-forced serve steps of
+    ``spec["tokens"]`` (.npy, (B, T)) on the mesh under the cell's rules
+    (kv_seq where B does not divide over the batch ranks), the parameters
+    this rank's model shards (``params.local_shards``); rank 0 writes the
+    whole batch's logits (T, B, vocab), every batch rank's rows.  Kind "elastic" comes last."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import make_mesh
+    out_dir = Path(out_dir)
+    for spec in scenarios:
+        mesh = make_mesh(tuple(spec["mesh"]), torch.device("cpu"))
+        name = spec["name"]
+        kind = spec.get("kind", "train")
+        if kind == "elastic":
+            _elastic(rank, world, spec, mesh, out_dir)
+            return
+        if kind == "decode":
+            logits, rules = _decode(spec, mesh)
+            if rank == 0:
+                np.save(out_dir / f"{name}.npy", logits)
+                (out_dir / f"{name}.json").write_text(json.dumps(
+                    {"kv_seq": rules["kv_seq"], "batch": rules["batch"]}))
+            dist.barrier()
+            continue
+        losses, params, _, sh, first = _run_one(rank, world, spec, mesh)
+        if spec.get("ckpt"):
+            from repro_torch.checkpoint import store
+            store.save(spec["ckpt"], spec["steps"], params)
+        full = _full(params)
+        if rank == 0:
+            from repro_torch.common.tree import tree_map
+            from repro_torch.distributed.params import (held_bytes,
+                                                        sharded_bytes)
+            save_tree(out_dir / f"{name}.npz", full)
+            save_tree(out_dir / f"{name}_step1.npz", first)
+            specs = tree_map(lambda s: s.spec, sh)
+            (out_dir / f"{name}.json").write_text(json.dumps(
+                {"losses": losses,
+                 "local_shapes": {n: list(p.to_local().shape)
+                                  for n, p in _paths(params)},
+                 "held_bytes": held_bytes(params),
+                 "sharded_bytes": sharded_bytes(full, specs, mesh)}))
+        dist.barrier()
+
+
+def _decode(spec, mesh):
+    """Teacher-forced decode of one "decode" scenario on ``mesh``: returns
+    (the whole batch's logits (T, B, vocab), each batch rank's rows
+    gathered from the ranks in rank order, the rules)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import params as dparams
+    from repro_torch.distributed.sharding import batch_rank, batch_ranks
+    from repro_torch.models import registry
+    from repro_torch.train.steps import make_serve_step
+    cfg = _cfg(spec)
+    toks = torch.from_numpy(np.load(spec["tokens"]))
+    B, T = toks.shape
+    rules = _rules(spec, cfg, mesh, B)
+    n = batch_ranks(mesh, rules)
+    r = batch_rank(mesh, rules) if n > 1 else 0
+    toks = toks[r * (B // n):(r + 1) * (B // n)]
+    layout = dparams.model_layout(cfg, mesh)
+    params = dparams.local_shards(load_tree(spec["params"]), layout.specs,
+                                  mesh)
+    with dparams.mesh_context(cfg, mesh, rules, layout):
+        cache = registry.init_cache(cfg, toks.shape[0], spec["max_len"],
+                                    device="cpu")
+    step = make_serve_step(cfg, spec.get("backend", "reference"), mesh, rules)
+    out = []
+    for t in range(T):
+        _, cache, last = step(params, cache, {
+            "tokens": toks[:, t:t + 1],
+            "pos": torch.tensor(t, dtype=torch.int32)})
+        out.append(last.numpy().copy())
+    mine = [None] * dist.get_world_size()
+    dist.all_gather_object(mine, (r, np.stack(out)))
+    rows = dict(reversed(mine))     # each batch rank's rows, first rank's
+    return np.concatenate([rows[i] for i in range(n)], axis=1), rules
 
 
 # ---------------------------------------------------------------------------
