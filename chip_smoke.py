@@ -286,9 +286,10 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                windowed and the global calls; flash_decode held at
                the zoo's shapes off the runs (``ZOO_FD_CASES``, beside
                masked ``F.scaled_dot_product_attention``); then
-               ``train_loop`` for 3 steps of xlstm-1.3b (batch 2 x 128),
-               zamba2-7b with the depth cut to 25 of 81 layers (batch 2 x
-               256) and whisper-small (batch 2 x 128): step p50, tokens/s,
+               ``train_loop`` for 3 steps of xlstm-1.3b with the depth cut
+               to 8 of 48 layers (batch 2 x 128), zamba2-7b cut to 25 of
+               81 layers (batch 2 x 256) and whisper-small (batch 2 x
+               128): step p50, tokens/s,
                peak memory, finite losses, no kernel launch.
   18. dryrun — ``launch.dryrun.run_cell`` on one static h100x8 cell per
                arch (``DRYRUN_CELLS``, meta tensors, in six spawned
@@ -311,11 +312,19 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                wrapper's, printed; the package is unchanged); the compute
                and every kernel stay on the card.  On a (1, 2) mesh:
                granite-moe-3b-a800m and h2o-danube-1.8b at full width cut
-               to 4 layers, 3 train steps (batch 2 x 64) against the same
+               to 4 layers, xlstm-1.3b to one group (7 mLSTM and 1 sLSTM
+               block), zamba2-7b to 7 layers (the shared block and 6
+               Mamba2 layers) and whisper-small to 4 encoder and 4 decoder
+               layers, 3 train steps (batch 2 x 64) against the same
                training in one rank on the card (losses 1e-5, parameters
                1e-4 where the first gradient exceeds 1e-6), then 8 ``cuda``
                decode steps against one rank (logits 1e-4, one flash_decode
-               a layer a step on each rank); agcn-2s (reduced) under
+               an attention a step on each rank, at its Hkv / 2 heads).
+               Where the SSM or hybrid family misses a bound in float32
+               the same check runs in float64 (decode on ``reference``),
+               and the float64 gaps decide; flash_decode held to its plain
+               version at the ranks' head-sharded shapes (``MP_FD_CASES``);
+               agcn-2s (reduced) under
                ``dp_only`` on (1, 2) against (2, 1), equal losses (cuDNN
                deterministic for it); then
                smollm-360m at full width and depth, batch 1, a bf16 cache
@@ -469,10 +478,20 @@ DIST_LR = 3e-4
 # over MP_DECODE_SLOTS; smollm's kv_seq decode at batch 1 over a bf16
 # cache of MP_KV_SLOTS slots from 3 * MP_KV_STEPS before its end,
 # MP_KV_STEPS steps
-MP_TRAIN = (("granite-moe-3b-a800m", 4), ("h2o-danube-1.8b", 4))
+MP_TRAIN = (("granite-moe-3b-a800m", 4), ("h2o-danube-1.8b", 4),
+            ("xlstm-1.3b", 8), ("zamba2-7b", 7), ("whisper-small", 4))
+# the families whose float32 gaps may be checked again in float64
+MP_F64_FAMILIES = ("ssm", "hybrid")
 MP_BATCH, MP_SEQ, MP_STEPS, MP_DECODE, MP_DECODE_SLOTS = 2, 64, 3, 8, 16
 MP_KV_ARCH, MP_KV_SLOTS, MP_KV_STEPS = "smollm-360m", 131072, 8
 MP_TIMEOUT = 420                   # the ranks' deadline, seconds
+# flash_decode at a (1, 2) rank's head shards of that decode: (label, B,
+# S, Hkv / 2, G, D, valid)
+MP_FD_CASES = [("mp zamba2 rank", MP_BATCH, MP_DECODE_SLOTS, 16, 1, 112,
+                MP_DECODE),
+               ("mp whisper self rank", MP_BATCH, MP_DECODE_SLOTS, 6, 1, 64,
+                MP_DECODE),
+               ("mp whisper cross rank", MP_BATCH, 1500, 6, 1, 64, 1500)]
 
 # the zoo phase: (arch, layers or 0 for all, batch, prompt, gen, backends,
 # bound on the cached decode against the cache-free forward, or None:
@@ -499,8 +518,10 @@ ZOO_FD_CASES = [("zoo zamba2 long", 4, 8192, 32, 1, 112, 8000, 0),
                 ("zoo gemma3 global 32k", 1, 32768, 8, 2, 256, 30000, 0),
                 ("zoo internlm2 long", 4, 8192, 8, 6, 128, 8000, 0)]
 # (arch, layers or 0, batch, seq, steps): zamba2's 81 layers hold about
-# 92 GB of weights, gradients and moments, so its depth is cut
-ZOO_TRAIN = (("xlstm-1.3b", 0, 2, 128, 3), ("zamba2-7b", 25, 2, 256, 3),
+# 92 GB of weights, gradients and moments, so its depth is cut; xlstm's
+# 48 took 2.5-3.9 s a step (its sLSTM loop), so it is cut to one group of
+# 8 to make room for the model_parallel phase
+ZOO_TRAIN = (("xlstm-1.3b", 8, 2, 128, 3), ("zamba2-7b", 25, 2, 256, 3),
              ("whisper-small", 0, 2, 128, 3))
 
 # the train phase: full agcn-2s, 16 clips (32 sequences) a step, 30 steps
@@ -2012,7 +2033,7 @@ def _to_float64_(tree):
     for key, leaf in list(items):
         if isinstance(leaf, (dict, list)):
             _to_float64_(leaf)
-        elif leaf.is_floating_point():
+        elif leaf is not None and leaf.is_floating_point():
             tree[key] = leaf.double()
 
 
@@ -2849,22 +2870,42 @@ def _mp_cut(p, placements, mesh):
     return p.contiguous()
 
 
-def _mp_train(cfg, mesh, batches, policy, lr):
+def _mp_cfg(arch, layers):
+    """``arch`` at full width cut to ``layers`` (the encoder too, for the
+    audio family), or whole for 0."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    if not layers:
+        return full
+    extra = {"encoder_layers": layers} if full.family == "audio" else {}
+    return dataclasses.replace(full, num_layers=layers, **extra)
+
+
+def _mp_params(cfg, dev, dtype=None):
+    """Parameters of seed SEED on ``dev``, float64 with ``dtype``."""
+    from repro_torch.models import registry
+    params = registry.init_params(cfg, seed=SEED, device=dev)
+    if dtype == "float64":
+        _to_float64_(params)
+    return params
+
+
+def _mp_train(cfg, mesh, batches, policy, lr, dtype=None):
     """``make_train_step`` on ``mesh`` for ``len(batches)`` steps from
-    parameters of seed SEED, laid out by ``param_shardings`` (each rank
-    cuts its shard: ``DTensor.from_local``, no collective): (losses, the
-    final parameters' local shards by path, the shardings)."""
+    parameters of seed SEED (float64 with ``dtype``), laid out by
+    ``param_shardings`` (each rank cuts its shard:
+    ``DTensor.from_local``, no collective): (losses, the final
+    parameters' local shards by path, the shardings)."""
     from torch.distributed.tensor import DTensor
     from repro_torch.common.config import TrainConfig
     from repro_torch.common.tree import tree_map, tree_paths
     from repro_torch.distributed.params import param_shardings
     from repro_torch.distributed.sharding import (batch_rank, batch_ranks,
                                                   rules_for)
-    from repro_torch.models import registry
     from repro_torch.optim import adamw
     from repro_torch.train.steps import make_train_step, shard_batch
     dev = next(iter(batches[0].values())).device
-    full = registry.init_params(cfg, seed=SEED, device=dev)
+    full = _mp_params(cfg, dev, dtype)
     sh = param_shardings(full, mesh, expert_dim=cfg.padded_experts or None,
                          policy=policy)
     rows = next(iter(batches[0].values())).shape[0]
@@ -2885,19 +2926,19 @@ def _mp_train(cfg, mesh, batches, policy, lr):
     return losses, {n: p.to_local() for n, p in tree_paths(params)}, sh
 
 
-def _mp_one_rank(cfg, batches, lr):
+def _mp_one_rank(cfg, batches, lr, dtype=None):
     """The same training in this rank alone (no mesh): (losses, final
-    parameters, the first step's gradients), by path."""
+    parameters, where the first step's gradients exceed 1e-6), by
+    path."""
     from repro_torch.common.config import TrainConfig
     from repro_torch.common.tree import tree_paths
-    from repro_torch.models import registry
     from repro_torch.optim import adamw
     from repro_torch.train.steps import (loss_and_grads, make_loss_fn,
                                          make_train_step)
     dev = next(iter(batches[0].values())).device
-    params = registry.init_params(cfg, seed=SEED, device=dev)
-    g1 = dict(tree_paths(loss_and_grads(make_loss_fn(cfg), params,
-                                        batches[0])[2]))
+    params = _mp_params(cfg, dev, dtype)
+    g1 = {n: g.abs() > 1e-6 for n, g in tree_paths(loss_and_grads(
+        make_loss_fn(cfg), params, batches[0])[2])}
     tcfg = TrainConfig(learning_rate=lr, total_steps=len(batches),
                        warmup_steps=1)
     step = make_train_step(cfg, tcfg)
@@ -2909,11 +2950,12 @@ def _mp_one_rank(cfg, batches, lr):
 
 
 def _mp_decode(cfg, params, toks, slots, backend, mesh=None, rules=None,
-               dtype=None, fill=None):
+               dtype=None, fill=None, memory=None):
     """Teacher-forced serve steps of ``toks`` (B, T) from position ``pos0``
     of ``fill`` (a function filling a fresh cache; else an empty cache at
-    position 0), on ``mesh`` when given: (logits (T, B, vocab) on the
-    host, launch counts of the steps)."""
+    position 0), on ``mesh`` when given, the audio family over
+    ``memory``: (logits (T, B, vocab) on the host, launch counts of the
+    steps)."""
     import contextlib
     import torch
     from repro_torch.distributed import params as dparams
@@ -2928,13 +2970,16 @@ def _mp_decode(cfg, params, toks, slots, backend, mesh=None, rules=None,
                                     dtype=dtype or torch.float32)
     pos0 = fill(cache) if fill is not None else 0
     step = make_serve_step(cfg, backend, mesh, rules)
+    extra = {} if memory is None else {"memory": memory}
     out = []
     _build.reset_launch_counts()
     for t in range(toks.shape[1]):
         _, cache, last = step(params, cache, {
             "tokens": toks[:, t:t + 1],
-            "pos": torch.tensor(pos0 + t, dtype=torch.int32, device=dev)})
-        out.append(last.float())
+            "pos": torch.tensor(pos0 + t, dtype=torch.int32, device=dev),
+            **extra})
+        out.append(last.double() if dtype == torch.float64
+                   else last.float())
     torch.cuda.synchronize(dev)
     counts = dict(_build.LAUNCHES)
     return torch.stack(out).cpu(), counts
@@ -2962,6 +3007,78 @@ def mp_kv_fill(cfg, lo, n, dev, slots, pos):
         cache["pos"].fill_(pos)
         return pos
     return fill
+
+
+def _mp_within(a) -> bool:
+    """Are one arch's gaps from one rank within the phase's bounds (losses
+    1e-5, parameters 1e-4, logits 1e-4, finite logits)?"""
+    return (a["loss_gap"] <= 1e-5 and a["param_gap"] <= 1e-4
+            and a["logit_gap"] <= 1e-4 and a["logits_finite"])
+
+
+def _mp_check(cfg, mesh, batches, toks, memory, backend, dtype):
+    """One arch on ``mesh`` against this rank alone: ``MP_STEPS`` train
+    steps (losses, and the parameters' local shards wherever the one-rank
+    first gradient exceeds 1e-6), then teacher-forced decode steps of
+    ``toks`` on ``backend``; float64 parameters, batches, caches and
+    memory with ``dtype``.  Returns the gaps and the decode's launch
+    counts on the mesh."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import params as dparams
+    from repro_torch.distributed.sharding import rules_for
+    if dtype == "float64":
+        batches = [{k: v.double() if v.is_floating_point() else v
+                    for k, v in b.items()} for b in batches]
+        memory = memory.double() if memory is not None else None
+    t0 = time.perf_counter()
+    losses, mine, sh = _mp_train(cfg, mesh, batches, cfg.sharding, DIST_LR,
+                                 dtype)
+    t_mesh = time.perf_counter() - t0
+    # the one-rank reference: in float64 one rank at a time (two whole
+    # float64 models in training do not fit one card beside each other)
+    serial = dtype == "float64"
+    t0 = time.perf_counter()
+    for turn in range(dist.get_world_size() if serial else 1):
+        if not serial or turn == dist.get_rank():
+            ref_losses, ref, g1 = _mp_one_rank(cfg, batches, DIST_LR, dtype)
+            gaps = []
+            for (n, p), s in zip(mine.items(), _leaves(sh)):
+                big = _mp_cut(g1[n], s.placements, mesh)
+                if bool(big.any()):
+                    want = _mp_cut(ref[n], s.placements, mesh)
+                    gaps.append(float((p - want).abs()[big].max()))
+            del ref, g1
+            gc.collect()
+            torch.cuda.empty_cache()
+        if serial:
+            dist.barrier()
+    t_ref = time.perf_counter() - t0
+    del mine
+    t0 = time.perf_counter()
+    layout = dparams.model_layout(cfg, mesh)
+    full = _mp_params(cfg, toks.device, dtype)
+    local = dparams.local_shards(full, layout.specs, mesh)
+    rules = rules_for(layout.policy, MP_BATCH, mesh)
+    cache_dtype = torch.float64 if dtype == "float64" else None
+    logits, counts = _mp_decode(cfg, local, toks, MP_DECODE_SLOTS, backend,
+                                mesh, rules, cache_dtype, memory=memory)
+    want, _ = _mp_decode(cfg, full, toks, MP_DECODE_SLOTS, backend,
+                         dtype=cache_dtype, memory=memory)
+    del full, local
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_dec = time.perf_counter() - t0
+    return {"dtype": dtype or "float32", "backend": backend,
+            "plan": layout.plan._asdict(), "losses": losses,
+            "one_rank_losses": ref_losses,
+            "loss_gap": max(abs(x - y) for x, y in zip(losses, ref_losses)),
+            "param_gap": max(gaps), "train_s": t_mesh, "one_rank_s": t_ref,
+            "decode_s": t_dec,
+            "logit_gap": float((logits - want).abs().max()),
+            "logits_finite": bool(torch.isfinite(logits).all()),
+            "decode_counts": counts}
 
 
 def _mp_rank(rank, world, init, out_dir, spec):
@@ -2992,44 +3109,24 @@ def _mp_rank(rank, world, init, out_dir, spec):
             return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
         tok_gen = np.random.default_rng(SEED)
         for arch, layers in MP_TRAIN:
-            full_cfg = get_config(arch)
-            cfg = dataclasses.replace(full_cfg, num_layers=layers or
-                                      full_cfg.num_layers)
+            cfg = _mp_cfg(arch, layers)
             data = make_batches(cfg, DataConfig(MP_BATCH, MP_SEQ, seed=SEED))
             batches = [to_dev(next(data)) for _ in range(MP_STEPS)]
-            mesh = make_mesh((1, world), dev)
-            t0 = time.perf_counter()
-            losses, mine, sh = _mp_train(cfg, mesh, batches,
-                                         cfg.sharding, DIST_LR)
-            t_mesh = time.perf_counter() - t0
-            ref_losses, ref, g1 = _mp_one_rank(cfg, batches, DIST_LR)
-            gaps = []
-            for (n, p), s in zip(mine.items(), _leaves(sh)):
-                want = _mp_cut(ref[n], s.placements, mesh)
-                big = _mp_cut(g1[n], s.placements, mesh).abs() > 1e-6
-                if bool(big.any()):
-                    gaps.append(float((p - want).abs()[big].max()))
-            del mine, ref, g1
             toks = torch.as_tensor(tok_gen.integers(
                 0, cfg.vocab_size, (MP_BATCH, MP_DECODE)), device=dev)
-            from repro_torch.distributed import params as dparams
-            layout = dparams.model_layout(cfg, mesh)
-            full = registry.init_params(cfg, seed=SEED, device=dev)
-            local = dparams.local_shards(full, layout.specs, mesh)
-            rules = rules_for(layout.policy, MP_BATCH, mesh)
-            logits, counts = _mp_decode(cfg, local, toks, MP_DECODE_SLOTS,
-                                        "cuda", mesh, rules)
-            want, _ = _mp_decode(cfg, full, toks, MP_DECODE_SLOTS, "cuda")
-            del full, local
-            rec[arch] = {
-                "layers": cfg.num_layers, "plan": layout.plan._asdict(),
-                "losses": losses, "one_rank_losses": ref_losses,
-                "loss_gap": max(abs(a - b) for a, b in zip(losses,
-                                                            ref_losses)),
-                "param_gap": max(gaps), "train_s": t_mesh,
-                "logit_gap": float((logits - want).abs().max()),
-                "logits_finite": bool(torch.isfinite(logits).all()),
-                "decode_counts": counts}
+            memory = None
+            if cfg.family == "audio":
+                memory = torch.randn(
+                    (MP_BATCH, cfg.encoder_frames, cfg.d_model),
+                    generator=torch.Generator(device=dev).manual_seed(SEED),
+                    device=dev)
+            mesh = make_mesh((1, world), dev)
+            a = _mp_check(cfg, mesh, batches, toks, memory, "cuda", None)
+            a["layers"] = cfg.num_layers
+            rec[arch] = a
+            if cfg.family in MP_F64_FAMILIES and not _mp_within(a):
+                a["float64"] = _mp_check(cfg, mesh, batches, toks, memory,
+                                         "reference", "float64")
         # agcn-2s under dp_only: the model axis carries batch.  cuDNN's
         # convolution gradients sum with atomics unless deterministic, and
         # the two meshes' losses are held equal
@@ -3150,17 +3247,33 @@ def _mp_kernel_case(name, q, k, v, valid, offset, row_max, served):
             "ops_ms": t_ops, "bound_f32_ms": b_ms, "split_floor_ms": None}
 
 
-def model_parallel_phase(dev, failures, cases, summary, check_launches):
+def _mp_gaps(a) -> str:
+    """One arch's gaps from one rank, each beside its bound, and the
+    seconds of the one-rank training and of the two decodes."""
+    return (f"against one rank ({a['one_rank_s']:.1f} s) |diff| "
+            f"{a['loss_gap']:.3g} (bound 1e-5), "
+            f"parameters {a['param_gap']:.3g} (bound 1e-4 where the first "
+            f"gradient exceeds 1e-6); {MP_DECODE} {a['backend']} decode "
+            f"steps' logits {a['logit_gap']:.3g} (bound 1e-4; "
+            f"{a['decode_s']:.1f} s)")
+
+
+def model_parallel_phase(dev, failures, cases, summary, check_launches,
+                         modules):
     """Phase 19: the model axis and the kv_seq decode on 2 ranks of this
     card, gloo carrying CUDA tensors (NCCL takes no two ranks on one
     device).  Each rank first checks that gloo takes the collectives the
     port calls on CUDA tensors (:func:`_mp_check_collectives`; a refusal
-    fails the phase); the compute and every kernel stay on the card.  On a (1, 2) mesh: granite-moe and
-    h2o-danube at full width, depth cut (MP_TRAIN), 3 train steps against
-    the same training in one rank on the card (losses 1e-5; the
-    parameters' local shards 1e-4 wherever the one-rank first gradient
-    exceeds 1e-6), then 8 teacher-forced ``cuda`` decode steps against one
-    rank (logits 1e-4; one flash_decode a layer a step on each rank);
+    fails the phase); the compute and every kernel stay on the card.  On
+    a (1, 2) mesh: granite-moe, h2o-danube, xlstm, zamba2 and whisper at
+    full width, depth cut (MP_TRAIN), 3 train steps against the same
+    training in one rank on the card (losses 1e-5; the parameters' local
+    shards 1e-4 wherever the one-rank first gradient exceeds 1e-6), then 8
+    teacher-forced ``cuda`` decode steps against one rank (logits 1e-4;
+    one flash_decode an attention a step on each rank, Hkv / 2 heads);
+    the SSM and hybrid families again in float64 where float32 misses a
+    bound (``reference`` decode), the float64 gaps then deciding;
+    flash_decode held at the ranks' head shards (MP_FD_CASES);
     agcn-2s (reduced) under ``dp_only`` on (1, 2) against (2, 1) (the same
     losses, cuDNN deterministic: its convolution gradients otherwise sum
     with atomics); smollm-360m at full width and depth at batch 1 over a bf16
@@ -3225,26 +3338,40 @@ def model_parallel_phase(dev, failures, cases, summary, check_launches):
           f"{', '.join(MP_COLLECTIVES)} on CUDA tensors; "
           f"{t_ranks:.1f} s for the ranks")
     for arch, layers in MP_TRAIN:
+        arch_cfg = _mp_cfg(arch, layers)
         for r, rec in enumerate(recs):
             a = rec[arch]
+            line = _mp_gaps(a)
+            f64 = a.get("float64")
+            if f64 is not None:
+                line += (f"; missed in float32, so again in float64 "
+                         f"({f64['backend']} decode): {_mp_gaps(f64)}")
             print(f"model_parallel: {arch} at full width, {a['layers']} "
                   f"layers, mesh (1, 2) rank {r}, plan {a['plan']}: "
                   f"{MP_STEPS} train steps (batch {MP_BATCH} x "
                   f"{MP_SEQ}, {a['train_s']:.1f} s) losses "
-                  f"{[round(x, 6) for x in a['losses']]}, against one rank "
-                  f"|diff| {a['loss_gap']:.3g} (bound 1e-5), parameters "
-                  f"{a['param_gap']:.3g} (bound 1e-4 where the first "
-                  f"gradient exceeds 1e-6); {MP_DECODE} cuda decode steps' "
-                  f"logits {a['logit_gap']:.3g} (bound 1e-4); launches "
+                  f"{[round(x, 6) for x in a['losses']]}, {line}; launches "
                   f"{ {k: v for k, v in a['decode_counts'].items() if v} }")
-            if a["loss_gap"] > 1e-5 or a["param_gap"] > 1e-4 or \
-                    a["logit_gap"] > 1e-4 or not a["logits_finite"]:
-                failures.append(f"model_parallel {arch} rank {r}: losses "
-                                f"{a['loss_gap']:.3g}, parameters "
-                                f"{a['param_gap']:.3g}, logits "
-                                f"{a['logit_gap']:.3g} from one rank")
+            held = f64 if f64 is not None else a
+            if not _mp_within(held):
+                failures.append(f"model_parallel {arch} rank {r} "
+                                f"({held['dtype']}): losses "
+                                f"{held['loss_gap']:.3g}, parameters "
+                                f"{held['param_gap']:.3g}, logits "
+                                f"{held['logit_gap']:.3g} from one rank")
             check_launches(f"mp {arch} rank {r}", a["decode_counts"],
-                           {"flash_decode": a["layers"]}, MP_DECODE)
+                           {"flash_decode": _flash_decode_per_step(
+                               arch_cfg)}, MP_DECODE)
+    # flash_decode at the ranks' head shards (random inputs)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for label, B, S, Hkv, G, D, valid in MP_FD_CASES:
+        q = torch.randn(B, Hkv, G, D, generator=gen, device=dev)
+        k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+                for _ in range(2))
+        hold_flash_decode(label, [((q, k, v, torch.full(
+            (1,), valid, dtype=torch.int32, device=dev)), {})], cases,
+            summary, failures, modules, served=False)
+        del q, k, v
     g = [rec["gcn"] for rec in recs]
     same = all(x == g[0] for x in g) and \
         g[0]["(1, 2)"] == g[0]["(2, 1)"]
@@ -4466,7 +4593,8 @@ def main() -> int:
     phase_done("dryrun")
 
     # ---- 19. the model axis and the kv_seq decode, 2 ranks on the card -------
-    model_parallel_phase(dev, failures, cases, summary, check_launches)
+    model_parallel_phase(dev, failures, cases, summary, check_launches,
+                         modules)
     phase_done("model_parallel")
 
     print(f"clock: spin {spin_cycles_per_ms():.0f} cycles/ms; timings with "
@@ -4514,7 +4642,8 @@ def main() -> int:
                            != "xlstm-1.3b"
                            for w in ("first decode step", "last step")),
                          "zoo gemma3 long local", "zoo gemma3 long global",
-                         *(c[0] for c in ZOO_FD_CASES)],
+                         *(c[0] for c in ZOO_FD_CASES),
+                         *(c[0] for c in MP_FD_CASES)],
         "flash_decode_partial": ["mp kv_seq shard float32"]}
     kernels = []
     for name in _build.KERNELS:

@@ -13,17 +13,19 @@ This never shards a head axis, so odd head counts (smollm's 15 heads) are
 safe.  :func:`param_shardings` gives each spec's DTensor placements on the
 mesh and :func:`distribute_params` lays a tree out with them.
 
-The model axis: :func:`model_layout` reads which layers of a decoder take
+The model axis: :func:`model_layout` reads which layers of an LM take
 their weights as model shards (a :class:`ModelPlan`) off the specs;
 :func:`local_params` turns the DTensor tree into this rank's local
 tensors (gathered over the batch axes, each leaf's model shard kept), and
 :func:`prepare` gathers, inside autograd, every model-sharded leaf that
-no layer takes as a shard (norm scales, the router, a layer whose heads
-do not divide the axis), so each rank's gradients are of its own shards.
+no layer takes as a shard (norm scales outside a head-parallel layer,
+the router, a layer whose heads do not divide the axis), so each rank's
+gradients are of its own shards.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+import re
+from typing import Any, Dict, NamedTuple, Optional
 
 from repro_torch.common.tree import tree_map, tree_paths, tree_unflatten
 from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
@@ -167,25 +169,56 @@ def held_bytes(params) -> int:
 # ---------------------------------------------------------------------------
 
 class ModelPlan(NamedTuple):
-    """Which decoder layers take their weights as model shards: ``attn``
-    (wq and wkv column-parallel, wo row-parallel, whole query and kv heads
-    a rank), ``mlp`` (wi and wg columns, wo rows), ``moe`` (experts) and
-    ``vocab`` (embedding rows: the lookup and the logits vocab-parallel).
-    A layer that does not runs whole on every model rank."""
+    """Which layers take their weights as model shards: ``attn`` (wq and
+    wkv column-parallel, wo row-parallel, whole query and kv heads a rank;
+    every self- and cross-attention of the model), ``mlp`` (wi and wg
+    columns, wo rows), ``moe`` (experts), ``vocab`` (embedding rows: the
+    lookup and the logits vocab-parallel), and the recurrent layers by
+    heads: ``mlstm`` (wqkv's products gathered, wz columns, out_proj
+    rows), ``slstm`` (wx and bias columns, r gathered, out_proj rows) and
+    ``mamba`` (wx, wz and conv_w columns, out_proj rows), each with its
+    norm scale's columns.  A layer that does not runs whole on every model
+    rank."""
     attn: bool = False
     mlp: bool = False
     moe: bool = False
     vocab: bool = False
+    mlstm: bool = False
+    slstm: bool = False
+    mamba: bool = False
 
 
-# the leaves a layer takes as shards, and the dim its model shard lies on
+# the leaves a layer takes as shards: for each group, the pattern of its
+# layers' path prefixes (every attention, self- or cross-, of any stack,
+# every MLP) and, under a prefix, each leaf and the dim its model shard
+# lies on
 SHARD_CONSUMERS = {
-    "attn": {"layers/attn/wq": -1, "layers/attn/wkv": -1,
-             "layers/attn/wo": -2},
-    "mlp": {"layers/mlp/wi": -1, "layers/mlp/wg": -1, "layers/mlp/wo": -2},
-    "moe": {"layers/moe/wi": -3, "layers/moe/wg": -3, "layers/moe/wo": -3},
-    "vocab": {"embed": -2},
+    "attn": (r"(?:.+/)?x?attn", {"wq": -1, "wkv": -1, "wo": -2}),
+    "mlp": (r"(?:.+/)?mlp", {"wi": -1, "wg": -1, "wo": -2}),
+    "moe": (r"layers/moe", {"wi": -3, "wg": -3, "wo": -3}),
+    "vocab": (r"", {"embed": -2}),
+    "mlstm": (r"layers/mlstm/cell", {"wqkv": -1, "wz": -1,
+                                     "norm/scale": -1, "out_proj": -2}),
+    "slstm": (r"layers/slstm/cell", {"wx": -1, "bias": -1, "r": -1,
+                                     "norm/scale": -1, "out_proj": -2}),
+    "mamba": (r"mamba_(?:groups|tail)/cell", {
+        "wx": -1, "wz": -1, "conv_w": -1, "norm/scale": -1,
+        "out_proj": -2}),
 }
+
+
+def consumers(group: str, paths) -> Dict[str, int]:
+    """The leaves among ``paths`` that ``group``'s layers take as shards,
+    each with the dim its model shard lies on."""
+    prefix, leaves = SHARD_CONSUMERS[group]
+    names = "|".join(map(re.escape, leaves))
+    pat = re.compile(rf"{prefix}/({names})" if prefix else f"({names})")
+    out = {}
+    for path in paths:
+        m = pat.fullmatch(path)
+        if m is not None:
+            out[path] = leaves[m.group(1)]
+    return out
 
 
 class ModelLayout(NamedTuple):
@@ -206,27 +239,32 @@ def model_dim(spec: PartitionSpec) -> Optional[int]:
 
 
 def plan_of(cfg, specs, mesh) -> ModelPlan:
-    """The :class:`ModelPlan` of a decoder's ``specs`` on ``mesh``: a layer
-    takes shards when every leaf it would take so is model-sharded on the
-    dim it expects, and attention only when the query and kv heads divide
-    the axis (JAX shards the flattened ``qkv_flat`` dim, which divides
-    where the heads do not, and GSPMD reshards; the port runs such
-    attention whole instead, after gathering its weights)."""
+    """The :class:`ModelPlan` of an LM's ``specs`` on ``mesh``: a layer
+    takes shards when it has leaves and every leaf it would take so is
+    model-sharded on the dim it expects, and only where its heads divide
+    the axis: attention's query and kv heads (JAX shards the flattened
+    ``qkv_flat`` dim, which divides where the heads do not, and GSPMD
+    reshards; the port runs such attention whole instead, after gathering
+    its weights), the mLSTM and sLSTM heads, the Mamba2 heads
+    (d_inner / ``HEAD_P``).  The gcn family's layers take none."""
+    from repro_torch.models.layers.mamba2 import HEAD_P
     m = axis_size(mesh, "model")
-    if m == 1 or cfg.family not in ("dense", "moe", "vlm"):
+    if m == 1 or cfg.family == "gcn":
         return ModelPlan()
     flat = dict(tree_paths(specs))
 
     def takes(group):
-        for path, dim in SHARD_CONSUMERS[group].items():
-            if path not in flat or model_dim(flat[path]) != dim:
-                return False
-        return True
+        want = consumers(group, flat)
+        return bool(want) and all(model_dim(flat[p]) == d
+                                  for p, d in want.items())
 
+    heads = cfg.num_heads % m == 0
     return ModelPlan(
-        attn=takes("attn") and cfg.num_heads % m == 0
-        and cfg.num_kv_heads % m == 0,
-        mlp=takes("mlp"), moe=takes("moe"), vocab=takes("vocab"))
+        attn=takes("attn") and heads and cfg.num_kv_heads % m == 0,
+        mlp=takes("mlp"), moe=takes("moe"), vocab=takes("vocab"),
+        mlstm=takes("mlstm") and heads, slstm=takes("slstm") and heads,
+        mamba=takes("mamba")
+        and (cfg.ssm_expand * cfg.d_model // HEAD_P) % m == 0)
 
 
 def model_layout(cfg, mesh, policy: Optional[str] = None) -> ModelLayout:
@@ -240,11 +278,11 @@ def model_layout(cfg, mesh, policy: Optional[str] = None) -> ModelLayout:
     return ModelLayout(specs, plan_of(cfg, specs, mesh), policy)
 
 
-def _consumed(plan: ModelPlan):
+def _consumed(plan: ModelPlan, paths):
     out = {}
     for group in ModelPlan._fields:
         if getattr(plan, group):
-            out.update(SHARD_CONSUMERS[group])
+            out.update(consumers(group, paths))
     return out
 
 
@@ -294,10 +332,10 @@ def prepare(params, layout: ModelLayout):
     (differentiable: its backward keeps this rank's slice, since every
     rank uses the whole leaf alike).  Needs the mesh's context
     (``sharding.axis_rules``)."""
-    keep = _consumed(layout.plan)
+    flat = tree_paths(params)
+    keep = _consumed(layout.plan, [path for path, _ in flat])
     out = []
-    for (path, x), (_, spec) in zip(tree_paths(params),
-                                    tree_paths(layout.specs)):
+    for (path, x), (_, spec) in zip(flat, tree_paths(layout.specs)):
         d = model_dim(spec)
         if d is None or keep.get(path) == d:
             out.append(x)

@@ -176,10 +176,39 @@ def axis_rules(mesh, rules: Optional[Rules] = None, plan: Any = None):
         _CTX.mesh, _CTX.rules, _CTX.plan = prev
 
 
+def bind_context(fn):
+    """``fn`` run under the context active now (mesh, rules and plan)
+    wherever it is called, ``fn`` itself outside a context.  A
+    checkpointed block recomputes its forward in the backward, which the
+    autograd engine runs on a thread of its own for CUDA tensors, where
+    the thread-local context of :func:`axis_rules` is not set."""
+    mesh, rules, plan = _CTX.mesh, _CTX.rules, _CTX.plan
+    if mesh is None:
+        return fn
+
+    def bound(*args, **kwargs):
+        with axis_rules(mesh, rules, plan):
+            return fn(*args, **kwargs)
+    return bound
+
+
 def model_plan():
     """The active ``ModelPlan``, None outside :func:`axis_rules` or when
     no layer takes model shards."""
     return _CTX.plan
+
+
+def takes_shards(layer: str) -> bool:
+    """Does the active plan give ``layer`` (a ``ModelPlan`` field:
+    ``attn``, ``mlstm``, ...) its weights as model shards?"""
+    return _CTX.plan is not None and getattr(_CTX.plan, layer)
+
+
+def model_share(n: int, layer: str) -> int:
+    """This model rank's share of ``n`` heads (or head-major channels) of
+    ``layer``: n / the model axis's size where the active plan shards
+    ``layer`` by heads, else n."""
+    return n // model_group().size if takes_shards(layer) else n
 
 
 def rules_for(policy: str, rows: int, mesh) -> Rules:

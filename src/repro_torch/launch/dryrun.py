@@ -24,7 +24,7 @@ Meshes (``launch.mesh``): ``h100x1``, ``h100x8`` (data 8) and
 (``sharding.rules_for``, JAX's ``_rules_for``): a batch that does not
 divide over the batch ranks (``long_500k``'s single sequence on
 ``h100x8``) is run whole on every rank against its share of the cache's
-slots (``kv_seq``), and a model axis shards the decoder families' layers
+slots (``kv_seq``), and a model axis shards the LM families' layers
 (``params.model_layout``: the parameters are this rank's model shards).
 Such a cell runs under the mesh's context on the shape-only mesh, where
 the layers' collectives return meta results and count their bytes, so
@@ -32,8 +32,7 @@ the roofline's collective term holds the model axis's traffic and the
 kv_seq merge beside the gradient sync.
 
 A cell the port cannot run is recorded ``skipped`` with its reason: a
-shape the arch does not take (``configs.shape_applicable``), or a model
-axis under the SSM, hybrid or audio family (ROADMAP.md Queue 1 item 9).
+shape the arch does not take (``configs.shape_applicable``).
 """
 from __future__ import annotations
 
@@ -135,15 +134,8 @@ class Cell(NamedTuple):
 
 def cell_skip(cfg: ModelConfig, shape_name: str, mesh) -> str:
     """Why the port cannot run this cell ('' when it can)."""
-    from repro_torch.train.steps import NO_MODEL_AXIS
     ok, reason = shape_applicable(cfg, shape_name)
-    if not ok:
-        return reason
-    if axis_size(mesh, "model") > 1 and cfg.family in NO_MODEL_AXIS:
-        return (f"a model axis above 1 for the {cfg.family} family (the "
-                f"model axis of the SSM, hybrid and audio families, "
-                f"ROADMAP.md Queue 1 item 9)")
-    return ""
+    return "" if ok else reason
 
 
 def cell_rules(cfg: ModelConfig, shape_name: str, mesh) -> Dict:

@@ -18,10 +18,10 @@ With ``--mesh data,model`` the process is one rank of a run under
 parameters are DTensors laid out by ``distributed.params`` (the config's
 policy: "2d", or ``dp_only`` for the gcn family) and each rank reads its
 batch rank's slice of the global batch.  A model axis above 1 shards the
-decoder families' layers over it (tensor, expert and vocabulary
-parallelism, ``train.steps.make_train_step``: ``--mesh 2,2`` on 4 ranks)
-and carries batch for the gcn family; the SSM, hybrid and audio families
-refuse it (ROADMAP.md, Queue 1 item 9).
+LM families' layers over it (tensor, expert and vocabulary parallelism;
+the mLSTM, sLSTM and Mamba2 layers by heads;
+``train.steps.make_train_step``: ``--mesh 2,2`` on 4 ranks) and carries
+batch for the gcn family.
 
 The CLI switches TF32 off for matmuls and cuDNN, so the card trains in
 full float32 (cuDNN's TF32 default would put ``F.conv2d``'s training

@@ -229,10 +229,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     _check_family(cfg)
     dev = resolve_device(device)
     ng, g = num_groups(cfg), scan_group_size(cfg)
-    plan = sharding.model_plan()
-    hkv = cfg.num_kv_heads
-    if plan is not None and plan.attn:
-        hkv //= sharding.model_group().size
+    hkv = sharding.model_share(cfg.num_kv_heads, "attn")
     shape = (ng, g, batch, local_cache_len(cache_len(cfg, max_len)), hkv,
              cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),

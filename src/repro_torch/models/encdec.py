@@ -22,11 +22,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.tree import tree_index, tree_map
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import bind_context, constrain
 from repro_torch.models.layers.attention import attention_layer, attn_init
-from repro_torch.models.layers.common import (he_init, layernorm,
-                                              layernorm_init, rope_tables,
-                                              stack_layers)
+from repro_torch.models.layers.common import (embed_lookup, he_init,
+                                              layernorm, layernorm_init,
+                                              rope_tables, stack_layers,
+                                              tied_logits)
 
 DEC_POSITIONS = 32_768     # rows of the decoder's learned positions
 
@@ -36,7 +38,14 @@ def _mlp_init(gen, d: int, dff: int) -> Dict:
 
 
 def _mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+    """The non-gated GELU MLP.  On a model axis whose plan takes the MLP
+    as shards, ``wi`` is this rank's d_ff columns and ``wo`` its rows
+    (column- then row-parallel): the ranks' output products are summed."""
+    tp = sharding.takes_shards("mlp")
+    if tp:
+        x = sharding.copy_to_model(x)
+    out = F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+    return sharding.reduce_from_model(out) if tp else out
 
 
 def _enc_layer_init(gen, cfg: ModelConfig, dev) -> Dict:
@@ -114,7 +123,8 @@ def encode(params: Dict, frames: torch.Tensor, cfg: ModelConfig
     for i in range(n):
         lp = tree_index(params["enc_layers"], i)
         if torch.is_grad_enabled() and x.requires_grad:
-            x = checkpoint(_enc_layer, cfg, lp, x, rope, use_reentrant=False)
+            x = checkpoint(bind_context(_enc_layer), cfg, lp, x, rope,
+                           use_reentrant=False)
         else:
             x = _enc_layer(cfg, lp, x, rope)
     return layernorm(x, params["enc_norm"])
@@ -135,16 +145,20 @@ def _dec_layer(cfg, lp, h, memory, rope, cache, backend):
 
 def decode(params: Dict, tokens: torch.Tensor, memory: torch.Tensor,
            cfg: ModelConfig, caches: Optional[Dict] = None,
-           positions: Optional[torch.Tensor] = None, backend: str = "cuda"
+           positions: Optional[torch.Tensor] = None, backend: str = "cuda",
+           gather_logits: bool = True
            ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """tokens (B, S), memory (B, F, d) -> (logits (B, S, padded_vocab),
     caches).  With caches (from :func:`init_cache`) each layer writes its
     self-attention k/v in place and advances its position; ``backend``
     picks the one-token attention (``"cuda"``: ``flash_decode`` for the
-    cached self-attention and for the cross-attention)."""
+    cached self-attention and for the cross-attention).  Where a model
+    axis's plan shards the vocabulary, ``gather_logits=False`` returns
+    this rank's vocabulary columns alone (the loss's ``common.xent`` takes
+    them so)."""
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = F.embedding(tokens, params["embed"])
+    x = embed_lookup(tokens, params["embed"])
     x = x + F.embedding(positions.long(), params["dec_pos"])
     x = constrain(x, "batch", None, None)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta, x.device)
@@ -152,12 +166,12 @@ def decode(params: Dict, tokens: torch.Tensor, memory: torch.Tensor,
         lp = tree_index(params["dec_layers"], i)
         cache = tree_index(caches, i) if caches is not None else None
         if cache is None and torch.is_grad_enabled() and x.requires_grad:
-            x = checkpoint(_dec_layer, cfg, lp, x, memory, rope, None,
-                           backend, use_reentrant=False)
+            x = checkpoint(bind_context(_dec_layer), cfg, lp, x, memory,
+                           rope, None, backend, use_reentrant=False)
         else:
             x = _dec_layer(cfg, lp, x, memory, rope, cache, backend)
     x = layernorm(x, params["dec_norm"])
-    logits = x @ params["embed"].T
+    logits = tied_logits(x, params["embed"], gather_logits)
     return constrain(logits, "batch", None, "vocab"), caches
 
 
@@ -166,9 +180,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.float32) -> Dict:
     """Zero self-attention caches {"k", "v": (layers, B, max_len, Hkv, D)
     of ``dtype`` (float32, or bfloat16, the reference's default), "pos":
-    (layers,) int32} on ``device`` (default CUDA)."""
+    (layers,) int32} on ``device`` (default CUDA).  Where the plan takes
+    attention by heads it is this rank's shard, Hkv / M kv heads (JAX's
+    spec shards head_dim, ``kv_hd``; the port the heads, as its attention
+    computes)."""
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, batch, max_len,
+             sharding.model_share(cfg.num_kv_heads, "attn"), cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev),
             "pos": torch.zeros(cfg.num_layers, dtype=torch.int32, device=dev)}

@@ -15,17 +15,18 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.tree import tree_copy_, tree_index, tree_map
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (bind_context, constrain,
+                                              model_share)
 from repro_torch.models.layers.attention import (attention_layer, attn_init,
                                                  local_cache_len)
-from repro_torch.models.layers.common import (he_init, rmsnorm, rmsnorm_init,
-                                              rope_tables, stack_layers,
+from repro_torch.models.layers.common import (embed_lookup, he_init, rmsnorm,
+                                              rmsnorm_init, rope_tables,
+                                              stack_layers, tied_logits,
                                               wide_dtype)
 from repro_torch.models.layers.mamba2 import HEAD_P, mamba2_init, mamba2_layer
 from repro_torch.models.layers.mlp import mlp, mlp_init
@@ -110,7 +111,8 @@ def _group(cfg, shared, gp, ln_scale, x, rope, cache, backend):
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             caches: Optional[Dict] = None,
-            positions: Optional[torch.Tensor] = None, backend: str = "cuda"
+            positions: Optional[torch.Tensor] = None, backend: str = "cuda",
+            gather_logits: bool = True
             ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """tokens (B, S) -> (logits (B, S, padded_vocab), caches).  Without
     caches the cache-free forward (the chunked SSD scan; under autograd
@@ -118,14 +120,16 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     ``jax.checkpoint``); with caches (from :func:`init_cache`) a decode
     step, the caches updated in place and returned.  ``backend`` picks the
     shared attention's decode path (``"cuda"``: ``flash_decode`` for a
-    one-token step).
+    one-token step).  Where a model axis's plan shards the vocabulary,
+    ``gather_logits=False`` returns this rank's vocabulary columns alone
+    (the loss's ``common.xent`` takes them so).
 
     A conv leaf narrower than the activations (a bf16 cache) is widened
     to their dtype at the first step, as the reference's conv step
     returns its context (the bf16 cache concatenated with float32 inputs
     is float32): from then on the context is read unrounded, as there."""
     ng, per, tail = structure(cfg)
-    x = F.embedding(tokens, params["embed"]) * math.sqrt(cfg.d_model)
+    x = embed_lookup(tokens, params["embed"]) * math.sqrt(cfg.d_model)
     if caches is not None:
         for part in (caches["groups"]["mamba"], caches.get("tail")):
             if part is not None and part["conv"].dtype != x.dtype:
@@ -141,8 +145,8 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
         cache = tree_index(caches["groups"], gi) if caches is not None \
             else None
         if cache is None and torch.is_grad_enabled() and x.requires_grad:
-            x = checkpoint(_group, cfg, shared, gp, ln, x, rope, None,
-                           backend, use_reentrant=False)
+            x = checkpoint(bind_context(_group), cfg, shared, gp, ln, x,
+                           rope, None, backend, use_reentrant=False)
         else:
             x = _group(cfg, shared, gp, ln, x, rope, cache, backend)
     for i in range(tail):
@@ -150,7 +154,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
                          tree_index(caches["tail"], i)
                          if caches is not None else None)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["embed"].T
+    logits = tied_logits(x, params["embed"], gather_logits)
     return constrain(logits, "batch", None, "vocab"), caches
 
 
@@ -165,11 +169,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     int32}, "mamba": {"conv": (ng, per, B, K − 1, C), "ssm": (ng, per, B,
     H, N, P)}}, "tail": the tail's mamba caches (tail, ...) when there is
     a tail}.  Under the ``kv_seq`` rule the attention cache is this rank's
-    slot range (``attention.local_cache_len``)."""
+    slot range (``attention.local_cache_len``).  Where the plan takes a
+    layer by heads the cache holds this rank's shard: Hkv / M kv heads,
+    and C / M conv channels and H / M SSM heads of each Mamba2 layer.
+    JAX's spec shards the SSM state's N over ``model`` (``state``); the
+    port shards the heads, as its layers compute: the same bytes a rank
+    and no collective inside the scan (``cache_specs`` gives the
+    reference's axes)."""
     dev = resolve_device(device)
     ng, per, tail = structure(cfg)
-    d_inner = cfg.ssm_expand * cfg.d_model
-    H = d_inner // HEAD_P
+    H = model_share(cfg.ssm_expand * cfg.d_model // HEAD_P, "mamba")
+    d_inner = H * HEAD_P
 
     def zeros(*shape, dtype=dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -178,8 +188,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         return {"conv": zeros(*lead, batch, cfg.ssm_conv - 1, d_inner),
                 "ssm": zeros(*lead, batch, H, cfg.ssm_state, HEAD_P,
                              dtype=wide_dtype(dtype))}
-    kv = (ng, batch, local_cache_len(max_len), cfg.num_kv_heads,
-          cfg.head_dim)
+    kv = (ng, batch, local_cache_len(max_len),
+          model_share(cfg.num_kv_heads, "attn"), cfg.head_dim)
     cache = {"groups": {
         "attn": {"k": zeros(*kv), "v": zeros(*kv),
                  "pos": zeros(ng, dtype=torch.int32)},

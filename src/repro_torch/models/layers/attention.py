@@ -148,8 +148,10 @@ def attention_layer(p: Dict, x: torch.Tensor,
     On a model axis whose plan takes attention as shards
     (``sharding.model_plan().attn``) ``wq`` and ``wkv`` are this rank's
     column shards and ``wo`` its row shard: the layer attends with its
-    rank's query and kv heads (its cache holds those kv heads alone) and
-    sums the ranks' output products.  Under the ``kv_seq`` rule the cache
+    rank's query and kv heads (its cache holds those kv heads alone; a
+    cross-attention takes its rank's kv heads of ``memory @ wkv``, and a
+    one-token ``cuda`` step calls ``flash_decode`` with them) and sums the
+    ranks' output products.  Under the ``kv_seq`` rule the cache
     holds this rank's slot range [r·L/P, (r+1)·L/P) of an L-slot cache:
     the token's k and v go to the rank that owns its slot (pos, or pos % L
     in a ring), each rank attends over its slots (``flash_decode_partial``
@@ -160,13 +162,14 @@ def attention_layer(p: Dict, x: torch.Tensor,
         raise ValueError(f"unknown backend {backend!r} (expected one of "
                          f"{BACKENDS})")
     B, S, _ = x.shape
-    plan = sharding.model_plan()
-    tp = plan is not None and plan.attn and memory is None
-    H, Hkv = num_heads, num_kv_heads
+    tp = sharding.takes_shards("attn")
+    H = sharding.model_share(num_heads, "attn")
+    Hkv = sharding.model_share(num_kv_heads, "attn")
     if tp:
         ax = sharding.model_group()
-        H, Hkv = H // ax.size, Hkv // ax.size
         x = sharding.copy_to_model(x)
+        if memory is not None:
+            memory = sharding.copy_to_model(memory)
     kv_src = x if memory is None else memory
     Skv = kv_src.shape[1]
     q = (x @ p["wq"]).reshape(B, S, H, head_dim)

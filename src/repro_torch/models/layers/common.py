@@ -61,6 +61,24 @@ def rmsnorm(x: torch.Tensor, p: Dict, eps: float = 1e-6) -> torch.Tensor:
     return x * inv * p["scale"].to(x.dtype)
 
 
+def rmsnorm_heads(x: torch.Tensor, p: Dict, layer: str, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """:func:`rmsnorm` of ``layer``'s heads.  Where the active plan shards
+    ``layer`` by heads (``sharding.takes_shards``), ``x``'s last dim and
+    ``p["scale"]`` are this model rank's contiguous share of the
+    normalised dim and the sum of squares is summed over the ranks (a
+    norm over the share alone is another function); its backward sums
+    too, since each rank's output reads the statistic for its own share
+    only.  :func:`rmsnorm` itself elsewhere."""
+    if not sharding.takes_shards(layer):
+        return rmsnorm(x, p, eps)
+    ssq = wide(x).square().sum(-1, keepdim=True)
+    ssq = sharding.copy_to_model(sharding.reduce_from_model(ssq))
+    n = x.shape[-1] * sharding.model_group().size
+    inv = torch.rsqrt(ssq / n + eps).to(x.dtype)
+    return x * inv * p["scale"].to(x.dtype)
+
+
 def layernorm_init(d: int, device: Optional[torch.device] = None) -> Dict:
     return {"scale": torch.ones(d, device=device),
             "bias": torch.zeros(d, device=device)}
@@ -193,8 +211,9 @@ def xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     (the reference's logit drift regulariser).  Where the plan shards the
     vocabulary, ``logits`` are this model rank's columns
     (``tied_logits(..., gather=False)``): the max, the sum of exps and the
-    target's logit are each reduced over the model ranks."""
-    logits = logits.float()
+    target's logit are each reduced over the model ranks.  float32 (float64
+    logits stay float64: :func:`wide`)."""
+    logits = wide(logits)
     if not _vocab_sharded():
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]

@@ -10,7 +10,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers.common import he_init, rmsnorm, rmsnorm_init
+from repro_torch.distributed import sharding
+from repro_torch.models.layers.common import (he_init, rmsnorm_heads,
+                                              rmsnorm_init)
 from repro_torch.models.layers.ssd import ssd_scan, ssd_step
 
 HEAD_P = 64    # mamba2 head channel dim
@@ -62,21 +64,41 @@ def mamba2_layer(p: Dict, x: torch.Tensor, d_state: int, expand: int = 2,
                  cache: Optional[Dict] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x (B, S, d) -> (out (B, S, d), new cache).  With ``cache`` =
-    {"conv": (B, K − 1, C), "ssm": (B, H, N, P)} a one-token step."""
+    {"conv": (B, K − 1, C), "ssm": (B, H, N, P)} a one-token step.
+
+    On a model axis whose plan takes the layer by heads
+    (``sharding.model_plan().mamba``) ``wx``, ``wz``, ``conv_w`` and the
+    norm scale are this rank's head-major columns (d_inner is head-major,
+    ``HEAD_P`` channels a head), ``out_proj`` its rows: the rank runs the
+    conv and the SSD over its H / M heads (heads are independent there),
+    the gated norm's mean of squares is summed over the ranks, and the
+    ranks' output products are summed.  ``wb``, ``wc`` and ``wdt`` and the
+    per-head ``A_log``, ``D`` and ``dt_bias`` stay replicated: B and C are
+    shared by every head, each rank keeps its heads' columns of ``wdt``
+    and entries of the rest, and their backwards sum the ranks' parts.
+    The cache holds C / M channels and H / M heads."""
     B, S, d = x.shape
-    d_inner = expand * d
-    H = d_inner // HEAD_P
+    H = sharding.model_share(expand * d // HEAD_P, "mamba")
+    d_inner = H * HEAD_P
+    wb, wc, wdt = p["wb"], p["wc"], p["wdt"]
+    A_log, Dp, dt_bias = p["A_log"], p["D"], p["dt_bias"]
+    tp = sharding.takes_shards("mamba")
+    if tp:
+        x = sharding.copy_to_model(x)
+        wb, wc = sharding.copy_to_model(wb), sharding.copy_to_model(wc)
+        wdt, A_log, Dp, dt_bias = (sharding.scatter_to_model(t, -1)
+                                   for t in (wdt, A_log, Dp, dt_bias))
 
     z = x @ p["wz"]
     xs = x @ p["wx"]
-    Bm = x @ p["wb"]
-    Cm = x @ p["wc"]
-    dt = x @ p["wdt"]
+    Bm = x @ wb
+    Cm = x @ wc
+    dt = x @ wdt
     xs, new_conv = _short_conv(xs, p["conv_w"],
                                cache["conv"] if cache is not None else None)
 
-    dt = F.softplus(dt + p["dt_bias"])                 # (B, S, H)
-    A = -torch.exp(p["A_log"])                          # (H,) negative
+    dt = F.softplus(dt + dt_bias)                       # (B, S, H)
+    A = -torch.exp(A_log)                               # (H,) negative
     log_a = dt * A
 
     xh = xs.reshape(B, S, H, HEAD_P)
@@ -86,10 +108,10 @@ def mamba2_layer(p: Dict, x: torch.Tensor, d_state: int, expand: int = 2,
         y = y[:, None]
     else:
         y, new_ssm = ssd_scan(xh, log_a, dt, Bm, Cm)
-    y = y + xh * p["D"][:, None]
+    y = y + xh * Dp[:, None]
     y = y.reshape(B, S, d_inner)
-    y = rmsnorm(y * F.silu(z), p["norm"])
+    y = rmsnorm_heads(y * F.silu(z), p["norm"], "mamba")
     out = y @ p["out_proj"]
     new_cache = ({"conv": new_conv, "ssm": new_ssm}
                  if cache is not None else None)
-    return out, new_cache
+    return (sharding.reduce_from_model(out) if tp else out), new_cache

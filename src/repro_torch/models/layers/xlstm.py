@@ -14,8 +14,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers.common import (he_init, rmsnorm, rmsnorm_init,
-                                              wide, wide_dtype)
+from repro_torch.distributed import sharding
+from repro_torch.models.layers.common import (he_init, rmsnorm_heads,
+                                              rmsnorm_init, wide, wide_dtype)
 from repro_torch.models.layers.ssd import ssd_scan, ssd_step
 
 
@@ -46,49 +47,73 @@ def mlstm_layer(p: Dict, x: torch.Tensor, num_heads: int, expand: int = 2,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x (B, S, d) -> (out (B, S, d), new cache).  With ``cache`` =
     {"ssm": (B, H, dh, dh + 1)} a one-token step (the recurrence); the new
-    state is returned in a new cache dict."""
+    state is returned in a new cache dict.
+
+    On a model axis whose plan takes the layer by heads
+    (``sharding.model_plan().mlstm``) the rank runs its H / M heads:
+    ``wqkv`` is stored ``[q | k | v]`` and its column shard is not whole
+    heads, so the products are gathered and the rank keeps its heads' q,
+    k and v (each rank using its part, the backward reduce-scatters);
+    ``wz``, the norm scale and ``out_proj``'s rows are the rank's heads;
+    the replicated ``wif`` and ``if_bias`` give their i and f columns of
+    the rank's heads (their backward gathers the ranks' parts); the norm's
+    mean of squares is summed over the ranks, and so are the output
+    products.  The cache holds H / M heads."""
     B, S, d = x.shape
-    d_inner = expand * d
-    dh = d_inner // num_heads
+    dh = expand * d // num_heads
+    H = sharding.model_share(num_heads, "mlstm")
+    d_inner = H * dh
+    wif, if_bias = p["wif"], p["if_bias"]
+    tp = sharding.takes_shards("mlstm")
+    if tp:
+        x = sharding.copy_to_model(x)
+        qkv = sharding.gather_from_model(x @ p["wqkv"], -1, partial_use=True)
+        lo = sharding.model_group().rank * d_inner
+        q, k, v = (t[..., lo:lo + d_inner] for t in qkv.chunk(3, dim=-1))
+        # [i | f] of every head -> [i | f] of this rank's heads
+        wif = sharding.scatter_to_model(
+            wif.reshape(d, 2, num_heads), -1).reshape(d, 2 * H)
+        if_bias = sharding.scatter_to_model(
+            if_bias.reshape(2, num_heads), -1).reshape(2 * H)
+    else:
+        q, k, v = (x @ p["wqkv"]).chunk(3, dim=-1)
+    q = q.reshape(B, S, H, dh)
+    k = k.reshape(B, S, H, dh) * dh ** -0.5
+    v = v.reshape(B, S, H, dh)
 
-    q, k, v = (x @ p["wqkv"]).chunk(3, dim=-1)
-    q = q.reshape(B, S, num_heads, dh)
-    k = k.reshape(B, S, num_heads, dh) * dh ** -0.5
-    v = v.reshape(B, S, num_heads, dh)
-
-    gates = wide(x @ p["wif"] + p["if_bias"])
+    gates = wide(x @ wif + if_bias)
     i_pre, f_pre = gates.chunk(2, dim=-1)                # (B, S, H)
     log_f = F.logsigmoid(f_pre)
     dt = torch.exp(torch.clamp(i_pre, max=10.0))          # stabilised gate
 
     # the normaliser: a ones column appended to v
-    v_aug = torch.cat([v, torch.ones((B, S, num_heads, 1), dtype=v.dtype,
+    v_aug = torch.cat([v, torch.ones((B, S, H, 1), dtype=v.dtype,
                                      device=v.device)], -1)
     # k and q are per head while SSD shares B and C over its heads: fold
     # the heads into the batch and run SSD with H = 1
-    q_f = q.transpose(1, 2).reshape(B * num_heads, S, dh)
-    k_f = k.transpose(1, 2).reshape(B * num_heads, S, dh)
-    v_f = v_aug.transpose(1, 2).reshape(B * num_heads, S, 1, dh + 1)
-    la_f = log_f.transpose(1, 2).reshape(B * num_heads, S, 1)
-    dt_f = dt.transpose(1, 2).reshape(B * num_heads, S, 1)
+    q_f = q.transpose(1, 2).reshape(B * H, S, dh)
+    k_f = k.transpose(1, 2).reshape(B * H, S, dh)
+    v_f = v_aug.transpose(1, 2).reshape(B * H, S, 1, dh + 1)
+    la_f = log_f.transpose(1, 2).reshape(B * H, S, 1)
+    dt_f = dt.transpose(1, 2).reshape(B * H, S, 1)
 
     if cache is not None:
-        state0 = cache["ssm"].reshape(B * num_heads, 1, dh, dh + 1)
+        state0 = cache["ssm"].reshape(B * H, 1, dh, dh + 1)
         y, new_state = ssd_step(state0, v_f[:, 0], la_f[:, 0], dt_f[:, 0],
                                 k_f[:, 0], q_f[:, 0])
         y = y[:, None]
     else:
         y, new_state = ssd_scan(v_f, la_f, dt_f, k_f, q_f)
 
-    y = y.reshape(B, num_heads, S, dh + 1).transpose(1, 2)
+    y = y.reshape(B, H, S, dh + 1).transpose(1, 2)
     num, den = y[..., :dh], y[..., dh:]
     h = num / torch.clamp_min(den.abs(), 1.0)
     h = h.reshape(B, S, d_inner)
-    h = rmsnorm(h, p["norm"]) * F.silu(x @ p["wz"])
+    h = rmsnorm_heads(h, p["norm"], "mlstm") * F.silu(x @ p["wz"])
     out = h @ p["out_proj"]
-    new_cache = ({"ssm": new_state.reshape(B, num_heads, dh, dh + 1)}
+    new_cache = ({"ssm": new_state.reshape(B, H, dh, dh + 1)}
                  if cache is not None else None)
-    return out, new_cache
+    return (sharding.reduce_from_model(out) if tp else out), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -114,16 +139,32 @@ def slstm_layer(p: Dict, x: torch.Tensor, num_heads: int,
     """x (B, S, d) -> (out (B, S, d), new cache), one step per token in
     order (the recurrence).  ``cache`` = {"c", "n", "h", "m": (B, H, dh)
     float32} carries the state; without it the state starts at zero (m
-    too: the reference's ``zeros - 1e30 * 0.0``)."""
+    too: the reference's ``zeros - 1e30 * 0.0``).
+
+    On a model axis whose plan takes the layer by heads
+    (``sharding.model_plan().slstm``) the rank runs its H / M heads, with
+    no collective in the time loop (the recurrence is block-diagonal by
+    head): ``wx``'s and ``bias``'s columns, the norm scale and
+    ``out_proj``'s rows are the rank's heads (head-major); ``r``'s shard
+    splits the 4·dh gate columns inside each head, so ``r`` is gathered
+    and the rank keeps its heads (the backward reduce-scatters).  The
+    norm's mean of squares and the output products are summed over the
+    ranks; the cache holds H / M heads."""
     B, S, d = x.shape
     dh = d // num_heads
-    xg = (x @ p["wx"] + p["bias"]).reshape(B, S, num_heads, 4 * dh)
-    r = wide(p["r"])
+    H = sharding.model_share(num_heads, "slstm")
+    r = p["r"]
+    tp = sharding.takes_shards("slstm")
+    if tp:
+        x = sharding.copy_to_model(x)
+        lo = sharding.model_group().rank * H
+        r = sharding.gather_from_model(r, -1, partial_use=True)[lo:lo + H]
+    xg = (x @ p["wx"] + p["bias"]).reshape(B, S, H, 4 * dh)
+    r = wide(r)
     if cache is not None:
         c, n, h, m = cache["c"], cache["n"], cache["h"], cache["m"]
     else:
-        c = n = h = m = torch.zeros((B, num_heads, dh),
-                                    dtype=wide_dtype(x.dtype),
+        c = n = h = m = torch.zeros((B, H, dh), dtype=wide_dtype(x.dtype),
                                     device=x.device)
     hs = []
     for t in range(S):
@@ -140,8 +181,8 @@ def slstm_layer(p: Dict, x: torch.Tensor, num_heads: int,
         h = o * c / torch.clamp_min(n, 1.0)
         m = m_new
         hs.append(h)
-    hseq = torch.stack(hs, 1).reshape(B, S, d).to(x.dtype)
-    out = rmsnorm(hseq, p["norm"]) @ p["out_proj"]
+    hseq = torch.stack(hs, 1).reshape(B, S, H * dh).to(x.dtype)
+    out = rmsnorm_heads(hseq, p["norm"], "slstm") @ p["out_proj"]
     new_cache = ({"c": c, "n": n, "h": h, "m": m}
                  if cache is not None else None)
-    return out, new_cache
+    return (sharding.reduce_from_model(out) if tp else out), new_cache

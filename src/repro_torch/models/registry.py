@@ -81,10 +81,13 @@ def loss_fn(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     backend, whatever ``cfg.gcn_backend`` says: the ``cuda`` backend's
     plan packs weights through numpy and carries no gradient.  Training
     runs the dense graph; ``inference=True`` applies the config's static
-    prune plan (the deployed model).  dense, moe and vlm: the next-token
-    loss of the cache-free forward (the prefill path) plus 0.01 × the MoE
-    load-balance loss, with metrics {"loss" (the cross-entropy), "aux"};
-    the VLM's logits are cut to the text positions."""
+    prune plan (the deployed model).  The LM families: the next-token
+    loss of the cache-free forward (the prefill path; the audio family's
+    decoder over its encoder's memory) plus 0.01 × the MoE load-balance
+    loss, with metrics {"loss" (the cross-entropy), "aux"}; the VLM's
+    logits are cut to the text positions.  On a model axis whose plan
+    shards the vocabulary the logits stay this rank's columns
+    (``common.xent`` reduces over the ranks)."""
     if cfg.family == "gcn":
         from repro_torch.core.pruning.plan import plan_from_config
         plan = plan_from_config(cfg) if inference else None
@@ -102,9 +105,11 @@ def loss_fn(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             logits = logits[:, -batch["tokens"].shape[1]:]  # text positions
     elif mod is encdec:
         memory = encdec.encode(params, batch["frames"], cfg)
-        logits, _ = encdec.decode(params, batch["tokens"], memory, cfg)
+        logits, _ = encdec.decode(params, batch["tokens"], memory, cfg,
+                                  gather_logits=False)
     else:
-        logits, _ = mod.forward(params, batch["tokens"], cfg)
+        logits, _ = mod.forward(params, batch["tokens"], cfg,
+                                gather_logits=False)
     loss = _xent(logits[:, :-1], batch["labels"][:, 1:])
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 

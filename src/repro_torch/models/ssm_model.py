@@ -14,15 +14,16 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.tree import tree_copy_, tree_index, tree_map
-from repro_torch.distributed.sharding import constrain
-from repro_torch.models.layers.common import (he_init, rmsnorm, rmsnorm_init,
-                                              stack_layers, wide_dtype)
+from repro_torch.distributed.sharding import (bind_context, constrain,
+                                              model_share)
+from repro_torch.models.layers.common import (embed_lookup, he_init, rmsnorm,
+                                              rmsnorm_init, stack_layers,
+                                              tied_logits, wide_dtype)
 from repro_torch.models.layers.mlp import mlp, mlp_init
 from repro_torch.models.layers.xlstm import (mlstm_init, mlstm_layer,
                                              slstm_init, slstm_layer)
@@ -107,26 +108,31 @@ def _group(cfg: ModelConfig, gp: Dict, x: torch.Tensor,
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             caches: Optional[Dict] = None,
-            positions: Optional[torch.Tensor] = None
+            positions: Optional[torch.Tensor] = None,
+            gather_logits: bool = True
             ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """tokens (B, S) -> (logits (B, S, padded_vocab), caches).  Without
     caches the cache-free forward (the chunked SSD scan; under autograd
     each group is recomputed in the backward, as the reference's
     ``jax.checkpoint``); with caches (from :func:`init_cache`) one token
     per call through the recurrences, the caches updated in place and
-    returned.  ``positions`` is ignored (no positional encoding)."""
-    x = F.embedding(tokens, params["embed"]) * math.sqrt(cfg.d_model)
+    returned.  ``positions`` is ignored (no positional encoding).  Where a
+    model axis's plan shards the vocabulary, ``gather_logits=False``
+    returns this rank's vocabulary columns alone (the loss's
+    ``common.xent`` takes them so)."""
+    x = embed_lookup(tokens, params["embed"]) * math.sqrt(cfg.d_model)
     x = constrain(x, "batch", "seq_shard", None)
     for gi in range(num_groups(cfg)):
         gp = tree_index(params["layers"], gi)
         if caches is not None:
             x = _group(cfg, gp, x, tree_index(caches, gi))
         elif torch.is_grad_enabled() and x.requires_grad:
-            x = checkpoint(_group, cfg, gp, x, None, use_reentrant=False)
+            x = checkpoint(bind_context(_group), cfg, gp, x, None,
+                           use_reentrant=False)
         else:
             x = _group(cfg, gp, x, None)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["embed"].T
+    logits = tied_logits(x, params["embed"], gather_logits)
     return constrain(logits, "batch", None, "vocab"), caches
 
 
@@ -137,17 +143,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     reference's, whatever cache dtype it is asked for) or float64 when
     ``dtype`` is float64 (:func:`common.wide_dtype`):
     {"mlstm": {"ssm": (ng, g − 1, B, H, dh, dh + 1)}, "slstm": {"c",
-    "n", "h", "m": (ng, B, H, d / H)}}; ``max_len`` does not size them."""
+    "n", "h", "m": (ng, B, H, d / H)}}; ``max_len`` does not size them.
+    Inside ``sharding.axis_rules`` they are this rank's shards: H / M heads
+    of each layer the plan takes by heads.  JAX's spec shards the mLSTM
+    state's key dim over ``model`` (``state``); the port shards the heads,
+    as its layers compute: the same bytes a rank and no collective inside
+    the scan (``cache_specs`` gives the reference's axes)."""
     dev = resolve_device(device)
     g, ng = group_size(cfg), num_groups(cfg)
     dh = cfg.ssm_expand * cfg.d_model // cfg.num_heads
     dh_s = cfg.d_model // cfg.num_heads
+    hm = model_share(cfg.num_heads, "mlstm")
+    hs = model_share(cfg.num_heads, "slstm")
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=wide_dtype(dtype), device=dev)
     return {
-        "mlstm": {"ssm": zeros(ng, g - 1, batch, cfg.num_heads, dh, dh + 1)},
-        "slstm": {k: zeros(ng, batch, cfg.num_heads, dh_s)
+        "mlstm": {"ssm": zeros(ng, g - 1, batch, hm, dh, dh + 1)},
+        "slstm": {k: zeros(ng, batch, hs, dh_s)
                   for k in ("c", "n", "h", "m")},
     }
 

@@ -44,24 +44,6 @@ def loss_and_grads(loss_fn: Callable, params, batch
             tree_unflatten(params, grads))
 
 
-# the families whose layers take no model shards yet
-NO_MODEL_AXIS = ("ssm", "hybrid", "audio")
-
-
-def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise NotImplementedError for a model axis above 1 under a family
-    whose layers take no model shards (the SSM, hybrid and audio
-    families: ROADMAP.md Queue 1 item 9); the gcn family runs such a
-    mesh data-parallel over every axis (``dp_only``)."""
-    from repro_torch.distributed.sharding import axis_size
-    if axis_size(mesh, "model") > 1 and cfg.family in NO_MODEL_AXIS:
-        raise NotImplementedError(
-            f"{cfg.name}: a model axis above 1 for the {cfg.family} family "
-            f"is the model axis of the SSM, hybrid and audio families, "
-            f"which the port does not do yet (ROADMAP.md, Queue 1 item 9); "
-            f"use a (data, 1) mesh")
-
-
 class SyncStep(NamedTuple):
     """One collective of the gradient sync: ``kind`` ("all-reduce" or
     "reduce-scatter", the latter along tensor dim ``dim``) over the
@@ -185,14 +167,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     model shard (``params.local_params``), runs the loss under
     ``sharding.axis_rules`` with the specs' ``ModelPlan`` (so BatchNorm
     statistics and the MoE load-balance means span every batch rank, and
-    the decoder's layers take their model shards: ``params.prepare``
+    the LM's layers take their model shards: ``params.prepare``
     gathers the rest inside autograd), so each rank differentiates with
     respect to its own shards; then it syncs the gradients
     (:func:`sync_grads`: a reduce-scatter into the shard of a leaf sharded
     over ``data``, an all-reduce mean elsewhere, on bf16 payloads with
     compression), and AdamW updates each rank's shard; the metrics are
-    means over the ranks.  A model axis above 1 under the SSM, hybrid or
-    audio family raises NotImplementedError (:func:`check_mesh`).
+    means over the ranks.
 
     ``loss_fn`` (default :func:`make_loss_fn`) may be any ``(params,
     batch) -> (loss, metrics)`` — the pruning bench's prune-aware
@@ -206,7 +187,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     layout = None
     if grad_shardings is not None:
         mesh = tree_leaves(grad_shardings)[0].mesh
-        check_mesh(cfg, mesh)
         specs = tree_map(lambda s: s.spec, grad_shardings)
         policy = cfg.sharding
         layout = dparams.ModelLayout(
@@ -384,7 +364,6 @@ def _on_mesh(cfg: ModelConfig, mesh, rules, fn: Callable) -> Callable:
     if mesh is None:
         return fn
     from repro_torch.distributed import params as dparams
-    check_mesh(cfg, mesh)
     layout = dparams.model_layout(cfg, mesh)
 
     def on_mesh(params, *args):

@@ -125,6 +125,32 @@ def test_logical_spec_drops_missing_axes():
     assert sharding.current_mesh() is None
 
 
+def test_bound_context_reaches_another_thread():
+    """The context is thread-local, and the autograd engine recomputes a
+    checkpointed block of CUDA tensors on a thread of its own:
+    ``bind_context`` carries the caller's mesh, rules and plan there (an
+    unbound call sees none, and a head-parallel layer would run whole on
+    its shards)."""
+    import threading
+    mesh = FakeMesh({"data": 1, "model": 2})
+    plan = params.ModelPlan(mlstm=True)
+
+    def seen():
+        return (sharding.current_mesh(), sharding.takes_shards("mlstm"),
+                sharding.model_share(4, "mlstm"))
+    out = {}
+    with sharding.axis_rules(mesh, plan=plan):
+        bound, bare = sharding.bind_context(seen), seen
+        for name, fn in (("bound", bound), ("bare", bare)):
+            t = threading.Thread(target=lambda n=name, f=fn: out.update(
+                {n: f()}))
+            t.start()
+            t.join()
+    assert out["bound"] == (mesh, True, 2)
+    assert out["bare"] == (None, False, 4)
+    assert sharding.bind_context(seen) is seen       # outside a context
+
+
 def test_constrain_noop_outside_context():
     x = torch.ones((4, 4))
     assert sharding.constrain(x, "batch", None) is x

@@ -489,19 +489,38 @@ def test_train_loop_trains_and_resumes(tmp_path):
 
 
 def test_train_loop_refuses_lm_family():
-    """Every LM family trains now (``tests/test_torch_lm_train.py``; the
-    data-parallel step is the same for each), and the decoder families
-    and the GCN take a model axis (``tests/test_torch_model_parallel.py``);
-    what stays refused is a model axis above 1 for the SSM, hybrid and
-    audio families, named by its ROADMAP item, when the step is made."""
+    """No LM family is refused a model axis now: every LM family trains
+    (``tests/test_torch_lm_train.py``; the data-parallel step is the same
+    for each) and takes a model axis (``tests/test_torch_model_parallel.py``
+    on 4 ranks).  Here the step builds for reduced xlstm on a (1, 2)
+    shape-only mesh and runs on meta tensors of rank 0's shards under the
+    mesh's context (the collectives return meta results there): the
+    mLSTM layers take their shards by heads, the parameters come back in
+    their local shapes, and the loss is the scalar of one rank."""
+    from repro_torch.distributed import params as dparams
     from repro_torch.distributed import sharding
     cfg = get_config("xlstm-1.3b", reduced=True)
-    params = registry.init_params(cfg, seed=0, device="cpu")
+    meta = registry.init_params(cfg, device="meta")
 
     class Mesh:
         shape = {"data": 1, "model": 2}
         axis_names = ("data", "model")
-    spec = sharding.NamedSharding(Mesh(), sharding.PartitionSpec())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        make_train_step(cfg, TrainConfig(total_steps=1),
-                        grad_shardings=tree.tree_map(lambda _: spec, params))
+    layout = dparams.model_layout(cfg, Mesh())
+    assert layout.plan.mlstm and layout.plan.vocab
+    sh = tree.tree_map(lambda s: sharding.NamedSharding(Mesh(), s),
+                       layout.specs)
+    make_train_step(cfg, TrainConfig(total_steps=1), grad_shardings=sh)
+    loss = make_loss_fn(cfg)
+    step = make_train_step(cfg, TrainConfig(total_steps=1),
+                           loss_fn=lambda p, b: loss(
+                               dparams.prepare(p, layout), b))
+    local = dparams.local_shards(meta, layout.specs, Mesh())
+    batch = {k: torch.empty((2, 16), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    with dparams.mesh_context(cfg, Mesh(), layout=layout):
+        new, _, metrics = step(local, adamw.init(local), batch)
+    assert metrics["loss"].shape == ()
+    wqkv = dict(tree.tree_paths(new))["layers/mlstm/cell/wqkv"]
+    assert wqkv.shape[-1] == 3 * cfg.ssm_expand * cfg.d_model // 2
+    for (n, a), (_, b) in zip(tree.tree_paths(new), tree.tree_paths(local)):
+        assert a.shape == b.shape, n

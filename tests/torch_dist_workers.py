@@ -135,6 +135,16 @@ def save_tree(path, tree) -> None:
                       for n, x in tree_paths(tree)})
 
 
+def as_dtype(spec, tree):
+    """``tree`` (parameters or a batch) with its floating leaves in the
+    scenario's ``dtype`` (float32 when it names none): a float64 run of
+    an SSM family, whose float32 rounding the AdamW update amplifies."""
+    from repro_torch.common.tree import tree_map
+    dtype = getattr(torch, spec.get("dtype", "float32"))
+    return tree_map(lambda x: x.to(dtype) if isinstance(x, torch.Tensor)
+                    and x.is_floating_point() else x, tree)
+
+
 def _batches(path):
     with np.load(path) as z:
         n = len({k.split("/")[0] for k in z.files})
@@ -153,8 +163,9 @@ def _run_one(rank, world, spec, mesh):
     from repro_torch.train.steps import make_train_step, shard_batch
     cfg = _cfg(spec)
     tcfg = TrainConfig(**spec["tcfg"])
-    params = load_tree(spec["params"])
-    batches = _batches(spec["batches"])[: spec["steps"]]
+    params = as_dtype(spec, load_tree(spec["params"]))
+    batches = [as_dtype(spec, b)
+               for b in _batches(spec["batches"])[: spec["steps"]]]
     rules = _rules(spec, cfg, mesh, next(iter(batches[0].values())).shape[0])
     sh = param_shardings(params, mesh, expert_dim=cfg.padded_experts or None,
                          policy=_policy(spec, cfg))
@@ -343,7 +354,10 @@ def run_mesh_scenarios(rank, world, scenarios, out_dir):
     ``spec["tokens"]`` (.npy, (B, T)) on the mesh under the cell's rules
     (kv_seq where B does not divide over the batch ranks), the parameters
     this rank's model shards (``params.local_shards``); rank 0 writes the
-    whole batch's logits (T, B, vocab), every batch rank's rows.  Kind "elastic" comes last."""
+    whole batch's logits (T, B, vocab), every batch rank's rows (the
+    audio family's memory from ``spec["memory"]``, .npy (B, F, d)).  With
+    ``grads`` a train scenario also writes its first batch's gradients
+    on the mesh (:func:`_mesh_grads`).  Kind "elastic" comes last."""
     import torch.distributed as dist
     from repro_torch.distributed.sharding import make_mesh
     out_dir = Path(out_dir)
@@ -363,6 +377,10 @@ def run_mesh_scenarios(rank, world, scenarios, out_dir):
             dist.barrier()
             continue
         losses, params, _, sh, first = _run_one(rank, world, spec, mesh)
+        if spec.get("grads"):
+            g = _mesh_grads(spec, mesh)
+            if rank == 0:
+                save_tree(out_dir / f"{name}_grad.npz", g)
         if spec.get("ckpt"):
             from repro_torch.checkpoint import store
             store.save(spec["ckpt"], spec["steps"], params)
@@ -383,6 +401,34 @@ def run_mesh_scenarios(rank, world, scenarios, out_dir):
         dist.barrier()
 
 
+def _mesh_grads(spec, mesh):
+    """The first batch's gradients on ``mesh`` as the train step takes
+    them (each rank's local shards and batch rows, the layers' model
+    shards through ``params.prepare``), synced over the batch ranks and
+    gathered whole."""
+    from repro_torch.distributed import params as dparams
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.params import param_shardings
+    from repro_torch.train.steps import (loss_and_grads, make_loss_fn,
+                                         shard_batch, sync_grads)
+    cfg = _cfg(spec)
+    params = as_dtype(spec, load_tree(spec["params"]))
+    b = as_dtype(spec, _batches(spec["batches"])[0])
+    rules = _rules(spec, cfg, mesh, next(iter(b.values())).shape[0])
+    policy = _policy(spec, cfg)
+    sh = param_shardings(params, mesh, expert_dim=cfg.padded_experts or None,
+                         policy=policy)
+    layout = dparams.model_layout(cfg, mesh, policy)
+    local = dparams.local_shards(params, layout.specs, mesh)
+    b = shard_batch(b, sharding.batch_rank(mesh, rules),
+                    sharding.batch_ranks(mesh, rules))
+    loss = make_loss_fn(cfg)
+    with sharding.axis_rules(mesh, rules, layout.plan):
+        _, _, g = loss_and_grads(
+            lambda p, bt: loss(dparams.prepare(p, layout), bt), local, b)
+    return _full(sync_grads(g, sh, "none", rules))
+
+
 def _decode(spec, mesh):
     """Teacher-forced decode of one "decode" scenario on ``mesh``: returns
     (the whole batch's logits (T, B, vocab), each batch rank's rows
@@ -398,7 +444,10 @@ def _decode(spec, mesh):
     rules = _rules(spec, cfg, mesh, B)
     n = batch_ranks(mesh, rules)
     r = batch_rank(mesh, rules) if n > 1 else 0
-    toks = toks[r * (B // n):(r + 1) * (B // n)]
+    rows = slice(r * (B // n), (r + 1) * (B // n))
+    toks = toks[rows]
+    extra = ({"memory": torch.from_numpy(np.load(spec["memory"]))[rows]}
+             if spec.get("memory") else {})
     layout = dparams.model_layout(cfg, mesh)
     params = dparams.local_shards(load_tree(spec["params"]), layout.specs,
                                   mesh)
@@ -410,7 +459,7 @@ def _decode(spec, mesh):
     for t in range(T):
         _, cache, last = step(params, cache, {
             "tokens": toks[:, t:t + 1],
-            "pos": torch.tensor(t, dtype=torch.int32)})
+            "pos": torch.tensor(t, dtype=torch.int32), **extra})
         out.append(last.numpy().copy())
     mine = [None] * dist.get_world_size()
     dist.all_gather_object(mine, (r, np.stack(out)))
@@ -429,12 +478,12 @@ def one_process(spec):
     from repro_torch.train.steps import make_train_step
     cfg = _cfg(spec)
     tcfg = TrainConfig(**spec["tcfg"])
-    params = load_tree(spec["params"])
+    params = as_dtype(spec, load_tree(spec["params"]))
     opt = adamw.init(params)
     step = make_train_step(cfg, tcfg)
     losses = []
     for b in _batches(spec["batches"])[: spec["steps"]]:
-        params, opt, m = step(params, opt, b)
+        params, opt, m = step(params, opt, as_dtype(spec, b))
         losses.append(float(m["loss"]))
     return losses, params
 
