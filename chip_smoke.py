@@ -287,7 +287,7 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                the zoo's shapes off the runs (``ZOO_FD_CASES``, beside
                masked ``F.scaled_dot_product_attention``); then
                ``train_loop`` for 3 steps of xlstm-1.3b with the depth cut
-               to 8 of 48 layers (batch 2 x 128), zamba2-7b cut to 25 of
+               to 8 of 48 layers (batch 2 x 128), zamba2-7b cut to 13 of
                81 layers (batch 2 x 256) and whisper-small (batch 2 x
                128): step p50, tokens/s,
                peak memory, finite losses, no kernel launch.
@@ -307,10 +307,15 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
   19. model_parallel — the model axis and the kv_seq decode on 2 ranks of
                this card (``torch.multiprocessing``, gloo carrying CUDA
                tensors: NCCL takes no two ranks on one device).  Each rank
-               probes the collectives the port calls on CUDA tensors and
-               stages through the host those gloo refuses (the rank
-               wrapper's, printed; the package is unchanged); the compute
-               and every kernel stay on the card.  On a (1, 2) mesh:
+               first runs each collective the port calls (all_reduce,
+               all_gather_into_tensor, reduce_scatter_tensor,
+               all_to_all_single: sequence parallelism's gathers and
+               reduce-scatters among them) on CUDA tensors over gloo and
+               fails on a refusal or a wrong value; the compute and every
+               kernel stay on the card.  On a (1, 2) mesh, sequence
+               parallel between blocks (JAX's default ``seq_shard`` rule;
+               the residual's layout printed, a sequence shard required
+               of every family but whisper's encoder-decoder):
                granite-moe-3b-a800m and h2o-danube-1.8b at full width cut
                to 4 layers, xlstm-1.3b to one group (7 mLSTM and 1 sLSTM
                block), zamba2-7b to 7 layers (the shared block and 6
@@ -318,8 +323,14 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                layers, 3 train steps (batch 2 x 64) against the same
                training in one rank on the card (losses 1e-5, parameters
                1e-4 where the first gradient exceeds 1e-6), then 8 ``cuda``
-               decode steps against one rank (logits 1e-4, one flash_decode
-               an attention a step on each rank, at its Hkv / 2 heads).
+               decode tokens against one rank (a decoder's first 4 in one
+               sequence-parallel prefill step; logits 1e-4, one
+               flash_decode an attention a one-token step on each rank, at
+               its Hkv / 2 heads).  h2o-danube-1.8b at full width, 4
+               layers, batch 2 x 1024: a train step's forward and backward
+               sequence-parallel and with ``seq_shard: None``, losses
+               within 1e-5, each rank's peak memory over them both ways
+               printed, the sequence-parallel one lower.
                Where the SSM or hybrid family misses a bound in float32
                the same check runs in float64 (decode on ``reference``),
                and the float64 gaps decide; flash_decode held to its plain
@@ -483,6 +494,13 @@ MP_TRAIN = (("granite-moe-3b-a800m", 4), ("h2o-danube-1.8b", 4),
 # the families whose float32 gaps may be checked again in float64
 MP_F64_FAMILIES = ("ssm", "hybrid")
 MP_BATCH, MP_SEQ, MP_STEPS, MP_DECODE, MP_DECODE_SLOTS = 2, 64, 3, 8, 16
+# a decoder's decode starts with a prompt of MP_PROMPT tokens in one step
+# (even: sequence-parallel on the (1, 2) mesh), then one token a step
+MP_PROMPT = 4
+# sequence parallelism against the replicated layout: (arch, layers,
+# batch, seq), a train step's forward and backward each way on (1, 2),
+# losses within MP_SP_TOL
+MP_SP_CASE, MP_SP_TOL = ("h2o-danube-1.8b", 4, 2, 1024), 1e-5
 MP_KV_ARCH, MP_KV_SLOTS, MP_KV_STEPS = "smollm-360m", 131072, 8
 MP_TIMEOUT = 420                   # the ranks' deadline, seconds
 # flash_decode at a (1, 2) rank's head shards of that decode: (label, B,
@@ -518,10 +536,11 @@ ZOO_FD_CASES = [("zoo zamba2 long", 4, 8192, 32, 1, 112, 8000, 0),
                 ("zoo gemma3 global 32k", 1, 32768, 8, 2, 256, 30000, 0),
                 ("zoo internlm2 long", 4, 8192, 8, 6, 128, 8000, 0)]
 # (arch, layers or 0, batch, seq, steps): zamba2's 81 layers hold about
-# 92 GB of weights, gradients and moments, so its depth is cut; xlstm's
-# 48 took 2.5-3.9 s a step (its sLSTM loop), so it is cut to one group of
-# 8 to make room for the model_parallel phase
-ZOO_TRAIN = (("xlstm-1.3b", 8, 2, 128, 3), ("zamba2-7b", 25, 2, 256, 3),
+# 92 GB of weights, gradients and moments, so its depth is cut (to 13:
+# 2.3 s on an H100 against 12.0 s at 25 layers, which makes room for the
+# model_parallel phase's sequence-parallel case); xlstm's 48 took 2.5-3.9
+# s a step (its sLSTM loop), so it is cut to one group of 8
+ZOO_TRAIN = (("xlstm-1.3b", 8, 2, 128, 3), ("zamba2-7b", 13, 2, 256, 3),
              ("whisper-small", 0, 2, 128, 3))
 
 # the train phase: full agcn-2s, 16 clips (32 sequences) a step, 30 steps
@@ -2870,6 +2889,16 @@ def _mp_cut(p, placements, mesh):
     return p.contiguous()
 
 
+def _mp_residuals():
+    """A recorder of the residual's shapes between blocks on this rank
+    (``tests/torch_dist_workers.Residuals``, the repo's JAX-free rank
+    helpers): a sequence shard where sequence parallelism ran."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    from torch_dist_workers import Residuals
+    return Residuals()
+
+
 def _mp_cfg(arch, layers):
     """``arch`` at full width cut to ``layers`` (the encoder too, for the
     audio family), or whole for 0."""
@@ -2890,12 +2919,15 @@ def _mp_params(cfg, dev, dtype=None):
     return params
 
 
-def _mp_train(cfg, mesh, batches, policy, lr, dtype=None):
+def _mp_train(cfg, mesh, batches, policy, lr, dtype=None, stats=None):
     """``make_train_step`` on ``mesh`` for ``len(batches)`` steps from
     parameters of seed SEED (float64 with ``dtype``), laid out by
     ``param_shardings`` (each rank cuts its shard:
-    ``DTensor.from_local``, no collective): (losses, the final
-    parameters' local shards by path, the shardings)."""
+    ``DTensor.from_local``, no collective), under ``rules_for`` of the
+    policy (``seq_shard`` on ``model``): (losses, the final parameters'
+    local shards by path, the shardings).  With
+    ``stats`` (a dict) the first step's residual shapes between blocks go
+    to its "residual"."""
     from torch.distributed.tensor import DTensor
     from repro_torch.common.config import TrainConfig
     from repro_torch.common.tree import tree_map, tree_paths
@@ -2918,12 +2950,49 @@ def _mp_train(cfg, mesh, batches, policy, lr, dtype=None):
                        warmup_steps=1)
     step = make_train_step(cfg, tcfg, grad_shardings=sh, rules=rules)
     opt, losses = adamw.init(params), []
-    for b in batches:
+    for i, b in enumerate(batches):
         local = shard_batch(b, batch_rank(mesh, rules),
                             batch_ranks(mesh, rules))
-        params, opt, m = step(params, opt, local)
+        with _mp_residuals() as res:
+            params, opt, m = step(params, opt, local)
         losses.append(float(m["loss"]))
+        if stats is not None and i == 0:
+            stats["residual"] = res.layout()
     return losses, {n: p.to_local() for n, p in tree_paths(params)}, sh
+
+
+def _mp_sp_step(cfg, mesh, batch, rules):
+    """One train step's forward and backward on ``mesh`` under ``rules``,
+    from parameters of seed SEED cut to this rank's model shards: its loss,
+    the residual's shapes between blocks, this process's peak allocated
+    memory over the forward and backward ("peak_gib"; the parameters
+    included, AdamW's update, which the layout does not touch, left out)
+    and their seconds."""
+    import gc
+    import torch
+    from repro_torch.distributed import params as dparams
+    from repro_torch.distributed.sharding import (axis_rules, batch_rank,
+                                                  batch_ranks)
+    from repro_torch.train.steps import (loss_and_grads, make_loss_fn,
+                                         shard_batch)
+    dev = next(iter(batch.values())).device
+    layout = dparams.model_layout(cfg, mesh)
+    local = dparams.local_shards(_mp_params(cfg, dev), layout.specs, mesh)
+    b = shard_batch(batch, batch_rank(mesh, rules), batch_ranks(mesh, rules))
+    loss_fn = make_loss_fn(cfg)
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with axis_rules(mesh, rules, layout.plan), _mp_residuals() as res:
+        loss, _, grads = loss_and_grads(lambda p, bt: loss_fn(
+            dparams.prepare(p, layout), bt), local, b)
+    torch.cuda.synchronize(dev)
+    out = {"loss": float(loss), "residual": res.layout(),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "s": time.perf_counter() - t0}
+    del local, grads
+    return out
 
 
 def _mp_one_rank(cfg, batches, lr, dtype=None):
@@ -2950,11 +3019,15 @@ def _mp_one_rank(cfg, batches, lr, dtype=None):
 
 
 def _mp_decode(cfg, params, toks, slots, backend, mesh=None, rules=None,
-               dtype=None, fill=None, memory=None):
+               dtype=None, fill=None, memory=None, prompt=1, stats=None):
     """Teacher-forced serve steps of ``toks`` (B, T) from position ``pos0``
     of ``fill`` (a function filling a fresh cache; else an empty cache at
     position 0), on ``mesh`` when given, the audio family over
-    ``memory``: (logits (T, B, vocab) on the host, launch counts of the
+    ``memory``: the first ``prompt`` tokens in one step (a decoder's
+    prefill), then one a step.  Returns (the last position's logits of
+    each step (T − prompt + 1, B, vocab) on the host, launch counts of the
+    steps); with ``stats`` (a dict) also "prefill_residual" (the first
+    step's residual shapes between blocks) and "steps" (the one-token
     steps)."""
     import contextlib
     import torch
@@ -2973,15 +3046,23 @@ def _mp_decode(cfg, params, toks, slots, backend, mesh=None, rules=None,
     extra = {} if memory is None else {"memory": memory}
     out = []
     _build.reset_launch_counts()
-    for t in range(toks.shape[1]):
-        _, cache, last = step(params, cache, {
-            "tokens": toks[:, t:t + 1],
-            "pos": torch.tensor(pos0 + t, dtype=torch.int32, device=dev),
-            **extra})
+    t = 0
+    while t < toks.shape[1]:
+        n = prompt if t == 0 else 1
+        with _mp_residuals() as res:
+            _, cache, last = step(params, cache, {
+                "tokens": toks[:, t:t + n],
+                "pos": torch.tensor(pos0 + t, dtype=torch.int32, device=dev),
+                **extra})
+        if stats is not None and t == 0:
+            stats["prefill_residual"] = res.layout()
         out.append(last.double() if dtype == torch.float64
                    else last.float())
+        t += n
     torch.cuda.synchronize(dev)
     counts = dict(_build.LAUNCHES)
+    if stats is not None:
+        stats["steps"] = toks.shape[1] - (prompt if prompt > 1 else 0)
     return torch.stack(out).cpu(), counts
 
 
@@ -3020,9 +3101,11 @@ def _mp_check(cfg, mesh, batches, toks, memory, backend, dtype):
     """One arch on ``mesh`` against this rank alone: ``MP_STEPS`` train
     steps (losses, and the parameters' local shards wherever the one-rank
     first gradient exceeds 1e-6), then teacher-forced decode steps of
-    ``toks`` on ``backend``; float64 parameters, batches, caches and
-    memory with ``dtype``.  Returns the gaps and the decode's launch
-    counts on the mesh."""
+    ``toks`` on ``backend`` (a decoder's first ``MP_PROMPT`` tokens in
+    one prefill step); float64 parameters, batches, caches and memory
+    with ``dtype``.  Returns the gaps, the residual's shapes between
+    blocks in the first train step and the prefill, and the decode's
+    launch counts on the mesh."""
     import gc
     import torch
     import torch.distributed as dist
@@ -3033,8 +3116,9 @@ def _mp_check(cfg, mesh, batches, toks, memory, backend, dtype):
                     for k, v in b.items()} for b in batches]
         memory = memory.double() if memory is not None else None
     t0 = time.perf_counter()
+    train = {}
     losses, mine, sh = _mp_train(cfg, mesh, batches, cfg.sharding, DIST_LR,
-                                 dtype)
+                                 dtype, stats=train)
     t_mesh = time.perf_counter() - t0
     # the one-rank reference: in float64 one rank at a time (two whole
     # float64 models in training do not fit one card beside each other)
@@ -3062,10 +3146,13 @@ def _mp_check(cfg, mesh, batches, toks, memory, backend, dtype):
     local = dparams.local_shards(full, layout.specs, mesh)
     rules = rules_for(layout.policy, MP_BATCH, mesh)
     cache_dtype = torch.float64 if dtype == "float64" else None
+    prompt = MP_PROMPT if cfg.family in ("dense", "moe", "vlm") else 1
+    dec = {}
     logits, counts = _mp_decode(cfg, local, toks, MP_DECODE_SLOTS, backend,
-                                mesh, rules, cache_dtype, memory=memory)
+                                mesh, rules, cache_dtype, memory=memory,
+                                prompt=prompt, stats=dec)
     want, _ = _mp_decode(cfg, full, toks, MP_DECODE_SLOTS, backend,
-                         dtype=cache_dtype, memory=memory)
+                         dtype=cache_dtype, memory=memory, prompt=prompt)
     del full, local
     gc.collect()
     torch.cuda.empty_cache()
@@ -3075,7 +3162,9 @@ def _mp_check(cfg, mesh, batches, toks, memory, backend, dtype):
             "one_rank_losses": ref_losses,
             "loss_gap": max(abs(x - y) for x, y in zip(losses, ref_losses)),
             "param_gap": max(gaps), "train_s": t_mesh, "one_rank_s": t_ref,
-            "decode_s": t_dec,
+            "decode_s": t_dec, "residual": train["residual"],
+            "prompt": prompt, "prefill_residual": dec["prefill_residual"],
+            "decode_steps": dec["steps"],
             "logit_gap": float((logits - want).abs().max()),
             "logits_finite": bool(torch.isfinite(logits).all()),
             "decode_counts": counts}
@@ -3086,6 +3175,7 @@ def _mp_rank(rank, world, init, out_dir, spec):
     process group's backend, the kv_seq cache's slots and position):
     every case on this rank, its numbers to ``out_dir/rank<r>.json`` (the
     traceback there on a failure, and the process then fails)."""
+    import gc
     import traceback
     import numpy as np
     import torch
@@ -3127,6 +3217,21 @@ def _mp_rank(rank, world, init, out_dir, spec):
             if cfg.family in MP_F64_FAMILIES and not _mp_within(a):
                 a["float64"] = _mp_check(cfg, mesh, batches, toks, memory,
                                          "reference", "float64")
+        # sequence parallelism against the replicated layout at a longer
+        # sequence: a train step's forward and backward each way, this
+        # process's peak memory over them
+        arch, layers, B, S = MP_SP_CASE
+        cfg = _mp_cfg(arch, layers)
+        batch = to_dev(next(make_batches(cfg, DataConfig(B, S, seed=SEED))))
+        mesh = make_mesh((1, world), dev)
+        t0 = time.perf_counter()
+        rec["sp_case"] = {}
+        for tag, rule in (("sp", "model"), ("none", None)):
+            rules = dict(rules_for(cfg.sharding, B, mesh), seq_shard=rule)
+            rec["sp_case"][tag] = _mp_sp_step(cfg, mesh, batch, rules)
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["sp_case"]["s"] = time.perf_counter() - t0
         # agcn-2s under dp_only: the model axis carries batch.  cuDNN's
         # convolution gradients sum with atomics unless deterministic, and
         # the two meshes' losses are held equal
@@ -3247,6 +3352,18 @@ def _mp_kernel_case(name, q, k, v, valid, offset, row_max, served):
             "ops_ms": t_ops, "bound_f32_ms": b_ms, "split_floor_ms": None}
 
 
+def _mp_layout(shapes, seq) -> str:
+    """Whether sequence parallelism ran, read off the residual's shapes
+    between blocks on a rank (``seq`` tokens a sequence)."""
+    if not shapes:
+        return "sequence parallelism off (no sequence-sharded residual)"
+    lens = sorted({sh[1] for sh in shapes})
+    if lens == [seq]:
+        return f"sequence parallelism off (residual {shapes[0]} whole)"
+    return (f"sequence parallelism on (residual {shapes[0]} a rank, "
+            f"shard length {lens[0]} of {seq})")
+
+
 def _mp_gaps(a) -> str:
     """One arch's gaps from one rank, each beside its bound, and the
     seconds of the one-rank training and of the two decodes."""
@@ -3268,9 +3385,15 @@ def model_parallel_phase(dev, failures, cases, summary, check_launches,
     a (1, 2) mesh: granite-moe, h2o-danube, xlstm, zamba2 and whisper at
     full width, depth cut (MP_TRAIN), 3 train steps against the same
     training in one rank on the card (losses 1e-5; the parameters' local
-    shards 1e-4 wherever the one-rank first gradient exceeds 1e-6), then 8
-    teacher-forced ``cuda`` decode steps against one rank (logits 1e-4;
-    one flash_decode an attention a step on each rank, Hkv / 2 heads);
+    shards 1e-4 wherever the one-rank first gradient exceeds 1e-6), the
+    residual between blocks a sequence shard of every family but
+    whisper's, then 8 teacher-forced ``cuda`` decode tokens against one
+    rank (a decoder's first MP_PROMPT in one prefill step, sequence
+    parallel; logits 1e-4; one flash_decode an attention a one-token step
+    on each rank, Hkv / 2 heads); MP_SP_CASE (danube at 2 x 1024) a train
+    step's forward and backward sequence-parallel and replicated, losses
+    within MP_SP_TOL, the sequence-parallel peak memory over them lower
+    on each rank;
     the SSM and hybrid families again in float64 where float32 misses a
     bound (``reference`` decode), the float64 gaps then deciding;
     flash_decode held at the ranks' head shards (MP_FD_CASES);
@@ -3346,12 +3469,26 @@ def model_parallel_phase(dev, failures, cases, summary, check_launches,
             if f64 is not None:
                 line += (f"; missed in float32, so again in float64 "
                          f"({f64['backend']} decode): {_mp_gaps(f64)}")
+            pre = ""
+            if a["prompt"] > 1:
+                pre = (f"; the decode's {a['prompt']}-token prefill: "
+                       f"{_mp_layout(a['prefill_residual'], a['prompt'])}")
             print(f"model_parallel: {arch} at full width, {a['layers']} "
                   f"layers, mesh (1, 2) rank {r}, plan {a['plan']}: "
                   f"{MP_STEPS} train steps (batch {MP_BATCH} x "
-                  f"{MP_SEQ}, {a['train_s']:.1f} s) losses "
-                  f"{[round(x, 6) for x in a['losses']]}, {line}; launches "
+                  f"{MP_SEQ}, {a['train_s']:.1f} s; "
+                  f"{_mp_layout(a['residual'], MP_SEQ)}) losses "
+                  f"{[round(x, 6) for x in a['losses']]}, {line}{pre}; "
+                  f"launches "
                   f"{ {k: v for k, v in a['decode_counts'].items() if v} }")
+            # every family but the encoder-decoder (whose JAX original
+            # constrains its residual whole) holds it as a sequence shard
+            shard = [MP_BATCH, MP_SEQ // 2, arch_cfg.d_model]
+            expect = [shard] if arch_cfg.family != "audio" else []
+            if a["residual"] != expect:
+                failures.append(f"model_parallel {arch} rank {r}: residual "
+                                f"{a['residual']} between blocks, expected "
+                                f"{expect}")
             held = f64 if f64 is not None else a
             if not _mp_within(held):
                 failures.append(f"model_parallel {arch} rank {r} "
@@ -3361,7 +3498,32 @@ def model_parallel_phase(dev, failures, cases, summary, check_launches,
                                 f"{held['logit_gap']:.3g} from one rank")
             check_launches(f"mp {arch} rank {r}", a["decode_counts"],
                            {"flash_decode": _flash_decode_per_step(
-                               arch_cfg)}, MP_DECODE)
+                               arch_cfg)}, a["decode_steps"])
+    # sequence parallelism against the replicated layout, MP_SP_CASE
+    arch, layers, B, S = MP_SP_CASE
+    shard = [[B, S // 2, _mp_cfg(arch, layers).d_model]]
+    sp = [rec["sp_case"] for rec in recs]
+    record["sp_case"] = sp
+    for r, c in enumerate(sp):
+        gap = abs(c["sp"]["loss"] - c["none"]["loss"])
+        lower = c["sp"]["peak_gib"] < c["none"]["peak_gib"]
+        print(f"model_parallel: {arch} at full width, {layers} layers, "
+              f"batch {B} x {S}, a train step's forward and backward on "
+              f"(1, 2) rank {r} (peak allocated over them, the parameters "
+              f"included): "
+              f"{_mp_layout(c['sp']['residual'], S)}, loss "
+              f"{c['sp']['loss']:.6f}, peak {c['sp']['peak_gib']:.3f} GiB, "
+              f"step {c['sp']['s']:.2f} s; seq_shard None: "
+              f"{_mp_layout(c['none']['residual'], S)}, loss "
+              f"{c['none']['loss']:.6f}, peak {c['none']['peak_gib']:.3f} "
+              f"GiB, step {c['none']['s']:.2f} s; losses {gap:.3g} apart "
+              f"(bound {MP_SP_TOL:g}); the case took {c['s']:.1f} s; {smi}")
+        if gap > MP_SP_TOL or not lower or c["sp"]["residual"] != shard:
+            failures.append(f"model_parallel sequence parallelism rank {r}: "
+                            f"losses {gap:.3g} apart, peaks "
+                            f"{c['sp']['peak_gib']:.3f} (sp) and "
+                            f"{c['none']['peak_gib']:.3f} GiB, residual "
+                            f"{c['sp']['residual']}")
     # flash_decode at the ranks' head shards (random inputs)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     for label, B, S, Hkv, G, D, valid in MP_FD_CASES:

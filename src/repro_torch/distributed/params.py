@@ -20,16 +20,21 @@ tensors (gathered over the batch axes, each leaf's model shard kept), and
 :func:`prepare` gathers, inside autograd, every model-sharded leaf that
 no layer takes as a shard (norm scales outside a head-parallel layer,
 the router, a layer whose heads do not divide the axis), so each rank's
-gradients are of its own shards.
+gradients are of its own shards.  Under sequence parallelism
+(``sharding.seq_parallel``) the models pass their trees through
+:func:`seq_shard_sums`, whose leaves (:data:`SEQ_SHARD_LEAVES`) a rank
+reads on its sequence shard alone, so their gradients are summed over
+``model``.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 from repro_torch.common.tree import tree_map, tree_paths, tree_unflatten
 from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
-                                              axis_size, gather_from_model)
+                                              axis_size, copy_to_model,
+                                              gather_from_model)
 
 MIN_SHARD_DIM = 128
 
@@ -331,7 +336,11 @@ def prepare(params, layout: ModelLayout):
     ``layout.plan`` takes as a shard gathered over ``model``
     (differentiable: its backward keeps this rank's slice, since every
     rank uses the whole leaf alike).  Needs the mesh's context
-    (``sharding.axis_rules``)."""
+    (``sharding.axis_rules``).  Where the forward then holds the residual
+    as a sequence shard, the model passes this tree on through
+    :func:`seq_shard_sums`, whose leaves each rank reads on its own
+    tokens alone (their gradients summed over ``model``); every other
+    leaf is read on the whole sequence."""
     flat = tree_paths(params)
     keep = _consumed(layout.plan, [path for path, _ in flat])
     out = []
@@ -342,6 +351,36 @@ def prepare(params, layout: ModelLayout):
         else:
             out.append(gather_from_model(x, d))
     return tree_unflatten(params, out)
+
+
+# the leaves a model rank reads on its sequence shard alone under
+# sequence parallelism: the scales of the norms on the residual between
+# blocks (the decoders' ``layers/ln1``, ``layers/ln2``; xlstm's
+# ``layers/{mlstm,slstm}/ln`` and ``ln2``; zamba2's ``mamba_groups/ln``,
+# ``mamba_tail/ln``, ``use_ln`` and ``shared/ln2``; every
+# ``final_norm``).  The norms inside a layer (``cell/norm``) run on the
+# gathered sequence.
+SEQ_SHARD_LEAVES = re.compile(r"(?:.+/)?(?:ln\d?|use_ln|final_norm)/scale")
+
+
+def seq_shard_leaves(paths) -> List[str]:
+    """The paths among ``paths`` of :data:`SEQ_SHARD_LEAVES`."""
+    return [p for p in paths if SEQ_SHARD_LEAVES.fullmatch(p)]
+
+
+def seq_shard_sums(params):
+    """``params`` for a forward whose residual is a sequence shard: each
+    leaf of :data:`SEQ_SHARD_LEAVES` through ``sharding.copy_to_model``
+    (identity forward; the backward sums the ranks' gradients, each of its
+    own tokens), so every rank gets the whole gradient of the loss, as
+    :func:`prepare` gives it of the leaves it gathers.  Every other leaf
+    is read on the whole sequence, and its gradient is whole already: a
+    layer run whole takes the gathered input and its output's slice
+    all-gathers the cotangents (``sharding.layer_out``)."""
+    flat = tree_paths(params)
+    keep = set(seq_shard_leaves([p for p, _ in flat]))
+    return tree_unflatten(params, [copy_to_model(x) if p in keep else x
+                                   for p, x in flat])
 
 
 def mesh_context(cfg, mesh, rules=None, layout: Optional[ModelLayout] = None):

@@ -24,19 +24,38 @@ differentiable mean over the ranks of the batch axes.
 The model axis (tensor and expert parallelism) and the ``kv_seq`` decode
 are explicit too: a layer holds its shard of a weight as a plain local
 tensor and calls the collectives below, Megatron's column- and
-row-parallel products.  Between blocks the activations stay replicated
-over ``model`` (every model rank computes the same full activation), so a
-loss is the same number on every model rank, and each collective's
-backward is the one that gives every rank the gradient of that one loss
-for its own tensors: :func:`copy_to_model` (identity forward, all-reduce
-backward) at a column-parallel input, :func:`reduce_from_model`
-(all-reduce forward, identity backward) at a row-parallel output,
+row-parallel products, each of whose backward is the one that gives every
+rank the gradient of the one loss for its own tensors.  A loss is the same
+number on every model rank.  Without sequence parallelism the residual
+between blocks is replicated over ``model`` (every model rank holds the
+whole (B, S, d) activation): :func:`copy_to_model` (identity forward,
+all-reduce backward) at a column-parallel input, :func:`reduce_from_model`
+(all-reduce forward, identity backward) at a row-parallel output.
 :func:`gather_from_model` (all-gather forward; backward the rank's slice
 when every rank uses the whole result, a reduce-scatter when each uses
 only its part), :func:`scatter_to_model` (a rank's slice forward,
-all-gather backward) and :func:`all_to_all` (its own adjoint).  Each
-counts its result's bytes through ``common.cost.report_collective``.  On
-a shape-only mesh (the dry run) they return meta tensors of the result's
+all-gather backward), :func:`reduce_scatter_to_model` (reduce-scatter
+forward, all-gather backward) and :func:`all_to_all` (its own adjoint)
+serve the rest.
+
+Sequence parallelism between blocks (Megatron-SP, the layout GSPMD gives
+JAX under its default rules): where the rules resolve ``seq_shard`` to
+the model axis, that axis does not carry the batch, and its M ranks
+divide the sequence (:func:`seq_parallel`), the residual between blocks
+is each model rank's contiguous sequence shard, a local (B, S/M, d)
+tensor, and the norms on it run on the shard.  A layer takes its input
+from the shard through :func:`layer_in` (an all-gather along the sequence
+whose backward reduce-scatters, in place of :func:`copy_to_model`, for a
+layer that takes shards; an all-gather whose backward keeps the rank's
+slice for a layer run whole) and returns its output through
+:func:`layer_out` (a reduce-scatter of the row-parallel partial sums into
+the rank's shard, in place of :func:`reduce_from_model`; the rank's slice
+of a whole result).  Elsewhere the layout stays replicated: a sequence M
+does not divide (one-token decode, an odd prompt, a VLM prefix whose
+``N_img + S`` does not divide), ``seq_shard: None`` in the rules, or the
+batch on the model axis (``dp_only``).  Each collective counts its
+result's bytes through ``common.cost.report_collective``.  On a
+shape-only mesh (the dry run) they return meta tensors of the result's
 shape and report the same bytes.  The ranks of an axis are found with
 :func:`axis_group`.
 """
@@ -498,6 +517,17 @@ class _Scatter(torch.autograd.Function):
         return _gathered(g, ctx.ax, ctx.dim), None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _scattered(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gathered(g, ctx.ax, ctx.dim), None, None
+
+
 def _exchange(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     if ax.group is not None:
@@ -561,6 +591,72 @@ def all_to_all(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"all_to_all: leading dim {x.shape[0]} is not the "
                          f"{ax.size} ranks")
     return _AllToAll.apply(x, ax)
+
+
+def reduce_scatter_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum of the model ranks' partial ``x``, of which this rank keeps
+    its contiguous slice along ``dim``; the backward all-gathers the
+    ranks' cotangents."""
+    ax = model_group()
+    return x if ax.size == 1 else _ReduceScatter.apply(x, ax, dim)
+
+
+# the sequence dim of a (B, S, d) activation
+SEQ_DIM = 1
+
+
+def seq_parallel(seq_len: int) -> bool:
+    """Is the residual between blocks of a ``seq_len``-token sequence a
+    sequence shard on this rank?  Where the active rules resolve
+    ``seq_shard`` to the model axis, that axis has M > 1 ranks, carries no
+    batch (``dp_only`` puts the batch there) and M divides ``seq_len``.
+    False outside :func:`axis_rules`, under ``seq_shard: None`` and where
+    the split does not apply (the layout then stays replicated).  A rule
+    naming another axis raises: the layers' sequence collectives run over
+    ``model``."""
+    if _CTX.mesh is None:
+        return False
+    spec = _resolve("seq_shard")
+    if spec is None:
+        return False
+    if spec != "model":
+        raise NotImplementedError(f"seq_shard over {spec!r}: the port splits "
+                                  f"the sequence over 'model' only")
+    m = axis_size(_CTX.mesh, "model")
+    return (m > 1 and "model" not in batch_axes(_CTX.mesh)
+            and seq_len % m == 0)
+
+
+def layer_in(x: torch.Tensor, sharded: bool, seq_shard: bool
+             ) -> torch.Tensor:
+    """A layer's input (B, S, d) from the residual's layout.  With
+    ``seq_shard`` ``x`` is this rank's sequence shard and the whole
+    sequence is all-gathered: for a layer that takes model shards
+    (``sharded``) each rank's cotangent is partial and the backward
+    reduce-scatters; for a layer run whole every rank uses the whole
+    input alike and the backward keeps the rank's slice.  Without it
+    ``x`` is replicated: :func:`copy_to_model` for a layer that takes
+    shards, ``x`` itself for one run whole."""
+    if seq_shard:
+        # the gathered (M, B, S/M, d) buffer seen as (B, S, d) is strided:
+        # one copy here, not one in each product that reads it
+        return gather_from_model(x, SEQ_DIM, partial_use=sharded
+                                 ).contiguous()
+    return copy_to_model(x) if sharded else x
+
+
+def layer_out(y: torch.Tensor, sharded: bool, seq_shard: bool
+              ) -> torch.Tensor:
+    """A layer's output (B, S, d) in the residual's layout: with
+    ``seq_shard`` the rank's sequence shard of the row-parallel partial
+    sums reduce-scattered (``sharded``), or of the whole result of a layer
+    run whole (the backward all-gathers the ranks' cotangents, so every
+    rank differentiates the whole layer); without it the partial sums
+    all-reduced (``sharded``) or ``y`` itself."""
+    if seq_shard:
+        return (reduce_scatter_to_model(y, SEQ_DIM) if sharded
+                else scatter_to_model(y, SEQ_DIM))
+    return reduce_from_model(y) if sharded else y
 
 
 def max_over(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:

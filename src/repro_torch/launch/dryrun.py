@@ -25,11 +25,16 @@ Meshes (``launch.mesh``): ``h100x1``, ``h100x8`` (data 8) and
 divide over the batch ranks (``long_500k``'s single sequence on
 ``h100x8``) is run whole on every rank against its share of the cache's
 slots (``kv_seq``), and a model axis shards the LM families' layers
-(``params.model_layout``: the parameters are this rank's model shards).
-Such a cell runs under the mesh's context on the shape-only mesh, where
-the layers' collectives return meta results and count their bytes, so
-the roofline's collective term holds the model axis's traffic and the
-kv_seq merge beside the gradient sync.
+(``params.model_layout``: the parameters are this rank's model shards)
+and, under JAX's default ``seq_shard`` rule, holds the residual between
+blocks as a sequence shard wherever the model axis divides the sequence
+(``sharding.seq_parallel``: train and prefill; decode's one token stays
+replicated).  Such a cell runs under the mesh's context on the
+shape-only mesh, where the layers' collectives return meta results and
+count their bytes, so the roofline's collective term holds the model
+axis's traffic (the reduce-scatters and all-gathers of sequence
+parallelism, the norm scales' gradient sums) and the kv_seq merge
+beside the gradient sync.
 
 A cell the port cannot run is recorded ``skipped`` with its reason: a
 shape the arch does not take (``configs.shape_applicable``).

@@ -13,15 +13,21 @@ leaves as in the reference, so JAX trees carry across unchanged
 On a model axis (``distributed.sharding.axis_rules`` with a ``ModelPlan``,
 the tree from ``distributed.params.prepare``) the layers take their
 shards: attention by heads, the MLP by d_ff, the MoE by experts and the
-embedding and logits by vocabulary rows.  Between blocks the activations
-stay replicated over ``model``: every model rank holds the whole (B, S, d)
-residual and each block ends in one all-reduce (attention's and the MLP's
-row-parallel outputs) or an all-gather (the MoE's rows).  JAX's rules
-shard the sequence over ``model`` there instead (``seq_shard``,
-Megatron-style sequence parallelism: a reduce-scatter into sequence
-shards after each block and an all-gather before the next, the norms on
-a sequence shard).  The arithmetic is the same; the residual's memory is
-M times JAX's (ROADMAP.md Queue 2 holds sequence parallelism).
+embedding and logits by vocabulary rows.  Between blocks the residual is
+each model rank's sequence shard wherever ``sharding.seq_parallel`` holds
+for the sequence (JAX's ``seq_shard`` rule, Megatron-style sequence
+parallelism): the embedding's rows are reduce-scattered into (B, S/M, d)
+shards after the VLM's image prefix is put in front, ``ln1`` and ``ln2``
+run on the shard, attention, the MLP and the MoE all-gather their normed
+input once and reduce-scatter (or slice) their outputs back into the
+shard, and the final norm's output is all-gathered before the logits, so
+the loss is one number on every rank.  The norm scales then get each
+rank's tokens' share of their gradient, summed over ``model``
+(``params.seq_shard_sums``).  Where M does not divide the sequence (one
+token a decode step, an odd prompt, an image prefix plus text of odd
+length) or the rules say ``seq_shard: None``, the residual stays
+replicated over ``model`` and each block ends in an all-reduce (attention's
+and the MLP's row-parallel outputs) or an all-gather (the MoE's rows).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.tree import tree_index, tree_map
+from repro_torch.distributed import params as dparams
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers.attention import (attention_layer, attn_init,
@@ -161,43 +168,51 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     ``need_aux=False`` the MoE layers skip the aux loss (a serving step
     discards it) and ``aux`` stays zero.  Where a model axis's plan shards
     the vocabulary, ``gather_logits=False`` returns this rank's vocabulary
-    columns alone (the loss's ``common.xent`` takes them so)."""
+    columns alone (the loss's ``common.xent`` takes them so).  The
+    residual between blocks is a sequence shard wherever
+    ``sharding.seq_parallel`` holds for S_total (the module docstring);
+    the logits cover every position either way."""
     _check_family(cfg)
     kinds = layer_kinds(cfg)
-    x = embed_lookup(tokens, params["embed"]) * math.sqrt(cfg.d_model)
+    img = None
     if cfg.family == "vlm" and image_embeds is not None:
         img = image_embeds @ params["img_proj"]
-        x = torch.cat([img.to(x.dtype), x], dim=1)
+    S_total = tokens.shape[1] + (0 if img is None else img.shape[1])
+    sp = sharding.seq_parallel(S_total)
+    if sp:
+        params = dparams.seq_shard_sums(params)
+    x = embed_lookup(tokens, params["embed"], math.sqrt(cfg.d_model), img,
+                     sp)
     x = constrain(x, "batch", "seq_shard", None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)
+        positions = torch.arange(S_total, device=x.device)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta, x.device)
     for gi in range(num_groups(cfg)):
         for i, kind in enumerate(kinds):
             lp = tree_index(params["layers"], gi, i)
             cache = tree_index(caches, gi, i) if caches is not None else None
-            attn_in = constrain(rmsnorm(x, lp["ln1"], cfg.norm_eps),
-                                "batch", None, None)
+            # attention all-gathers its normed input once (JAX's constraint
+            # of it to ("batch", None, None)) under sequence parallelism
             h, _ = attention_layer(
-                lp["attn"], attn_in, rope,
+                lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), rope,
                 num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                 head_dim=cfg.head_dim, causal=True, window=_window(cfg, kind),
-                cache=cache, backend=backend)
+                cache=cache, backend=backend, seq_shard=sp)
             x = x + h
             h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
             if cfg.family == "moe":
                 h2, a = moe_ffn(lp["moe"], h2, num_experts=cfg.num_experts,
                                 top_k=cfg.experts_per_token,
                                 capacity_factor=cfg.moe_capacity_factor,
-                                act=cfg.act, need_aux=need_aux)
+                                act=cfg.act, need_aux=need_aux, seq_shard=sp)
                 if a is not None:
                     aux = aux + a
             else:
-                h2 = mlp(lp["mlp"], h2, cfg.act)
+                h2 = mlp(lp["mlp"], h2, cfg.act, seq_shard=sp)
             x = constrain(x + h2, "batch", "seq_shard", None)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = constrain(tied_logits(x, params["embed"], gather_logits),
+    logits = constrain(tied_logits(x, params["embed"], gather_logits, sp),
                        "batch", None, "vocab")
     return logits, caches, aux
 

@@ -9,6 +9,10 @@ the tanh-form GELU (``jax.nn.gelu``'s default).  The encoder's
 self-attention is not causal; each decoder layer has a causal
 self-attention with a KV cache and a cross-attention over the encoder
 memory (no RoPE, no mask, no cache).
+
+On a model axis the residual between blocks stays replicated over
+``model`` (no sequence parallelism): the reference constrains it to
+("batch", None, None) at every block boundary, with no ``seq_shard``.
 """
 from __future__ import annotations
 

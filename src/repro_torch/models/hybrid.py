@@ -7,6 +7,17 @@ block, then ``shared_attn_every`` mamba layers], and a tail of mamba
 layers so the counts match exactly (81 = 11 × (1 + 6) + 4 for zamba2-7b).
 The shared block's weights are one set, applied ng times (autograd sums
 their gradients); each use has its own input-norm scale (``use_ln``).
+
+Under sequence parallelism (``distributed.sharding.seq_parallel`` of the
+sequence) the residual between blocks is each model rank's (B, S/M, d)
+sequence shard: the shared block's ``use_ln`` and ``ln2`` norms, each
+Mamba2 layer's ``ln`` and the final norm run on the shard; the shared
+attention, its MLP and each Mamba2 layer all-gather their normed input
+(the causal conv and the scan need the whole sequence of each head) and
+reduce-scatter (or slice) their outputs.  Those norm scales' gradients
+are summed over ``model`` (``distributed.params.seq_shard_sums``).  A
+decode step (one token) and a sequence M does not divide stay
+replicated.
 """
 from __future__ import annotations
 
@@ -20,8 +31,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.tree import tree_copy_, tree_index, tree_map
+from repro_torch.distributed import params as dparams
 from repro_torch.distributed.sharding import (bind_context, constrain,
-                                              model_share)
+                                              model_share, seq_parallel)
 from repro_torch.models.layers.attention import (attention_layer, attn_init,
                                                  local_cache_len)
 from repro_torch.models.layers.common import (embed_lookup, he_init, rmsnorm,
@@ -78,34 +90,35 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return tree_map(lambda t: t.to(dev), params)
 
 
-def _shared_block(cfg, shared, ln_scale, x, rope, cache, backend):
+def _shared_block(cfg, shared, ln_scale, x, rope, cache, backend, sp):
     h = rmsnorm(x, {"scale": ln_scale}, cfg.norm_eps)
     a, _ = attention_layer(
         shared["attn"], h, rope, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, causal=True,
-        cache=cache, backend=backend)
+        cache=cache, backend=backend, seq_shard=sp)
     x = x + a
     return x + mlp(shared["mlp"], rmsnorm(x, shared["ln2"], cfg.norm_eps),
-                   cfg.act)
+                   cfg.act, seq_shard=sp)
 
 
-def _mamba_block(cfg, lp, x, cache):
+def _mamba_block(cfg, lp, x, cache, sp):
     h, new_c = mamba2_layer(lp["cell"], rmsnorm(x, lp["ln"], cfg.norm_eps),
-                            cfg.ssm_state, cfg.ssm_expand, cache)
+                            cfg.ssm_state, cfg.ssm_expand, cache, sp)
     if cache is not None:
         tree_copy_(cache, new_c)
     return x + h
 
 
-def _group(cfg, shared, gp, ln_scale, x, rope, cache, backend):
+def _group(cfg, shared, gp, ln_scale, x, rope, cache, backend, sp=False):
     """The shared block, then the group's mamba layers; a cache slice is
-    updated in place."""
+    updated in place.  ``sp``: ``x`` is this rank's sequence shard."""
     x = _shared_block(cfg, shared, ln_scale, x, rope,
-                      cache["attn"] if cache is not None else None, backend)
+                      cache["attn"] if cache is not None else None, backend,
+                      sp)
     for i in range(cfg.shared_attn_every):
         x = _mamba_block(cfg, tree_index(gp, i), x,
                          tree_index(cache["mamba"], i)
-                         if cache is not None else None)
+                         if cache is not None else None, sp)
     return constrain(x, "batch", "seq_shard", None)
 
 
@@ -122,21 +135,26 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     shared attention's decode path (``"cuda"``: ``flash_decode`` for a
     one-token step).  Where a model axis's plan shards the vocabulary,
     ``gather_logits=False`` returns this rank's vocabulary columns alone
-    (the loss's ``common.xent`` takes them so).
+    (the loss's ``common.xent`` takes them so).  The residual is a
+    sequence shard where ``seq_parallel`` holds (the module docstring).
 
     A conv leaf narrower than the activations (a bf16 cache) is widened
     to their dtype at the first step, as the reference's conv step
     returns its context (the bf16 cache concatenated with float32 inputs
     is float32): from then on the context is read unrounded, as there."""
     ng, per, tail = structure(cfg)
-    x = embed_lookup(tokens, params["embed"]) * math.sqrt(cfg.d_model)
+    sp = seq_parallel(tokens.shape[1])
+    if sp:
+        params = dparams.seq_shard_sums(params)
+    x = embed_lookup(tokens, params["embed"], math.sqrt(cfg.d_model),
+                     seq_shard=sp)
     if caches is not None:
         for part in (caches["groups"]["mamba"], caches.get("tail")):
             if part is not None and part["conv"].dtype != x.dtype:
                 part["conv"] = part["conv"].to(x.dtype)
     x = constrain(x, "batch", "seq_shard", None)
     if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)
+        positions = torch.arange(tokens.shape[1], device=x.device)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta, x.device)
     shared = params["shared"]
     for gi in range(ng):
@@ -146,15 +164,15 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             else None
         if cache is None and torch.is_grad_enabled() and x.requires_grad:
             x = checkpoint(bind_context(_group), cfg, shared, gp, ln, x,
-                           rope, None, backend, use_reentrant=False)
+                           rope, None, backend, sp, use_reentrant=False)
         else:
-            x = _group(cfg, shared, gp, ln, x, rope, cache, backend)
+            x = _group(cfg, shared, gp, ln, x, rope, cache, backend, sp)
     for i in range(tail):
         x = _mamba_block(cfg, tree_index(params["mamba_tail"], i), x,
                          tree_index(caches["tail"], i)
-                         if caches is not None else None)
+                         if caches is not None else None, sp)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = tied_logits(x, params["embed"], gather_logits)
+    logits = tied_logits(x, params["embed"], gather_logits, sp)
     return constrain(logits, "batch", None, "vocab"), caches
 
 

@@ -120,7 +120,7 @@ def attention_layer(p: Dict, x: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     cache: Optional[Dict] = None,
                     memory: Optional[torch.Tensor] = None,
-                    backend: str = "cuda"
+                    backend: str = "cuda", seq_shard: bool = False
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x (B, S, d) -> (B, S, d).  ``rope`` holds the tokens' RoPE tables
     (``common.rope_tables`` of their positions; the reference takes the
@@ -157,17 +157,29 @@ def attention_layer(p: Dict, x: torch.Tensor,
     in a ring), each rank attends over its slots (``flash_decode_partial``
     on ``cuda``, its plain version on ``reference``) and the ranks'
     partial outputs merge by their log-sum-exps, in rank order; one token
-    a step there."""
+    a step there.
+
+    With ``seq_shard`` (sequence parallelism, ``sharding.seq_parallel``)
+    ``x`` is this model rank's (B, S/M, d) sequence shard: the whole
+    sequence is all-gathered on entry (``sharding.layer_in``), the layer
+    runs on it as above (``rope`` holds the whole sequence's tables, a
+    cache takes every token's k and v), and the output is this rank's
+    sequence shard (``sharding.layer_out``: the row-parallel products
+    reduce-scattered, or the slice of a layer run whole).  Self-attention
+    only."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (expected one of "
                          f"{BACKENDS})")
-    B, S, _ = x.shape
+    if seq_shard and memory is not None:
+        raise ValueError("a sequence-sharded input takes no cross-attention "
+                         "memory")
     tp = sharding.takes_shards("attn")
     H = sharding.model_share(num_heads, "attn")
     Hkv = sharding.model_share(num_kv_heads, "attn")
+    x = sharding.layer_in(x, tp, seq_shard)
+    B, S, _ = x.shape
     if tp:
         ax = sharding.model_group()
-        x = sharding.copy_to_model(x)
         if memory is not None:
             memory = sharding.copy_to_model(memory)
     kv_src = x if memory is None else memory
@@ -236,7 +248,7 @@ def attention_layer(p: Dict, x: torch.Tensor,
     if cache is not None:
         cache["pos"].add_(S)             # after every read of the old pos
     out = out.reshape(B, S, H * head_dim) @ p["wo"]
-    return (sharding.reduce_from_model(out) if tp else out), cache
+    return sharding.layer_out(out, tp, seq_shard), cache
 
 
 def local_cache_len(L: int) -> int:

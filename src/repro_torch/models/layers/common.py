@@ -181,28 +181,60 @@ def _vocab_range(embed: torch.Tensor) -> Tuple[int, int]:
     return sharding.model_group().rank * n, n
 
 
-def embed_lookup(tokens: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
-    """``F.embedding(tokens, embed)``.  Where the plan shards the
+def embed_lookup(tokens: torch.Tensor, embed: torch.Tensor,
+                 scale: Optional[float] = None,
+                 prefix: Optional[torch.Tensor] = None,
+                 seq_shard: bool = False) -> torch.Tensor:
+    """``F.embedding(tokens, embed)``, times ``scale`` when given, after
+    ``prefix`` (B, P, d) when given (the VLM's projected image
+    embeddings, put before the text).  Where the plan shards the
     vocabulary ``embed`` is this model rank's rows: each rank looks up the
-    tokens in its range (zero elsewhere) and the ranks' rows are summed."""
-    if not _vocab_sharded():
-        return F.embedding(tokens, embed)
-    lo, n = _vocab_range(embed)
-    t = tokens.long() - lo
-    inside = ((t >= 0) & (t < n)).to(embed.dtype)[..., None]
-    return sharding.reduce_from_model(
-        F.embedding(t.clamp(0, n - 1), embed) * inside)
+    tokens in its range (zero elsewhere) and the ranks' rows are summed
+    (each token's row lies on one rank, so the sum, scaled before it, is
+    the one process's exactly).
+
+    With ``seq_shard`` the result is this model rank's sequence shard of
+    the P + S positions: the ranks' rows reduce-scattered, or the rank's
+    slice of the whole lookup.  The prefix, whole on every rank, stands as
+    zeros in the reduce-scatter and the rank's slice of it is added
+    after."""
+    sharded = _vocab_sharded()
+    if sharded:
+        lo, n = _vocab_range(embed)
+        t = tokens.long() - lo
+        inside = ((t >= 0) & (t < n)).to(embed.dtype)[..., None]
+        x = F.embedding(t.clamp(0, n - 1), embed) * inside
+    else:
+        x = F.embedding(tokens, embed)
+    if scale is not None:
+        x = x * scale
+    if prefix is None:
+        return sharding.layer_out(x, sharded, seq_shard)
+    prefix = prefix.to(x.dtype)
+    if not seq_shard:
+        return torch.cat([prefix, sharding.layer_out(x, sharded, False)], 1)
+    if not sharded:
+        return sharding.layer_out(torch.cat([prefix, x], 1), False, True)
+    return (sharding.layer_out(torch.cat([torch.zeros_like(prefix), x], 1),
+                               True, True)
+            + sharding.layer_out(torch.cat([prefix, torch.zeros_like(x)], 1),
+                                 False, True))
 
 
 def tied_logits(x: torch.Tensor, embed: torch.Tensor,
-                gather: bool = True) -> torch.Tensor:
+                gather: bool = True, seq_shard: bool = False
+                ) -> torch.Tensor:
     """``x @ embed.T``.  Where the plan shards the vocabulary: this model
     rank's vocabulary columns (column-parallel), all-gathered into the
     whole vocabulary unless ``gather`` is False (the loss takes them
-    sharded: :func:`xent`)."""
-    if not _vocab_sharded():
-        return x @ embed.T
-    local = sharding.copy_to_model(x) @ embed.T
+    sharded: :func:`xent`).  With ``seq_shard`` ``x`` is this rank's
+    sequence shard, all-gathered first (``sharding.layer_in``), so the
+    logits cover the whole sequence on every rank and the loss is one
+    number there."""
+    sharded = _vocab_sharded()
+    local = sharding.layer_in(x, sharded, seq_shard) @ embed.T
+    if not sharded:
+        return local
     return sharding.gather_from_model(local, -1) if gather else local
 
 
@@ -222,8 +254,10 @@ def xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     n = logits.shape[-1]
     lo = ax.rank * n
     m = sharding.max_over(logits.amax(-1), ax)
+    # exp in place on the shifted copy: one (B, S, V/M) temporary beside
+    # the logits, not two (the largest tensors of a long prefill's loss)
     sumexp = sharding.reduce_from_model(
-        torch.exp(logits - m[..., None]).sum(-1))
+        (logits - m[..., None]).exp_().sum(-1))
     logz = torch.log(sumexp) + m
     t = labels.long() - lo
     inside = ((t >= 0) & (t < n)).to(logits.dtype)

@@ -61,7 +61,7 @@ def _short_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def mamba2_layer(p: Dict, x: torch.Tensor, d_state: int, expand: int = 2,
-                 cache: Optional[Dict] = None
+                 cache: Optional[Dict] = None, seq_shard: bool = False
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x (B, S, d) -> (out (B, S, d), new cache).  With ``cache`` =
     {"conv": (B, K − 1, C), "ssm": (B, H, N, P)} a one-token step.
@@ -76,15 +76,19 @@ def mamba2_layer(p: Dict, x: torch.Tensor, d_state: int, expand: int = 2,
     per-head ``A_log``, ``D`` and ``dt_bias`` stay replicated: B and C are
     shared by every head, each rank keeps its heads' columns of ``wdt``
     and entries of the rest, and their backwards sum the ranks' parts.
-    The cache holds C / M channels and H / M heads."""
+    The cache holds C / M channels and H / M heads.  With ``seq_shard``
+    ``x`` and the output are this model rank's sequence shards: the causal
+    conv and the scan need the whole sequence of each head, so the input
+    is all-gathered and the output reduce-scattered (sliced, run whole:
+    ``sharding.layer_in``, ``layer_out``)."""
+    tp = sharding.takes_shards("mamba")
+    x = sharding.layer_in(x, tp, seq_shard)
     B, S, d = x.shape
     H = sharding.model_share(expand * d // HEAD_P, "mamba")
     d_inner = H * HEAD_P
     wb, wc, wdt = p["wb"], p["wc"], p["wdt"]
     A_log, Dp, dt_bias = p["A_log"], p["D"], p["dt_bias"]
-    tp = sharding.takes_shards("mamba")
     if tp:
-        x = sharding.copy_to_model(x)
         wb, wc = sharding.copy_to_model(wb), sharding.copy_to_model(wc)
         wdt, A_log, Dp, dt_bias = (sharding.scatter_to_model(t, -1)
                                    for t in (wdt, A_log, Dp, dt_bias))
@@ -114,4 +118,4 @@ def mamba2_layer(p: Dict, x: torch.Tensor, d_state: int, expand: int = 2,
     out = y @ p["out_proj"]
     new_cache = ({"conv": new_conv, "ssm": new_ssm}
                  if cache is not None else None)
-    return (sharding.reduce_from_model(out) if tp else out), new_cache
+    return sharding.layer_out(out, tp, seq_shard), new_cache

@@ -19,24 +19,27 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int) -> Dict:
 
 
 def mlp(p: Dict, x: torch.Tensor, act: str = "silu",
-        kept_ff: Optional[torch.Tensor] = None) -> torch.Tensor:
+        kept_ff: Optional[torch.Tensor] = None,
+        seq_shard: bool = False) -> torch.Tensor:
     """x: (B, S, d).  kept_ff: optional kept d_ff channel indices.  On a
     model axis whose plan takes the MLP as shards, ``wi`` and ``wg`` are
     this rank's d_ff columns and ``wo`` its rows (column- then
-    row-parallel): the ranks' output products are summed."""
+    row-parallel): the ranks' output products are summed.  With
+    ``seq_shard`` ``x`` and the output are this rank's sequence shards:
+    the input all-gathered, the output reduce-scattered (or, run whole,
+    sliced: ``sharding.layer_in``, ``layer_out``)."""
     wi, wg, wo = p["wi"], p["wg"], p["wo"]
     plan = sharding.model_plan()
-    if plan is not None and plan.mlp:
-        if kept_ff is not None:
-            raise NotImplementedError("kept_ff on a model-sharded MLP")
-        x = sharding.copy_to_model(x)
-        return sharding.reduce_from_model(
-            (activation(act)(x @ wg) * (x @ wi)) @ wo)
+    tp = plan is not None and plan.mlp
+    if tp and kept_ff is not None:
+        raise NotImplementedError("kept_ff on a model-sharded MLP")
     if kept_ff is not None:
         wi = wi.index_select(1, kept_ff)
         wg = wg.index_select(1, kept_ff)
         wo = wo.index_select(0, kept_ff)
-    return (activation(act)(x @ wg) * (x @ wi)) @ wo
+    x = sharding.layer_in(x, tp, seq_shard)
+    return sharding.layer_out((activation(act)(x @ wg) * (x @ wi)) @ wo, tp,
+                              seq_shard)
 
 
 def prune_mlp_channels(p: Dict, keep_frac: float) -> torch.Tensor:

@@ -24,6 +24,12 @@ points: batch-sharded to expert-sharded and back), the second all-to-all
 returns the outputs, and the combined rows are all-gathered; else every
 rank builds the whole buffer and keeps its experts' slice, and the
 outputs are all-gathered over the experts.
+
+Under sequence parallelism (``seq_shard``) the layer takes the rank's
+sequence shard and all-gathers the whole sequence first: the capacity's
+per-example slot cumsum runs over the whole sequence, so the routing, the
+slots, the outputs and the aux loss are the one process's on every rank,
+and the rank keeps its sequence slice of the combined output.
 """
 from __future__ import annotations
 
@@ -54,7 +60,7 @@ def moe_init(generator: Optional[torch.Generator], d_model: int,
 
 def moe_ffn(p: Dict, x: torch.Tensor, *, num_experts: int, top_k: int,
             capacity_factor: float = 1.25, act: str = "silu",
-            need_aux: bool = True
+            need_aux: bool = True, seq_shard: bool = False
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x (B, S, d) -> (output (B, S, d), the load-balance aux loss, or
     None with ``need_aux=False``: serving discards it).
@@ -65,7 +71,9 @@ def moe_ffn(p: Dict, x: torch.Tensor, *, num_experts: int, top_k: int,
     router probability per expert times its mean token share, summed;
     under a data-parallel mesh both means span every rank's tokens
     (:func:`~repro_torch.distributed.sharding.batch_mean`), as JAX's
-    global means do."""
+    global means do.  With ``seq_shard`` ``x`` and the output are this
+    model rank's sequence shards (the module docstring)."""
+    x = sharding.layer_in(x, False, seq_shard)
     B, S, d = x.shape
     E = p["router"].shape[-1]
     cap = max(1, int(top_k * S * capacity_factor / E))
@@ -94,7 +102,8 @@ def moe_ffn(p: Dict, x: torch.Tensor, *, num_experts: int, top_k: int,
         out = _expert_parallel(p, x, expert_idx, sidx, w, cap, act)
     else:
         out = _experts(p, x, expert_idx, sidx, w, cap, act)
-    out = constrain(out, "batch", None, None)
+    out = sharding.layer_out(constrain(out, "batch", None, None), False,
+                             seq_shard)
     if not need_aux:
         return out, None
 

@@ -43,7 +43,7 @@ def mlstm_init(generator: Optional[torch.Generator], d_model: int,
 
 
 def mlstm_layer(p: Dict, x: torch.Tensor, num_heads: int, expand: int = 2,
-                cache: Optional[Dict] = None
+                cache: Optional[Dict] = None, seq_shard: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x (B, S, d) -> (out (B, S, d), new cache).  With ``cache`` =
     {"ssm": (B, H, dh, dh + 1)} a one-token step (the recurrence); the new
@@ -58,15 +58,19 @@ def mlstm_layer(p: Dict, x: torch.Tensor, num_heads: int, expand: int = 2,
     the replicated ``wif`` and ``if_bias`` give their i and f columns of
     the rank's heads (their backward gathers the ranks' parts); the norm's
     mean of squares is summed over the ranks, and so are the output
-    products.  The cache holds H / M heads."""
+    products.  The cache holds H / M heads.  With ``seq_shard`` ``x`` and
+    the output are this model rank's sequence shards: the scan needs the
+    whole sequence, so the input is all-gathered and the output
+    reduce-scattered (sliced, run whole: ``sharding.layer_in``,
+    ``layer_out``)."""
+    tp = sharding.takes_shards("mlstm")
+    x = sharding.layer_in(x, tp, seq_shard)
     B, S, d = x.shape
     dh = expand * d // num_heads
     H = sharding.model_share(num_heads, "mlstm")
     d_inner = H * dh
     wif, if_bias = p["wif"], p["if_bias"]
-    tp = sharding.takes_shards("mlstm")
     if tp:
-        x = sharding.copy_to_model(x)
         qkv = sharding.gather_from_model(x @ p["wqkv"], -1, partial_use=True)
         lo = sharding.model_group().rank * d_inner
         q, k, v = (t[..., lo:lo + d_inner] for t in qkv.chunk(3, dim=-1))
@@ -113,7 +117,7 @@ def mlstm_layer(p: Dict, x: torch.Tensor, num_heads: int, expand: int = 2,
     out = h @ p["out_proj"]
     new_cache = ({"ssm": new_state.reshape(B, H, dh, dh + 1)}
                  if cache is not None else None)
-    return (sharding.reduce_from_model(out) if tp else out), new_cache
+    return sharding.layer_out(out, tp, seq_shard), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -134,7 +138,7 @@ def slstm_init(generator: Optional[torch.Generator], d_model: int,
 
 
 def slstm_layer(p: Dict, x: torch.Tensor, num_heads: int,
-                cache: Optional[Dict] = None
+                cache: Optional[Dict] = None, seq_shard: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x (B, S, d) -> (out (B, S, d), new cache), one step per token in
     order (the recurrence).  ``cache`` = {"c", "n", "h", "m": (B, H, dh)
@@ -149,14 +153,16 @@ def slstm_layer(p: Dict, x: torch.Tensor, num_heads: int,
     splits the 4·dh gate columns inside each head, so ``r`` is gathered
     and the rank keeps its heads (the backward reduce-scatters).  The
     norm's mean of squares and the output products are summed over the
-    ranks; the cache holds H / M heads."""
+    ranks; the cache holds H / M heads.  With ``seq_shard`` the whole
+    sequence is all-gathered for the time loop and the output is the
+    rank's sequence shard, as :func:`mlstm_layer`'s."""
+    tp = sharding.takes_shards("slstm")
+    x = sharding.layer_in(x, tp, seq_shard)
     B, S, d = x.shape
     dh = d // num_heads
     H = sharding.model_share(num_heads, "slstm")
     r = p["r"]
-    tp = sharding.takes_shards("slstm")
     if tp:
-        x = sharding.copy_to_model(x)
         lo = sharding.model_group().rank * H
         r = sharding.gather_from_model(r, -1, partial_use=True)[lo:lo + H]
     xg = (x @ p["wx"] + p["bias"]).reshape(B, S, H, 4 * dh)
@@ -185,4 +191,4 @@ def slstm_layer(p: Dict, x: torch.Tensor, num_heads: int,
     out = rmsnorm_heads(hseq, p["norm"], "slstm") @ p["out_proj"]
     new_cache = ({"c": c, "n": n, "h": h, "m": m}
                  if cache is not None else None)
-    return (sharding.reduce_from_model(out) if tp else out), new_cache
+    return sharding.layer_out(out, tp, seq_shard), new_cache

@@ -6,6 +6,20 @@ scaled by √d and tied to the logits.  Port of ``repro.models.ssm_model``:
 leaves are stacked as the reference's, (num_groups, slstm_every − 1, ...)
 for the mLSTM blocks and (num_groups, ...) for the sLSTM blocks, so a
 JAX tree carries across unchanged (``repro_torch.bridge``).
+
+Under sequence parallelism (``distributed.sharding.seq_parallel`` of the
+sequence: JAX's ``seq_shard`` rule on a model axis whose ranks divide it)
+the residual between blocks is each model rank's (B, S/M, d) sequence
+shard: the embedding's rows are reduce-scattered into it, each block's
+pre-norms (``ln``, ``ln2``) and the final norm run on the shard, the
+mLSTM and sLSTM cells and the MLP all-gather their normed input (the scans
+and the time loop need the whole sequence of each head) and
+reduce-scatter (or slice) their outputs, and the final norm's output is
+all-gathered before the logits.  The norm scales' gradients are summed
+over ``model`` (``distributed.params.seq_shard_sums``).  A decode step
+(one token) and a sequence M does not divide stay replicated.  A group
+recomputed in the backward reissues its collectives in the forward's
+order on every rank.
 """
 from __future__ import annotations
 
@@ -19,8 +33,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.tree import tree_copy_, tree_index, tree_map
+from repro_torch.distributed import params as dparams
 from repro_torch.distributed.sharding import (bind_context, constrain,
-                                              model_share)
+                                              model_share, seq_parallel)
 from repro_torch.models.layers.common import (embed_lookup, he_init, rmsnorm,
                                               rmsnorm_init, stack_layers,
                                               tied_logits, wide_dtype)
@@ -79,30 +94,32 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return tree_map(lambda t: t.to(dev), params)
 
 
-def _block(cfg, lp, x, cache, cell_fn):
-    h, new_c = cell_fn(lp["cell"], rmsnorm(x, lp["ln"], cfg.norm_eps), cache)
+def _block(cfg, lp, x, cache, cell_fn, sp):
+    h, new_c = cell_fn(lp["cell"], rmsnorm(x, lp["ln"], cfg.norm_eps), cache,
+                       sp)
     x = x + h
     if "mlp" in lp:
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg.act)
+        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg.act,
+                    seq_shard=sp)
     if cache is not None:
         tree_copy_(cache, new_c)
     return x
 
 
 def _group(cfg: ModelConfig, gp: Dict, x: torch.Tensor,
-           cache: Optional[Dict]) -> torch.Tensor:
+           cache: Optional[Dict], sp: bool = False) -> torch.Tensor:
     """One period: g − 1 mLSTM blocks then the sLSTM block; a cache slice
-    is updated in place."""
-    def mcell(p, h, c):
-        return mlstm_layer(p, h, cfg.num_heads, cfg.ssm_expand, c)
+    is updated in place.  ``sp``: ``x`` is this rank's sequence shard."""
+    def mcell(p, h, c, sp):
+        return mlstm_layer(p, h, cfg.num_heads, cfg.ssm_expand, c, sp)
 
-    def scell(p, h, c):
-        return slstm_layer(p, h, cfg.num_heads, c)
+    def scell(p, h, c, sp):
+        return slstm_layer(p, h, cfg.num_heads, c, sp)
     for i in range(group_size(cfg) - 1):
         c_i = tree_index(cache["mlstm"], i) if cache is not None else None
-        x = _block(cfg, tree_index(gp["mlstm"], i), x, c_i, mcell)
+        x = _block(cfg, tree_index(gp["mlstm"], i), x, c_i, mcell, sp)
     x = _block(cfg, gp["slstm"], x,
-               cache["slstm"] if cache is not None else None, scell)
+               cache["slstm"] if cache is not None else None, scell, sp)
     return constrain(x, "batch", "seq_shard", None)
 
 
@@ -119,20 +136,25 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     returned.  ``positions`` is ignored (no positional encoding).  Where a
     model axis's plan shards the vocabulary, ``gather_logits=False``
     returns this rank's vocabulary columns alone (the loss's
-    ``common.xent`` takes them so)."""
-    x = embed_lookup(tokens, params["embed"]) * math.sqrt(cfg.d_model)
+    ``common.xent`` takes them so).  The residual is a sequence shard
+    where ``seq_parallel`` holds (the module docstring)."""
+    sp = seq_parallel(tokens.shape[1])
+    if sp:
+        params = dparams.seq_shard_sums(params)
+    x = embed_lookup(tokens, params["embed"], math.sqrt(cfg.d_model),
+                     seq_shard=sp)
     x = constrain(x, "batch", "seq_shard", None)
     for gi in range(num_groups(cfg)):
         gp = tree_index(params["layers"], gi)
         if caches is not None:
-            x = _group(cfg, gp, x, tree_index(caches, gi))
+            x = _group(cfg, gp, x, tree_index(caches, gi), sp)
         elif torch.is_grad_enabled() and x.requires_grad:
-            x = checkpoint(bind_context(_group), cfg, gp, x, None,
+            x = checkpoint(bind_context(_group), cfg, gp, x, None, sp,
                            use_reentrant=False)
         else:
-            x = _group(cfg, gp, x, None)
+            x = _group(cfg, gp, x, None, sp)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = tied_logits(x, params["embed"], gather_logits)
+    logits = tied_logits(x, params["embed"], gather_logits, sp)
     return constrain(logits, "batch", None, "vocab"), caches
 
 

@@ -66,10 +66,15 @@ def grad_sync_plan(grads, shardings, compression: str = "none",
     ones) with more than one rank, a reduce-scatter into the leaf's shard
     when its spec shards it over that axis, else an all-reduce, in the
     batch axes' order.  No step runs over ``model`` unless the rules put
-    batch on it (``dp_only``): the activations stay replicated over
-    ``model`` between blocks, so a rank's gradient of a leaf replicated on
-    ``model`` is already the whole one (sequence parallelism would make
-    the norms' partial, ROADMAP.md Queue 2).  The payload is the
+    batch on it (``dp_only``): a rank's gradient of a leaf replicated on
+    ``model`` is already the whole one when it reaches the sync.  Under
+    sequence parallelism (the ``seq_shard`` rule) the leaves a rank reads
+    on its sequence shard alone, the norm scales on the residual
+    (``distributed.params.SEQ_SHARD_LEAVES``: ``ln1``, ``ln2``,
+    ``final_norm``, the xLSTM and Mamba2 blocks' ``ln``, zamba2's
+    ``use_ln`` and ``shared/ln2``), are summed over ``model`` inside
+    autograd (``params.seq_shard_sums``, counted with the step's
+    collectives), so they are whole here too.  The payload is the
     gradient's dtype, or bfloat16 with ``compression == "bf16"``.  Needs
     no process group: the dry run reads it on a shape-only mesh."""
     from repro_torch.distributed.sharding import axis_size, batch_axes

@@ -9,6 +9,8 @@ each scenario of a list from the parent's files (initial parameters and
 global batches as ``.npz``) on a (ranks, 1) mesh with
 ``make_train_step`` and ``shard_batch``, and rank 0 writes each one's
 losses, parameters and, where asked, gradients back as ``.npz``.
+:func:`run_mesh_scenarios` and :func:`run_sp_scenarios` are the rank
+bodies of the model-axis and sequence-parallel tests.
 
     python tests/torch_dist_workers.py smoke --ranks 4 --steps 3
 
@@ -465,6 +467,143 @@ def _decode(spec, mesh):
     dist.all_gather_object(mine, (r, np.stack(out)))
     rows = dict(reversed(mine))     # each batch rank's rows, first rank's
     return np.concatenate([rows[i] for i in range(n)], axis=1), rules
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: each scenario with the seq_shard rule and without
+# ---------------------------------------------------------------------------
+
+def forward_logits(cfg, params, batch):
+    """The cache-free forward's whole logits (B, S_total, padded vocab) of
+    a decoder, SSM or hybrid model."""
+    from repro_torch.models import decoder, hybrid, ssm_model
+    if cfg.family in decoder.FAMILIES:
+        return decoder.forward(params, batch["tokens"], cfg,
+                               image_embeds=batch.get("image_embeds"))[0]
+    mod = ssm_model if cfg.family == "ssm" else hybrid
+    return mod.forward(params, batch["tokens"], cfg)[0]
+
+
+class Residuals:
+    """Inside it, the shapes of the tensors the models constrain to
+    ("batch", "seq_shard", None), the residual between blocks, are
+    recorded in ``shapes`` (each model module's ``constrain`` wrapped;
+    a sequence shard where sequence parallelism ran).  chip_smoke's
+    ``model_parallel`` phase uses it too."""
+    MODULES = ("decoder", "ssm_model", "hybrid")
+
+    def __enter__(self):
+        import importlib
+        self.shapes, self._old = [], {}
+        for name in self.MODULES:
+            mod = importlib.import_module(f"repro_torch.models.{name}")
+            old = self._old[mod] = mod.constrain
+
+            def rec(x, *axes, _old=old):
+                if axes[1:2] == ("seq_shard",):
+                    self.shapes.append(list(x.shape))
+                return _old(x, *axes)
+            mod.constrain = rec
+        return self
+
+    def __exit__(self, *exc):
+        for mod, old in self._old.items():
+            mod.constrain = old
+
+    def layout(self):
+        """The shapes seen, each once, in order."""
+        out = []
+        for sh in self.shapes:
+            if sh not in out:
+                out.append(sh)
+        return out
+
+
+def _sp_forward(cfg, mesh, rules, layout, params, batch):
+    """(logits, the mean loss over the batch ranks, the residual shapes)
+    of one no-grad forward on ``mesh`` under ``rules``."""
+    from repro_torch.distributed import params as dparams
+    from repro_torch.distributed import sharding
+    from repro_torch.models import registry
+    with torch.no_grad(), sharding.axis_rules(mesh, rules, layout.plan), \
+            Residuals() as res:
+        p = dparams.prepare(params, layout)
+        logits = forward_logits(cfg, p, batch)
+        loss = sharding.batch_mean(registry.loss_fn(p, batch, cfg)[1]["loss"])
+    return logits, float(loss), res.shapes
+
+
+def _sp_decode(cfg, mesh, rules, layout, params, tokens):
+    """One reference decode step of ``tokens`` (B, 1) from an empty
+    8-slot cache on ``mesh`` under ``rules``: (logits, residual shapes)."""
+    from repro_torch.distributed import params as dparams
+    from repro_torch.models import registry
+    from repro_torch.train.steps import make_serve_step
+    with dparams.mesh_context(cfg, mesh, rules, layout):
+        cache = registry.init_cache(cfg, tokens.shape[0], 8, device="cpu")
+    with Residuals() as res:
+        _, _, last = make_serve_step(cfg, "reference", mesh, rules)(
+            params, cache, {"tokens": tokens,
+                            "pos": torch.tensor(0, dtype=torch.int32)})
+    return last, res.shapes
+
+
+def run_sp_scenarios(rank, world, scenarios, out_dir):
+    """Rank body of the sequence-parallel tests: each scenario (an LM
+    arch with overrides, its params and one global batch) on its mesh,
+    the parameters this rank's model shards, the batch its batch rank's
+    rows.  float32: the forward's logits and loss with the cell's rules
+    (``seq_shard`` on ``model``) and with ``seq_shard: None``; the same
+    for a prompt one token shorter (odd: the split does not apply) and
+    for one decode step; the residual's shapes in each.  float64: the
+    loss and the first gradient under the cell's rules, synced over the
+    batch ranks.  Every rank writes ``<name>_rank<r>.json`` (losses,
+    shapes) and ``<name>_rank<r>.npz`` (logits, and its gradient of
+    every leaf gathered whole: its own copy of each replicated leaf)."""
+    from repro_torch.distributed import params as dparams
+    from repro_torch.distributed import sharding
+    from repro_torch.models import registry
+    from repro_torch.train.steps import (loss_and_grads, shard_batch,
+                                         sync_grads)
+    out_dir = Path(out_dir)
+    for spec in scenarios:
+        mesh = sharding.make_mesh(tuple(spec["mesh"]), torch.device("cpu"))
+        cfg = _cfg(spec)
+        full = load_tree(spec["params"])
+        b = _batches(spec["batches"])[0]
+        rules = _rules(spec, cfg, mesh, b["tokens"].shape[0])
+        none = dict(rules, seq_shard=None)
+        b = shard_batch(b, sharding.batch_rank(mesh, rules),
+                        sharding.batch_ranks(mesh, rules))
+        layout = dparams.model_layout(cfg, mesh)
+        local = dparams.local_shards(full, layout.specs, mesh)
+        odd = dict(b, tokens=b["tokens"][:, :-1], labels=b["labels"][:, :-1])
+        rec, arrays = {"rank": rank}, {}
+        for tag, rl in (("sp", rules), ("none", none)):
+            for form, bt in (("", b), ("odd_", odd)):
+                logits, loss, shapes = _sp_forward(cfg, mesh, rl, layout,
+                                                   local, bt)
+                arrays[f"{form}{tag}_logits"] = logits
+                rec[f"{form}{tag}_loss"] = loss
+                rec[f"{form}{tag}_residual"] = shapes
+            logits, shapes = _sp_decode(cfg, mesh, rl, layout, local,
+                                        b["tokens"][:, :1])
+            arrays[f"decode_{tag}_logits"] = logits
+            rec[f"decode_{tag}_residual"] = shapes
+        p64 = as_dtype({"dtype": "float64"}, local)
+        b64 = as_dtype({"dtype": "float64"}, b)
+        with sharding.axis_rules(mesh, rules, layout.plan):
+            loss, _, g = loss_and_grads(
+                lambda p, bt: registry.loss_fn(dparams.prepare(p, layout),
+                                               bt, cfg), p64, b64)
+            rec["f64_loss"] = float(sharding.batch_mean(loss))
+        sh = dparams.param_shardings(full, mesh,
+                                     expert_dim=cfg.padded_experts or None)
+        g = _full(sync_grads(g, sh, "none", rules))
+        arrays.update({f"grad/{n}": x for n, x in _paths(g)})
+        save_tree(out_dir / f"{spec['name']}_rank{rank}.npz", arrays)
+        (out_dir / f"{spec['name']}_rank{rank}.json").write_text(
+            json.dumps(rec))
 
 
 # ---------------------------------------------------------------------------
