@@ -16,7 +16,7 @@ Subcommands: ``compression``, ``cavity``, ``rfc_storage``, ``dyn_sched``
 ``all``.  Rows print as ``name,us_per_call,derived`` and are merged by name
 into ``--out``.  Model subcommands run full ``agcn-2s`` unless
 ``--reduced``; the device defaults to CUDA (no CPU fallback).  Times are
-medians of synchronised host-clock calls.
+medians of synchronised host-clock calls (``torch_common.time_fn``).
 """
 from __future__ import annotations
 
@@ -24,14 +24,14 @@ import argparse
 import dataclasses
 import json
 import pathlib
-import time
-from typing import Callable, Dict, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from benchmarks.torch_common import ROWS, emit, time_fn
 from repro_torch.common.config import TrainConfig
-from repro_torch.common.device import resolve_device, synchronize
+from repro_torch.common.device import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core.agcn import engine
 from repro_torch.core.agcn import model as M
@@ -45,7 +45,6 @@ from repro_torch.models import registry
 from repro_torch.optim import adamw
 from repro_torch.train.steps import make_train_step
 
-ROWS: List[Dict] = []
 PAPER_CHANNELS = (64, 64, 64, 64, 128, 128, 128, 256, 256, 256)
 # Drop schemes of paper Fig. 9 (per-block kept channel fractions, block 1
 # unpruned): Drop-1 tracks the base sparsity, Drop-2/3 compress harder.
@@ -74,27 +73,6 @@ class Setup:
     @property
     def dev(self) -> torch.device:
         return resolve_device(self.device)
-
-
-def emit(name: str, us: float, derived: str = "") -> None:
-    ROWS.append({"name": name, "us_per_call": round(us, 1),
-                 "derived": derived})
-    print(f"{name},{us:.1f},{derived}")
-
-
-def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 5) -> float:
-    """Median µs of ``fn(*args)``, each call synchronised."""
-    dev = next((a.device for a in args if isinstance(a, torch.Tensor)), None)
-    for _ in range(warmup):
-        fn(*args)
-    synchronize(dev)
-    ts = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn(*args)
-        synchronize(dev)
-        ts.append(time.perf_counter() - t0)
-    return sorted(ts)[len(ts) // 2] * 1e6
 
 
 def _clips(cfg, dev, batch: int = 16, seed: int = 0) -> torch.Tensor:

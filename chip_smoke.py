@@ -304,7 +304,21 @@ only torch, numpy and ``repro_torch``.  Phases, in order:
                device busy time) on the H100's constants; then the
                served clip step (pruned ``cuda`` plans, 256 clips) with
                its own count.
-  19. model_parallel — the model axis and the kv_seq decode on 2 ranks of
+  19. benches — the port's benches (``benchmarks/torch_*.py``) on the
+               card: the paper's Table IV measured for its four variants
+               (original, woC, woC+skip, woC+skip+prune) at full agcn-2s
+               on the ``cuda`` backend, b 1 and 16 clips (T 300, 2 persons
+               folded): fps through one stream and the ensemble, the
+               step's ``launch.op_cost`` FLOPs and bytes, its bound on the
+               H100's terms and the share of it reached, one ensemble
+               step's launches per kernel checked; then, in smoke mode,
+               the kernel bench (``cuda``, full widths), the throughput
+               module's measured axes (``cuda``, full agcn-2s; the smoke
+               tier cuts their served traffic, not the model) and the
+               roofline report over the ``dryrun`` phase's records.  An
+               ERROR row, a missing row or a non-finite fps or bound
+               fails.
+  20. model_parallel — the model axis and the kv_seq decode on 2 ranks of
                this card (``torch.multiprocessing``, gloo carrying CUDA
                tensors: NCCL takes no two ranks on one device).  Each rank
                first runs each collective the port calls (all_reduce,
@@ -2622,6 +2636,93 @@ def dryrun_phase(dev, failures, check_launches):
     print(f"dryrun: phase {time.perf_counter() - t0:.1f} s")
 
 
+def benches_phase(dev, failures):
+    """Phase 19: the port's benches on the card (``benchmarks/torch_*``):
+    the Table IV rows (``torch_throughput.table4``, full agcn-2s, ``cuda``,
+    b 1 and 16) with one ensemble step's launches checked per variant, then
+    ``torch_kernels_bench``, ``torch_throughput``'s measured axes (full
+    agcn-2s) and ``torch_roofline_report`` (over the ``dryrun`` phase's
+    records) in smoke mode.  Every expected row must come, none
+    may be an ERROR row, and every Table IV fps and bound must be
+    finite."""
+    import math
+
+    from benchmarks import torch_common as common
+    from benchmarks import torch_kernels_bench as kb
+    from benchmarks import torch_roofline_report as rr
+    from benchmarks import torch_throughput as tt
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    nb = len(get_config(ARCH).gcn_channels)
+    per_clip = {"graph_sconv": 2 * nb, "cavity_tconv": 2 * nb,
+                "rfc_encode": 2 * (nb - 1), "rfc_decode": 2 * (nb - 1)}
+    launches = {}
+
+    def count(label, step):
+        _, launches[label] = counted(step)
+
+    common.drain_rows()
+    table = tt.table4(dev, backends=("cuda",), iters=3, counted=count)
+    t_table = time.perf_counter() - t0
+    for r in table:
+        label = f"{r['backend']}/{r['variant']}/b{r['batch']}"
+        want = dict(per_clip, graph_sconv=0 if r["variant"] == "original"
+                    else per_clip["graph_sconv"])
+        got = {k: v for k, v in launches[label].items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            failures.append(f"benches table4 {label}: launches {got}, "
+                            f"expected {want} (C_k blocks run no graph_sconv)")
+        nums = (r["fps_stream"], r["fps_ensemble"], r["bound_ms"],
+                r["model_bound_ms"])
+        if not all(math.isfinite(v) and v > 0 for v in nums):
+            failures.append(f"benches table4 {label}: fps or bound not "
+                            f"finite and positive: {nums}")
+        gop = ("n/a" if r["analytic_gop"] is None
+               else f"{r['analytic_gop']:.3f}")
+        print(f"benches: table4 {label}: fps {r['fps_stream']:.2f} one "
+              f"stream, {r['fps_ensemble']:.2f} ensemble "
+              f"({r['ms_ensemble']:.3f} ms a step of {r['rows']} rows); "
+              f"counted {r['counted_flops']:.4g} FLOP, "
+              f"{r['counted_bytes']:.4g} B, {r['ops']} ops; counted "
+              f"eager-traffic bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}, share {r['eager_share']:.4f}; model bound "
+              f"{r['model_bound_ms']:.4f} ms by {r['model_bound_by']} "
+              f"({r['model_bytes']:.4g} B), share {r['model_share']:.4f}; "
+              f"analytic {gop} GOP a clip stream; launches {got}")
+    smoke, common.SMOKE = common.SMOKE, True
+    try:
+        kb.main(["--backend", "cuda", "--device", str(dev)])
+        t_kb = time.perf_counter()
+        tt.measured_axes(dev, backends=("cuda",))
+        t_ax = time.perf_counter()
+        build = ROOT / "build"
+        rr.main(["--dryrun-dir", str(build / "chip_smoke_dryrun"),
+                 "--baseline-dir", str(build / "chip_smoke_dryrun_baseline"),
+                 "--out", str(build / "chip_smoke_roofline.md")])
+    finally:
+        common.SMOKE = smoke
+    rows = common.drain_rows()
+    names = [r["name"] for r in rows]
+    want = (tt.table4_names() + kb.row_names(("cuda",))
+            + tt.axis_names(("cuda",), smoke=True)
+            + ["roofline/cells_ok", "roofline/report"])
+    missing = sorted(set(want) - set(names))
+    errors = [n for n in names if n.endswith("/ERROR")]
+    if missing or errors:
+        failures.append(f"benches: missing rows {missing}, ERROR rows "
+                        f"{errors}")
+    cells = [n for n in names if n.startswith("roofline/h100x8/")]
+    if len(cells) != len(DRYRUN_CELLS):
+        failures.append(f"benches: the roofline report read {len(cells)} "
+                        f"h100x8 cells of the dryrun phase's "
+                        f"{len(DRYRUN_CELLS)}")
+    print(f"benches: {len(rows)} rows, {len(missing)} missing, "
+          f"{len(errors)} ERROR; table4 {t_table:.1f} s, kernel bench "
+          f"{t_kb - t0 - t_table:.1f} s, measured axes {t_ax - t_kb:.1f} s, "
+          f"roofline report {time.perf_counter() - t_ax:.1f} s")
+    print(f"benches: phase {time.perf_counter() - t0:.1f} s")
+
+
 def _leaves(tree):
     from repro_torch.common.tree import tree_leaves
     return tree_leaves(tree)
@@ -2645,6 +2746,37 @@ def run_group(cmd, timeout, env=None):
         return 124, out, err
 
 
+def start_group(cmd, out_dir, name, env=None):
+    """Start ``cmd`` in a process group of its own beside this process's
+    work, its output written to ``out_dir/name.{out,err}``; collect it
+    with :func:`wait_group`."""
+    out = open(out_dir / f"{name}.out", "w")
+    err = open(out_dir / f"{name}.err", "w")
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out, stderr=err,
+                            text=True, start_new_session=True)
+    return proc, out, err
+
+
+def wait_group(group, timeout):
+    """Wait for a :func:`start_group` command at most ``timeout`` seconds
+    more, killing its whole group then (or when this process is leaving
+    it); returns (exit code, stdout, stderr), 124 on a timeout."""
+    import os
+    import signal
+    proc, out, err = group
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        rc = 124
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        out.close()
+        err.close()
+    return rc, Path(out.name).read_text(), Path(err.name).read_text()
+
+
 def dist_train_phase(dev, failures, cases, check_launches):
     """Phase 15: LM training and data parallelism.  ``train_loop`` in
     this process for each DIST_TRAIN entry (granite-moe at full width
@@ -2660,20 +2792,12 @@ def dist_train_phase(dev, failures, cases, check_launches):
     DTensor path on the card; no NCCL collective runs with one card.  One
     smollm train step profiled; the 4-rank gloo run of the tests
     (``tests/torch_dist_workers.py smoke``: reduced smollm at data = 4
-    against one process, 1e-5); a 2-card NCCL run only when two cards
-    are visible."""
-    import gc
+    against one process, 1e-5), on the host's cores beside the card runs
+    from the phase's start; a 2-card NCCL run only when two cards are
+    visible."""
     import os
     import shutil
-    import numpy as np
     import torch
-    from repro_torch.common.config import TrainConfig
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig, make_batches
-    from repro_torch.launch.train import train_loop
-    from repro_torch.models import registry
-    from repro_torch.optim import adamw
-    from repro_torch.train.steps import make_train_step
 
     t_phase = time.perf_counter()
     smi = smi_line()
@@ -2682,16 +2806,77 @@ def dist_train_phase(dev, failures, cases, check_launches):
     base.mkdir(parents=True)
     record = cases["dist_train"] = {"device": smi}
     env = dict(os.environ, PYTHONPATH=str(SRC))
+    # the 4-rank gloo run of the tests, on this machine's CPU, beside the
+    # card runs below
+    t_gloo = time.perf_counter()
+    gloo = start_group([sys.executable, str(ROOT / "tests" /
+                                            "torch_dist_workers.py"),
+                        "smoke", "--ranks", "4", "--steps", "3"],
+                       base, "gloo_4", env=env)
+    try:
+        _dist_train_card(dev, failures, record, check_launches, base, env,
+                         smi)
+    finally:
+        rc, out, err = wait_group(gloo, timeout=max(
+            1.0, 400 - (time.perf_counter() - t_gloo)))
+    try:
+        smoke = json.loads(out.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        smoke = None
+    if rc != 0 or smoke is None:
+        print(out[-3000:], err[-3000:], sep="\n")
+        failures.append(f"dist_train: the 4-rank gloo run exited {rc}")
+    else:
+        record["gloo_4"] = smoke
+        print(f"dist_train: reduced smollm-360m on 4 gloo ranks (CPU, "
+              f"data = 4, beside the card runs) against one process: loss "
+              f"gap {smoke['loss_gap']:.3g}, parameter gap "
+              f"{smoke['param_gap']:.3g} (bound 1e-5); done "
+              f"{time.perf_counter() - t_gloo:.1f} s after its start")
+        if smoke["loss_gap"] > 1e-5 or smoke["param_gap"] > 1e-5:
+            failures.append(f"dist_train: 4 gloo ranks part from one "
+                            f"process: {smoke}")
 
-    def torchrun_cmd(cards, arch, B, S, steps, out_json):
-        """``launch.train`` of ``arch`` on ``cards`` NCCL ranks, a
-        (cards, 1) mesh."""
-        return [sys.executable, "-m", "torch.distributed.run",
-                "--standalone", "--nproc-per-node", str(cards), "-m",
-                "repro_torch.launch.train", "--arch", arch, "--steps",
-                str(steps), "--batch", str(B), "--seq", str(S), "--lr",
-                str(DIST_LR), "--mesh", f"{cards},1", "--ckpt-dir",
-                str(base / f"ckpt_{cards}x1"), "--out", str(out_json)]
+    if torch.cuda.device_count() >= 2:
+        arch, _, B, S, steps = next(e for e in DIST_TRAIN
+                                    if e[0] == DIST_NCCL)
+        rc, out, err = run_group(_torchrun_cmd(
+            base, 2, arch, B, S, steps, base / "nccl_2x1.json"), timeout=600,
+            env=env)
+        print(f"dist_train: 2 cards on NCCL, mesh (2, 1): exit {rc}; "
+              f"{out.strip().splitlines()[-1:] or ''}")
+        if rc != 0:
+            failures.append(f"dist_train: the 2-card NCCL run exited {rc}")
+    else:
+        print(f"dist_train: a 2-card NCCL run was not run "
+              f"({torch.cuda.device_count()} card visible)")
+    print(f"dist_train: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _torchrun_cmd(base, cards, arch, B, S, steps, out_json):
+    """``launch.train`` of ``arch`` on ``cards`` NCCL ranks, a (cards, 1)
+    mesh."""
+    return [sys.executable, "-m", "torch.distributed.run",
+            "--standalone", "--nproc-per-node", str(cards), "-m",
+            "repro_torch.launch.train", "--arch", arch, "--steps",
+            str(steps), "--batch", str(B), "--seq", str(S), "--lr",
+            str(DIST_LR), "--mesh", f"{cards},1", "--ckpt-dir",
+            str(base / f"ckpt_{cards}x1"), "--out", str(out_json)]
+
+
+def _dist_train_card(dev, failures, record, check_launches, base, env, smi):
+    """The card runs of :func:`dist_train_phase`: each DIST_TRAIN entry's
+    ``train_loop``, the (1, 1)-mesh torchrun before the DIST_NCCL entry
+    and its train step profiled."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batches
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
 
     def torchrun_1x1(arch, B, S, steps):
         """The loop under torchrun on NCCL: one rank, a (1, 1) mesh, in a
@@ -2704,7 +2889,8 @@ def dist_train_phase(dev, failures, cases, check_launches):
               f"before the torchrun child")
         out_json = base / "nccl_1x1.json"
         t0 = time.perf_counter()
-        rc, out, err = run_group(torchrun_cmd(1, arch, B, S, steps, out_json),
+        rc, out, err = run_group(_torchrun_cmd(base, 1, arch, B, S, steps,
+                                               out_json),
                                  timeout=600, env=env)
         nccl = None
         if rc != 0 or not out_json.exists():
@@ -2798,45 +2984,6 @@ def dist_train_phase(dev, failures, cases, check_launches):
         torch.cuda.empty_cache()
         print(f"dist_train: {torch.cuda.memory_allocated(dev) / 2**30:.3f} "
               f"GiB allocated after the {arch} run")
-
-    # the 4-rank gloo run of the tests, on this machine's CPU
-    t0 = time.perf_counter()
-    rc, out, err = run_group([sys.executable, str(ROOT / "tests" /
-                                                  "torch_dist_workers.py"),
-                              "smoke", "--ranks", "4", "--steps", "3"],
-                             timeout=400, env=env)
-    try:
-        smoke = json.loads(out.strip().splitlines()[-1])
-    except (ValueError, IndexError):
-        smoke = None
-    if rc != 0 or smoke is None:
-        print(out[-3000:], err[-3000:], sep="\n")
-        failures.append(f"dist_train: the 4-rank gloo run exited {rc}")
-    else:
-        record["gloo_4"] = smoke
-        print(f"dist_train: reduced smollm-360m on 4 gloo ranks (CPU, "
-              f"data = 4) against one process: loss gap "
-              f"{smoke['loss_gap']:.3g}, parameter gap "
-              f"{smoke['param_gap']:.3g} (bound 1e-5); "
-              f"{time.perf_counter() - t0:.1f} s")
-        if smoke["loss_gap"] > 1e-5 or smoke["param_gap"] > 1e-5:
-            failures.append(f"dist_train: 4 gloo ranks part from one "
-                            f"process: {smoke}")
-
-    if torch.cuda.device_count() >= 2:
-        arch, _, B, S, steps = next(e for e in DIST_TRAIN
-                                    if e[0] == DIST_NCCL)
-        rc, out, err = run_group(torchrun_cmd(
-            2, arch, B, S, steps, base / "nccl_2x1.json"), timeout=600,
-            env=env)
-        print(f"dist_train: 2 cards on NCCL, mesh (2, 1): exit {rc}; "
-              f"{out.strip().splitlines()[-1:] or ''}")
-        if rc != 0:
-            failures.append(f"dist_train: the 2-card NCCL run exited {rc}")
-    else:
-        print(f"dist_train: a 2-card NCCL run was not run "
-              f"({torch.cuda.device_count()} card visible)")
-    print(f"dist_train: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4754,7 +4901,11 @@ def main() -> int:
     dryrun_phase(dev, failures, check_launches)
     phase_done("dryrun")
 
-    # ---- 19. the model axis and the kv_seq decode, 2 ranks on the card -------
+    # ---- 19. the port's benches: Table IV measured, the smoke benches -------
+    benches_phase(dev, failures)
+    phase_done("benches")
+
+    # ---- 20. the model axis and the kv_seq decode, 2 ranks on the card -------
     model_parallel_phase(dev, failures, cases, summary, check_launches,
                          modules)
     phase_done("model_parallel")

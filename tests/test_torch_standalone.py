@@ -486,6 +486,12 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT) for p in PKG.rglob("*.py")]
     + [Path("chip_smoke.py"), Path("benchmarks/torch_paper.py"),
+       Path("benchmarks/torch_common.py"),
+       Path("benchmarks/torch_kernels_bench.py"),
+       Path("benchmarks/torch_throughput.py"),
+       Path("benchmarks/torch_roofline_report.py"),
+       Path("benchmarks/torch_run.py"),
+       Path("tools/torch_check_docs.py"), Path("tools/torch_check_api.py"),
        Path("tests/torch_dist_workers.py"),
        Path("examples/torch_train_lm.py"),
        Path("examples/torch_elastic_restart.py"),
